@@ -21,7 +21,13 @@ setup(
         "visualcloze_tpu.data",
         "visualcloze_tpu.training",
         "visualcloze_tpu.utils",
+        "visualcloze_tpu_torch",
+        "visualcloze_tpu_torch.ops",
+        "visualcloze_tpu_torch.models",
+        "visualcloze_tpu_torch.transport",
+        "visualcloze_tpu_torch.pipeline",
     ],
+    package_data={"visualcloze_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension(
             "visualcloze_tpu._fastops",

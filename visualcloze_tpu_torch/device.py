@@ -1,0 +1,23 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on the card. The CPU is used only when the caller asks for
+it by name (the tests do); there is no silent fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """None or "cuda" -> the current CUDA device (raises without one);
+    "cpu" -> the CPU, because the caller asked for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' to run "
+            "the plain PyTorch versions on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

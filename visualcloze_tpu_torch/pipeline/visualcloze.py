@@ -1,0 +1,384 @@
+"""VisualClozeModel: the end-to-end inference pipeline (counterpart of
+visualcloze_tpu/pipeline/visualcloze.py).
+
+grid preprocessing -> a VAE encode per row -> T5/CLIP + token packing -> the
+Euler rectified-flow denoise of the DiT -> a VAE decode per row -> crop of the
+query cells -> the optional SDEdit upsampling pass.
+
+Noise: a query draws its Gaussians from a torch.Generator seeded with `seed`,
+in this order: per grid row the VAE posterior noise then the row's latent
+noise; per upsampled cell the posterior noise of the image, of the blank
+image, then the latent noise. `noise={"vae": [...], "latent": [...]}` hands
+the arrays in instead (in the same order), since jax.random and
+torch.Generator give different numbers from one seed.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from PIL import Image
+
+from ..config import FluxConfig
+from ..device import resolve_device
+from ..models.autoencoder import AutoEncoder
+from ..models.flux import Flux
+from ..models.sampling import prepare_modified
+from ..ops.packing import pack_mask, patchify, unpatchify
+from ..ops.schedule import ode_timesteps
+from ..transport.sampling import denoise_ode
+from . import preprocessing as pp
+
+CONTENT_INSTRUCTIONS = [
+    "The content of the last image in the final row is: ",
+    "The last image of the last row depicts: ",
+    "In the final row, the last image shows: ",
+    "The last image in the bottom row illustrates: ",
+    "The content of the bottom-right image is: ",
+    "The final image in the last row portrays: ",
+    "The last image of the final row displays: ",
+    "In the last row, the final image captures: ",
+    "The bottom-right corner image presents: ",
+    "The content of the last image in the concluding row is: ",
+    "In the last row, ",
+    "The editing instruction in the last row is: ",
+]
+
+BF16 = torch.bfloat16
+
+
+class NoiseSource:
+    """The Gaussian draws of one query: from a seeded generator, or, per kind
+    ("vae", "latent"), from arrays given by the caller in order of use."""
+
+    def __init__(self, device: torch.device, seed: int, given: dict | None = None):
+        self.device = device
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.given = {k: list(v) for k, v in (given or {}).items()}
+
+    def normal(self, kind: str, shape) -> torch.Tensor:
+        shape = tuple(shape)
+        if kind in self.given:
+            if not self.given[kind]:
+                raise ValueError(f"no given {kind!r} noise left for a draw of shape {shape}")
+            t = torch.as_tensor(np.array(self.given[kind].pop(0), dtype=np.float32))
+            if tuple(t.shape) != shape:
+                raise ValueError(f"given {kind!r} noise has shape {tuple(t.shape)}, need {shape}")
+            return t.to(self.device)
+        return torch.randn(shape, generator=self.generator, dtype=torch.float32, device=self.device)
+
+
+def _bf16_scalar(value: float, device) -> torch.Tensor:
+    # JAX rounds a Python scalar to the bf16 array's dtype before the op
+    return torch.tensor(value, dtype=BF16, device=device)
+
+
+class VisualClozeModel:
+    """construct, set_grid_size, process_images, upsampling.
+
+    flux: the DiT with LoRA folded in and its qkv weights in the half RoPE
+    layout; ae, t5, clip: the VAE and the two TextEncoders."""
+
+    def __init__(
+        self,
+        flux_cfg: FluxConfig,
+        flux: Flux,
+        ae: AutoEncoder,
+        t5,
+        clip,
+        *,
+        resolution: int = 384,
+        device: str | torch.device | None = None,
+    ):
+        self.cfg = flux_cfg
+        self.flux = flux
+        self.ae = ae
+        self.t5 = t5
+        self.clip = clip
+        self.resolution = resolution
+        self.device = resolve_device(device)
+        self.grid_h: int | None = None
+        self.grid_w: int | None = None
+        self.stage_seconds: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """Adds the stage's wall time (device work included) to stage_seconds."""
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    def set_grid_size(self, h: int, w: int) -> None:
+        self.grid_h = h
+        self.grid_w = w
+
+    def encode_row(self, row_img: np.ndarray, noise: NoiseSource) -> torch.Tensor:
+        """(H, W, 3) [-1, 1] pixels -> (1, H/8, W/8, z) scaled latent."""
+        x = torch.from_numpy(np.ascontiguousarray(row_img, dtype=np.float32))[None].to(self.device)
+        h, w = row_img.shape[:2]
+        f = self.ae.cfg.downsample_factor
+        eps = noise.normal("vae", (1, h // f, w // f, self.ae.cfg.z_channels))
+        return self.ae.encode(x, eps)
+
+    def decode_latent(self, z: torch.Tensor) -> np.ndarray:
+        """(1, h, w, z) scaled latent -> (H, W, 3) pixels in [0, 1]."""
+        x = self.ae.decode(z)
+        return (x[0].to(torch.float32).cpu().numpy() + 1.0) / 2.0
+
+    def process_images(
+        self,
+        images: list[list[Image.Image | None]],
+        prompts: Sequence[str],
+        seed: int = 0,
+        cfg: float = 30.0,
+        steps: int = 30,
+        upsampling_steps: int = 10,
+        upsampling_noise: float = 0.4,
+        is_upsampling: bool = True,
+        noise: dict | None = None,
+    ) -> list[Image.Image]:
+        """Generate the masked query cells: prepare -> denoise -> finalize."""
+        self.stage_seconds = {}
+        q = self.prepare_query(images, prompts, seed=seed, cfg=cfg, steps=steps, noise=noise)
+        samples = self.denoise_query(q)
+        return self.finalize_query(
+            q, samples,
+            upsampling_steps=upsampling_steps,
+            upsampling_noise=upsampling_noise,
+            is_upsampling=is_upsampling,
+        )
+
+    @torch.no_grad()
+    def prepare_query(
+        self,
+        images: list[list[Image.Image | None]],
+        prompts: Sequence[str],
+        seed: int = 0,
+        cfg: float = 30.0,
+        steps: int = 30,
+        noise: dict | None = None,
+    ) -> dict[str, Any]:
+        """Preprocess, VAE-encode each row, encode the prompt and pack tokens."""
+        if seed == 0:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+        src = NoiseSource(self.device, seed, noise)
+        grid_h, grid_w = self.grid_h, self.grid_w
+        assert grid_h is not None and grid_w is not None, "call set_grid_size first"
+        dev = self.device
+
+        with self._stage("preprocess"):
+            processed, mask_position, _, upsampling_size = pp.preprocess_grid(
+                images, grid_h, grid_w, self.resolution
+            )
+            row_images, row_masks = pp.build_grid_rows(processed, mask_position, grid_h, grid_w)
+
+        with self._stage("vae_encode"):
+            cond_tokens, mask_tokens, noise_rows, sizes = [], [], [], []
+            for row, mask in zip(row_images, row_masks):
+                lat = self.encode_row(row, src)
+                cond_tokens.append(patchify(lat.to(BF16))[0])
+                mask_tokens.append(pack_mask(torch.from_numpy(mask)[None].to(dev, BF16))[0])
+                sizes.append(row.shape[:2])
+                noise_rows.append(src.normal("latent", lat.shape).to(BF16))
+            img_cond = torch.cat(
+                [torch.cat(cond_tokens, dim=0), torch.cat(mask_tokens, dim=0)], dim=-1
+            )[None]
+
+        with self._stage("text_encode"):
+            true_len = sum(h * w // 256 for (h, w) in sizes)
+            # bucket to 128 only: kernel A takes any length
+            inp = prepare_modified(
+                self.t5, self.clip, [noise_rows], [" ".join(prompts)], bucket=128
+            )
+            if inp["img"].shape[1] > true_len:
+                img_cond = F.pad(img_cond, (0, 0, 0, inp["img"].shape[1] - true_len))
+
+        ts = ode_timesteps(
+            steps, true_len, do_shift=True, time_shifting_factor=1.0
+        )
+        full = bool(inp["img_mask"].all())
+        return {
+            "x": inp["img"].to(BF16),
+            "ts": ts,
+            "img_cond": img_cond,
+            "txt": inp["txt"].to(BF16),
+            "txt_ids": inp["txt_ids"],
+            "txt_mask": None if full else inp["txt_mask"],
+            "vec": inp["vec"].to(BF16),
+            "img_ids": inp["img_ids"],
+            "img_mask": None if full else inp["img_mask"],
+            "guidance": torch.full((1,), cfg, dtype=BF16, device=dev),
+            "sizes": sizes,
+            "mask_position": mask_position,
+            "grid_w": grid_w,
+            "upsampling_size": upsampling_size,
+            "cfg": cfg,
+            "noise": src,
+            "content_prompt": prompts[2] if len(prompts) > 2 else "",
+        }
+
+    @torch.no_grad()
+    def denoise_query(self, q: dict[str, Any], stage: str = "denoise") -> torch.Tensor:
+        """The rectified-flow loop over the full DiT."""
+        with self._stage(stage):
+            return _denoise(
+                self.flux, q["x"], q["ts"], q["img_cond"], q["txt"], q["txt_ids"],
+                q["txt_mask"], q["vec"], q["img_ids"], q["img_mask"], q["guidance"],
+            )
+
+    @torch.no_grad()
+    def finalize_query(
+        self,
+        q: dict[str, Any],
+        samples: torch.Tensor,
+        upsampling_steps: int = 10,
+        upsampling_noise: float = 0.4,
+        is_upsampling: bool = True,
+    ) -> list[Image.Image]:
+        """Per-row decode, query-cell crop, optional SDEdit upsampling."""
+        with self._stage("vae_decode"):
+            output_rows = []
+            start = 0
+            for (h, w) in q["sizes"]:
+                end = start + (h * w // 256)
+                lat = unpatchify(samples[:, start:end], h // 8, w // 8)
+                output_rows.append(pp.array_to_image(self.decode_latent(lat)))
+                start = end
+
+        ret: list[Image.Image] = []
+        last = output_rows[-1]
+        ret_w, ret_h = last.width, last.height
+        grid_w = q["grid_w"]
+        for j in range(grid_w):
+            if not q["mask_position"][j]:
+                continue
+            cropped = last.crop((j * ret_w // grid_w, 0, (j + 1) * ret_w // grid_w, ret_h))
+            if is_upsampling:
+                ret.append(
+                    self.upsampling(
+                        cropped, q["upsampling_size"], q["cfg"],
+                        upsampling_steps=upsampling_steps,
+                        upsampling_noise=upsampling_noise,
+                        noise=q["noise"],
+                        content_prompt=q["content_prompt"],
+                    )
+                )
+            else:
+                ret.append(cropped)
+        return ret
+
+    @torch.no_grad()
+    def upsampling(
+        self,
+        image: Image.Image,
+        target_size: tuple[int, int] | None,
+        cfg: float,
+        upsampling_steps: int,
+        upsampling_noise: float,
+        noise: NoiseSource,
+        content_prompt: str,
+    ) -> Image.Image:
+        """SDEdit stage-2 refinement of one cell."""
+        q = self.prepare_upsampling(
+            image, target_size, cfg,
+            upsampling_steps=upsampling_steps,
+            upsampling_noise=upsampling_noise,
+            noise=noise, content_prompt=content_prompt,
+        )
+        if isinstance(q, Image.Image):  # noise >= 1.0: plain resize
+            return q
+        samples = self.denoise_query(q, stage="sdedit_denoise")
+        return self.finalize_upsampling(q, samples)
+
+    @torch.no_grad()
+    def prepare_upsampling(
+        self,
+        image: Image.Image,
+        target_size: tuple[int, int] | None,
+        cfg: float,
+        upsampling_steps: int,
+        upsampling_noise: float,
+        noise: NoiseSource,
+        content_prompt: str,
+    ) -> dict[str, Any] | Image.Image:
+        """Resize cap (1024^2), re-encode, noise mix, packing. Returns the
+        resized image directly when upsampling_noise >= 1.0."""
+        for c in CONTENT_INSTRUCTIONS:
+            if content_prompt.startswith(c):
+                content_prompt = content_prompt.replace(c, "")
+        if target_size is None:
+            target_size = (1024, 1024)
+        if target_size[0] * target_size[1] > 1024 * 1024:
+            aspect_ratio = target_size[0] / target_size[1]
+            new_h = int((1024 * 1024 / aspect_ratio) ** 0.5)
+            target_size = (int(new_h * aspect_ratio), new_h)
+        image = image.resize(((target_size[0] // 16) * 16, (target_size[1] // 16) * 16))
+        if upsampling_noise >= 1.0:
+            return image
+
+        dev = self.device
+        arr = pp.image_to_array(image)
+        with self._stage("sdedit_prepare"):
+            latent = self.encode_row(arr, noise)
+            blank = self.encode_row(np.zeros_like(arr), noise)
+            h, w = arr.shape[:2]
+            mask = pack_mask(torch.ones((1, h, w), dtype=BF16, device=dev))
+            latent_tok = patchify(latent.to(BF16))
+            blank_tok = patchify(blank.to(BF16))
+            img_cond = torch.cat([blank_tok, mask], dim=-1)
+            lat_noise = noise.normal("latent", latent.shape).to(BF16)
+            inp = prepare_modified(self.t5, self.clip, [[lat_noise]], [content_prompt], bucket=128)
+            true_len = latent_tok.shape[1]
+            if inp["img"].shape[1] > true_len:
+                pad = inp["img"].shape[1] - true_len
+                latent_tok = F.pad(latent_tok, (0, 0, 0, pad))
+                img_cond = F.pad(img_cond, (0, 0, 0, pad))
+            x = inp["img"].to(BF16) * _bf16_scalar(1.0 - upsampling_noise, dev) + latent_tok * _bf16_scalar(
+                upsampling_noise, dev
+            )
+        ts = ode_timesteps(
+            upsampling_steps, int(x.shape[1]), do_shift=False, strength=upsampling_noise,
+            time_shifting_factor=1.0,
+        )
+        full = bool(inp["img_mask"].all())
+        return {
+            "x": x,
+            "ts": ts,
+            "img_cond": img_cond,
+            "txt": inp["txt"].to(BF16),
+            "txt_ids": inp["txt_ids"],
+            "txt_mask": None if full else inp["txt_mask"],
+            "vec": inp["vec"].to(BF16),
+            "img_ids": inp["img_ids"],
+            "img_mask": None if full else inp["img_mask"],
+            "guidance": torch.full((1,), cfg, dtype=BF16, device=dev),
+            "true_len": true_len,
+            "hw": (h, w),
+        }
+
+    @torch.no_grad()
+    def finalize_upsampling(self, q: dict[str, Any], samples: torch.Tensor) -> Image.Image:
+        """SDEdit decode."""
+        h, w = q["hw"]
+        with self._stage("sdedit_decode"):
+            lat = unpatchify(samples[:, : q["true_len"]], h // 8, w // 8)
+            return pp.array_to_image(self.decode_latent(lat))
+
+
+def _denoise(flux: Flux, x, ts, cond, txt, txt_ids, txt_mask, vec, img_ids, img_mask, guidance):
+    """The hot loop: Euler steps over the full DiT."""
+
+    def model_fn(img, timesteps):
+        return flux(
+            img=img, img_ids=img_ids, txt=txt, txt_ids=txt_ids, timesteps=timesteps, y=vec,
+            txt_mask=txt_mask, img_mask=img_mask, guidance=guidance,
+        )
+
+    return denoise_ode(model_fn, x, ts, cond=cond)
