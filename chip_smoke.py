@@ -8,29 +8,43 @@ Phases, each followed by one flushed JSON line on stdout:
   build      the CUDA kernels of visualcloze_tpu_torch/csrc, one nvcc per source
              in parallel, with ptxas' register/spill report;
   kernel     each kernel against its plain PyTorch version at main-path shapes
-             (bf16, on the card): max |err| beside the tolerance (attention:
-             4 bf16 ulps at the largest output, and kernel A's padded keys
+             (bf16 N(0,1) inputs, on the card): max |err| beside the tolerance
+             (attention forward and backward: 4 bf16 ulps at the largest
+             output; E's LSE: 2^-13 of its largest magnitude; padded keys
              against fp32 attention that never sees them; conv: 1% of the
-             largest output), the kernel's,
-             the plain version's and a PyTorch library call's ms (CUDA events),
-             and the bound from the H100 SXM data sheet (989 TFLOP/s bf16 dense,
+             largest output), the kernel's, the plain version's and a PyTorch
+             library call's ms (CUDA events; the backward's library call is
+             SDPA's backward, timed as forward + backward minus forward), and
+             the bound from the H100 SXM data sheet (989 TFLOP/s bf16 dense,
              3.35 TB/s);
+  grad_reference  one full-width double block and one single block with a
+             rank-128 LoRA: the LoRA gradients through kernels E and F against
+             the same blocks through their plain versions (relative RMS);
   reference  the full-width DiT and VAE through the kernels against the same
              modules through the plain versions, on a small input;
   request    full-width random weights (FLUX.1-Fill 19+38 blocks at hidden
              3072, T5-XXL, CLIP-L, VAE) in bf16; two queries through
              VisualClozeModel.process_images: a 2x3 grid at 384 with SDEdit
              (30 + 10 steps, the default query) and a 3x3 grid at 384 without
-             (5760 tokens with padding, so kernel A's bias path runs). Launch
-             counters are zeroed just before and read just after.
-Then the kernels line, the nvidia-smi line, and {"ok": true, "device": ...}
-last. Exits non-zero, with no result line, without a CUDA device, outside a
-checkout of the repository, or when any phase fails.
+             (5760 tokens with padding, so kernel A's bias path runs);
+  train      the serving model freed, the trainer's main at full width
+             (rank-128 LoRA, grid 384, 3 steps of 2 micro-batches, per-block
+             remat) on a synthetic Graph200K dataset written from seed 0; one
+             line per step (loss, grad norm, tokens, Dataload/Encode/Train
+             seconds, peak memory), then the checkpoint's files;
+  query_interleaved  the trainer's base components (optimizer state freed)
+             serving a 2x2 grid at 384 in the interleaved layout (kernel D).
+Launch counters are zeroed just before each main-path phase (request, train,
+query_interleaved) and read just after. Then the kernels line, the nvidia-smi
+line, and {"ok": true, "device": ...} last. Exits non-zero, with no result
+line, without a CUDA device, outside a checkout of the repository, or when
+any phase fails.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -40,15 +54,26 @@ T0 = time.perf_counter()
 TIME_LIMIT_S = 1200
 PEAK_FLOPS = 989e12  # H100 SXM, bf16 dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# the trainer's per-block remat: "full" (recompute each block) keeps the
+# peak far under 80 GB at the largest Graph200K grid at 384 (see PERF.md)
+REMAT_POLICY = "full"
 REPLACES = {
     "flash_attn_rope": "visualcloze_tpu/ops/flash_attention.py:487",
-    "flash_attn_d512": "visualcloze_tpu/ops/flash_attention.py:575",
     "conv3x3_gn_swish": "visualcloze_tpu/ops/conv2d.py:147",
+    "flash_attn_d512": "visualcloze_tpu/ops/flash_attention.py:575",
+    "flash_attn_fwd": "visualcloze_tpu/ops/flash_attention.py:838",
+    "flash_attn_fwd_lse": "visualcloze_tpu/ops/flash_attention.py:800",
+    "flash_attn_bwd_dq": "visualcloze_tpu/ops/flash_attention.py:699",
+    "flash_attn_bwd_dkv": "visualcloze_tpu/ops/flash_attention.py:730",
 }
 SOURCES = {
     "flash_attn_rope": "visualcloze_tpu_torch/csrc/flash_attn_rope.cu",
-    "flash_attn_d512": "visualcloze_tpu_torch/csrc/flash_attn_d512.cu",
     "conv3x3_gn_swish": "visualcloze_tpu_torch/csrc/conv3x3_gn_swish.cu",
+    "flash_attn_d512": "visualcloze_tpu_torch/csrc/flash_attn_d512.cu",
+    "flash_attn_fwd": "visualcloze_tpu_torch/csrc/flash_attn_rope.cu",
+    "flash_attn_fwd_lse": "visualcloze_tpu_torch/csrc/flash_attn_rope.cu",
+    "flash_attn_bwd_dq": "visualcloze_tpu_torch/csrc/flash_attn_bwd.cu",
+    "flash_attn_bwd_dkv": "visualcloze_tpu_torch/csrc/flash_attn_bwd.cu",
 }
 
 
@@ -221,6 +246,214 @@ def check_conv(shape, pre: bool, reps: int) -> dict:
                 bound_ms=bms, bound_by=by)
 
 
+def attention_case(b: int, L: int, padded: bool, seed: int):
+    """N(0,1) bf16 q, k, v, dO of (b, 24, L, 128); padded: batch 0's last 64
+    keys are padding (and their query rows' dO is 0, as attention() zeroes
+    those outputs). Returns the tensors, the bias and each batch's real keys."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.attention import mask_to_bias
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((b, 24, L, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(4))
+    bias, valid = None, [L] * b
+    if padded:
+        mask = torch.ones((b, L), dtype=torch.int32, device=dev)
+        mask[0, L - 64:] = 0
+        bias = mask_to_bias(mask)
+        valid[0] = L - 64
+        do = do * mask[:, None, :, None].to(do.dtype)
+    return q, k, v, do, bias, valid
+
+
+def sdpa_mask(bias):
+    import torch
+
+    return None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
+
+
+def check_attention_fwd(b: int, L: int, padded: bool, reps: int) -> list[dict]:
+    """Kernels D and E against their plain version; E's LSE too; for the
+    padded batch, batch 0 against fp32 attention over its real keys only."""
+    import torch
+    import torch.nn.functional as F
+
+    from visualcloze_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _, bias, valid = attention_case(b, L, padded, L + 1)
+    got_d = fa.flash_attn_fwd(q, k, v, bias)
+    got_e, got_lse = fa.flash_attn_fwd_lse(q, k, v, bias)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_fwd_lse_plain(q, k, v, bias)
+    tol = bf16_ulps_tol(want)
+    err_d = (got_d.float() - want.float()).abs().max().item()
+    err_e = (got_e.float() - want.float()).abs().max().item()
+    lse_err = (got_lse - want_lse).abs().max().item()
+    lse_tol = 2.0 ** -13 * want_lse.abs().max().item()
+    rms = want.float().pow(2).mean().sqrt().item()
+    del want, want_lse
+    pad_err = None
+    if padded:
+        n = valid[0]
+        s = torch.matmul(q[:1].float(), k[:1, :, :n].float().transpose(-1, -2)) * 128 ** -0.5
+        want0 = torch.matmul(torch.softmax(s, dim=-1), v[:1, :, :n].float())
+        del s
+        pad_err = max((got_d[:1].float() - want0).abs().max().item(), (got_e[:1].float() - want0).abs().max().item())
+        del want0
+    ms_d = cuda_ms(lambda: fa.flash_attn_fwd(q, k, v, bias), reps)
+    ms_e = cuda_ms(lambda: fa.flash_attn_fwd_lse(q, k, v, bias), reps)
+    plain_d = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias), 2)
+    plain_e = cuda_ms(lambda: fa.flash_fwd_lse_plain(q, k, v, bias), 2)
+    amask = sdpa_mask(bias)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask), reps)
+    flops = sum(4.0 * 24 * L * n * 128 for n in valid)
+    nbytes = 4 * b * 24 * L * 128 * 2 + (b * L * 4 if padded else 0)
+    common = dict(shape=[b, 24, L, 128], bias=padded, tol=tol, rms_plain=rms, padded_keys_err=pad_err,
+                  library_ms=library_ms, library="F.scaled_dot_product_attention")
+    ok_pad = pad_err is None or pad_err <= tol
+    bms, by = bound(flops, nbytes)
+    d = dict(name="flash_attn_fwd", max_abs_err=err_d, ok=err_d <= tol and ok_pad, ms=ms_d, plain_ms=plain_d,
+             bound_ms=bms, bound_by=by, **common)
+    bms, by = bound(flops, nbytes + b * 24 * L * 4)
+    e = dict(name="flash_attn_fwd_lse", max_abs_err=err_e, lse_err=lse_err, lse_tol=lse_tol,
+             ok=err_e <= tol and lse_err <= lse_tol and ok_pad, ms=ms_e, plain_ms=plain_e, bound_ms=bms,
+             bound_by=by, **common)
+    return [d, e]
+
+
+def check_attention_bwd(b: int, L: int, padded: bool, reps: int) -> list[dict]:
+    """Kernels F-dq and F-dkv against their plain versions, fed the plain
+    forward's lse and delta = rowsum(dO * O); masked keys get no gradient."""
+    import torch
+    import torch.nn.functional as F
+
+    from visualcloze_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, bias, valid = attention_case(b, L, padded, L + 2)
+    o, lse = fa.flash_fwd_lse_plain(q, k, v, bias)
+    delta = (do.float() * o.float()).sum(-1)
+    del o
+    args = (q, k, v, bias, do, lse, delta)
+    dq = fa.flash_attn_bwd_dq(*args)
+    dk, dv = fa.flash_attn_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    errs, tols = {}, {}
+    for name, got, want_fn in (("dq", dq, lambda: fa.flash_bwd_dq_plain(*args)),
+                               ("dkv", (dk, dv), lambda: fa.flash_bwd_dkv_plain(*args))):
+        want = want_fn()
+        pairs = zip(got, want) if name == "dkv" else [(got, want)]
+        for part, (g_, w_) in zip(("dk", "dv") if name == "dkv" else ("dq",), pairs):
+            errs[part] = (g_.float() - w_.float()).abs().max().item()
+            tols[part] = bf16_ulps_tol(w_)
+        del want
+    masked_zero = True
+    if padded:
+        masked_zero = bool((dk[0, :, valid[0]:] == 0).all().item() and (dv[0, :, valid[0]:] == 0).all().item())
+    ms_dq = cuda_ms(lambda: fa.flash_attn_bwd_dq(*args), reps)
+    ms_dkv = cuda_ms(lambda: fa.flash_attn_bwd_dkv(*args), reps)
+    plain_dq = cuda_ms(lambda: fa.flash_bwd_dq_plain(*args), 1)
+    plain_dkv = cuda_ms(lambda: fa.flash_bwd_dkv_plain(*args), 1)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    amask = sdpa_mask(bias)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(*leaves, attn_mask=amask)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), leaves, do)
+
+    library_ms = cuda_ms(sdpa_fwd_bwd, reps) - cuda_ms(sdpa_fwd, reps)
+    common = dict(shape=[b, 24, L, 128], bias=padded, masked_keys_zero=masked_zero, library_ms=library_ms,
+                  library="F.scaled_dot_product_attention backward (fwd+bwd - fwd; dq, dk and dv together)")
+    io = b * 24 * L * (128 * 2 * 4 + 4 * 2) + (b * L * 4 if padded else 0)  # q, k, v, dO; lse, delta; bias
+    bms, by = bound(sum(6.0 * 24 * L * n * 128 for n in valid), io + b * 24 * L * 128 * 2)
+    rows = [dict(name="flash_attn_bwd_dq", max_abs_err=errs["dq"], tol=tols["dq"], ok=errs["dq"] <= tols["dq"],
+                 ms=ms_dq, plain_ms=plain_dq, bound_ms=bms, bound_by=by, **common)]
+    bms, by = bound(sum(8.0 * 24 * L * n * 128 for n in valid), io + 2 * b * 24 * L * 128 * 2)
+    rows.append(dict(name="flash_attn_bwd_dkv", max_abs_err=max(errs["dk"], errs["dv"]),
+                     err_dk=errs["dk"], tol_dk=tols["dk"], err_dv=errs["dv"], tol_dv=tols["dv"],
+                     ok=errs["dk"] <= tols["dk"] and errs["dv"] <= tols["dv"] and masked_zero,
+                     ms=ms_dkv, plain_ms=plain_dkv, bound_ms=bms, bound_by=by, **common))
+    return rows
+
+
+# ----------------------------- gradients at full width -----------------------------
+
+
+def grad_reference() -> dict:
+    """One full-width double block and one single block (interleaved RoPE,
+    64 padded image tokens) with a rank-128 LoRA whose B is random: the LoRA
+    gradients through kernels E and F vs through their plain versions."""
+    import torch
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.config import FluxConfig
+    from visualcloze_tpu_torch.models.init import init_linears_, materialize
+    from visualcloze_tpu_torch.models.layers import DoubleBlock, SingleBlock
+    from visualcloze_tpu_torch.models.lora import init_lora, tree_items, tree_map
+    from visualcloze_tpu_torch.ops import flash_attention as fa
+    from visualcloze_tpu_torch.ops.rope import embed_nd
+
+    cfg = FluxConfig()
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(4)
+    blocks = materialize(lambda: torch.nn.ModuleDict({"db": DoubleBlock(cfg), "sb": SingleBlock(cfg)}), dev, bf)
+    init_linears_(blocks, g)
+    for name, prm in blocks.named_parameters():
+        if name.endswith(("q_scale", "k_scale")):
+            prm.data.fill_(1.0)
+    lora = init_lora(blocks, 128, generator=g)
+    leaves = []
+    for path, t in tree_items(lora):
+        if path.endswith(".b"):
+            t.normal_(0.0, 0.02, generator=g)
+        leaves.append(t.requires_grad_())
+    l_txt, side = 256, 32
+    l_img = side * side
+    img = torch.randn((1, l_img, cfg.hidden_size), generator=g, device=dev).to(bf)
+    txt = torch.randn((1, l_txt, cfg.hidden_size), generator=g, device=dev).to(bf)
+    vec = torch.randn((1, cfg.hidden_size), generator=g, device=dev).to(bf)
+    ids = torch.zeros((1, l_txt + l_img, 3), device=dev)
+    ids[0, l_txt:, 0] = 1
+    ids[0, l_txt:, 1] = (torch.arange(l_img, device=dev) // side).float()
+    ids[0, l_txt:, 2] = (torch.arange(l_img, device=dev) % side).float()
+    pe = embed_nd(ids, cfg.axes_dim, cfg.theta)
+    mask = torch.ones((1, l_txt + l_img), dtype=torch.int32, device=dev)
+    mask[0, -64:] = 0
+    cot = torch.randn((1, l_txt + l_img, cfg.hidden_size), generator=g, device=dev) * mask[..., None]
+
+    def grads():
+        clora = tree_map(lambda t: t.to(bf), lora)
+        i2, t2 = blocks["db"](img, txt, vec, pe, mask, clora["db"], rope_layout="interleaved")
+        x = blocks["sb"](torch.cat([t2, i2], dim=1), vec, pe, mask, clora["sb"], rope_layout="interleaved")
+        return [gr.float() for gr in torch.autograd.grad((x.float() * cot).sum(), leaves)]
+
+    ops.reset_kernel_launches()
+    got = grads()
+    launches = ops.kernel_launches()
+    saved = (fa.flash_attn_fwd_lse, fa.flash_attn_bwd_dq, fa.flash_attn_bwd_dkv)
+    fa.flash_attn_fwd_lse, fa.flash_attn_bwd_dq, fa.flash_attn_bwd_dkv = (
+        fa.flash_fwd_lse_plain, fa.flash_bwd_dq_plain, fa.flash_bwd_dkv_plain)
+    try:
+        want = grads()
+    finally:
+        fa.flash_attn_fwd_lse, fa.flash_attn_bwd_dq, fa.flash_attn_bwd_dkv = saved
+    num = sum((a - b).pow(2).sum() for a, b in zip(got, want))
+    den = sum(b.pow(2).sum() for b in want)
+    per_leaf = [((a - b).pow(2).sum() / b.pow(2).sum()).sqrt().item() for a, b in zip(got, want)
+                if b.abs().max() > 0]
+    out = dict(phase="grad_reference", tokens=l_txt + l_img, lora_leaves=len(leaves),
+               lora_params=sum(t.numel() for t in leaves), rel_rms_err=(num / den).sqrt().item(),
+               worst_leaf_rel_rms_err=max(per_leaf), finite=all(bool(torch.isfinite(a).all()) for a in got),
+               launches={k: launches[k] for k in ("flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")},
+               tol=5e-2)
+    out["ok"] = (out["finite"] and out["rel_rms_err"] <= out["tol"]
+                 and all(n > 0 for n in out["launches"].values()))
+    return out
+
+
 # ----------------------------- reference on a small input -----------------------------
 
 
@@ -253,19 +486,20 @@ def reference_checks(model) -> dict:
     )
     z = torch.randn((1, 16, 32, model.ae.cfg.z_channels), generator=g, device=dev).to(torch.bfloat16)
 
+    @torch.no_grad()
     def run():
         return model.flux(**inp).float(), model.ae.decode(z).float()
 
     dit_k, vae_k = run()
-    saved = (att_mod.flash_attn_rope, ae_mod.conv3x3_gn_swish, ae_mod.flash_attn_d512)
-    att_mod.flash_attn_rope = fa.flash_attention_plain
+    saved = (att_mod.flash_mha_rope, ae_mod.conv3x3_gn_swish, ae_mod.flash_attn_d512)
+    att_mod.flash_mha_rope = fa.flash_attention_plain
     ae_mod.conv3x3_gn_swish = lambda x, w, b, pre_affine=None, act="swish": cv.conv3x3_plain(
         x, w, b, pre_affine, act)
     ae_mod.flash_attn_d512 = fa.flash_attention_plain
     try:
         dit_p, vae_p = run()
     finally:
-        att_mod.flash_attn_rope, ae_mod.conv3x3_gn_swish, ae_mod.flash_attn_d512 = saved
+        att_mod.flash_mha_rope, ae_mod.conv3x3_gn_swish, ae_mod.flash_attn_d512 = saved
 
     def rel(a, b):
         return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
@@ -296,7 +530,9 @@ def synthetic_grid(rows: int, cols: int, seed: int):
     return grid
 
 
-def run_request(model, name, rows, cols, steps, upsampling, seed) -> dict:
+def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=()) -> dict:
+    """One query through process_images; ok if finite, of the right size, and
+    every kernel in `used` launched and none in `unused`."""
     import torch
 
     from visualcloze_tpu_torch import ops
@@ -343,17 +579,90 @@ def run_request(model, name, rows, cols, steps, upsampling, seed) -> dict:
         image_std=[float(a.std()) for a in arrs], launches=launches,
     )
     out["ok"] = (finite and len(images) == 1 and images[0].size == want_size
-                 and all(s > 0 for s in out["image_std"]) and all(n > 0 for n in launches.values()))
+                 and all(s > 0 for s in out["image_std"]) and all(launches[n] > 0 for n in used)
+                 and all(launches[n] == 0 for n in unused))
     return out
 
 
+# ----------------------------- training -----------------------------
+
+
+def write_dataset(root, n: int = 6, size: int = 512) -> str:
+    """A Graph200K-format dataset of `n` records of size x size PNGs (seed i
+    per record), with a JSON-text config (JSON is YAML)."""
+    import numpy as np
+    from PIL import Image
+
+    root.mkdir(parents=True, exist_ok=True)
+    records = []
+    for i in range(n):
+        img = Image.fromarray(np.random.default_rng(i).integers(0, 256, (size, size, 3), dtype=np.uint8))
+        cond = {}
+        for name in ("target", "reference", "foreground", "canny", "depth"):
+            path = root / f"{i}_{name}.png"
+            img.save(path)
+            cond[name] = str(path)
+        records.append({"condition": cond, "quality_assessment": {"objectConsistency": 5},
+                        "description": {"item": f"item{i}", "description_0": "a photo"}})
+    (root / "data.json").write_text(json.dumps(records))
+    config = root / "config.yaml"
+    config.write_text(json.dumps({"META": [{"path": str(root / "data.json"), "type": "image_grid_graph200k"}]}))
+    return str(config)
+
+
+TRAIN_KERNELS = ("flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "conv3x3_gn_swish",
+                 "flash_attn_d512")
+
+
+def run_training(tmp, remat_policy: str):
+    """The trainer's main at full width, 3 steps; returns (phase line, main's result)."""
+    import torch
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.training.train import main as train_main
+
+    config = write_dataset(tmp / "data")
+    results = tmp / "results"
+    argv = ["--data_path", config, "--results_dir", str(results), "--init_random", "--grid_resolution", "384",
+            "--lora_rank", "128", "--max_steps", "3", "--global_bsz", "2", "--micro_bsz", "1",
+            "--checkpointing", "--remat_policy", remat_policy, "--ckpt_every", "3", "--log_every", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    result = train_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    for rec in result["history"]:
+        emit(dict(phase="train_step", **rec))
+    ckpt = results / "checkpoints" / "0000003"
+    files = sorted(p.name for p in ckpt.iterdir()) if ckpt.is_dir() else []
+    hist = result["history"]
+    out = dict(phase="train", argv=argv, seconds=seconds, steps=len(hist), launches=launches,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, checkpoint_files=files,
+               checkpoint_gib=sum(p.stat().st_size for p in ckpt.iterdir()) / 2 ** 30 if files else 0.0,
+               remat_policy=remat_policy)
+    out["ok"] = (len(hist) == 3
+                 and all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+                         for r in hist)
+                 and hist[0]["lora_b_absmax"] > 0
+                 and {"state.pt", "consolidated.00-of-01.pth", "model_args.json", "resume_step.txt"} <= set(files)
+                 and (ckpt / "resume_step.txt").read_text() == "3"
+                 and all(launches[n] > 0 for n in TRAIN_KERNELS))
+    return out, result
+
+
 def main() -> int:
+    import gc
+    import tempfile
+    from pathlib import Path
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from visualcloze_tpu_torch import ops
     from visualcloze_tpu_torch.ops import cuda_build
     from visualcloze_tpu_torch.pipeline import random_components
 
@@ -371,24 +680,34 @@ def main() -> int:
     emit(dict(phase="build", seconds=max(secs.values()), per_source=secs, ptxas=ptxas))
 
     checks = [
-        lambda: check_attention_rope(3968, False, 20),
-        lambda: check_attention_rope(4608, False, 20),
-        lambda: check_attention_rope(5760, True, 10),
-        lambda: check_attention_d512(6912, 10),
-        lambda: check_attention_d512(16384, 5),
-        lambda: check_conv((1, 384, 1152, 128, 128), True, 10),  # encoder/decoder level 0
-        lambda: check_conv((1, 192, 576, 128, 256), True, 10),   # encoder level 1, first conv
-        lambda: check_conv((1, 96, 288, 512, 512), False, 10),   # decoder upsample conv
-        lambda: check_conv((1, 48, 144, 512, 512), True, 20),    # bottleneck
-        lambda: check_conv((1, 1024, 1024, 128, 128), True, 5),  # SDEdit image, level 0
+        lambda: [check_attention_rope(3968, False, 20)],
+        lambda: [check_attention_rope(4608, False, 20)],
+        lambda: [check_attention_rope(5760, True, 10)],
+        lambda: check_attention_fwd(1, 3968, False, 20),
+        lambda: check_attention_fwd(2, 5760, True, 10),
+        lambda: check_attention_bwd(1, 3968, False, 10),
+        lambda: check_attention_bwd(2, 5760, True, 5),
+        lambda: [check_attention_d512(6912, 10)],
+        lambda: [check_attention_d512(16384, 5)],
+        lambda: [check_conv((1, 384, 1152, 128, 128), True, 10)],  # encoder/decoder level 0
+        lambda: [check_conv((1, 192, 576, 128, 256), True, 10)],   # encoder level 1, first conv
+        lambda: [check_conv((1, 96, 288, 512, 512), False, 10)],   # decoder upsample conv
+        lambda: [check_conv((1, 48, 144, 512, 512), True, 20)],    # bottleneck
+        lambda: [check_conv((1, 1024, 1024, 128, 128), True, 5)],  # SDEdit image, level 0
     ]
     first = {}
     for fn in checks:
-        r = fn()
-        emit(dict(phase="kernel", **r))
-        if not r["ok"]:
-            raise RuntimeError(f"kernel check failed: {r}")
-        first.setdefault(r["name"], r)
+        for r in fn():
+            emit(dict(phase="kernel", **r))
+            if not r["ok"]:
+                raise RuntimeError(f"kernel check failed: {r}")
+            first.setdefault(r["name"], r)
+        torch.cuda.empty_cache()
+
+    gref = grad_reference()
+    emit(gref)
+    if not gref["ok"]:
+        raise RuntimeError(f"gradient reference failed: {gref}")
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
@@ -404,24 +723,48 @@ def main() -> int:
     if not ref["ok"]:
         raise RuntimeError(f"reference check failed: {ref}")
 
-    r1 = run_request(model, "2x3 default query with SDEdit", 2, 3, 30, True, seed=1)
+    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
+    training = ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+    r1 = run_request(model, "2x3 default query with SDEdit", 2, 3, 30, True, seed=1, used=serving, unused=training)
     emit(r1)
     if not r1["ok"]:
         raise RuntimeError("request 1 failed")
     # cut the second request's steps, never its width or depth, if time runs short
     per_step = r1["stage_seconds"].get("denoise", 60.0) / 29
-    budget = TIME_LIMIT_S * 0.75 - elapsed() - 60
+    budget = TIME_LIMIT_S * 0.3 - elapsed()
     steps2 = int(max(2, min(30, 1 + budget / (per_step * 1.6))))
-    r2 = run_request(model, "3x3 query, padded to 5760 tokens", 3, 3, steps2, False, seed=2)
+    r2 = run_request(model, "3x3 query, padded to 5760 tokens", 3, 3, steps2, False, seed=2, used=serving,
+                     unused=training)
     emit(r2)
     if not r2["ok"]:
         raise RuntimeError("request 2 failed")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train, result = run_training(Path(tmp), REMAT_POLICY)
+        emit(train)
+        if not train["ok"]:
+            raise RuntimeError("training failed")
+    model = result["model"]
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()  # the LoRA, its gradients and AdamW's state are gone
+    emit(dict(phase="freed", allocated_gib=torch.cuda.memory_allocated() / 2 ** 30))
+    r3 = run_request(model, "2x2 query, interleaved layout", 2, 2, 9, False, seed=3,
+                     used=("flash_attn_fwd", "conv3x3_gn_swish", "flash_attn_d512"),
+                     unused=("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
+    emit(dict(r3, phase="query_interleaved", rope_layout=model.rope_layout))
+    if not r3["ok"]:
+        raise RuntimeError("interleaved query failed")
 
     kernels = []
-    for name, r in first.items():
+    for name in REPLACES:
+        r = first[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=r1["launches"][name] + r2["launches"][name],
+            launches=sum(run["launches"][name] for run in (r1, r2, train, r3)),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
         ))

@@ -26,6 +26,9 @@ setup(
         "visualcloze_tpu_torch.models",
         "visualcloze_tpu_torch.transport",
         "visualcloze_tpu_torch.pipeline",
+        "visualcloze_tpu_torch.training",
+        "visualcloze_tpu_torch.data",
+        "visualcloze_tpu_torch.utils",
     ],
     package_data={"visualcloze_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[

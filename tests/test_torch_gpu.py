@@ -33,6 +33,89 @@ def _close(got, want, tol):
     assert err <= tol, (err, tol)
 
 
+def _attn_case(dev, seed, b, h, L, padded, lk=None):
+    """N(0,1) bf16 q, k, v, dO; padded: batch 0 loses its last 100 keys (and
+    their query rows' dO, as attention() zeroes them), batch 1 every key.
+    lk: a key length other than L (no padding then)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if lk is not None:
+        q, do = (torch.randn((b, h, L, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((b, h, lk, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        return q, k, v, do, None
+    q, k, v, do = (torch.randn((b, h, L, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(4))
+    bias = None
+    if padded:
+        mask = torch.ones((b, L), dtype=torch.int32, device=dev)
+        mask[0, L - 100:] = 0
+        mask[1] = 0
+        bias = mask_to_bias(mask)
+        do = do * mask[:, None, :, None].to(do.dtype)
+    return q, k, v, do, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("padded, lk", [(False, None), (True, None), (False, 1000)])
+def test_gpu_flash_attn_fwd_and_lse_match_plain(padded, lk):
+    """Kernels D and E against their plain version; E's LSE within 2^-13 of
+    the largest |LSE| (fp32 sums of 128 products in another order: ~1e-5);
+    also with 300 queries against 1000 keys."""
+    dev = _cuda_or_skip()
+    b, h, L = 2, 4, (1000 if lk is None else 300)
+    q, k, v, _, bias = _attn_case(dev, 3, b, h, L, padded, lk)
+    got = tfa.flash_attn_fwd(q, k, v, bias)
+    o, lse = tfa.flash_attn_fwd_lse(q, k, v, bias)
+    torch.cuda.synchronize()
+    want, want_lse = tfa.flash_fwd_lse_plain(q, k, v, bias)
+    tol = _ulps_tol(want)
+    _close(got, want, tol)
+    assert torch.equal(o, got)  # one kernel body: E's output is D's
+    live = want_lse > -1e29
+    _close(lse[live], want_lse[live], 2.0 ** -13 * want_lse[live].abs().max().item())
+    if padded:
+        assert (got[1] == 0).all() and (lse[1] == -1e30).all()
+        s = torch.matmul(q[:1].float(), k[:1, :, : L - 100].float().transpose(-1, -2)) * 128 ** -0.5
+        _close(got[:1], torch.matmul(torch.softmax(s, dim=-1), v[:1, :, : L - 100].float()), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("padded, lk", [(False, None), (True, None), (False, 1000)])
+def test_gpu_flash_attn_bwd_matches_plain(padded, lk):
+    """Kernels F-dq and F-dkv against their plain versions, fed the same lse
+    and delta: 4 bf16 ulps at each output's largest element (also with 300
+    queries against 1000 keys, as a ring chunk would pass them)."""
+    dev = _cuda_or_skip()
+    b, h, L = 2, 4, (1000 if lk is None else 300)
+    q, k, v, do, bias = _attn_case(dev, 4, b, h, L, padded, lk)
+    o, lse = tfa.flash_fwd_lse_plain(q, k, v, bias)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = tfa.flash_attn_bwd_dq(q, k, v, bias, do, lse, delta)
+    dk, dv = tfa.flash_attn_bwd_dkv(q, k, v, bias, do, lse, delta)
+    torch.cuda.synchronize()
+    want_dq = tfa.flash_bwd_dq_plain(q, k, v, bias, do, lse, delta)
+    want_dk, want_dv = tfa.flash_bwd_dkv_plain(q, k, v, bias, do, lse, delta)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        _close(got, want, _ulps_tol(want))
+    if padded:  # masked keys get no gradient
+        assert (dk[0, :, L - 100:] == 0).all() and (dv[0, :, L - 100:] == 0).all()
+
+
+@pytest.mark.gpu
+def test_gpu_flash_mha_grads_match_autograd_oracle():
+    """FlashMHA (E forward, F backward) against torch.autograd through the
+    fp32 oracle mha_xla: relative RMS error of each gradient within 2%."""
+    from visualcloze_tpu_torch.ops.attention import mha_xla
+
+    dev = _cuda_or_skip()
+    q, k, v, do, bias = _attn_case(dev, 5, 2, 4, 700, True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(tfa.flash_mha(*leaves, bias), leaves, do)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(mha_xla(*ref, bias), ref, do.float())
+    for gk, gw in zip(grads, want):
+        rel = (gk.float() - gw).pow(2).mean().sqrt() / gw.pow(2).mean().sqrt()
+        assert rel.item() <= 2e-2, rel.item()
+
+
 @pytest.mark.gpu
 def test_gpu_flash_attn_rope_matches_plain():
     dev = _cuda_or_skip()

@@ -43,7 +43,16 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
     ops.flash_attn_d512(q, q, q)
     x = torch.randn(1, 4, 4, 8)
     ops.conv3x3_gn_swish(x, torch.randn(3, 3, 8, 8), torch.zeros(8), act="none")
-    assert ops.kernel_launches() == {"flash_attn_rope": 0, "flash_attn_d512": 0, "conv3x3_gn_swish": 0}
+    q4 = torch.randn(1, 2, 16, 128, requires_grad=True)
+    out = ops.flash_attn_fwd(q4, q4, q4)
+    ops.flash_attn_fwd_lse(q4, q4, q4)
+    from visualcloze_tpu_torch.ops.flash_attention import flash_mha
+
+    flash_mha(q4, q4, q4).sum().backward()
+    assert q4.grad is not None and out.shape == q4.shape
+    assert ops.kernel_launches() == {name: 0 for name in ops.KERNELS}
+    assert set(ops.KERNELS) == {"flash_attn_rope", "flash_attn_d512", "conv3x3_gn_swish", "flash_attn_fwd",
+                                "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"}
 
 
 def _imports(path: Path) -> set[str]:
@@ -59,6 +68,11 @@ def _imports(path: Path) -> set[str]:
 def test_port_imports_nothing_of_jax():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    scanned = {str(f.relative_to(PKG)) for f in files if PKG in f.parents}
+    for module in ("training/train.py", "training/step.py", "training/batch.py", "training/checkpoint.py",
+                   "data/dataset.py", "data/data_reader.py", "data/degradations.py", "data/loader.py",
+                   "transport/transport.py", "models/lora.py", "models/weights.py", "utils/misc.py"):
+        assert module in scanned, module
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -85,6 +99,37 @@ def test_profile_step_classes_kernels_by_demangled_name():
     from visualcloze_tpu_torch.profile_step import kernel_class
 
     assert kernel_class("(anonymous namespace)::flash_fwd(__nv_bfloat16 const*, int)") == "attention (kernel A)"
+    assert kernel_class("void (anonymous namespace)::flash_fwd<false>(__nv_bfloat16 const*)") == "attention (kernel A)"
+    assert kernel_class("void (anonymous namespace)::flash_fwd<true>(__nv_bfloat16 const*)") == \
+        "attention forward (kernel E)"
+    assert kernel_class("(anonymous namespace)::flash_bwd_dkv(__nv_bfloat16 const*)") == \
+        "attention backward (kernel F)"
     assert kernel_class("(anonymous namespace)::rope_rotate(__nv_bfloat16 const*)") == "attention (kernel A)"
     assert kernel_class("nvjet_tst_192x192_64x4_2x1_v_bz_coopB_bias_TNN") == "gemm (linears)"
     assert kernel_class("void at::native::reduce_kernel<512, 1>(at::native::ReduceOp)") == "other"
+
+
+def test_trainer_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    from visualcloze_tpu_torch.training.train import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--data_path", "unused.yaml", "--tiny", "--init_random"])
+
+
+@pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq",
+                                  "flash_attn_bwd_dkv", "flash_mha"])
+def test_wrappers_take_the_plain_version_only_on_the_cpu(name):
+    """A tensor that is not on the CPU goes to the kernel path, which refuses
+    what it does not take: here a meta tensor, never the plain version."""
+    from visualcloze_tpu_torch.ops import flash_attention as fa
+
+    q = torch.empty((1, 2, 16, 128), device="meta")
+    lse = torch.empty((1, 2, 16), device="meta")
+    args = (q, q, q) if name in ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_mha") else (
+        q, q, q, None, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(fa, name)(*args)
+    q.requires_grad_(True)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_mha(q, q, q)

@@ -37,9 +37,9 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module")
-def models():
-    jm = jax_random_components(jax.random.PRNGKey(0), tiny=True, dtype=jnp.float32, resolution=64)
+def _models(rope_layout):
+    jm = jax_random_components(jax.random.PRNGKey(0), tiny=True, dtype=jnp.float32, resolution=64,
+                               rope_layout=rope_layout)
     t5 = TextEncoder("t5", convert.t5_from_jax(_np(jm.t5.params), jm.t5.cfg, device="cpu"),
                      FallbackTokenizer(jm.t5.cfg.vocab_size), jm.t5.max_length)
     clip = TextEncoder("clip", convert.clip_from_jax(_np(jm.clip.params), jm.clip.cfg, device="cpu"),
@@ -48,11 +48,16 @@ def models():
         convert.config_from(jm.cfg, tconfig.FluxConfig),
         convert.flux_from_jax(_np(jm.params), jm.cfg, device="cpu"),
         convert.vae_from_jax(_np(jm.ae.params), jm.ae.cfg, device="cpu"),
-        t5, clip, resolution=64, device="cpu",
+        t5, clip, resolution=64, device="cpu", rope_layout=rope_layout,
     )
     for m in (jm, pm):
         m.set_grid_size(2, 2)
     return jm, pm
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models("half")
 
 
 def _grid():
@@ -77,6 +82,30 @@ def _jax_noise(row_shape, up_shape):
     vae += [np.asarray(jax.random.normal(k, up_shape, jnp.float32)) for k in (ek, bk)]
     latent.append(np.asarray(jax.random.normal(nk, up_shape, jnp.float32)))
     return {"vae": vae, "latent": latent}
+
+
+def _check_denoise(jm, pm):
+    """The query's packed inputs exactly, then the denoised latents (bounds above)."""
+    grid = _grid()
+    noise = _jax_noise((1, 8, 16, 4), (1, 8, 8, 4))
+    qj = jm.prepare_query(grid, PROMPTS, seed=SEED, steps=STEPS)
+    qp = pm.prepare_query(grid, PROMPTS, seed=SEED, steps=STEPS, noise=noise)
+    np.testing.assert_array_equal(qp["x"].float().numpy(), np.asarray(qj["x"], np.float32))
+    sj = np.asarray(jm.denoise_query(qj), np.float32)
+    got = pm.denoise_query(qp).float().numpy()
+    assert np.isfinite(got).all() and got.shape == sj.shape
+    diff = np.abs(got - sj)
+    assert (diff > 0).mean() <= 0.02, (diff > 0).sum()
+    assert diff.mean() <= 1e-4, diff.mean()
+    assert diff.max() <= 1 / 64, diff.max()
+
+
+def test_pipeline_interleaved_layout_matches_jax():
+    """VisualClozeModel(rope_layout="interleaved"): the reference channel
+    order, q and k rotated in PyTorch, kernel D (its plain version here)."""
+    jm, pm = _models("interleaved")
+    assert pm.rope_layout == "interleaved"
+    _check_denoise(jm, pm)
 
 
 @pytest.mark.parametrize("upsampling", [False, True])

@@ -7,9 +7,12 @@ name. The JAX layouts differ from PyTorch's in two places:
     unstacked into the nn.ModuleList of blocks.
 VAE conv weights stay (kh, kw, in, out) and NHWC, as in JAX.
 
-flux_from_jax takes the already-permuted `params` of a JAX VisualClozeModel
-built with rope_layout="half" (its constructor permutes them), LoRA folded.
+flux_from_jax takes the `params` of a JAX VisualClozeModel as they stand:
+permuted by its constructor for rope_layout="half", in the reference's order
+for "interleaved"; the port's Flux is then run in the same layout.
 Every parameter of the target module must be assigned exactly once.
+LoRA trees carry over with lora_from_jax (stacked block entries -> one per
+block) and back with lora_to_jax, for the tests.
 """
 
 from __future__ import annotations
@@ -115,3 +118,42 @@ def t5_from_jax(params: Mapping, cfg: T5Config, device=None, dtype=torch.float32
 def clip_from_jax(params: Mapping, cfg: CLIPTextConfig, device=None, dtype=torch.float32) -> CLIPTextEncoder:
     cfg = config_from(cfg, CLIPTextConfig)
     return _carry(build_clip(cfg, resolve_device(device), dtype), params, {"blocks": cfg.num_layers})
+
+
+def _tensors(tree, device, dtype):
+    if isinstance(tree, Mapping):
+        return {k: _tensors(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tensors(v, device, dtype) for v in tree]
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device=device, dtype=dtype)
+
+
+def lora_from_jax(lora: Mapping, cfg: FluxConfig, device=None, dtype=torch.float32) -> dict:
+    """A JAX LoRA tree (block entries stacked on a depth axis) -> the port's
+    LoRA tree (a list of per-block entries), as tensors on `device`."""
+    cfg = config_from(cfg, FluxConfig)
+    tree = dict(lora)
+    for key, depth in (("double_blocks", cfg.depth), ("single_blocks", cfg.depth_single_blocks)):
+        if key in tree:
+            tree[key] = _unstack(tree[key], depth)
+    return _tensors(tree, resolve_device(device), dtype)
+
+
+def lora_to_jax(lora: Mapping) -> dict:
+    """The port's LoRA tree -> numpy arrays in the JAX layout (blocks stacked)."""
+
+    def arr(t):
+        if isinstance(t, Mapping):
+            return {k: arr(v) for k, v in t.items()}
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    def stack(blocks):
+        first = blocks[0]
+        if isinstance(first, Mapping):
+            return {k: stack([b[k] for b in blocks]) for k in first}
+        return np.stack(blocks)
+
+    out = {}
+    for key, val in lora.items():
+        out[key] = stack([arr(b) for b in val]) if isinstance(val, list) else arr(val)
+    return out

@@ -1,24 +1,32 @@
-// Kernel A: RoPE flash attention of every FLUX block (D = 128).
+// Kernels A, D and E: the D = 128 flash attention of every FLUX block.
 //
-// Replaces visualcloze_tpu/ops/flash_attention.py:flash_mha_rope, i.e. the
-// Pallas bodies _flash_kernel_pipe_rope (pipelined forward) and
-// _flash_kernel_rope (blocked forward): one function, one kernel pair here.
-// q, k, v (B, H, L, 128) bf16, unrotated, half RoPE layout; bias (B, L) fp32
-// (0 / -1e30) or null; cos/sin (B, L, 64) fp32.
+// Kernel A replaces visualcloze_tpu/ops/flash_attention.py:flash_mha_rope, i.e.
+// the Pallas bodies _flash_kernel_pipe_rope (pipelined forward) and
+// _flash_kernel_rope (blocked forward): q, k, v (B, H, L, 128) bf16,
+// unrotated, half RoPE layout; bias (B, L) fp32 (0 / -1e30) or null; cos/sin
+// (B, L, 64) fp32. Entry flash_attn_rope.
+// Kernel D replaces flash_mha's primal (_flash_kernel_pipe without RoPE, and
+// _flash_kernel): the same attention on the caller's pre-rotated q and k.
+// Kernel E replaces _fwd_lse_kernel (the forward of flash_mha's VJP): D plus
+// the row log-sum-exp in log2 units, lse = m + log2(l) (l = 0 -> 1), stored
+// compact as (B, H, Lq) fp32 where the TPU stored a 128-lane broadcast.
+// D and E share the entry flash_attn_fwd (lse null -> D); Lq and Lk may differ.
 //
 // Function, in the log2 domain as in JAX: rot(x) = [cos*x1 - sin*x2 |
-// cos*x2 + sin*x1] in fp32; q' = bf16(rot(q) * scale*log2(e)),
-// k' = bf16(rot(k)); S = q'.k'^T + bias*log2(e) in fp32; an online row max
-// starting at -1e30; P = exp2(S - max) rounded to bf16 before P.V; rows
+// cos*x2 + sin*x1] in fp32 (kernel A only); q' = bf16(q * scale*log2(e)),
+// k' = bf16(rot(k)) or k; S = q'.k'^T + bias*log2(e) in fp32; an online row
+// max starting at -1e30; P = exp2(S - max) rounded to bf16 before P.V; rows
 // whose keys are all masked give 0.
 //
-// Bound on the H100: 4*B*H*L^2*128 FLOPs -> about 0.20 ms at L = 3968 and
+// Bound on the H100: 4*B*H*Lq*Lk*128 FLOPs -> about 0.20 ms at L = 3968 and
 // 0.26 ms at L = 4608 (B = 1, H = 24) at 989 TFLOP/s; compute-bound.
 //
 // Design:
-//   - rope_rotate rotates (and scales) q and k ONCE into bf16 scratch: about
-//     25 MB each way at L = 3968, against the ~3 GB of L2 reads that
-//     rotating every k tile in every q-tile CTA from the fp32 tables costs;
+//   - rope_rotate (kernel A) rotates and scales q and k ONCE into bf16
+//     scratch: about 25 MB each way at L = 3968, against the ~3 GB of L2
+//     reads that rotating every k tile in every q-tile CTA from the fp32
+//     tables costs. D and E skip it: their flash_fwd scales q' as it loads
+//     the Q fragments (once per CTA), so they read the caller's q and k;
 //   - flash_fwd: one CTA of 8 warps per 128 query rows, each warp owning 16
 //     rows (the FlashAttention-2 split); mma.sync m16n8k16 bf16 with fp32
 //     accumulation; S, P and the (16, 128) output accumulator of a warp stay
@@ -31,12 +39,11 @@
 #include <cuda_runtime.h>
 
 #include "bf16.cuh"
+#include "mma.cuh"
 
 namespace {
 
-using vc::bf16;
-using vc::pack8;
-using vc::unpack8;
+using namespace vc;
 
 constexpr int D = 128;
 constexpr int NWARPS = 8, NT = NWARPS * 32;
@@ -85,60 +92,11 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool pred) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [row0, row0 + ROWS) of a (L, D) matrix -> shared memory; rows >= L zero
-template <int ROWS>
-__device__ __forceinline__ void load_async(bf16* dst, const bf16* __restrict__ src, int row0,
-                                           int L) {
-  for (int u = threadIdx.x; u < ROWS * (D / 8); u += NT) {
-    const int r = u / (D / 8);
-    const int c = (u % (D / 8)) * 8;
-    const int row = row0 + r;
-    const bool ok = row < L;
-    cp_async16(dst + r * LDS + c, src + (size_t)(ok ? row : 0) * D + c, ok);
-  }
-}
-
+template <bool kLse>
 __global__ void __launch_bounds__(NT)
-    flash_fwd(const bf16* __restrict__ qr, const bf16* __restrict__ kr,
+    flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const float* __restrict__ bias,
-              bf16* __restrict__ o, int H, int L) {
+              bf16* __restrict__ o, float* __restrict__ lse, int H, int Lq, int Lk, float qscale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks[2] = {Qs + BQ * LDS, Qs + (BQ + 2 * BK) * LDS};
@@ -146,17 +104,19 @@ __global__ void __launch_bounds__(NT)
 
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
-  const size_t head = ((size_t)b * H + blockIdx.y) * (size_t)L * D;
-  const float* biasb = bias ? bias + (size_t)b * L : nullptr;
+  const size_t bh = (size_t)b * H + blockIdx.y;
+  const size_t qhead = bh * (size_t)Lq * D;
+  const size_t khead = bh * (size_t)Lk * D;
+  const float* biasb = bias ? bias + (size_t)b * Lk : nullptr;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // fragment row group
   const int t = lane % 4;  // thread in group
-  const int nk = (L + BK - 1) / BK;
+  const int nk = (Lk + BK - 1) / BK;
 
-  load_async<BQ>(Qs, qr + head, q0, L);
-  load_async<BK>(Ks[0], kr + head, 0, L);
-  load_async<BK>(Vs[0], v + head, 0, L);
+  load_rows_async<BQ, NT, D, LDS>(Qs, q + qhead, q0, Lq);
+  load_rows_async<BK, NT, D, LDS>(Ks[0], k + khead, 0, Lk);
+  load_rows_async<BK, NT, D, LDS>(Vs[0], v + khead, 0, Lk);
   cp_async_commit();
 
   uint32_t qa[D / 16][4];
@@ -169,22 +129,22 @@ __global__ void __launch_bounds__(NT)
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
     if (kt + 1 < nk) {  // the next tile loads while this one computes
-      load_async<BK>(Ks[cur ^ 1], kr + head, (kt + 1) * BK, L);
-      load_async<BK>(Vs[cur ^ 1], v + head, (kt + 1) * BK, L);
+      load_rows_async<BK, NT, D, LDS>(Ks[cur ^ 1], k + khead, (kt + 1) * BK, Lk);
+      load_rows_async<BK, NT, D, LDS>(Vs[cur ^ 1], v + khead, (kt + 1) * BK, Lk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == 0) {
+    if (kt == 0) {  // q' = bf16(q * qscale); qscale = 1 when rope_rotate already scaled
       const bf16* qw = Qs + warp * 16 * LDS;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        qa[kk][0] = ld32(qw + g * LDS + kk * 16 + 2 * t);
-        qa[kk][1] = ld32(qw + (g + 8) * LDS + kk * 16 + 2 * t);
-        qa[kk][2] = ld32(qw + g * LDS + kk * 16 + 8 + 2 * t);
-        qa[kk][3] = ld32(qw + (g + 8) * LDS + kk * 16 + 8 + 2 * t);
+        qa[kk][0] = scale2(ld32(qw + g * LDS + kk * 16 + 2 * t), qscale);
+        qa[kk][1] = scale2(ld32(qw + (g + 8) * LDS + kk * 16 + 2 * t), qscale);
+        qa[kk][2] = scale2(ld32(qw + g * LDS + kk * 16 + 8 + 2 * t), qscale);
+        qa[kk][3] = scale2(ld32(qw + (g + 8) * LDS + kk * 16 + 8 + 2 * t), qscale);
       }
     }
 
@@ -209,7 +169,7 @@ __global__ void __launch_bounds__(NT)
       for (int e = 0; e < 4; ++e) {
         const int key = kt * BK + j * 8 + 2 * t + (e & 1);
         float val = s[j][e];
-        if (key >= L) {
+        if (key >= Lk) {
           val = -INFINITY;
         } else if (biasb) {
           val += __ldg(biasb + key) * kLog2e;
@@ -274,19 +234,35 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t;
-    if (row0 < L)
-      *reinterpret_cast<uint32_t*>(o + head + (size_t)row0 * D + col) =
+    if (row0 < Lq)
+      *reinterpret_cast<uint32_t*>(o + qhead + (size_t)row0 * D + col) =
           pack2(acc[n][0] / l[0], acc[n][1] / l[0]);
-    if (row0 + 8 < L)
-      *reinterpret_cast<uint32_t*>(o + head + (size_t)(row0 + 8) * D + col) =
+    if (row0 + 8 < Lq)
+      *reinterpret_cast<uint32_t*>(o + qhead + (size_t)(row0 + 8) * D + col) =
           pack2(acc[n][2] / l[1], acc[n][3] / l[1]);
   }
+  if (kLse && t == 0) {  // m and l are the same in the 4 threads of a row
+    if (row0 < Lq) lse[bh * Lq + row0] = m[0] + log2f(l[0]);
+    if (row0 + 8 < Lq) lse[bh * Lq + row0 + 8] = m[1] + log2f(l[1]);
+  }
+}
+
+template <bool kLse>
+cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* o,
+                       float* lse, int B, int H, int Lq, int Lk, float qscale, cudaStream_t s) {
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Lq + BQ - 1) / BQ, H, B);
+  flash_fwd<kLse><<<grid, NT, SMEM, s>>>(q, k, v, bias, o, lse, H, Lq, Lk, qscale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// qr, kr: (B, H, L, 128) bf16 scratch for the rotated q and k. Launches both
-// kernels on `stream`; returns cudaGetLastError() (0 on success).
+// Kernel A. qr, kr: (B, H, L, 128) bf16 scratch for the rotated (and, for q,
+// scaled) q and k. Launches both kernels on `stream`; returns
+// cudaGetLastError() (0 on success).
 extern "C" int flash_attn_rope(const void* q, const void* k, const void* v, const void* bias,
                                const void* cos_t, const void* sin_t, void* qr, void* kr, void* o,
                                int B, int H, int L, float qscale, void* stream) {
@@ -299,11 +275,21 @@ extern "C" int flash_attn_rope(const void* q, const void* k, const void* v, cons
       units);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + BQ - 1) / BQ, H, B);
-  flash_fwd<<<grid, NT, SMEM, s>>>(static_cast<const bf16*>(qr), static_cast<const bf16*>(kr),
-                                   static_cast<const bf16*>(v), static_cast<const float*>(bias),
-                                   static_cast<bf16*>(o), H, L);
-  return (int)cudaGetLastError();
+  return (int)launch_fwd<false>(static_cast<const bf16*>(qr), static_cast<const bf16*>(kr),
+                                static_cast<const bf16*>(v), static_cast<const float*>(bias),
+                                static_cast<bf16*>(o), nullptr, B, H, L, L, 1.0f, s);
+}
+
+// Kernels D (lse null) and E: q (B, H, Lq, 128), k, v (B, H, Lk, 128) bf16;
+// bias (B, Lk) fp32 or null; o (B, H, Lq, 128) bf16; lse (B, H, Lq) fp32.
+extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
+                              void* lse, int B, int H, int Lq, int Lk, float qscale, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v);
+  const float* bp = static_cast<const float*>(bias);
+  bf16* op = static_cast<bf16*>(o);
+  if (lse == nullptr) return (int)launch_fwd<false>(qp, kp, vp, bp, op, nullptr, B, H, Lq, Lk, qscale, s);
+  return (int)launch_fwd<true>(qp, kp, vp, bp, op, static_cast<float*>(lse), B, H, Lq, Lk, qscale, s);
 }

@@ -1,0 +1,81 @@
+// Warp-level building blocks of the D = 128 attention kernels (forward in
+// flash_attn_rope.cu, backward in flash_attn_bwd.cu): mma.sync m16n8k16 bf16
+// with fp32 accumulators, ldmatrix, cp.async tile loads into shared memory.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4):
+//   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..), a2 = (g, 2t+8..),
+//                           a3 = (g + 8, 2t+8..);
+//   B (16 x 8, k x n):      b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g), i.e. two
+//                           consecutive values of row n = g of an (n, k) row-major tile;
+//   C (16 x 8, fp32):       c0, c1 = (g, 2t..2t+1), c2, c3 = (g + 8, 2t..2t+1).
+// So the accumulators of two neighbouring 8-column C tiles, rounded to bf16 in
+// pairs, are the A fragment of the next product: S -> P stays in registers.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "bf16.cuh"
+
+namespace vc {
+
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragments of two neighbouring n tiles from a (k, n) row-major tile in shared
+// memory (the V of P.V): r[0], r[1] for columns [8n, 8n + 8), r[2], r[3] for the next 8
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two fp32 values -> a bf16 pair, round-to-nearest-even (JAX's astype)
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// a bf16 pair times s in fp32, rounded back to bf16: bf16(q * scale * log2(e))
+__device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return pack2(f.x * s, f.y * s);
+}
+
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows [row0, row0 + ROWS) of an (L, D) bf16 matrix -> shared memory with row
+// stride LDS, by NT threads; rows >= L are zero-filled
+template <int ROWS, int NT, int D, int LDS>
+__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* __restrict__ src, int row0,
+                                                int L) {
+  for (int u = threadIdx.x; u < ROWS * (D / 8); u += NT) {
+    const int r = u / (D / 8);
+    const int c = (u % (D / 8)) * 8;
+    const int row = row0 + r;
+    const bool ok = row < L;
+    cp_async16(dst + r * LDS + c, src + (size_t)(ok ? row : 0) * D + c, ok);
+  }
+}
+
+}  // namespace vc

@@ -1,20 +1,44 @@
 """The FLUX flow-matching DiT (counterpart of visualcloze_tpu/models/flux.py).
 
-Inference path only: the 19 double and 38 single blocks are modules in
-nn.ModuleLists (the JAX package stacks their parameters and scans); no remat,
-no activation capture, no calibration statistics.
+The 19 double and 38 single blocks are modules in nn.ModuleLists (the JAX
+package stacks their parameters and scans). LoRA is an optional tree passed
+to `forward` (models/lora.py), its block entries one per block. Under
+training each block can be checkpointed (`remat`), as JAX's jax.checkpoint
+around the scanned block body:
+  - remat_policy None: recompute the whole block in the backward;
+  - "dots": keep the matmul outputs (aten mm/addmm, JAX's
+    dots_with_no_batch_dims_saveable) and recompute the rest, with
+    torch.utils.checkpoint's selective checkpointing;
+  - "dots_split": two checkpointed segments per block with the attention
+    call between them, so the attention's own saved tensors (rotated q, k,
+    v, o, lse) are kept and its forward is not rerun.
+No activation capture and no calibration statistics.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..config import FluxConfig
 from ..ops.rope import embed_nd
 from ..ops.schedule import timestep_embedding
 from .init import init_linears_, materialize
 from .layers import DoubleBlock, LastLayer, Linear, MLPEmbedder, SingleBlock
+
+REMAT_POLICIES = (None, "dots", "dots_split")
+_dots_context = functools.partial(
+    create_selective_checkpoint_contexts, [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+)
+
+
+def _checkpointed(fn, policy: str | None):
+    """fn run under a non-reentrant checkpoint; "dots" keeps matmul outputs."""
+    kwargs = {"context_fn": _dots_context} if policy is not None else {}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kwargs)
 
 
 class Flux(nn.Module):
@@ -40,18 +64,20 @@ class Flux(nn.Module):
                 p.fill_(1.0)
         return self
 
-    def embed_inputs(self, img, img_ids, txt, txt_ids, timesteps, y, txt_mask, img_mask, guidance):
+    def embed_inputs(self, img, img_ids, txt, txt_ids, timesteps, y, txt_mask, img_mask, guidance,
+                     lora=None, lora_scale: float = 1.0):
         """Token embeddings, the modulation vector, RoPE tables and the joint
         attention mask (None when nothing is padded)."""
         cfg = self.cfg
-        img = self.img_in(img)
-        vec = self.time_in(timestep_embedding(timesteps, 256))
+        l = lora or {}
+        img = self.img_in(img, l.get("img_in"), lora_scale)
+        vec = self.time_in(timestep_embedding(timesteps, 256), l.get("time_in"), lora_scale)
         if cfg.guidance_embed:
             if guidance is None:
                 raise ValueError("guidance_embed model needs a guidance vector")
-            vec = vec + self.guidance_in(timestep_embedding(guidance, 256))
-        vec = vec + self.vector_in(y)
-        txt = self.txt_in(txt)
+            vec = vec + self.guidance_in(timestep_embedding(guidance, 256), l.get("guidance_in"), lora_scale)
+        vec = vec + self.vector_in(y, l.get("vector_in"), lora_scale)
+        txt = self.txt_in(txt, l.get("txt_in"), lora_scale)
         pe = embed_nd(torch.cat([txt_ids, img_ids], dim=1), cfg.axes_dim, cfg.theta)
         b, txt_len = txt.shape[:2]
         if txt_mask is None and img_mask is None:
@@ -64,21 +90,38 @@ class Flux(nn.Module):
             attn_mask = torch.cat([txt_mask, img_mask], dim=1)
         return img, txt, vec, pe, attn_mask
 
-    @torch.no_grad()
     def forward(self, *, img, img_ids, txt, txt_ids, timesteps, y, txt_mask=None, img_mask=None,
-                guidance=None) -> torch.Tensor:
+                guidance=None, lora=None, lora_scale: float = 1.0, remat: bool = False,
+                remat_policy: str | None = None, rope_layout: str = "half") -> torch.Tensor:
         """(B, L_img, in_channels) tokens -> (B, L_img, out_channels) velocity.
-        txt/img masks are (B, L) int {1 real, 0 pad}; timesteps (B,) flux time."""
+        txt/img masks are (B, L) int {1 real, 0 pad}; timesteps (B,) flux time;
+        rope_layout "half" (the serving layout, kernel A) or "interleaved"
+        (the reference's, which the trainer keeps)."""
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {remat_policy!r}")
+        l = lora or {}
         img, txt, vec, pe, attn_mask = self.embed_inputs(
-            img, img_ids, txt, txt_ids, timesteps, y, txt_mask, img_mask, guidance
+            img, img_ids, txt, txt_ids, timesteps, y, txt_mask, img_mask, guidance, l, lora_scale
         )
         txt_len = txt.shape[1]
-        for block in self.double_blocks:
-            img, txt = block(img, txt, vec, pe, attn_mask)
+        seg = None
+        if remat and remat_policy == "dots_split":
+            seg = functools.partial(_checkpointed, policy="dots")
+
+        def run(block, *args):
+            fn = functools.partial(block, lora_scale=lora_scale, rope_layout=rope_layout, seg=seg)
+            if remat and seg is None:
+                fn = _checkpointed(fn, remat_policy)
+            return fn(*args)
+
+        d_lora = l.get("double_blocks") or [None] * len(self.double_blocks)
+        s_lora = l.get("single_blocks") or [None] * len(self.single_blocks)
+        for block, bl in zip(self.double_blocks, d_lora):
+            img, txt = run(block, img, txt, vec, pe, attn_mask, bl)
         x = torch.cat([txt, img], dim=1)
-        for block in self.single_blocks:
-            x = block(x, vec, pe, attn_mask)
-        return self.final_layer(x[:, txt_len:], vec)
+        for block, bl in zip(self.single_blocks, s_lora):
+            x = run(block, x, vec, pe, attn_mask, bl)
+        return self.final_layer(x[:, txt_len:], vec, l.get("final_layer"), lora_scale)
 
 
 def build_flux(cfg: FluxConfig, device, dtype) -> Flux:

@@ -29,7 +29,8 @@ def _default_dtype(dtype: torch.dtype):
 
 def materialize(ctor: Callable[[], M], device: torch.device, dtype: torch.dtype) -> M:
     """ctor() with uninitialized parameters of `dtype` on `device`, frozen
-    (the port is inference only)."""
+    (what trains, LoRA factors or base weights, is made trainable by the
+    trainer)."""
     with torch.device("meta"), _default_dtype(dtype):
         module = ctor()
     module = module.to_empty(device=device)

@@ -5,24 +5,52 @@ LayerNorm / RMSNorm / RoPE / softmax in fp32, modulation arithmetic in fp32
 cast to the stream dtype at the residual add. Module and parameter names
 mirror the JAX parameter tree so that convert.py maps one onto the other.
 Only the dense (bf16/fp32) linear is ported; the int8/int4/w8a8 branches
-and runtime LoRA wait for later slices.
+wait for later slices.
+
+LoRA is unfolded, as in JAX: every forward takes an optional `lora` tree
+(the entries of models/lora.py keyed like the module's own children) and
+adds x @ A @ B (+ B's bias) times `lora_scale` to each linear. Blocks take
+`seg`, a wrapper applied to their pre- and post-attention halves (the
+two-segment remat of models/flux.py); RoPE then runs inside the first half.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import FluxConfig
-from ..ops.attention import attention
+from ..ops.attention import attention, rope_qk
+from .lora import Lora
+
+
+def _lora_delta(lora: Lora, x: torch.Tensor, scale: float) -> torch.Tensor:
+    """x @ A @ B (+ B bias) * scale in x's dtype; B carries a bias in the
+    reference (lora_bias=True)."""
+    if "expert_a" in lora:
+        raise NotImplementedError(
+            "MoE-LoRA (mixture of LoRA experts) is not ported yet: ROADMAP item 5")
+    y = torch.matmul(x, lora["a"].to(x.dtype))
+    y = torch.matmul(y, lora["b"].to(x.dtype))
+    if "b_bias" in lora:
+        y = y + lora["b_bias"].to(y.dtype)
+    if scale != 1.0:  # JAX rounds the scale to y's dtype first
+        y = y * torch.tensor(scale, dtype=y.dtype, device=y.device)
+    return y
 
 
 class Linear(nn.Linear):
-    """y = x W^T + b with x cast to the weight dtype first (JAX `linear`)."""
+    """y = x W^T + b (+ LoRA delta) with x cast to the weight dtype first (JAX `linear`)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+    def forward(self, x: torch.Tensor, lora: Lora | None = None, lora_scale: float = 1.0) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
+        y = F.linear(x, self.weight, self.bias)
+        if lora is not None:
+            y = y + _lora_delta(lora, x, lora_scale)
+        return y
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -58,8 +86,10 @@ class MLPEmbedder(nn.Module):
         self.in_layer = Linear(d_in, d_hidden)
         self.out_layer = Linear(d_hidden, d_hidden)
 
-    def forward(self, x):
-        return self.out_layer(F.silu(self.in_layer(x)))
+    def forward(self, x, lora: Lora | None = None, lora_scale: float = 1.0):
+        l = lora or {}
+        h = F.silu(self.in_layer(x, l.get("in_layer"), lora_scale))
+        return self.out_layer(h, l.get("out_layer"), lora_scale)
 
 
 class Modulation(nn.Module):
@@ -71,8 +101,9 @@ class Modulation(nn.Module):
         self.mult = 6 if double else 3
         self.lin = Linear(dim, self.mult * dim)
 
-    def forward(self, vec):
-        out = self.lin(F.silu(vec)).to(torch.float32)[:, None, :]
+    def forward(self, vec, lora: Lora | None = None, lora_scale: float = 1.0):
+        """lora: the entry of `lin`."""
+        out = self.lin(F.silu(vec), lora, lora_scale).to(torch.float32)[:, None, :]
         chunks = out.chunk(self.mult, dim=-1)
         m1 = {"shift": chunks[0], "scale": chunks[1], "gate": chunks[2]}
         m2 = {"shift": chunks[3], "scale": chunks[4], "gate": chunks[5]} if self.mult == 6 else None
@@ -114,33 +145,53 @@ class DoubleBlock(nn.Module):
         self.img_mlp = nn.ModuleDict({"0": Linear(h, mh), "2": Linear(mh, h)})
         self.txt_mlp = nn.ModuleDict({"0": Linear(h, mh), "2": Linear(mh, h)})
 
-    def _qkv(self, attn: SelfAttention, x, mod):
-        q, k, v = _split_heads(attn.qkv(_modulate(x, mod)), self.num_heads)
+    def _qkv(self, attn: SelfAttention, x, mod, lora: Lora, lora_scale):
+        qkv = attn.qkv(_modulate(x, mod), lora.get("qkv"), lora_scale)
+        q, k, v = _split_heads(qkv, self.num_heads)
         q, k = attn.norm(q, k, v)
         return q, k, v
 
     @staticmethod
-    def _mlp(mlp: nn.ModuleDict, x, mod):
-        h = F.gelu(mlp["0"](_modulate(x, mod)), approximate="tanh")
-        return mlp["2"](h)
+    def _mlp(mlp: nn.ModuleDict, x, mod, lora: Lora, lora_scale):
+        h = F.gelu(mlp["0"](_modulate(x, mod), lora.get("0"), lora_scale), approximate="tanh")
+        return mlp["2"](h, lora.get("2"), lora_scale)
 
-    def forward(self, img, txt, vec, pe, attn_mask):
+    def forward(self, img, txt, vec, pe, attn_mask, lora: Lora | None = None, lora_scale: float = 1.0,
+                rope_layout: str = "half", seg: Callable | None = None):
+        l = lora or {}
         txt_len = txt.shape[1]
-        img_mod1, img_mod2 = self.img_mod(vec)
-        txt_mod1, txt_mod2 = self.txt_mod(vec)
-        img_q, img_k, img_v = self._qkv(self.img_attn, img, img_mod1)
-        txt_q, txt_k, txt_v = self._qkv(self.txt_attn, txt, txt_mod1)
-        q = torch.cat([txt_q, img_q], dim=2)
-        k = torch.cat([txt_k, img_k], dim=2)
-        v = torch.cat([txt_v, img_v], dim=2)
-        attn = attention(q, k, v, pe, mask=attn_mask)
-        txt_attn, img_attn = attn[:, :txt_len], attn[:, txt_len:]
 
-        img = img + (img_mod1["gate"] * self.img_attn.proj(img_attn).to(torch.float32)).to(img.dtype)
-        img = img + (img_mod2["gate"] * self._mlp(self.img_mlp, img, img_mod2).to(torch.float32)).to(img.dtype)
-        txt = txt + (txt_mod1["gate"] * self.txt_attn.proj(txt_attn).to(torch.float32)).to(txt.dtype)
-        txt = txt + (txt_mod2["gate"] * self._mlp(self.txt_mlp, txt, txt_mod2).to(torch.float32)).to(txt.dtype)
-        return img, txt
+        def pre(img, txt):
+            img_mod1, img_mod2 = self.img_mod(vec, l.get("img_mod", {}).get("lin"), lora_scale)
+            txt_mod1, txt_mod2 = self.txt_mod(vec, l.get("txt_mod", {}).get("lin"), lora_scale)
+            img_q, img_k, img_v = self._qkv(self.img_attn, img, img_mod1, l.get("img_attn", {}), lora_scale)
+            txt_q, txt_k, txt_v = self._qkv(self.txt_attn, txt, txt_mod1, l.get("txt_attn", {}), lora_scale)
+            q = torch.cat([txt_q, img_q], dim=2)
+            k = torch.cat([txt_k, img_k], dim=2)
+            v = torch.cat([txt_v, img_v], dim=2)
+            if seg is not None:  # rotated q, k are the attention's saved inputs
+                q, k = rope_qk(q, k, pe, rope_layout)
+            return q, k, v, (img_mod1, img_mod2, txt_mod1, txt_mod2)
+
+        def post(img, txt, attn, mods):
+            img_mod1, img_mod2, txt_mod1, txt_mod2 = mods
+            txt_attn, img_attn = attn[:, :txt_len], attn[:, txt_len:]
+            li, lt = l.get("img_attn", {}), l.get("txt_attn", {})
+            img = img + (img_mod1["gate"] * self.img_attn.proj(img_attn, li.get("proj"), lora_scale).to(
+                torch.float32)).to(img.dtype)
+            img = img + (img_mod2["gate"] * self._mlp(self.img_mlp, img, img_mod2, l.get("img_mlp", {}),
+                                                      lora_scale).to(torch.float32)).to(img.dtype)
+            txt = txt + (txt_mod1["gate"] * self.txt_attn.proj(txt_attn, lt.get("proj"), lora_scale).to(
+                torch.float32)).to(txt.dtype)
+            txt = txt + (txt_mod2["gate"] * self._mlp(self.txt_mlp, txt, txt_mod2, l.get("txt_mlp", {}),
+                                                      lora_scale).to(torch.float32)).to(txt.dtype)
+            return img, txt
+
+        if seg is not None:
+            pre, post = seg(pre), seg(post)
+        q, k, v, mods = pre(img, txt)
+        attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout)
+        return post(img, txt, attn, mods)
 
 
 class SingleBlock(nn.Module):
@@ -156,16 +207,31 @@ class SingleBlock(nn.Module):
         self.norm = QKNorm(cfg.head_dim)
         self.modulation = Modulation(h, False)
 
-    def forward(self, x, vec, pe, attn_mask):
-        mod, _ = self.modulation(vec)
-        x_mod = _modulate(x, mod).to(x.dtype)
-        h = self.linear1(x_mod)
-        q, k, v = _split_heads(h[..., : 3 * self.hidden_size], self.num_heads)
-        q, k = self.norm(q, k, v)
-        attn = attention(q, k, v, pe, mask=attn_mask)
-        mlp_h = h[..., 3 * self.hidden_size :]
-        out = self.linear2(torch.cat([attn, F.gelu(mlp_h, approximate="tanh")], dim=-1))
-        return x + (mod["gate"] * out.to(torch.float32)).to(x.dtype)
+    def forward(self, x, vec, pe, attn_mask, lora: Lora | None = None, lora_scale: float = 1.0,
+                rope_layout: str = "half", seg: Callable | None = None):
+        l = lora or {}
+
+        def pre(x):
+            mod, _ = self.modulation(vec, l.get("modulation", {}).get("lin"), lora_scale)
+            x_mod = _modulate(x, mod).to(x.dtype)
+            h = self.linear1(x_mod, l.get("linear1"), lora_scale)
+            q, k, v = _split_heads(h[..., : 3 * self.hidden_size], self.num_heads)
+            q, k = self.norm(q, k, v)
+            if seg is not None:
+                q, k = rope_qk(q, k, pe, rope_layout)
+            return q, k, v, h, mod
+
+        def post(x, attn, h, mod):
+            mlp_h = h[..., 3 * self.hidden_size :]
+            cat = torch.cat([attn, F.gelu(mlp_h, approximate="tanh")], dim=-1)
+            out = self.linear2(cat, l.get("linear2"), lora_scale)
+            return x + (mod["gate"] * out.to(torch.float32)).to(x.dtype)
+
+        if seg is not None:
+            pre, post = seg(pre), seg(post)
+        q, k, v, h, mod = pre(x)
+        attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout)
+        return post(x, attn, h, mod)
 
 
 class LastLayer(nn.Module):
@@ -177,8 +243,10 @@ class LastLayer(nn.Module):
         self.linear = Linear(h, cfg.out_channels)
         self.adaLN = Linear(h, 2 * h)
 
-    def forward(self, x, vec):
-        shift, scale = self.adaLN(F.silu(vec)).to(torch.float32).chunk(2, dim=-1)
+    def forward(self, x, vec, lora: Lora | None = None, lora_scale: float = 1.0):
+        l = lora or {}
+        mod = self.adaLN(F.silu(vec), l.get("adaLN"), lora_scale).to(torch.float32)
+        shift, scale = mod.chunk(2, dim=-1)
         x = (1.0 + scale[:, None]) * layer_norm(x) + shift[:, None]
-        return self.linear(x)
+        return self.linear(x, l.get("linear"), lora_scale)
 

@@ -1,7 +1,7 @@
 """Token preparation for sampling (counterpart of visualcloze_tpu/models/sampling.py).
 
 `prepare_modified` packs per-row latents into one padded token sequence and
-encodes the prompt; only the evaluation path (no caption dropout) is ported.
+encodes the prompt, with the trainer's caption dropout.
 """
 
 from __future__ import annotations
@@ -21,11 +21,16 @@ def prepare_modified(
     img: Sequence[Sequence[torch.Tensor]],
     prompt: str | Sequence[str],
     bucket: int | None = None,
+    proportion_empty_prompts: float = 0.0,
+    is_train: bool = False,
+    rng: np.random.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
     """img: batch of samples, each a list of per-row NHWC latents (1, h, w, c)
     or (h, w, c); row j gets position ids (j + 1, y, x). Rows are concatenated
     and the batch padded to a common (optionally bucketed) length with
-    img_mask 1 real / 0 pad. A list prompt takes its first entry."""
+    img_mask 1 real / 0 pad. Each prompt is blanked with probability
+    proportion_empty_prompts (caption dropout, drawn from `rng`); a list
+    prompt takes a random entry in training, else its first."""
     assert isinstance(img, (list, tuple)) and all(isinstance(r, (list, tuple)) for r in img)
     bs = len(img)
     flat_tokens, flat_ids = [], []
@@ -56,9 +61,15 @@ def prepare_modified(
     img_ids = torch.from_numpy(np.stack(padded_ids, axis=0)).to(device)
 
     prompt = [prompt] if isinstance(prompt, str) else list(prompt)
-    prompt = [p[0] if isinstance(p, (list, tuple)) else p for p in prompt]
     if len(prompt) != bs:
         raise ValueError(f"batch mismatch: {bs} image sample(s) vs {len(prompt)} prompt(s)")
+    rng = rng or np.random.default_rng()
+    for idx in range(bs):
+        if proportion_empty_prompts > 0 and rng.random() < proportion_empty_prompts:
+            prompt[idx] = ""
+        elif isinstance(prompt[idx], (list, tuple)):
+            options = prompt[idx]
+            prompt[idx] = options[int(rng.integers(len(options)))] if is_train else options[0]
     txt = t5(prompt)
     vec = clip(prompt)
     return {

@@ -1,12 +1,23 @@
 """Tensor ops of the port and the wrappers of its hand-written CUDA kernels."""
 
 from .conv2d import conv3x3_gn_swish
-from .flash_attention import flash_attn_d512, flash_attn_rope
+from .flash_attention import (
+    flash_attn_bwd_dkv,
+    flash_attn_bwd_dq,
+    flash_attn_d512,
+    flash_attn_fwd,
+    flash_attn_fwd_lse,
+    flash_attn_rope,
+)
 
 KERNELS = {
     "flash_attn_rope": flash_attn_rope,
     "flash_attn_d512": flash_attn_d512,
     "conv3x3_gn_swish": conv3x3_gn_swish,
+    "flash_attn_fwd": flash_attn_fwd,
+    "flash_attn_fwd_lse": flash_attn_fwd_lse,
+    "flash_attn_bwd_dq": flash_attn_bwd_dq,
+    "flash_attn_bwd_dkv": flash_attn_bwd_dkv,
 }
 
 
@@ -20,11 +31,4 @@ def reset_kernel_launches() -> None:
         fn.launches = 0
 
 
-__all__ = [
-    "KERNELS",
-    "conv3x3_gn_swish",
-    "flash_attn_d512",
-    "flash_attn_rope",
-    "kernel_launches",
-    "reset_kernel_launches",
-]
+__all__ = ["KERNELS", "kernel_launches", "reset_kernel_launches", *KERNELS]

@@ -2,17 +2,21 @@
 visualcloze_tpu/ops/attention.py).
 
 Padding is an additive key bias over static lengths; padded query rows are
-zeroed at the end, as flash-attn's unpad/re-pad round trip leaves them. The
-half-layout RoPE case, the only one the serving path takes, goes to kernel A
-with the rotation inside the kernel. `mha_xla` is the fp32 oracle the
-kernels are held against.
+zeroed at the end, as flash-attn's unpad/re-pad round trip leaves them (and
+so their output gradients are 0, which the backward kernels rely on). The
+half RoPE layout, the serving one, goes to kernel A with the rotation inside
+the kernel (or, under autograd, to its E/F gradient); the interleaved layout,
+the reference's and the trainer's, rotates q and k here and goes to
+`flash_mha` (kernel D, or E and F under autograd). `mha_xla` is the fp32
+oracle the kernels are held against.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attn_rope
+from .flash_attention import flash_mha, flash_mha_rope
+from .rope import apply_rope, apply_rope_half
 
 NEG_INF = -1e30
 
@@ -45,24 +49,41 @@ def mha_xla(
     return out.to(q.dtype)
 
 
+def rope_qk(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    pe: tuple[torch.Tensor, torch.Tensor] | None,
+    rope_layout: str = "interleaved",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotate q and k ((B, H, L, D); pe = (cos, sin), each (B, L, D/2)) in
+    fp32, rounded back to their dtype. Split out of attention() so that the
+    two-segment remat path rotates inside its first segment."""
+    if pe is None:
+        return q, k
+    cos, sin = pe[0][:, None], pe[1][:, None]  # broadcast over heads
+    rope_fn = apply_rope_half if rope_layout == "half" else apply_rope
+    return rope_fn(q, cos, sin), rope_fn(k, cos, sin)
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    pe: tuple[torch.Tensor, torch.Tensor],
+    pe: tuple[torch.Tensor, torch.Tensor] | None,
     mask: torch.Tensor | None = None,
+    rope_layout: str = "half",
 ) -> torch.Tensor:
     """RoPE + masked MHA + head merge.
 
-    q, k, v: (B, H, L, D) unrotated, in the half RoPE layout (the serving
-    layout; the interleaved one needs kernel D, not ported yet); pe: (cos,
-    sin), each (B, L, D/2); mask: (B, L) int {1 real, 0 pad}. Returns
+    q, k, v: (B, H, L, D), unrotated (pe = (cos, sin), each (B, L, D/2)) or
+    already rotated (pe None); mask: (B, L) int {1 real, 0 pad}. Returns
     (B, L, H * D) with padded query rows zeroed."""
-    cos, sin = pe
-    x = flash_attn_rope(
-        q.contiguous(), k.contiguous(), v.contiguous(), mask_to_bias(mask),
-        cos.contiguous(), sin.contiguous(),
-    )
+    bias = mask_to_bias(mask)
+    if pe is not None and rope_layout == "half" and q.shape[2] == k.shape[2]:
+        x = flash_mha_rope(q, k, v, bias, pe[0].contiguous(), pe[1].contiguous())
+    else:
+        q, k = rope_qk(q, k, pe, rope_layout)
+        x = flash_mha(q, k, v, bias)
     b, h, l, d = x.shape
     x = x.transpose(1, 2).reshape(b, l, h * d)
     if mask is not None:

@@ -86,12 +86,12 @@ def conv3x3_gn_swish(
         if tuple(a.shape) != (B, C) or tuple(b0.shape) != (B, C):
             raise ValueError(f"{name}: pre_affine must be two (B, C) = {(B, C)} tensors")
     y = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
-    lib = cuda_build.load(name, _ARGTYPES)
+    kernel = cuda_build.load(name, _ARGTYPES)
 
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
-    status = lib.conv3x3_gn_swish(
+    status = kernel(
         ptr(x), ptr(w), ptr(bias), ptr(a), ptr(b0), ptr(y),
         B, H, W, C, Cout, int(pre_affine is not None), int(act == "swish"),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),

@@ -21,8 +21,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _ROOT = CSRC.parents[1]
 BUILD_DIR = (_ROOT / "build" if (_ROOT / "setup.py").exists() else CSRC.parent / "_build") / "torch_kernels"
-# one library per source file; the names are the C entry points' files
-SOURCES = ("flash_attn_rope", "flash_attn_d512", "conv3x3_gn_swish")
+# one library per source file
+SOURCES = ("flash_attn_rope", "flash_attn_bwd", "flash_attn_d512", "conv3x3_gn_swish")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -82,18 +82,19 @@ def build(names=SOURCES, force: bool = False) -> dict[str, float]:
     return seconds
 
 
-def load(name: str, argtypes: list) -> ctypes.CDLL:
-    """The library of `name` (built if needed) with its entry point typed.
-    Pointers and the stream must be ctypes.c_void_p, or ctypes cuts them to
-    32 bits."""
-    if name not in _LIBS:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, name)
+def load(name: str, argtypes: list, source: str | None = None):
+    """The C entry point `name` of the library of `source` (default: `name`),
+    built if needed, typed with `argtypes`. Pointers and the stream must be
+    ctypes.c_void_p, or ctypes cuts them to 32 bits."""
+    source = source or name
+    if source not in _LIBS:
+        build([source])
+        _LIBS[source] = ctypes.CDLL(str(_lib_path(source)))
+    fn = getattr(_LIBS[source], name)
+    if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return _LIBS[name]
+    return fn
 
 
 def check(name: str, status: int) -> None:

@@ -41,6 +41,13 @@ def get_lin_function(x1: float = 256, y1: float = 0.5, x2: float = 4096, y2: flo
     return lambda x: m * x + b
 
 
+def shift_training_time(t: torch.Tensor, image_seq_len: int) -> torch.Tensor:
+    """Training-time resolution shift of sampled flux time t: the BFL law
+    exp(mu) / (exp(mu) + (1/t - 1)) with mu = mu(image_seq_len)."""
+    emu = math.exp(get_lin_function(y1=0.5, y2=1.15)(image_seq_len))
+    return emu / (emu + (1.0 / t - 1.0))
+
+
 def get_schedule(
     num_steps: int,
     image_seq_len: int,

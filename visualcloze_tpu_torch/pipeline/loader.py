@@ -28,9 +28,12 @@ def random_components(
     device: str | torch.device | None = None,
     generator: torch.Generator | None = None,
     resolution: int = 384,
+    rope_layout: str = "half",
 ) -> VisualClozeModel:
-    """A randomly initialized pipeline. Random weights are a valid half RoPE
-    layout as they stand, so no permutation is applied. The tokenizers are
+    """A randomly initialized pipeline. Random weights are valid in either
+    RoPE layout as they stand, so no permutation is applied: rope_layout
+    "half" serves through kernel A, "interleaved" (the reference's channel
+    order, which the trainer keeps) through kernel D. The tokenizers are
     FallbackTokenizers (tiny vocabularies, or the full T5/CLIP ones)."""
     device = resolve_device(device)
     if generator is None:
@@ -57,4 +60,5 @@ def random_components(
         t5_tok, clip_tok = default_tokenizer("t5"), default_tokenizer("clip")
     t5 = TextEncoder("t5", t5_model, t5_tok, t5_cfg.max_length)
     clip = TextEncoder("clip", clip_model, clip_tok, clip_cfg.max_length)
-    return VisualClozeModel(flux_cfg, flux, ae, t5, clip, resolution=resolution, device=device)
+    return VisualClozeModel(flux_cfg, flux, ae, t5, clip, resolution=resolution, device=device,
+                            rope_layout=rope_layout)

@@ -81,8 +81,11 @@ def _bf16_scalar(value: float, device) -> torch.Tensor:
 class VisualClozeModel:
     """construct, set_grid_size, process_images, upsampling.
 
-    flux: the DiT with LoRA folded in and its qkv weights in the half RoPE
-    layout; ae, t5, clip: the VAE and the two TextEncoders."""
+    flux: the DiT with LoRA folded in, its qkv weights in `rope_layout`'s
+    channel order: "half" (the serving layout: kernel A rotates inside the
+    attention kernel) or "interleaved" (the reference's order, as the trainer
+    keeps it: q and k are rotated in PyTorch and kernel D attends); ae, t5,
+    clip: the VAE and the two TextEncoders."""
 
     def __init__(
         self,
@@ -94,8 +97,12 @@ class VisualClozeModel:
         *,
         resolution: int = 384,
         device: str | torch.device | None = None,
+        rope_layout: str = "half",
     ):
+        if rope_layout not in ("half", "interleaved"):
+            raise ValueError(f"rope_layout must be 'half' or 'interleaved', got {rope_layout!r}")
         self.cfg = flux_cfg
+        self.rope_layout = rope_layout
         self.flux = flux
         self.ae = ae
         self.t5 = t5
@@ -230,7 +237,7 @@ class VisualClozeModel:
         with self._stage(stage):
             return _denoise(
                 self.flux, q["x"], q["ts"], q["img_cond"], q["txt"], q["txt_ids"],
-                q["txt_mask"], q["vec"], q["img_ids"], q["img_mask"], q["guidance"],
+                q["txt_mask"], q["vec"], q["img_ids"], q["img_mask"], q["guidance"], self.rope_layout,
             )
 
     @torch.no_grad()
@@ -372,13 +379,13 @@ class VisualClozeModel:
             return pp.array_to_image(self.decode_latent(lat))
 
 
-def _denoise(flux: Flux, x, ts, cond, txt, txt_ids, txt_mask, vec, img_ids, img_mask, guidance):
+def _denoise(flux: Flux, x, ts, cond, txt, txt_ids, txt_mask, vec, img_ids, img_mask, guidance, rope_layout):
     """The hot loop: Euler steps over the full DiT."""
 
     def model_fn(img, timesteps):
         return flux(
             img=img, img_ids=img_ids, txt=txt, txt_ids=txt_ids, timesteps=timesteps, y=vec,
-            txt_mask=txt_mask, img_mask=img_mask, guidance=guidance,
+            txt_mask=txt_mask, img_mask=img_mask, guidance=guidance, rope_layout=rope_layout,
         )
 
     return denoise_ode(model_fn, x, ts, cond=cond)

@@ -1,6 +1,7 @@
-"""Where a denoise step of the default query spends its device time.
+"""Where a denoise step of the default query (or a LoRA train step) spends
+its device time.
 
-    python -m visualcloze_tpu_torch.profile_step [--steps 3] [--out profile_step.json]
+    python -m visualcloze_tpu_torch.profile_step [--steps 3] [--out profile_step.json] [--train]
 
 Builds the full-width random-weight model in bf16 on the GPU, prepares the
 default query (a 2x3 grid at 384: 3456 image + 512 text tokens), times
@@ -12,6 +13,11 @@ elementwise and copies). The linears' FLOPs are counted with forward hooks
 on one untraced step, so their rate is their FLOPs over their own kernel
 time. Prints one JSON object; writes the 30 costliest kernels to --out.
 Exits 1 if the trace holds no device events.
+
+--train profiles the trainer's step instead: the same model in the
+interleaved layout with a rank-128 LoRA, per-block remat "full", one
+micro-batch of random tokens of the default query's size per step (3456
+image + 512 text); attention is then kernels E (forward) and F (backward).
 """
 
 from __future__ import annotations
@@ -29,11 +35,18 @@ from torch.profiler import ProfilerActivity, profile
 from .models.layers import Linear
 from .pipeline import random_components
 
-ATTENTION_KERNEL = re.compile(r"\b(rope_rotate|flash_fwd)\(")  # demangled csrc/flash_attn_rope.cu
+# demangled names of csrc/flash_attn_rope.cu (A, D, E) and flash_attn_bwd.cu (F)
+ATTENTION_KERNEL = re.compile(r"\b(rope_rotate|flash_fwd)[<(]")
+LSE_KERNEL = re.compile(r"\bflash_fwd<true>")
+BACKWARD_KERNEL = re.compile(r"\bflash_bwd_(dq|dkv)\(")
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
 def kernel_class(name: str) -> str:
+    if LSE_KERNEL.search(name):
+        return "attention forward (kernel E)"
+    if BACKWARD_KERNEL.search(name):
+        return "attention backward (kernel F)"
     if ATTENTION_KERNEL.search(name):
         return "attention (kernel A)"
     if any(m in name.lower() for m in GEMM_MARKS):
@@ -53,18 +66,45 @@ def default_query(model):
     return model.prepare_query(grid, prompts, seed=1, steps=30)
 
 
+def train_runner():
+    """(run(n): n LoRA train steps, tokens per step) of the full-width trainer."""
+    from .models.lora import init_lora
+    from .training.remat_probe import synthetic_batch
+    from .training.step import init_train_state, make_optimizer, make_train_step
+    from .transport import create_transport
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = random_components(tiny=False, dtype=torch.bfloat16, device="cuda", generator=gen,
+                              rope_layout="interleaved")
+    opt = make_optimizer()
+    state = init_train_state(model.flux, init_lora(model.flux, 128, generator=gen), opt, "lora")
+    step = make_train_step(create_transport("Linear", "velocity", snr_type="lognorm"), opt, "lora",
+                           ema_decay=None, remat=True, remat_policy=None, rope_layout="interleaved")
+    batch = synthetic_batch(model.cfg, 3456, 512, torch.device("cuda"), gen)
+
+    def run(n):
+        for _ in range(n):
+            step(state, batch, gen)
+
+    return model, run, 3456 + 512
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--out", default="profile_step.json")
+    p.add_argument("--train", action="store_true", help="profile a LoRA train step, not a denoise step")
     args = p.parse_args(argv)
 
-    model = random_components(tiny=False, dtype=torch.bfloat16, device="cuda", resolution=384)
-    q = default_query(model)
-    tokens = q["x"].shape[1] + q["txt"].shape[1]
+    if args.train:
+        model, run, tokens = train_runner()
+    else:
+        model = random_components(tiny=False, dtype=torch.bfloat16, device="cuda", resolution=384)
+        q = default_query(model)
+        tokens = q["x"].shape[1] + q["txt"].shape[1]
 
-    def run(n):
-        model.denoise_query(dict(q, ts=q["ts"][: n + 1]))
+        def run(n):
+            model.denoise_query(dict(q, ts=q["ts"][: n + 1]))
 
     flops = [0.0]
 
@@ -76,6 +116,8 @@ def main(argv=None) -> int:
     run(1)  # warm-up, and the linears' FLOPs of one step
     for h in hooks:
         h.remove()
+    if args.train:  # the hooks saw the forward and its recomputation; the backward does 2x the forward
+        flops[0] *= 2  # (the LoRA factors' products are not counted)
     torch.cuda.synchronize()
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -121,7 +163,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     result = dict(
-        device=smi, torch=torch.__version__, tokens=tokens, steps=args.steps,
+        device=smi, torch=torch.__version__, mode="train" if args.train else "denoise", tokens=tokens,
+        steps=args.steps,
         step_ms_cuda_events=step_ms, step_ms_traced_host=traced_ms,
         kernel_ms_per_step=kernel_ms,
         class_ms_per_step={k: v / 1e3 / args.steps for k, v in sorted(classes.items())},
