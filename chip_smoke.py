@@ -12,11 +12,15 @@ Phases, each followed by one flushed JSON line on stdout:
              (attention forward and backward: 4 bf16 ulps at the largest
              output; E's LSE: 2^-13 of its largest magnitude; padded keys
              against fp32 attention that never sees them; conv: 1% of the
-             largest output), the kernel's, the plain version's and a PyTorch
-             library call's ms (CUDA events; the backward's library call is
-             SDPA's backward, timed as forward + backward minus forward), and
-             the bound from the H100 SXM data sheet (989 TFLOP/s bf16 dense,
-             3.35 TB/s);
+             largest output; the int8 matmul G: 4 bf16 ulps of the largest
+             output, at the int8 DiT's linear1, linear2, qkv, modulation
+             (M = 1), final_layer.linear (N = 64) and a ragged M), the
+             kernel's, the plain version's and a PyTorch library call's ms
+             (CUDA events; the backward's library call is SDPA's backward,
+             timed as forward + backward minus forward; G's is
+             torch._weight_int8pack_mm where it runs, else F.linear on a
+             dequantized bf16 copy), and the bound from the H100 SXM data
+             sheet (989 TFLOP/s bf16 dense, 3.35 TB/s);
   grad_reference  one full-width double block and one single block with a
              rank-128 LoRA: the LoRA gradients through kernels E and F against
              the same blocks through their plain versions (relative RMS);
@@ -27,6 +31,13 @@ Phases, each followed by one flushed JSON line on stdout:
              VisualClozeModel.process_images: a 2x3 grid at 384 with SDEdit
              (30 + 10 steps, the default query) and a 3x3 grid at 384 without
              (5760 tokens with padding, so kernel A's bias path runs);
+  quant_reference  the bf16 DiT quantized beside itself (quantize_flux_int8):
+             the int8 DiT through G vs through G's plain version, and vs the
+             bf16 DiT (correlation, as the JAX package's int8 test);
+  request_int8  the bf16 model freed, the single-card int8 stack
+             (synthetic_full_components: int8 DiT through G, int4 T5-XXL,
+             int8 CLIP-L, bf16 VAE) serving request 1's query, seed 1;
+             resident and peak memory, stage seconds beside request 1's;
   train      the serving model freed, the trainer's main at full width
              (rank-128 LoRA, grid 384, 3 steps of 2 micro-batches, per-block
              remat) on a synthetic Graph200K dataset written from seed 0; one
@@ -34,8 +45,9 @@ Phases, each followed by one flushed JSON line on stdout:
              seconds, peak memory), then the checkpoint's files;
   query_interleaved  the trainer's base components (optimizer state freed)
              serving a 2x2 grid at 384 in the interleaved layout (kernel D).
-Launch counters are zeroed just before each main-path phase (request, train,
-query_interleaved) and read just after. Then the kernels line, the nvidia-smi
+Launch counters are zeroed just before each main-path phase (request,
+request_int8, train, query_interleaved) and read just after; G runs in
+request_int8 only. Then the kernels line, the nvidia-smi
 line, and {"ok": true, "device": ...} last. Exits non-zero, with no result
 line, without a CUDA device, outside a checkout of the repository, or when
 any phase fails.
@@ -65,6 +77,7 @@ REPLACES = {
     "flash_attn_fwd_lse": "visualcloze_tpu/ops/flash_attention.py:800",
     "flash_attn_bwd_dq": "visualcloze_tpu/ops/flash_attention.py:699",
     "flash_attn_bwd_dkv": "visualcloze_tpu/ops/flash_attention.py:730",
+    "int8_matmul": "visualcloze_tpu/ops/int8_matmul.py:52",
 }
 SOURCES = {
     "flash_attn_rope": "visualcloze_tpu_torch/csrc/flash_attn_rope.cu",
@@ -74,7 +87,12 @@ SOURCES = {
     "flash_attn_fwd_lse": "visualcloze_tpu_torch/csrc/flash_attn_rope.cu",
     "flash_attn_bwd_dq": "visualcloze_tpu_torch/csrc/flash_attn_bwd.cu",
     "flash_attn_bwd_dkv": "visualcloze_tpu_torch/csrc/flash_attn_bwd.cu",
+    "int8_matmul": "visualcloze_tpu_torch/csrc/int8_matmul.cu",
 }
+# kernel G per DiT evaluation: every linear of the int8 DiT once (19 double
+# blocks x 10, 38 single blocks x 3, 8 embedder and 2 final-layer linears);
+# kernel A once per block (19 + 38)
+INT8_LINEARS, ATTENTION_CALLS = 314, 57
 
 
 def emit(obj) -> None:
@@ -378,6 +396,56 @@ def check_attention_bwd(b: int, L: int, padded: bool, reps: int) -> list[dict]:
     return rows
 
 
+def int8pack_ms(x, w, scale) -> float | None:
+    """torch._weight_int8pack_mm (w (N, K) int8, bf16 scales) where it runs on
+    the card, else None: G's library yardstick, never called by the port."""
+    import torch
+
+    w_nk, s16 = w.t().contiguous(), scale.to(torch.bfloat16)
+    try:
+        torch._weight_int8pack_mm(x, w_nk, s16)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError):
+        return None
+    return cuda_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s16), 2)  # slow: 2 launches are enough
+
+
+def check_int8_matmul(m: int, k: int, n: int, what: str, reps: int) -> dict:
+    """Kernel G against its plain version: N(0,1) bf16 x, uniform int8 w,
+    scale d_in^-0.5 / 127; 4 bf16 ulps of the largest output. Beside the
+    library call, F.linear (cuBLAS bf16) on a copy dequantized beforehand."""
+    import torch
+    import torch.nn.functional as F
+
+    from visualcloze_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7 * m + n)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    scale = torch.full((n,), k ** -0.5 / 127, device=dev)
+    got = int8_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    want = int8_matmul_plain(x, w, scale, torch.float32)
+    err = (got.float() - want).abs().max().item()
+    tol = bf16_ulps_tol(want)
+    rms = want.pow(2).mean().sqrt().item()
+    del want
+    ms = cuda_ms(lambda: int8_matmul(x, w, scale), reps)
+    plain_ms = cuda_ms(lambda: int8_matmul_plain(x, w, scale), 2)
+    w16 = (w.t().float() * scale[:, None]).to(torch.bfloat16)  # (N, K), dequantized beforehand
+    dequant_ms = cuda_ms(lambda: F.linear(x, w16), reps)
+    del w16
+    library_ms, library = int8pack_ms(x, w, scale), "torch._weight_int8pack_mm"
+    if library_ms is None:
+        library_ms, library = dequant_ms, "F.linear on a bf16 copy dequantized beforehand"
+    bms, by = bound(2.0 * m * n * k, 2 * m * k + k * n + 4 * n + 2 * m * n)
+    return dict(name="int8_matmul", what=what, shape=[m, k, n], max_abs_err=err, tol=tol, rms_plain=rms,
+                ok=err <= tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=library,
+                dequant_f_linear_ms=dequant_ms, bound_ms=bms, bound_by=by, tflops=2.0 * m * n * k / ms / 1e9,
+                weight_gbps=k * n / ms / 1e6)
+
+
 # ----------------------------- gradients at full width -----------------------------
 
 
@@ -457,15 +525,13 @@ def grad_reference() -> dict:
 # ----------------------------- reference on a small input -----------------------------
 
 
-def reference_checks(model) -> dict:
-    """The full-width DiT and VAE through the kernels vs through the plain
-    versions (same weights, same small input); relative RMS error."""
-    import torch
+def rel_rms(a, b) -> float:
+    return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
 
-    import visualcloze_tpu_torch.models.autoencoder as ae_mod
-    import visualcloze_tpu_torch.ops.attention as att_mod
-    from visualcloze_tpu_torch.ops import conv2d as cv
-    from visualcloze_tpu_torch.ops import flash_attention as fa
+
+def reference_inputs(model):
+    """A small DiT input (256 image + 64 text tokens) and a VAE latent."""
+    import torch
 
     dev = model.device
     g = torch.Generator(device=dev).manual_seed(3)
@@ -485,6 +551,20 @@ def reference_checks(model) -> dict:
         guidance=torch.full((1,), 30.0, device=dev).to(torch.bfloat16),
     )
     z = torch.randn((1, 16, 32, model.ae.cfg.z_channels), generator=g, device=dev).to(torch.bfloat16)
+    return inp, z
+
+
+def reference_checks(model) -> dict:
+    """The full-width DiT and VAE through the kernels vs through the plain
+    versions (same weights, same small input); relative RMS error."""
+    import torch
+
+    import visualcloze_tpu_torch.models.autoencoder as ae_mod
+    import visualcloze_tpu_torch.ops.attention as att_mod
+    from visualcloze_tpu_torch.ops import conv2d as cv
+    from visualcloze_tpu_torch.ops import flash_attention as fa
+
+    inp, z = reference_inputs(model)
 
     @torch.no_grad()
     def run():
@@ -501,14 +581,53 @@ def reference_checks(model) -> dict:
     finally:
         att_mod.flash_mha_rope, ae_mod.conv3x3_gn_swish, ae_mod.flash_attn_d512 = saved
 
-    def rel(a, b):
-        return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
-
-    out = dict(dit_rel_rms_err=rel(dit_k, dit_p), vae_rel_rms_err=rel(vae_k, vae_p),
+    out = dict(dit_rel_rms_err=rel_rms(dit_k, dit_p), vae_rel_rms_err=rel_rms(vae_k, vae_p),
                finite=bool(torch.isfinite(dit_k).all() and torch.isfinite(vae_k).all()))
     # bf16 roundings of 57 blocks (resp. ~30 VAE layers) in another order
     out["tol"] = 5e-2
     out["ok"] = out["finite"] and out["dit_rel_rms_err"] <= out["tol"] and out["vae_rel_rms_err"] <= out["tol"]
+    return out
+
+
+def quant_reference(model) -> dict:
+    """The bf16 serving DiT quantized beside itself (quantize_flux_int8, ~12 GB
+    more): on reference_inputs, the int8 DiT through kernel G vs through G's
+    plain version (relative RMS, as reference_checks), and the int8 DiT vs the
+    bf16 one under the JAX package's own criterion (tests/test_quant.py:46-50:
+    correlation > 0.98, mean |Δ| / max |bf16| < 0.15)."""
+    import numpy as np
+    import torch
+
+    import visualcloze_tpu_torch.models.layers as layers_mod
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.models.quant import quantize_flux_int8
+    from visualcloze_tpu_torch.ops.int8_matmul import int8_matmul_plain
+
+    t = time.perf_counter()
+    qflux = quantize_flux_int8(model.flux)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t
+    int8_gib = sum(b.numel() * b.element_size() for b in qflux.buffers()) / 2 ** 30
+    inp, _ = reference_inputs(model)
+    with torch.no_grad():
+        ops.reset_kernel_launches()
+        got = qflux(**inp).float()
+        launches = ops.kernel_launches()["int8_matmul"]
+        saved = layers_mod.int8_matmul
+        layers_mod.int8_matmul = int8_matmul_plain
+        try:
+            plain = qflux(**inp).float()
+        finally:
+            layers_mod.int8_matmul = saved
+        ref = model.flux(**inp).float()
+    del qflux
+    corr = float(np.corrcoef(ref.flatten().cpu().numpy(), got.flatten().cpu().numpy())[0, 1])
+    out = dict(phase="quant_reference", quantize_seconds=quantize_s, int8_buffers_gib=int8_gib,
+               int8_linears=launches, g_vs_plain_rel_rms_err=rel_rms(got, plain), tol=5e-2,
+               int8_vs_bf16_corr=corr, int8_vs_bf16_mean_abs_over_max=((got - ref).abs().mean() / ref.abs().max()).item(),
+               int8_vs_bf16_rel_rms=rel_rms(got, ref), finite=bool(torch.isfinite(got).all()))
+    out["ok"] = (out["finite"] and launches == INT8_LINEARS and out["g_vs_plain_rel_rms_err"] <= out["tol"]
+                 and corr > 0.98 and out["int8_vs_bf16_mean_abs_over_max"] < 0.15)
     return out
 
 
@@ -649,7 +768,7 @@ def run_training(tmp, remat_policy: str):
                  and hist[0]["lora_b_absmax"] > 0
                  and {"state.pt", "consolidated.00-of-01.pth", "model_args.json", "resume_step.txt"} <= set(files)
                  and (ckpt / "resume_step.txt").read_text() == "3"
-                 and all(launches[n] > 0 for n in TRAIN_KERNELS))
+                 and all(launches[n] > 0 for n in TRAIN_KERNELS) and launches["int8_matmul"] == 0)
     return out, result
 
 
@@ -664,7 +783,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from visualcloze_tpu_torch.ops import cuda_build
-    from visualcloze_tpu_torch.pipeline import random_components
+    from visualcloze_tpu_torch.pipeline import random_components, synthetic_full_components
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -694,6 +813,12 @@ def main() -> int:
         lambda: [check_conv((1, 96, 288, 512, 512), False, 10)],   # decoder upsample conv
         lambda: [check_conv((1, 48, 144, 512, 512), True, 20)],    # bottleneck
         lambda: [check_conv((1, 1024, 1024, 128, 128), True, 5)],  # SDEdit image, level 0
+        lambda: [check_int8_matmul(3968, 3072, 21504, "linear1", 20)],
+        lambda: [check_int8_matmul(3968, 15360, 3072, "linear2", 20)],
+        lambda: [check_int8_matmul(3456, 3072, 9216, "img_attn.qkv", 20)],
+        lambda: [check_int8_matmul(1, 3072, 18432, "double-block modulation", 50)],
+        lambda: [check_int8_matmul(3456, 3072, 64, "final_layer.linear", 50)],
+        lambda: [check_int8_matmul(4097, 3072, 3072, "ragged M (proj)", 20)],
     ]
     first = {}
     for fn in checks:
@@ -725,7 +850,9 @@ def main() -> int:
 
     serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
     training = ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
-    r1 = run_request(model, "2x3 default query with SDEdit", 2, 3, 30, True, seed=1, used=serving, unused=training)
+    bf16_unused = training + ("int8_matmul",)
+    r1 = run_request(model, "2x3 default query with SDEdit", 2, 3, 30, True, seed=1, used=serving,
+                     unused=bf16_unused)
     emit(r1)
     if not r1["ok"]:
         raise RuntimeError("request 1 failed")
@@ -734,11 +861,38 @@ def main() -> int:
     budget = TIME_LIMIT_S * 0.3 - elapsed()
     steps2 = int(max(2, min(30, 1 + budget / (per_step * 1.6))))
     r2 = run_request(model, "3x3 query, padded to 5760 tokens", 3, 3, steps2, False, seed=2, used=serving,
-                     unused=training)
+                     unused=bf16_unused)
     emit(r2)
     if not r2["ok"]:
         raise RuntimeError("request 2 failed")
+    qref = quant_reference(model)
+    emit(qref)
+    if not qref["ok"]:
+        raise RuntimeError(f"int8 reference failed: {qref}")
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the single-card int8 stack, serving request 1's query
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    qmodel = synthetic_full_components(tiny=False, t5_int4=True, device="cuda",
+                                       generator=torch.Generator(device="cuda").manual_seed(0), resolution=384)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    emit(dict(phase="init_int8", seconds=time.perf_counter() - t, resident_gib=resident,
+              init_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+    rq = run_request(qmodel, "2x3 default query with SDEdit, int8 DiT + int4 T5-XXL + int8 CLIP-L", 2, 3, 30, True,
+                     seed=1, used=serving + ("int8_matmul",), unused=training)
+    evals = rq["launches"]["flash_attn_rope"] // ATTENTION_CALLS  # DiT evaluations: 29 + 9 predicted
+    rq.update(phase="request_int8", resident_gib=resident, dit_evaluations=evals,
+              int8_launches_predicted=INT8_LINEARS * 38, int8_launches_expected=INT8_LINEARS * evals,
+              stage_seconds_bf16=r1["stage_seconds"])
+    rq["ok"] = rq["ok"] and rq["launches"]["int8_matmul"] == INT8_LINEARS * evals
+    emit(rq)
+    if not rq["ok"]:
+        raise RuntimeError("int8 request failed")
+    del qmodel
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -754,7 +908,8 @@ def main() -> int:
     emit(dict(phase="freed", allocated_gib=torch.cuda.memory_allocated() / 2 ** 30))
     r3 = run_request(model, "2x2 query, interleaved layout", 2, 2, 9, False, seed=3,
                      used=("flash_attn_fwd", "conv3x3_gn_swish", "flash_attn_d512"),
-                     unused=("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
+                     unused=("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                             "int8_matmul"))
     emit(dict(r3, phase="query_interleaved", rope_layout=model.rope_layout))
     if not r3["ok"]:
         raise RuntimeError("interleaved query failed")
@@ -764,7 +919,7 @@ def main() -> int:
         r = first[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=sum(run["launches"][name] for run in (r1, r2, train, r3)),
+            launches=sum(run["launches"][name] for run in (r1, r2, rq, train, r3)),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
         ))

@@ -170,3 +170,28 @@ def test_gpu_conv3x3_matches_plain(shape, pre):
     torch.cuda.synchronize()
     want = tconv.conv3x3_plain(x, w, b, aff, act)
     _close(got, want, 1e-2 * want.abs().max().item())  # bf16 in, fp32 sums in another order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (333, 3072, 9216), (3456, 3072, 64), (3968, 3072, 21504)])
+def test_gpu_int8_matmul_matches_plain(m, k, n):
+    """Kernel G against its plain version: the modulation GEMV (M = 1), a
+    ragged M, final_layer.linear (N = 64) and linear1. N(0,1) bf16 x, uniform
+    int8 w, scale d_in^-0.5 / 127; 4 bf16 ulps of the largest output (fp32
+    sums of K exact products in another order); the fp32 output within 1e-5
+    of it."""
+    from visualcloze_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    dev = _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    scale = torch.full((n,), k ** -0.5 / 127, device=dev)
+    got = int8_matmul(x, w, scale)
+    got32 = int8_matmul(x, w, scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = int8_matmul_plain(x, w, scale, torch.float32)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    _close(got, want, _ulps_tol(want))
+    _close(got32, want, 1e-5 * want.abs().max().item())

@@ -50,9 +50,11 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
 
     flash_mha(q4, q4, q4).sum().backward()
     assert q4.grad is not None and out.shape == q4.shape
+    y = ops.int8_matmul(torch.randn(3, 64), torch.ones(64, 16, dtype=torch.int8), torch.ones(16))
+    assert y.shape == (3, 16) and y.dtype == torch.bfloat16
     assert ops.kernel_launches() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"flash_attn_rope", "flash_attn_d512", "conv3x3_gn_swish", "flash_attn_fwd",
-                                "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"}
+                                "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "int8_matmul"}
 
 
 def _imports(path: Path) -> set[str]:
@@ -71,7 +73,8 @@ def test_port_imports_nothing_of_jax():
     scanned = {str(f.relative_to(PKG)) for f in files if PKG in f.parents}
     for module in ("training/train.py", "training/step.py", "training/batch.py", "training/checkpoint.py",
                    "data/dataset.py", "data/data_reader.py", "data/degradations.py", "data/loader.py",
-                   "transport/transport.py", "models/lora.py", "models/weights.py", "utils/misc.py"):
+                   "transport/transport.py", "models/lora.py", "models/weights.py", "utils/misc.py",
+                   "models/quant.py", "ops/int8_matmul.py"):
         assert module in scanned, module
     for path in files:
         for mod in _imports(path):
@@ -95,6 +98,29 @@ def test_inference_cli_sizes_the_model_by_device(tmp_path, monkeypatch):
         inference.main(["--demo", "-o", str(out)])
 
 
+def test_inference_cli_serves_the_int8_stack_on_the_cpu(tmp_path):
+    """--quantize int8 --t5_int4 on the CPU: the tiny model quantized after the
+    fact (int8 DiT through G's plain version, int4 T5), as JAX's --demo; the
+    w8a8 modes are refused."""
+    from PIL import Image
+
+    from visualcloze_tpu_torch import inference
+    from visualcloze_tpu_torch.models.layers import Int8Linear
+    from visualcloze_tpu_torch.models.quant import Int4Linear
+
+    out = tmp_path / "int8.jpg"
+    argv = ["--demo", "--device", "cpu", "--steps", "2", "--upsampling_steps", "2", "--quantize", "int8",
+            "--t5_int4", "-o", str(out)]
+    inference.main(argv)
+    assert Image.open(out).size == (64, 64)
+    model = inference.build_model(inference.parse_args(argv), torch.device("cpu"))
+    assert isinstance(model.flux.single_blocks[0].linear1, Int8Linear)
+    assert isinstance(model.t5.model.blocks[0].attn.q, Int4Linear)
+    for mode in ("w8a8", "w8a8_smooth"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
+            inference.main(["--demo", "--device", "cpu", "--quantize", mode, "-o", str(out)])
+
+
 def test_profile_step_classes_kernels_by_demangled_name():
     from visualcloze_tpu_torch.profile_step import kernel_class
 
@@ -105,6 +131,8 @@ def test_profile_step_classes_kernels_by_demangled_name():
     assert kernel_class("(anonymous namespace)::flash_bwd_dkv(__nv_bfloat16 const*)") == \
         "attention backward (kernel F)"
     assert kernel_class("(anonymous namespace)::rope_rotate(__nv_bfloat16 const*)") == "attention (kernel A)"
+    assert kernel_class("void (anonymous namespace)::int8_matmul_kernel<__nv_bfloat16>(__nv_bfloat16 const*, "
+                        "signed char const*)") == "int8 matmul (kernel G)"
     assert kernel_class("nvjet_tst_192x192_64x4_2x1_v_bz_coopB_bias_TNN") == "gemm (linears)"
     assert kernel_class("void at::native::reduce_kernel<512, 1>(at::native::ReduceOp)") == "other"
 
@@ -118,12 +146,18 @@ def test_trainer_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq",
-                                  "flash_attn_bwd_dkv", "flash_mha"])
+                                  "flash_attn_bwd_dkv", "flash_mha", "int8_matmul"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(name):
     """A tensor that is not on the CPU goes to the kernel path, which refuses
     what it does not take: here a meta tensor, never the plain version."""
     from visualcloze_tpu_torch.ops import flash_attention as fa
 
+    if name == "int8_matmul":
+        x = torch.empty((4, 128), device="meta", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.int8_matmul(x, torch.empty((128, 64), device="meta", dtype=torch.int8),
+                            torch.empty((64,), device="meta"))
+        return
     q = torch.empty((1, 2, 16, 128), device="meta")
     lse = torch.empty((1, 2, 16), device="meta")
     args = (q, q, q) if name in ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_mha") else (

@@ -6,11 +6,15 @@ name. The JAX layouts differ from PyTorch's in two places:
   - block trees are stacked along a leading depth axis (scanned in JAX):
     unstacked into the nn.ModuleList of blocks.
 VAE conv weights stay (kh, kw, in, out) and NHWC, as in JAX.
+Quantized entries ({"w_int8", "w_scale", "b"?}, {"w_int4", "w_scale"}, and
+{"w_int8", "w_scale"} token tables) keep the JAX layout in the port's
+quantized modules (models/quant.py, layers.Int8Linear): int8 and uint8 codes
+are copied exactly, every other leaf through fp32.
 
 flux_from_jax takes the `params` of a JAX VisualClozeModel as they stand:
 permuted by its constructor for rope_layout="half", in the reference's order
 for "interleaved"; the port's Flux is then run in the same layout.
-Every parameter of the target module must be assigned exactly once.
+Every parameter and buffer of the target module must be assigned exactly once.
 LoRA trees carry over with lora_from_jax (stacked block entries -> one per
 block) and back with lora_to_jax, for the tests.
 """
@@ -18,6 +22,7 @@ block) and back with lora_to_jax, for the tests.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Mapping
 
 import numpy as np
@@ -29,6 +34,8 @@ from .device import resolve_device
 from .models.autoencoder import AutoEncoder, build_autoencoder
 from .models.clip import CLIPTextEncoder, build_clip
 from .models.flux import Flux, build_flux
+from .models.layers import linear_kind
+from .models.quant import QUANTIZED_MODULES, build_clip_int8, build_t5_int4
 from .models.t5 import T5Encoder, build_t5
 
 
@@ -44,7 +51,13 @@ class _Loader:
         self.done: set[int] = set()
 
     def copy(self, param: torch.Tensor, arr, where: str) -> None:
-        src = torch.from_numpy(np.array(arr, dtype=np.float32))
+        arr = np.asarray(arr)
+        if np.issubdtype(arr.dtype, np.integer):  # int8 / uint8 codes: exact, into a buffer of the same type
+            src = torch.from_numpy(np.array(arr))
+            if src.dtype != param.dtype:
+                raise ValueError(f"{where}: JAX {arr.dtype} codes vs port {param.dtype}")
+        else:
+            src = torch.from_numpy(np.array(arr, dtype=np.float32))
         if tuple(src.shape) != tuple(param.shape):
             raise ValueError(f"{where}: JAX shape {tuple(src.shape)} vs port shape {tuple(param.shape)}")
         if id(param) in self.done:
@@ -62,6 +75,9 @@ class _Loader:
                     self.copy(target.weight, np.asarray(val["w"]).T, where + ".w")
                     if "b" in val:
                         self.copy(target.bias, val["b"], where + ".b")
+                elif isinstance(target, QUANTIZED_MODULES):  # leaves named as the entry's; "b" is the bias
+                    for leaf, arr in val.items():
+                        self.copy(getattr(target, "bias" if leaf == "b" else leaf), arr, f"{where}.{leaf}")
                 else:
                     self.load(target, val, where)
             elif isinstance(val, (list, tuple)):
@@ -75,9 +91,10 @@ class _Loader:
                 self.copy(target, val, where)
 
     def finish(self) -> None:
-        missing = [n for n, p in self.module.named_parameters() if id(p) not in self.done]
+        tensors = itertools.chain(self.module.named_parameters(), self.module.named_buffers())
+        missing = [n for n, p in tensors if id(p) not in self.done]
         if missing:
-            raise ValueError(f"parameters not in the JAX tree: {missing[:8]}")
+            raise ValueError(f"parameters or buffers not in the JAX tree: {missing[:8]}")
 
 
 def _unstack(tree: Mapping, depth: int) -> list:
@@ -99,9 +116,23 @@ def _carry(module: nn.Module, tree: Mapping, stacked: dict[str, int]) -> nn.Modu
     return module
 
 
+def _linear_kinds(tree: Mapping) -> set[str]:
+    """linear_kind of every linear entry ({"w"...} or {"w_int8"...}) in the tree."""
+    kinds = set()
+    for val in tree.values():
+        if isinstance(val, Mapping):
+            kinds |= {linear_kind(val)} if {"w", "w_int8", "w_int4"} & set(val) else _linear_kinds(val)
+    return kinds
+
+
 def flux_from_jax(params: Mapping, cfg: FluxConfig, device=None, dtype=torch.float32) -> Flux:
+    """A dense tree, or a quantize_flux_int8 / init_flux_int8 one (every
+    linear int8: Int8Linear through kernel G; biases and norms in `dtype`)."""
     cfg = config_from(cfg, FluxConfig)
-    model = build_flux(cfg, resolve_device(device), dtype)
+    kinds = _linear_kinds(params)
+    if len(kinds) > 1:
+        raise ValueError(f"a Flux tree with dense and int8 linears mixed is not supported: {kinds}")
+    model = build_flux(cfg, resolve_device(device), dtype, int8=kinds == {"int8"})
     return _carry(model, params, {"double_blocks": cfg.depth, "single_blocks": cfg.depth_single_blocks})
 
 
@@ -111,13 +142,26 @@ def vae_from_jax(params: Mapping, cfg: AutoEncoderConfig, device=None, dtype=tor
 
 
 def t5_from_jax(params: Mapping, cfg: T5Config, device=None, dtype=torch.float32) -> T5Encoder:
+    """A dense tree, or a quantize_t5_int4 / init_t5_int4 one (int4 block
+    linears, the token table int8 or not)."""
     cfg = config_from(cfg, T5Config)
-    return _carry(build_t5(cfg, resolve_device(device), dtype), params, {"blocks": cfg.num_layers})
+    device = resolve_device(device)
+    if isinstance(params["blocks"]["attn"]["q"], Mapping):
+        model = build_t5_int4(cfg, device, dtype, int8_embed=isinstance(params["embed"], Mapping))
+    else:
+        model = build_t5(cfg, device, dtype)
+    return _carry(model, params, {"blocks": cfg.num_layers})
 
 
 def clip_from_jax(params: Mapping, cfg: CLIPTextConfig, device=None, dtype=torch.float32) -> CLIPTextEncoder:
+    """A dense tree, or a quantize_clip_int8 / init_clip_int8 one."""
     cfg = config_from(cfg, CLIPTextConfig)
-    return _carry(build_clip(cfg, resolve_device(device), dtype), params, {"blocks": cfg.num_layers})
+    device = resolve_device(device)
+    if "w_int8" in params["blocks"]["fc1"]:
+        model = build_clip_int8(cfg, device, dtype, int8_embed=isinstance(params["token_embed"], Mapping))
+    else:
+        model = build_clip(cfg, device, dtype)
+    return _carry(model, params, {"blocks": cfg.num_layers})
 
 
 def _tensors(tree, device, dtype):

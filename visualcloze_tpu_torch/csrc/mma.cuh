@@ -1,6 +1,7 @@
 // Warp-level building blocks of the D = 128 attention kernels (forward in
-// flash_attn_rope.cu, backward in flash_attn_bwd.cu): mma.sync m16n8k16 bf16
-// with fp32 accumulators, ldmatrix, cp.async tile loads into shared memory.
+// flash_attn_rope.cu, backward in flash_attn_bwd.cu) and of the int8-weight
+// matmul (int8_matmul.cu): mma.sync m16n8k16 bf16 with fp32 accumulators,
+// ldmatrix, cp.async tile loads into shared memory.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..), a2 = (g, 2t+8..),
@@ -35,6 +36,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
                : "r"(addr));
 }
 
+// the A fragment of a 16 x 16 tile of a row-major bf16 matrix in shared memory:
+// lane i gives the address of row i % 16, columns (i / 16) * 8 .. + 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -54,6 +64,13 @@ __device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
 __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool pred) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+// 16 bytes of any type (both addresses 16-byte aligned); !pred zero-fills
+__device__ __forceinline__ void cp_async16_bytes(void* dst, const void* src, bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
 

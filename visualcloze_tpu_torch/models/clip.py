@@ -4,6 +4,9 @@ visualcloze_tpu/models/clip.py).
 FLUX consumes only the pooled output: the final-LN hidden state at the EOT
 token, located by the argmax of the input ids. Causal mask, no padding mask,
 as in the reference. Attention is plain matmul, as it is plain einsum in JAX.
+The int8 encoder (models/quant.py: quantize_clip_int8, init_clip_int8) has
+the same tree with quant.DequantInt8Linear block linears and an int8 token
+table (quant.Int8Embedding).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from torch import nn
 
 from ..config import CLIPTextConfig
 from .init import init_linears_, materialize, normal_
+from .t5 import embed_tokens
 
 
 class LayerNorm(nn.Module):
@@ -78,7 +82,7 @@ class CLIPTextEncoder(nn.Module):
         """input_ids (B, L) -> (last_hidden_state (B, L, D), pooled (B, D))."""
         cfg = self.cfg
         b, L = input_ids.shape
-        tok = F.embedding(input_ids, self.token_embed)
+        tok = embed_tokens(self.token_embed, input_ids)
         h = tok + self.pos_embed[:L].to(tok.dtype)
         heads, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
         causal = torch.triu(torch.full((L, L), -1e9, dtype=torch.float32, device=h.device), diagonal=1)

@@ -9,6 +9,7 @@ package's) stands in for the HF tokenizers.
 
 from __future__ import annotations
 
+import itertools
 from typing import Sequence
 
 import numpy as np
@@ -64,7 +65,7 @@ class TextEncoder:
 
     @property
     def device(self) -> torch.device:
-        return next(self.model.parameters()).device
+        return next(itertools.chain(self.model.parameters(), self.model.buffers())).device
 
     def __call__(self, prompts: str | Sequence[str]) -> torch.Tensor:
         if isinstance(prompts, str):

@@ -26,8 +26,8 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from ..config import FluxConfig
 from ..ops.rope import embed_nd
 from ..ops.schedule import timestep_embedding
-from .init import init_linears_, materialize
-from .layers import DoubleBlock, LastLayer, Linear, MLPEmbedder, SingleBlock
+from .init import init_linears_, materialize, swap_modules
+from .layers import DoubleBlock, Int8Linear, LastLayer, Linear, MLPEmbedder, SingleBlock
 
 REMAT_POLICIES = (None, "dots", "dots_split")
 _dots_context = functools.partial(
@@ -124,6 +124,15 @@ class Flux(nn.Module):
         return self.final_layer(x[:, txt_len:], vec, l.get("final_layer"), lora_scale)
 
 
-def build_flux(cfg: FluxConfig, device, dtype) -> Flux:
-    """A Flux with uninitialized weights of `dtype` allocated on `device`."""
-    return materialize(lambda: Flux(cfg), device, dtype)
+def build_flux(cfg: FluxConfig, device, dtype, int8: bool = False) -> Flux:
+    """A Flux with uninitialized weights of `dtype` allocated on `device`.
+    int8: every linear an Int8Linear (the JAX package's quantize_flux_int8
+    tree: int8 codes, fp32 scales, biases and norm scales in `dtype`)."""
+
+    def ctor():
+        flux = Flux(cfg)
+        if int8:
+            swap_modules(flux, Linear, lambda m: Int8Linear(m.in_features, m.out_features, m.bias is not None))
+        return flux
+
+    return materialize(ctor, device, dtype)

@@ -30,12 +30,24 @@ def _default_dtype(dtype: torch.dtype):
 def materialize(ctor: Callable[[], M], device: torch.device, dtype: torch.dtype) -> M:
     """ctor() with uninitialized parameters of `dtype` on `device`, frozen
     (what trains, LoRA factors or base weights, is made trainable by the
-    trainer)."""
+    trainer). `dtype` is only the default: a tensor the constructor types
+    itself (the int8 codes and fp32 scales of a quantized linear) keeps its
+    type."""
     with torch.device("meta"), _default_dtype(dtype):
         module = ctor()
     module = module.to_empty(device=device)
     module.requires_grad_(False)
     return module.eval()
+
+
+def swap_modules(module: nn.Module, cls: type, make: Callable[[nn.Module], nn.Module]) -> nn.Module:
+    """Replace every submodule of type `cls` below `module` by make(it), in place."""
+    for name, child in module.named_children():
+        if isinstance(child, cls):
+            setattr(module, name, make(child))
+        else:
+            swap_modules(child, cls, make)
+    return module
 
 
 @torch.no_grad()

@@ -4,8 +4,9 @@ Precision policy, as in the JAX package: matmuls in the parameter dtype,
 LayerNorm / RMSNorm / RoPE / softmax in fp32, modulation arithmetic in fp32
 cast to the stream dtype at the residual add. Module and parameter names
 mirror the JAX parameter tree so that convert.py maps one onto the other.
-Only the dense (bf16/fp32) linear is ported; the int8/int4/w8a8 branches
-wait for later slices.
+The dense linear and the int8 weight-only one (`Int8Linear`, through kernel
+G) are ported; w8a8 and int4 DiT entries wait for a later slice (convert.py
+refuses them).
 
 LoRA is unfolded, as in JAX: every forward takes an optional `lora` tree
 (the entries of models/lora.py keyed like the module's own children) and
@@ -24,6 +25,7 @@ from torch import nn
 
 from ..config import FluxConfig
 from ..ops.attention import attention, rope_qk
+from ..ops.int8_matmul import int8_matmul
 from .lora import Lora
 
 
@@ -48,6 +50,41 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor, lora: Lora | None = None, lora_scale: float = 1.0) -> torch.Tensor:
         x = x.to(self.weight.dtype)
         y = F.linear(x, self.weight, self.bias)
+        if lora is not None:
+            y = y + _lora_delta(lora, x, lora_scale)
+        return y
+
+
+def linear_kind(entry) -> str:
+    """"dense" or "int8" for a JAX linear entry (a mapping of its leaves);
+    the w8a8 and int4 DiT entries are not ported yet."""
+    if "a8" in entry or "a_sinv" in entry:
+        raise NotImplementedError("w8a8 linears (quantize_flux_w8a8[_smooth]) are not ported yet: ROADMAP item 1")
+    if "w_int4" in entry:
+        raise NotImplementedError("int4 DiT linears (quantize_flux_int4) are not ported yet: ROADMAP item 1")
+    return "int8" if "w_int8" in entry else "dense"
+
+
+class Int8Linear(nn.Module):
+    """The int8 weight-only linear (JAX `linear`'s "w_int8" branch): buffers
+    w_int8 (in, out) int8 and w_scale (out,) fp32, as the JAX entry stores
+    them, and a bias in the compute dtype. y = bf16(x) @ (w_int8 * w_scale)
+    through kernel G (its plain version for CPU tensors), + b, + the LoRA
+    delta. G rounds once, after the fp32 rescale; JAX rounds the bf16 dot to
+    bf16 first, so the two differ by at most one bf16 ulp."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("w_int8", torch.empty((in_features, out_features), dtype=torch.int8))
+        self.register_buffer("w_scale", torch.empty((out_features,), dtype=torch.float32))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor, lora: Lora | None = None, lora_scale: float = 1.0) -> torch.Tensor:
+        x = x.to(torch.bfloat16)
+        y = int8_matmul(x.contiguous(), self.w_int8, self.w_scale)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
         if lora is not None:
             y = y + _lora_delta(lora, x, lora_scale)
         return y

@@ -1,0 +1,306 @@
+"""Weight-only quantization of the port (counterpart of visualcloze_tpu/models/quant.py).
+
+The port's own copy of what single-card int8 serving needs:
+  - int8 linears with one fp32 scale per output channel, symmetric absmax
+    (`quantize_linear_int8`); in the DiT they run through kernel G
+    (layers.Int8Linear), in CLIP as JAX's `clip._linear` does (weight and
+    scale each cast to x's dtype, then multiplied: `DequantInt8Linear`);
+  - int4 T5 block linears, two codes per uint8 along the input dimension,
+    one fp32 scale per (128-row input group, output channel)
+    (`quantize_weight_int4`), dequantized to x's dtype at each call
+    (`Int4Linear`, JAX `t5._w`);
+  - int8 token tables with one scale per row (`quantize_embedding_int8`),
+    dequantized after the gather (`embedding_lookup`, `Int8Embedding`).
+Rounding is half-to-even in both frameworks (jnp.round, torch.round), so the
+codes and scales match the JAX package's bit for bit.
+
+The model-level functions take and return modules. `quantize_*` build a new
+quantized module beside the source one, one leaf at a time (the fp32
+temporaries never exceed one weight); `init_*` draw random codes straight on
+the device from a torch.Generator (uniform over the code range, like JAX's
+random bits), so peak memory equals resident memory. Their leaves are named
+as the JAX trees' entries, so convert.py carries either tree into the other's
+module. w8a8, SmoothQuant and the int4 DiT are not ported (ROADMAP item 1).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import CLIPTextConfig, FluxConfig, T5Config
+from .clip import CLIPTextEncoder, LayerNorm
+from .flux import Flux, build_flux
+from .init import materialize, normal_, swap_modules
+from .layers import Int8Linear
+from .t5 import T5Encoder
+
+INT4_GROUP = 128
+
+
+# ----------------------------- arithmetic -----------------------------
+
+
+def quantize_linear_int8(p: Mapping) -> dict:
+    """{"w" (..., in, out), "b"?} -> {"w_int8", "w_scale" (..., out) fp32,
+    "b"?}; symmetric absmax per output channel."""
+    w = p["w"].to(torch.float32)
+    scale = torch.clamp_min(w.abs().amax(dim=-2, keepdim=True), 1e-8) / 127.0
+    out = {"w_int8": torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8),
+           "w_scale": scale[..., 0, :]}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def dequantize_linear(p: Mapping, dtype: torch.dtype = torch.float32) -> dict:
+    out = {"w": (p["w_int8"].to(torch.float32) * p["w_scale"][..., None, :]).to(dtype)}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def _int4_group_for(din: int, group: int = INT4_GROUP) -> int:
+    """quantize_weight_int4's group: halved until it divides din (and stays even)."""
+    while din % group or group % 2:
+        group //= 2
+    if group < 2:
+        raise ValueError(f"no even int4 group divides the input dim {din}")
+    return group
+
+
+def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP) -> dict:
+    """w (..., in, out) -> {"w_int4": (..., in/2, out) uint8 (row 2i in the low
+    nibble, 2i+1 in the high), "w_scale": (..., in/group, out) fp32}."""
+    *lead, din, dout = w.shape
+    if din % 2:
+        raise ValueError(f"int4 packing needs an even input dim, got weight shape {tuple(w.shape)}")
+    group = _int4_group_for(din, group)
+    wf = w.to(torch.float32).reshape(*lead, din // group, group, dout)
+    scale = torch.clamp_min(wf.abs().amax(dim=-2, keepdim=True), 1e-8) / 7.0
+    q = torch.clamp(torch.round(wf / scale), -8, 7).to(torch.int8).reshape(*lead, din, dout)
+    lo = q[..., 0::2, :].to(torch.uint8) & 0xF
+    hi = q[..., 1::2, :].to(torch.uint8) & 0xF
+    return {"w_int4": (hi << 4) | lo, "w_scale": scale[..., 0, :].reshape(*lead, din // group, dout)}
+
+
+def dequant_weight_int4(entry: Mapping, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """{"w_int4", "w_scale"} -> (..., in, out) in `dtype` (fp32 products, one rounding)."""
+    p8, scale = entry["w_int4"], entry["w_scale"]
+    lo = ((p8 & 0xF).to(torch.int8) ^ 8) - 8  # sign-extend the nibble
+    hi = ((p8 >> 4).to(torch.int8) ^ 8) - 8
+    q = torch.stack([lo, hi], dim=-2)  # (..., in/2, 2, out)
+    *lead, half, _, dout = q.shape
+    din, gin = 2 * half, scale.shape[-2]
+    wf = q.reshape(*lead, gin, din // gin, dout).to(torch.float32) * scale[..., :, None, :]
+    return wf.reshape(*lead, din, dout).to(dtype)
+
+
+def quantize_embedding_int8(emb: torch.Tensor) -> dict:
+    """(V, d) table -> {"w_int8": (V, d) int8, "w_scale": (V, 1) fp32}: one
+    symmetric scale per row."""
+    ef = emb.to(torch.float32)
+    scale = torch.clamp_min(ef.abs().amax(dim=-1, keepdim=True), 1e-8) / 127.0
+    return {"w_int8": torch.clamp(torch.round(ef / scale), -127, 127).to(torch.int8), "w_scale": scale}
+
+
+def embedding_lookup(emb, input_ids: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Rows of a plain (V, d) table, or of a {"w_int8", "w_scale"} table
+    dequantized after the gather (rows, then scales, each cast to `dtype`)."""
+    if isinstance(emb, Mapping):
+        return emb["w_int8"][input_ids].to(dtype) * emb["w_scale"][input_ids].to(dtype)
+    return F.embedding(input_ids, emb)
+
+
+# ----------------------------- quantized modules -----------------------------
+
+
+class Int8Embedding(nn.Module):
+    """An int8 token table: buffers w_int8 (V, d) int8, w_scale (V, 1) fp32."""
+
+    def __init__(self, vocab_size: int, dim: int):
+        super().__init__()
+        self.register_buffer("w_int8", torch.empty((vocab_size, dim), dtype=torch.int8))
+        self.register_buffer("w_scale", torch.empty((vocab_size, 1), dtype=torch.float32))
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return embedding_lookup({"w_int8": self.w_int8, "w_scale": self.w_scale}, input_ids)
+
+
+class Int4Linear(nn.Module):
+    """A bias-free int4 linear (T5): buffers w_int4 (in/2, out) uint8 and
+    w_scale (in/group, out) fp32; y = x @ dequant(w) in x's dtype."""
+
+    def __init__(self, in_features: int, out_features: int, group: int = INT4_GROUP):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.group = _int4_group_for(in_features, group)
+        self.register_buffer("w_int4", torch.empty((in_features // 2, out_features), dtype=torch.uint8))
+        self.register_buffer("w_scale", torch.empty((in_features // self.group, out_features), dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, dequant_weight_int4({"w_int4": self.w_int4, "w_scale": self.w_scale}, x.dtype))
+
+
+class DequantInt8Linear(nn.Module):
+    """CLIP's int8 linear (JAX `clip._linear`): y = x @ (w_int8.to(x.dtype) *
+    w_scale.to(x.dtype)) + b, plain PyTorch (a different rounding from kernel
+    G's, and one 77-token pass per query)."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("w_int8", torch.empty((in_features, out_features), dtype=torch.int8))
+        self.register_buffer("w_scale", torch.empty((out_features,), dtype=torch.float32))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.w_int8.to(x.dtype) * self.w_scale.to(x.dtype)
+        return torch.matmul(x, w) + self.bias.to(x.dtype)
+
+
+QUANTIZED_MODULES = (Int8Linear, DequantInt8Linear, Int4Linear, Int8Embedding)
+
+
+def build_t5_int4(cfg: T5Config, device, dtype, int8_embed: bool, group: int = INT4_GROUP) -> T5Encoder:
+    """An uninitialized T5 whose block linears are Int4Linear (and, with
+    int8_embed, whose token table is an Int8Embedding); the rest in `dtype`."""
+
+    def ctor():
+        t5 = swap_modules(T5Encoder(cfg), nn.Linear, lambda m: Int4Linear(m.in_features, m.out_features, group))
+        if int8_embed:  # a module in the parameter's place
+            del t5.embed
+            t5.embed = Int8Embedding(cfg.vocab_size, cfg.d_model)
+        return t5
+
+    return materialize(ctor, device, dtype)
+
+
+def build_clip_int8(cfg: CLIPTextConfig, device, dtype, int8_embed: bool = True) -> CLIPTextEncoder:
+    """An uninitialized CLIP with DequantInt8Linear block linears and (with
+    int8_embed, as quantize_clip_int8 makes it) an int8 token table."""
+
+    def ctor():
+        clip = swap_modules(CLIPTextEncoder(cfg), nn.Linear, lambda m: DequantInt8Linear(m.in_features, m.out_features))
+        if int8_embed:
+            del clip.token_embed
+            clip.token_embed = Int8Embedding(cfg.vocab_size, cfg.hidden_size)
+        return clip
+
+    return materialize(ctor, device, dtype)
+
+
+@torch.no_grad()
+def _quantized_copy(dst: nn.Module, src: nn.Module) -> nn.Module:
+    """Fill the quantized module `dst` from the dense `src` of the same tree:
+    every parameter copied by name, every quantized leaf quantized from the
+    source's weight (one leaf at a time)."""
+    src_params, src_mods = dict(src.named_parameters()), dict(src.named_modules())
+    for name, p in dst.named_parameters():
+        p.copy_(src_params[name])
+    for name, m in dst.named_modules():
+        if not isinstance(m, QUANTIZED_MODULES):
+            continue
+        if isinstance(m, Int8Embedding):
+            q = quantize_embedding_int8(src_params[name])
+        elif isinstance(m, Int4Linear):
+            q = quantize_weight_int4(src_mods[name].weight.t(), m.group)
+        else:
+            q = quantize_linear_int8({"w": src_mods[name].weight.t()})
+        for key, val in q.items():
+            getattr(m, key).copy_(val)
+    return dst
+
+
+def _dtype_of(module: nn.Module) -> torch.dtype:
+    return next(module.parameters()).dtype
+
+
+def quantize_flux_int8(flux: Flux) -> Flux:
+    """A new Flux on flux's device with every linear int8 (Int8Linear);
+    biases and norm scales keep their dtype. The source is left as it is."""
+    dev = next(flux.parameters()).device
+    return _quantized_copy(build_flux(flux.cfg, dev, _dtype_of(flux), int8=True), flux)
+
+
+def quantize_t5_int4(t5: T5Encoder, group: int = INT4_GROUP, quantize_embed: bool = False) -> T5Encoder:
+    """A new T5 with int4 block linears (and an int8 token table with
+    quantize_embed); norms and the relative bias keep their dtype."""
+    dev = next(t5.parameters()).device
+    return _quantized_copy(build_t5_int4(t5.cfg, dev, _dtype_of(t5), quantize_embed, group), t5)
+
+
+def quantize_clip_int8(clip: CLIPTextEncoder) -> CLIPTextEncoder:
+    """A new CLIP with int8 block linears and an int8 token table."""
+    dev = next(clip.parameters()).device
+    return _quantized_copy(build_clip_int8(clip.cfg, dev, _dtype_of(clip)), clip)
+
+
+@torch.no_grad()
+def init_flux_int8(cfg: FluxConfig, device, generator: torch.Generator, seed_scale: float = 0.02) -> Flux:
+    """Random int8 Flux built on the device (JAX init_flux_int8): codes
+    uniform over [-128, 127], w_scale = seed_scale * d_in^-0.5 / 127, zero
+    bf16 biases, unit q/k norm scales."""
+    flux = build_flux(cfg, device, torch.bfloat16, int8=True)
+    for m in flux.modules():
+        if isinstance(m, Int8Linear):
+            m.w_int8.random_(-128, 128, generator=generator)
+            m.w_scale.fill_(seed_scale * m.in_features ** -0.5 / 127.0)
+            if m.bias is not None:
+                m.bias.zero_()
+    for name, p in flux.named_parameters():
+        if name.endswith(("q_scale", "k_scale")):
+            p.fill_(1.0)
+    return flux
+
+
+def _random_int8_embedding(m: Int8Embedding, std: float, generator: torch.Generator) -> None:
+    m.w_int8.random_(-128, 128, generator=generator)
+    m.w_scale.fill_(std / 127.0)
+
+
+@torch.no_grad()
+def init_t5_int4(cfg: T5Config, device, generator: torch.Generator, quantize_embed: bool = True) -> T5Encoder:
+    """Random int4 T5 built on the device (JAX init_t5_int4): packed codes
+    uniform over all bytes, w_scale = std / 7 (std d_model^-0.5, or fan-in^-0.5
+    for o and wo), an int8 token table of std 1 (or a bf16 N(0, 1) one),
+    a bf16 N(0, 0.1) relative bias and unit norms."""
+    t5 = build_t5_int4(cfg, device, torch.bfloat16, quantize_embed)
+    d, kd, f = cfg.d_model, cfg.num_heads * cfg.d_kv, cfg.d_ff
+    for blk in t5.blocks:
+        for lin, std in ((blk.attn.q, d ** -0.5), (blk.attn.k, d ** -0.5), (blk.attn.v, d ** -0.5),
+                         (blk.attn.o, kd ** -0.5), (blk.ffn.wi_0, d ** -0.5), (blk.ffn.wi_1, d ** -0.5),
+                         (blk.ffn.wo, f ** -0.5)):
+            lin.w_int4.random_(0, 256, generator=generator)
+            lin.w_scale.fill_(std / 7.0)
+        blk.attn.ln.fill_(1.0)
+        blk.ffn.ln.fill_(1.0)
+    if quantize_embed:
+        _random_int8_embedding(t5.embed, 1.0, generator)
+    else:
+        normal_(t5.embed, 1.0, generator)
+    normal_(t5.relative_attention_bias, 0.1, generator)
+    t5.final_ln.fill_(1.0)
+    return t5
+
+
+@torch.no_grad()
+def init_clip_int8(cfg: CLIPTextConfig, device, generator: torch.Generator) -> CLIPTextEncoder:
+    """Random int8 CLIP built on the device (JAX init_clip_int8): codes
+    uniform over [-128, 127], w_scale = d_in^-0.5 / 127, zero biases, an int8
+    token table of std 0.02, a bf16 N(0, 0.01) position table, unit norms."""
+    clip = build_clip_int8(cfg, device, torch.bfloat16)
+    for m in clip.modules():
+        if isinstance(m, DequantInt8Linear):
+            m.w_int8.random_(-128, 128, generator=generator)
+            m.w_scale.fill_(m.in_features ** -0.5 / 127.0)
+            m.bias.zero_()
+        elif isinstance(m, LayerNorm):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+    _random_int8_embedding(clip.token_embed, 0.02, generator)
+    normal_(clip.pos_embed, 0.01, generator)
+    return clip

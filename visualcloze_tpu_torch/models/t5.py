@@ -4,6 +4,11 @@ RMSNorm with fp32 statistics, no biases, a relative position bias from one
 bucket table shared by all layers, unscaled q, gated-GELU FFN. Like the
 reference, no attention mask. Attention is plain matmul, as it is
 plain einsum in JAX.
+
+The int4 encoder (models/quant.py: quantize_t5_int4, init_t5_int4) has the
+same tree with quant.Int4Linear block linears, each dequantized to x's dtype
+at its call (JAX `t5._w` inside the scan), and optionally an int8 token table
+(quant.Int8Embedding).
 """
 
 from __future__ import annotations
@@ -15,6 +20,11 @@ from torch import nn
 
 from ..config import T5Config
 from .init import materialize, normal_
+
+
+def embed_tokens(table: torch.Tensor | nn.Module, input_ids: torch.Tensor) -> torch.Tensor:
+    """Rows of a (V, d) table, or of a quantized table module (quant.Int8Embedding)."""
+    return table(input_ids) if isinstance(table, nn.Module) else F.embedding(input_ids, table)
 
 
 def t5_rms_norm(weight: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -112,7 +122,7 @@ class T5Encoder(nn.Module):
         """input_ids (B, L) -> last_hidden_state (B, L, d_model)."""
         cfg = self.cfg
         b, L = input_ids.shape
-        x = F.embedding(input_ids, self.embed)
+        x = embed_tokens(self.embed, input_ids)
         buckets = torch.from_numpy(position_bias_table(cfg, L)).to(x.device)
         pos_bias = self.relative_attention_bias[buckets].to(torch.float32)  # (L, L, H)
         pos_bias = pos_bias.permute(2, 0, 1)[None]  # (1, H, L, L)

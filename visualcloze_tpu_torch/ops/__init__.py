@@ -9,6 +9,7 @@ from .flash_attention import (
     flash_attn_fwd_lse,
     flash_attn_rope,
 )
+from .int8_matmul import int8_matmul
 
 KERNELS = {
     "flash_attn_rope": flash_attn_rope,
@@ -18,6 +19,7 @@ KERNELS = {
     "flash_attn_fwd_lse": flash_attn_fwd_lse,
     "flash_attn_bwd_dq": flash_attn_bwd_dq,
     "flash_attn_bwd_dkv": flash_attn_bwd_dkv,
+    "int8_matmul": int8_matmul,
 }
 
 

@@ -1,7 +1,7 @@
 """Where a denoise step of the default query (or a LoRA train step) spends
 its device time.
 
-    python -m visualcloze_tpu_torch.profile_step [--steps 3] [--out profile_step.json] [--train]
+    python -m visualcloze_tpu_torch.profile_step [--steps 3] [--out profile_step.json] [--train | --quantize int8]
 
 Builds the full-width random-weight model in bf16 on the GPU, prepares the
 default query (a 2x3 grid at 384: 3456 image + 512 text tokens), times
@@ -13,6 +13,10 @@ elementwise and copies). The linears' FLOPs are counted with forward hooks
 on one untraced step, so their rate is their FLOPs over their own kernel
 time. Prints one JSON object; writes the 30 costliest kernels to --out.
 Exits 1 if the trace holds no device events.
+
+--quantize int8 profiles the same step of the single-card int8 stack
+(synthetic_full_components: int8 DiT, int4 T5, int8 CLIP), whose linears are
+kernel G instead of cuBLAS GEMMs.
 
 --train profiles the trainer's step instead: the same model in the
 interleaved layout with a rank-128 LoRA, per-block remat "full", one
@@ -32,17 +36,20 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .models.layers import Linear
-from .pipeline import random_components
+from .models.layers import Int8Linear, Linear
+from .pipeline import random_components, synthetic_full_components
 
 # demangled names of csrc/flash_attn_rope.cu (A, D, E) and flash_attn_bwd.cu (F)
 ATTENTION_KERNEL = re.compile(r"\b(rope_rotate|flash_fwd)[<(]")
 LSE_KERNEL = re.compile(r"\bflash_fwd<true>")
 BACKWARD_KERNEL = re.compile(r"\bflash_bwd_(dq|dkv)\(")
+INT8_KERNEL = re.compile(r"\bint8_matmul_kernel<")  # csrc/int8_matmul.cu
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
 def kernel_class(name: str) -> str:
+    if INT8_KERNEL.search(name):
+        return "int8 matmul (kernel G)"
     if LSE_KERNEL.search(name):
         return "attention forward (kernel E)"
     if BACKWARD_KERNEL.search(name):
@@ -94,12 +101,19 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--out", default="profile_step.json")
     p.add_argument("--train", action="store_true", help="profile a LoRA train step, not a denoise step")
+    p.add_argument("--quantize", default=None, choices=[None, "int8"],
+                   help="int8: the denoise step of the single-card int8 stack (kernel G)")
     args = p.parse_args(argv)
+    if args.train and args.quantize:
+        p.error("--quantize profiles a denoise step; the trainer trains the bf16 DiT")
 
     if args.train:
         model, run, tokens = train_runner()
     else:
-        model = random_components(tiny=False, dtype=torch.bfloat16, device="cuda", resolution=384)
+        if args.quantize == "int8":
+            model = synthetic_full_components(t5_int4=True, device="cuda", resolution=384)
+        else:
+            model = random_components(tiny=False, dtype=torch.bfloat16, device="cuda", resolution=384)
         q = default_query(model)
         tokens = q["x"].shape[1] + q["txt"].shape[1]
 
@@ -112,7 +126,7 @@ def main(argv=None) -> int:
         rows = inp[0].numel() // mod.in_features
         flops[0] += 2.0 * rows * mod.in_features * mod.out_features
 
-    hooks = [m.register_forward_hook(count) for m in model.flux.modules() if isinstance(m, Linear)]
+    hooks = [m.register_forward_hook(count) for m in model.flux.modules() if isinstance(m, (Linear, Int8Linear))]
     run(1)  # warm-up, and the linears' FLOPs of one step
     for h in hooks:
         h.remove()
@@ -159,11 +173,12 @@ def main(argv=None) -> int:
     for name, (us, _) in per_kernel.items():
         classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + us
     kernel_ms = sum(classes.values()) / 1e3 / args.steps
-    gemm_ms = classes.get("gemm (linears)", 0.0) / 1e3 / args.steps
+    gemm_ms = (classes.get("gemm (linears)", 0.0) + classes.get("int8 matmul (kernel G)", 0.0)) / 1e3 / args.steps
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     result = dict(
-        device=smi, torch=torch.__version__, mode="train" if args.train else "denoise", tokens=tokens,
+        device=smi, torch=torch.__version__, mode="train" if args.train else "denoise", quantize=args.quantize,
+        tokens=tokens,
         steps=args.steps,
         step_ms_cuda_events=step_ms, step_ms_traced_host=traced_ms,
         kernel_ms_per_step=kernel_ms,
