@@ -12,7 +12,6 @@ table (quant.Int8Embedding).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..config import CLIPTextConfig
