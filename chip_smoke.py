@@ -6,7 +6,7 @@
 Phases, each followed by one flushed JSON line on stdout:
   env        the card (nvidia-smi name and power limit), torch and CUDA versions;
   build      the CUDA kernels of visualcloze_tpu_torch/csrc, one nvcc per source
-             in parallel, with ptxas' register/spill report;
+             in parallel, with ptxas' register/spill report (a spill fails);
   kernel     each kernel against its plain PyTorch version at main-path shapes
              (bf16 N(0,1) inputs, on the card): max |err| beside the tolerance
              (attention forward and backward: 4 bf16 ulps at the largest
@@ -20,7 +20,10 @@ Phases, each followed by one flushed JSON line on stdout:
              timed as forward + backward minus forward; G's is
              torch._weight_int8pack_mm where it runs, else F.linear on a
              dequantized bf16 copy), and the bound from the H100 SXM data
-             sheet (989 TFLOP/s bf16 dense, 3.35 TB/s);
+             sheet (989 TFLOP/s bf16 dense, 3.35 TB/s); F (at 3968, 5760
+             padded, and 7680, the trainer's longest sequence, with a bias)
+             also reports share_of_bound and whether two launches gave the
+             same bits (deterministic, required);
   grad_reference  one full-width double block and one single block with a
              rank-128 LoRA: the LoRA gradients through kernels E and F against
              the same blocks through their plain versions (relative RMS);
@@ -57,6 +60,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -342,7 +346,8 @@ def check_attention_fwd(b: int, L: int, padded: bool, reps: int) -> list[dict]:
 
 def check_attention_bwd(b: int, L: int, padded: bool, reps: int) -> list[dict]:
     """Kernels F-dq and F-dkv against their plain versions, fed the plain
-    forward's lse and delta = rowsum(dO * O); masked keys get no gradient."""
+    forward's lse and delta = rowsum(dO * O); masked keys get no gradient;
+    a second launch of each gives the same bits (deterministic)."""
     import torch
     import torch.nn.functional as F
 
@@ -355,7 +360,10 @@ def check_attention_bwd(b: int, L: int, padded: bool, reps: int) -> list[dict]:
     args = (q, k, v, bias, do, lse, delta)
     dq = fa.flash_attn_bwd_dq(*args)
     dk, dv = fa.flash_attn_bwd_dkv(*args)
+    again = (fa.flash_attn_bwd_dq(*args),) + fa.flash_attn_bwd_dkv(*args)
     torch.cuda.synchronize()
+    deterministic = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    del again
     errs, tols = {}, {}
     for name, got, want_fn in (("dq", dq, lambda: fa.flash_bwd_dq_plain(*args)),
                                ("dkv", (dk, dv), lambda: fa.flash_bwd_dkv_plain(*args))):
@@ -382,17 +390,20 @@ def check_attention_bwd(b: int, L: int, padded: bool, reps: int) -> list[dict]:
         torch.autograd.grad(sdpa_fwd(), leaves, do)
 
     library_ms = cuda_ms(sdpa_fwd_bwd, reps) - cuda_ms(sdpa_fwd, reps)
-    common = dict(shape=[b, 24, L, 128], bias=padded, masked_keys_zero=masked_zero, library_ms=library_ms,
+    common = dict(shape=[b, 24, L, 128], bias=padded, masked_keys_zero=masked_zero, deterministic=deterministic,
+                  library_ms=library_ms,
                   library="F.scaled_dot_product_attention backward (fwd+bwd - fwd; dq, dk and dv together)")
     io = b * 24 * L * (128 * 2 * 4 + 4 * 2) + (b * L * 4 if padded else 0)  # q, k, v, dO; lse, delta; bias
     bms, by = bound(sum(6.0 * 24 * L * n * 128 for n in valid), io + b * 24 * L * 128 * 2)
-    rows = [dict(name="flash_attn_bwd_dq", max_abs_err=errs["dq"], tol=tols["dq"], ok=errs["dq"] <= tols["dq"],
-                 ms=ms_dq, plain_ms=plain_dq, bound_ms=bms, bound_by=by, **common)]
+    rows = [dict(name="flash_attn_bwd_dq", max_abs_err=errs["dq"], tol=tols["dq"],
+                 ok=errs["dq"] <= tols["dq"] and deterministic, ms=ms_dq, plain_ms=plain_dq, bound_ms=bms,
+                 bound_by=by, share_of_bound=bms / ms_dq, **common)]
     bms, by = bound(sum(8.0 * 24 * L * n * 128 for n in valid), io + 2 * b * 24 * L * 128 * 2)
     rows.append(dict(name="flash_attn_bwd_dkv", max_abs_err=max(errs["dk"], errs["dv"]),
                      err_dk=errs["dk"], tol_dk=tols["dk"], err_dv=errs["dv"], tol_dv=tols["dv"],
-                     ok=errs["dk"] <= tols["dk"] and errs["dv"] <= tols["dv"] and masked_zero,
-                     ms=ms_dkv, plain_ms=plain_dkv, bound_ms=bms, bound_by=by, **common))
+                     ok=errs["dk"] <= tols["dk"] and errs["dv"] <= tols["dv"] and masked_zero and deterministic,
+                     ms=ms_dkv, plain_ms=plain_dkv, bound_ms=bms, bound_by=by, share_of_bound=bms / ms_dkv,
+                     **common))
     return rows
 
 
@@ -796,7 +807,11 @@ def main() -> int:
     secs = cuda_build.build(force=True)
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in cuda_build.BUILD_LOG.items()}
-    emit(dict(phase="build", seconds=max(secs.values()), per_source=secs, ptxas=ptxas))
+    spill_bytes = {n: sum(int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
+                   for n, log in cuda_build.BUILD_LOG.items()}
+    emit(dict(phase="build", seconds=max(secs.values()), per_source=secs, ptxas=ptxas, spill_bytes=spill_bytes))
+    if any(spill_bytes.values()):
+        raise RuntimeError(f"ptxas spilled registers: {spill_bytes}")
 
     checks = [
         lambda: [check_attention_rope(3968, False, 20)],
@@ -806,6 +821,7 @@ def main() -> int:
         lambda: check_attention_fwd(2, 5760, True, 10),
         lambda: check_attention_bwd(1, 3968, False, 10),
         lambda: check_attention_bwd(2, 5760, True, 5),
+        lambda: check_attention_bwd(1, 7680, True, 5),  # the trainer's longest Graph200K sequence
         lambda: [check_attention_d512(6912, 10)],
         lambda: [check_attention_d512(16384, 5)],
         lambda: [check_conv((1, 384, 1152, 128, 128), True, 10)],  # encoder/decoder level 0

@@ -77,26 +77,49 @@ def test_gpu_flash_attn_fwd_and_lse_match_plain(padded, lk):
         _close(got[:1], torch.matmul(torch.softmax(s, dim=-1), v[:1, :, : L - 100].float()), tol)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("padded, lk", [(False, None), (True, None), (False, 1000)])
-def test_gpu_flash_attn_bwd_matches_plain(padded, lk):
-    """Kernels F-dq and F-dkv against their plain versions, fed the same lse
-    and delta: 4 bf16 ulps at each output's largest element (also with 300
-    queries against 1000 keys, as a ring chunk would pass them)."""
-    dev = _cuda_or_skip()
-    b, h, L = 2, 4, (1000 if lk is None else 300)
-    q, k, v, do, bias = _attn_case(dev, 4, b, h, L, padded, lk)
+def _bwd_case(dev, seed, L, padded, lk):
+    """F's inputs: a case of _attn_case with the plain forward's lse and
+    delta = rowsum(dO * O)."""
+    q, k, v, do, bias = _attn_case(dev, seed, 2, 4, L, padded, lk)
     o, lse = tfa.flash_fwd_lse_plain(q, k, v, bias)
     delta = (do.float() * o.float()).sum(-1)
-    dq = tfa.flash_attn_bwd_dq(q, k, v, bias, do, lse, delta)
-    dk, dv = tfa.flash_attn_bwd_dkv(q, k, v, bias, do, lse, delta)
+    return q, k, v, bias, do, lse, delta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L, padded, lk", [(1000, False, None), (1000, True, None), (300, False, 1000),
+                                           (300, False, 40), (4097, False, None), (4097, True, None)])
+def test_gpu_flash_attn_bwd_matches_plain(L, padded, lk):
+    """Kernels F-dq and F-dkv against their plain versions, fed the same lse
+    and delta: 4 bf16 ulps at each output's largest element. Also with 300
+    queries against 1000 keys, as a ring chunk would pass them, against 40
+    keys (less than one key tile), and at lengths that are multiples of no
+    tile (1000, 4097); masked keys get exactly zero."""
+    dev = _cuda_or_skip()
+    args = _bwd_case(dev, 4, L, padded, lk)
+    dq = tfa.flash_attn_bwd_dq(*args)
+    dk, dv = tfa.flash_attn_bwd_dkv(*args)
     torch.cuda.synchronize()
-    want_dq = tfa.flash_bwd_dq_plain(q, k, v, bias, do, lse, delta)
-    want_dk, want_dv = tfa.flash_bwd_dkv_plain(q, k, v, bias, do, lse, delta)
+    want_dq = tfa.flash_bwd_dq_plain(*args)
+    want_dk, want_dv = tfa.flash_bwd_dkv_plain(*args)
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         _close(got, want, _ulps_tol(want))
     if padded:  # masked keys get no gradient
         assert (dk[0, :, L - 100:] == 0).all() and (dv[0, :, L - 100:] == 0).all()
+        assert (dk[1] == 0).all() and (dv[1] == 0).all()
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attn_bwd_is_deterministic():
+    """Two launches of F-dq and F-dkv on the same inputs give the same bits
+    (no atomics: every sum is taken in a fixed order)."""
+    dev = _cuda_or_skip()
+    args = _bwd_case(dev, 6, 1000, True, None)
+    first = (tfa.flash_attn_bwd_dq(*args),) + tfa.flash_attn_bwd_dkv(*args)
+    second = (tfa.flash_attn_bwd_dq(*args),) + tfa.flash_attn_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,189 @@
+// Hopper (sm_90a) building blocks of the warp-specialised kernels
+// (flash_attn_bwd.cu): mbarriers, TMA tile loads, warpgroup MMA (wgmma) with
+// shared-memory descriptors for the 128-byte swizzle, register reallocation.
+//
+// Tile layout in shared memory (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
+// and a box of 64 columns x 64 rows): a tile of R rows x 128 bf16 columns is
+// two column halves [half][R][64], each row 128 bytes, 16-byte chunks XORed
+// with (row % 8) inside every 1024-byte group of 8 rows. Tiles start on
+// 1024-byte boundaries, so the swizzle follows the address bits and a
+// descriptor may start anywhere inside a tile.
+//
+// wgmma operand descriptors for that layout (PTX ISA, "matrix descriptor";
+// CUTLASS's canonical GMMA layouts):
+//   K-major (rows are M or N, the 128 columns are K): start = tile + half *
+//     R * 128 + row0 * 128 + (k16 step % 4) * 32 bytes, SBO = 1024 (8 rows),
+//     LBO unused (1);
+//   MN-major (rows are K, the 128 columns are N; the transposed B of dl.K):
+//     start = tile + k16 step * 16 rows * 128 bytes, LBO = R * 128 (from one
+//     64-column half to the next), SBO = 1024 (from 8 rows of K to the next).
+// Accumulator of m64nN (per warp w of the warpgroup, g = lane / 4, t = lane %
+// 4): d[4j + 0..1] = (row 16w + g, columns 8j + 2t..+1), d[4j + 2..3] = (row
+// 16w + g + 8, same columns): mma.sync's C layout. A register A operand of
+// m64k16 is mma.sync's A fragment, so two neighbouring 8-column accumulator
+// blocks, rounded to bf16 in pairs, are the A operand of the next product.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace vc {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// arrive and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. (A bounded spin
+// that traps would guard against a hang, but its exit path costs the
+// consumers spills and serialises their wgmma.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// generic-proxy writes to shared memory -> visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier ID (1..15) among COUNT threads (whole warps)
+template <int ID, int COUNT>
+__device__ __forceinline__ void named_barrier() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
+}
+
+// ---------------------------------------------------------------- TMA
+
+// one 64-column x box-rows box of a 3-D tensor map {128, L, B*H} at (col,
+// row, bh) into shared memory; completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int col, int row, int bh,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh)
+      : "memory");
+}
+
+// rows [row0, row0 + ROWS) x 128 columns of head bh into a [2][ROWS][64]
+// swizzled tile, as ROWS / 64 x 2 boxes of 64 x 64; rows past L arrive as zeros
+template <int ROWS>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, int row0, int bh,
+                                              uint32_t bar) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int r = 0; r < ROWS; r += 64) tma_load_3d(dst + h * ROWS * 128 + r * 128, map, h * 64, row0 + r, bh, bar);
+}
+
+// ---------------------------------------------------------------- registers
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------- wgmma
+
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);  // layout type 1: 128-byte swizzle
+}
+
+// K-major operand: rows [row0, row0 + 64) (or the N rows of B) of a [2][R][64]
+// tile at `tile`, k16 step kk of the 128 columns
+template <int R>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int row0, int kk) {
+  return gmma_desc(tile + (kk >> 2) * R * 128 + row0 * 128 + (kk & 3) * 32, 16, 1024);
+}
+
+// MN-major B: k16 step kk over the R rows of a [2][R][64] tile, N = 128 columns
+template <int R>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return gmma_desc(tile + kk * 16 * 128, R * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// keeps the compiler from moving accumulator reads across the async MMAs
+template <int N>
+__device__ __forceinline__ void fence_operands(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define VC_F4(d, i, c) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3])
+#define VC_F16(d, i, c) VC_F4(d, i, c), VC_F4(d, i + 4, c), VC_F4(d, i + 8, c), VC_F4(d, i + 12, c)
+
+#define VC_WGMMA_M64N64_SS                                                                \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                          \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+  "%32, %33, p, 1, 1, 0, 0;\n}\n"
+
+// d (64 x 64, fp32) (+)= A (64 x 16, smem K-major) . B (16 x 64, smem K-major).
+// Without `accumulate` d is write-only (scale-d = 0), so its old values are
+// dead and hold no registers across the products that come before it.
+__device__ __forceinline__ void wgmma_m64n64_ss(float* d, uint64_t a, uint64_t b, bool accumulate) {
+  if (accumulate)
+    asm volatile(VC_WGMMA_M64N64_SS : VC_F16(d, 0, "+f"), VC_F16(d, 16, "+f") : "l"(a), "l"(b), "r"(1));
+  else
+    asm volatile(VC_WGMMA_M64N64_SS : VC_F16(d, 0, "=f"), VC_F16(d, 16, "=f") : "l"(a), "l"(b), "r"(0));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, bf16 registers) . B (16 x 128, smem MN-major)
+__device__ __forceinline__ void wgmma_m64n128_rs_tb(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : VC_F16(d, 0, "+f"), VC_F16(d, 16, "+f"), VC_F16(d, 32, "+f"), VC_F16(d, 48, "+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef VC_WGMMA_M64N64_SS
+#undef VC_F16
+#undef VC_F4
+
+}  // namespace vc

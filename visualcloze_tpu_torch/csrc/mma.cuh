@@ -1,7 +1,8 @@
-// Warp-level building blocks of the D = 128 attention kernels (forward in
-// flash_attn_rope.cu, backward in flash_attn_bwd.cu) and of the int8-weight
-// matmul (int8_matmul.cu): mma.sync m16n8k16 bf16 with fp32 accumulators,
-// ldmatrix, cp.async tile loads into shared memory.
+// Warp-level building blocks of the D = 128 attention forward
+// (flash_attn_rope.cu) and of the int8-weight matmul (int8_matmul.cu):
+// mma.sync m16n8k16 bf16 with fp32 accumulators, ldmatrix, cp.async tile
+// loads into shared memory; pack2 and scale2 serve the backward
+// (flash_attn_bwd.cu) too.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..), a2 = (g, 2t+8..),

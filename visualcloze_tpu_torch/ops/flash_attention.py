@@ -15,7 +15,9 @@ Counterparts of the Pallas kernels in visualcloze_tpu/ops/flash_attention.py:
   - kernel E replaces `_flash_fwd_lse`: D plus the row log-sum-exp in log2
     units, stored compact (B, H, Lq) fp32;
   - kernel F replaces `_pallas_bwd_padded`: dq (F-dq) and dk/dv (F-dkv) from
-    q, k, v, bias, dO and the given lse and delta.
+    q, k, v, bias, dO and the given lse and delta, as two warp-specialised
+    Hopper kernels (TMA into an mbarrier ring, wgmma; a CTA per 128 queries,
+    resp. 128 keys, so neither needs atomics: deterministic).
 
 The plain versions repeat the kernels' arithmetic in PyTorch: q (rotated in
 fp32 for A) scaled by scale * log2(e) and rounded to the input dtype; k

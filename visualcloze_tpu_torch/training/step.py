@@ -7,8 +7,11 @@ global norm (trainable leaves only) is clipped to `grad_clip` the way optax's
 clip_by_global_norm does (g * clip / norm once norm >= clip), then AdamW with
 b1 0.9, b2 0.95, eps 1e-8 and decoupled weight decay (optax's adamw:
 m / (1 - b1^t) over sqrt(v / (1 - b2^t)) + eps; torch.optim.AdamW computes the
-same). Frozen leaves get no update and stay out of the norm; the EMA covers
-the trainable leaves only.
+same). Frozen leaves get no update; the EMA covers the trainable leaves only.
+In the masked types ("double_block", "bias", "norm") every base leaf is
+differentiated, as JAX differentiates the whole tree, and the logged
+grad_norm is the global norm of all those gradients, frozen ones included
+(JAX's optax.global_norm(grads)); the clip still sees the trainable ones only.
 
 Precision: the trainable leaves are fp32 masters, cast to the compute dtype
 inside the differentiated function. For training_type "lora" the frozen base
@@ -39,12 +42,20 @@ class TrainState:
     lora: Any | None  # LoRA tree of fp32 leaves; None for the other training types
     opt_state: torch.optim.Optimizer
     ema: dict[str, torch.Tensor] | None  # EMA of the trainable leaves, by name
+    mask: dict[str, bool] | None = None  # the base leaves that train (masked types)
 
     def trainable(self) -> dict[str, torch.Tensor]:
         """The leaves the optimizer updates, by dotted name."""
         if self.lora is not None:
             return dict(tree_items(self.lora))
-        return {n: p for n, p in self.params.named_parameters() if p.requires_grad}
+        return {n: p for n, p in self.params.named_parameters() if self.mask is None or self.mask[n]}
+
+    def differentiated(self) -> list[torch.Tensor]:
+        """The leaves whose gradients the step computes and logs the norm of:
+        the trainable ones, and in the masked types every base leaf."""
+        if self.lora is not None:
+            return tree_leaves(self.lora)
+        return [p for p in self.params.parameters() if p.requires_grad]
 
 
 def trainable_mask(params: nn.Module, training_type: str) -> dict[str, bool]:
@@ -104,9 +115,10 @@ def init_train_state(
     use_ema: bool = False,
     mask: dict[str, bool] | None = None,
 ) -> TrainState:
-    """Make the trainable leaves require grad (the LoRA leaves, or the base
-    parameters that `mask` keeps, all of them without a mask) and build the
-    AdamW state over them; the EMA starts as a copy of those leaves."""
+    """Make the differentiated leaves require grad (the LoRA leaves, or every
+    base parameter) and build the AdamW state over the trainable ones (the LoRA
+    leaves, or the base parameters that `mask` keeps, all of them without a
+    mask); the EMA starts as a copy of those leaves."""
     if training_type not in TRAINING_TYPES:
         raise ValueError(training_type)
     params.requires_grad_(False)
@@ -117,10 +129,9 @@ def init_train_state(
             t.requires_grad_(True)
     else:
         lora = None
-        keep = mask or {n: True for n, _ in params.named_parameters()}
-        for name, p in params.named_parameters():
-            p.requires_grad_(keep[name])
-    state = TrainState(step=0, params=params, lora=lora, opt_state=None, ema=None)
+        params.requires_grad_(True)
+    state = TrainState(step=0, params=params, lora=lora, opt_state=None, ema=None,
+                       mask=None if training_type == "lora" else mask)
     trainable = state.trainable()
     state.opt_state = torch.optim.AdamW(
         list(trainable.values()), lr=optimizer.lr, betas=ADAM_BETAS, eps=ADAM_EPS,
@@ -129,6 +140,11 @@ def init_train_state(
     if use_ema:
         state.ema = {k: v.detach().clone() for k, v in prune_to_mask(trainable, mask).items()}
     return state
+
+
+def _global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of squares of every element, fp32."""
+    return torch.sqrt(sum(g.to(torch.float32).square().sum() for g in grads))
 
 
 def _cast_model(flux: nn.Module, compute_dtype: torch.dtype):
@@ -190,7 +206,8 @@ def make_train_step(
                    draws: list[dict] | None = None) -> dict[str, torch.Tensor]:
         trainable = state.trainable()
         leaves = list(trainable.values())
-        for p in leaves:
+        differentiated = state.differentiated()
+        for p in differentiated:
             p.grad = None
         accum = batch["x1"].shape[0]
         loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
@@ -201,14 +218,17 @@ def make_train_step(
             loss.backward()
             loss_sum += loss.detach()
         with torch.no_grad():
-            grads = [(p.grad if p.grad is not None else torch.zeros_like(p)).div_(accum) for p in leaves]
-            grad_norm = torch.sqrt(sum(g.to(torch.float32).square().sum() for g in grads))
-            if not bool(grad_norm < optimizer.grad_clip):  # optax clip_by_global_norm
-                grads = [g / grad_norm * optimizer.grad_clip for g in grads]
+            for p in differentiated:
+                p.grad = (p.grad if p.grad is not None else torch.zeros_like(p)).div_(accum)
+            grad_norm = _global_norm([p.grad for p in differentiated])
+            grads = [p.grad for p in leaves]
+            clip_norm = _global_norm(grads)  # the trainable leaves' norm: optax's clip sits inside the mask
+            if not bool(clip_norm < optimizer.grad_clip):  # optax clip_by_global_norm
+                grads = [g / clip_norm * optimizer.grad_clip for g in grads]
             for p, g in zip(leaves, grads):
                 p.grad = g
         state.opt_state.step()
-        for p in leaves:
+        for p in differentiated:
             p.grad = None
         if state.ema is not None and ema_decay is not None:
             update_ema(state.ema, trainable, ema_decay)
