@@ -20,10 +20,11 @@ Phases, each followed by one flushed JSON line on stdout:
              timed as forward + backward minus forward; G's is
              torch._weight_int8pack_mm where it runs, else F.linear on a
              dequantized bf16 copy), and the bound from the H100 SXM data
-             sheet (989 TFLOP/s bf16 dense, 3.35 TB/s); F (at 3968, 5760
-             padded, and 7680, the trainer's longest sequence, with a bias)
-             also reports share_of_bound and whether two launches gave the
-             same bits (deterministic, required);
+             sheet (989 TFLOP/s bf16 dense, 3.35 TB/s); A, D, E and F
+             also report share_of_bound and whether two launches gave the
+             same bits (deterministic, required); D/E and F run at 3968, 5760
+             padded and 7680 (the trainer's longest sequence) with a bias,
+             D/E also with 300 queries against 1000 keys;
   grad_reference  one full-width double block and one single block with a
              rank-128 LoRA: the LoRA gradients through kernels E and F against
              the same blocks through their plain versions (relative RMS);
@@ -174,6 +175,7 @@ def check_attention_rope(L: int, padded: bool, reps: int) -> dict:
         bias = mask_to_bias(mask)
         valid = [L - 64, 0]
     got = fa.flash_attn_rope(q, k, v, bias, cos, sin)
+    deterministic = torch.equal(got, fa.flash_attn_rope(q, k, v, bias, cos, sin))
     torch.cuda.synchronize()
     want = fa.flash_attention_plain(q, k, v, bias, cos, sin)
     err = (got.float() - want.float()).abs().max().item()
@@ -196,10 +198,10 @@ def check_attention_rope(L: int, padded: bool, reps: int) -> dict:
     bms, by = bound(flops, nbytes)
     return dict(name="flash_attn_rope", shape=[b, h, L, d], bias=padded, max_abs_err=err, tol=tol,
                 rms_plain=rms, padded_keys_err=pad_err,
-                ok=err <= tol and masked_zero and (pad_err is None or pad_err <= tol),
-                masked_batch_zero=masked_zero, ms=ms, plain_ms=plain_ms,
+                ok=err <= tol and masked_zero and (pad_err is None or pad_err <= tol) and deterministic,
+                masked_batch_zero=masked_zero, deterministic=deterministic, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, library="F.scaled_dot_product_attention on pre-rotated q, k",
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
 
 
 def check_attention_d512(L: int, reps: int) -> dict:
@@ -295,17 +297,26 @@ def sdpa_mask(bias):
     return None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
 
 
-def check_attention_fwd(b: int, L: int, padded: bool, reps: int) -> list[dict]:
+def check_attention_fwd(b: int, L: int, padded: bool, reps: int, lk: int | None = None) -> list[dict]:
     """Kernels D and E against their plain version; E's LSE too; for the
-    padded batch, batch 0 against fp32 attention over its real keys only."""
+    padded batch, batch 0 against fp32 attention over its real keys only;
+    lk: that many keys against the L queries (no padding); a second launch
+    of each gives the same bits (deterministic)."""
     import torch
     import torch.nn.functional as F
 
     from visualcloze_tpu_torch.ops import flash_attention as fa
 
     q, k, v, _, bias, valid = attention_case(b, L, padded, L + 1)
+    if lk is not None:
+        _, k, v, _, _, _ = attention_case(b, lk, False, lk + 1)
+        valid = [lk] * b
     got_d = fa.flash_attn_fwd(q, k, v, bias)
     got_e, got_lse = fa.flash_attn_fwd_lse(q, k, v, bias)
+    again_e, again_lse = fa.flash_attn_fwd_lse(q, k, v, bias)
+    deterministic = (torch.equal(got_d, fa.flash_attn_fwd(q, k, v, bias)) and torch.equal(got_e, again_e)
+                     and torch.equal(got_lse, again_lse))
+    del again_e, again_lse
     torch.cuda.synchronize()
     want, want_lse = fa.flash_fwd_lse_plain(q, k, v, bias)
     tol = bf16_ulps_tol(want)
@@ -329,18 +340,19 @@ def check_attention_fwd(b: int, L: int, padded: bool, reps: int) -> list[dict]:
     plain_e = cuda_ms(lambda: fa.flash_fwd_lse_plain(q, k, v, bias), 2)
     amask = sdpa_mask(bias)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask), reps)
+    lk = k.shape[2]
     flops = sum(4.0 * 24 * L * n * 128 for n in valid)
-    nbytes = 4 * b * 24 * L * 128 * 2 + (b * L * 4 if padded else 0)
-    common = dict(shape=[b, 24, L, 128], bias=padded, tol=tol, rms_plain=rms, padded_keys_err=pad_err,
-                  library_ms=library_ms, library="F.scaled_dot_product_attention")
-    ok_pad = pad_err is None or pad_err <= tol
+    nbytes = 2 * b * 24 * (L + lk) * 128 * 2 + (b * lk * 4 if padded else 0)
+    common = dict(shape=[b, 24, L, 128], keys=lk, bias=padded, tol=tol, rms_plain=rms, padded_keys_err=pad_err,
+                  deterministic=deterministic, library_ms=library_ms, library="F.scaled_dot_product_attention")
+    ok_pad = (pad_err is None or pad_err <= tol) and deterministic
     bms, by = bound(flops, nbytes)
     d = dict(name="flash_attn_fwd", max_abs_err=err_d, ok=err_d <= tol and ok_pad, ms=ms_d, plain_ms=plain_d,
-             bound_ms=bms, bound_by=by, **common)
+             bound_ms=bms, bound_by=by, share_of_bound=bms / ms_d, **common)
     bms, by = bound(flops, nbytes + b * 24 * L * 4)
     e = dict(name="flash_attn_fwd_lse", max_abs_err=err_e, lse_err=lse_err, lse_tol=lse_tol,
              ok=err_e <= tol and lse_err <= lse_tol and ok_pad, ms=ms_e, plain_ms=plain_e, bound_ms=bms,
-             bound_by=by, **common)
+             bound_by=by, share_of_bound=bms / ms_e, **common)
     return [d, e]
 
 
@@ -805,7 +817,7 @@ def main() -> int:
               tf32_matmul=False, tf32_cudnn=False))
 
     secs = cuda_build.build(force=True)
-    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {n: [ln.strip() for ln in log.splitlines() if any(w in ln for w in ("registers", "spill", "C75"))]
              for n, log in cuda_build.BUILD_LOG.items()}
     spill_bytes = {n: sum(int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
                    for n, log in cuda_build.BUILD_LOG.items()}
@@ -819,6 +831,8 @@ def main() -> int:
         lambda: [check_attention_rope(5760, True, 10)],
         lambda: check_attention_fwd(1, 3968, False, 20),
         lambda: check_attention_fwd(2, 5760, True, 10),
+        lambda: check_attention_fwd(1, 7680, True, 5),  # E's longest training sequence, with a bias
+        lambda: check_attention_fwd(1, 300, False, 20, lk=1000),  # Lq != Lk, as a ring chunk passes them
         lambda: check_attention_bwd(1, 3968, False, 10),
         lambda: check_attention_bwd(2, 5760, True, 5),
         lambda: check_attention_bwd(1, 7680, True, 5),  # the trainer's longest Graph200K sequence

@@ -54,13 +54,16 @@ def _attn_case(dev, seed, b, h, L, padded, lk=None):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("padded, lk", [(False, None), (True, None), (False, 1000)])
-def test_gpu_flash_attn_fwd_and_lse_match_plain(padded, lk):
+@pytest.mark.parametrize("L, padded, lk", [(1000, False, None), (1000, True, None), (300, False, 1000),
+                                           (300, False, 40), (4097, False, None), (4097, True, None)])
+def test_gpu_flash_attn_fwd_and_lse_match_plain(L, padded, lk):
     """Kernels D and E against their plain version; E's LSE within 2^-13 of
     the largest |LSE| (fp32 sums of 128 products in another order: ~1e-5);
-    also with 300 queries against 1000 keys."""
+    also with 300 queries against 1000 keys, against 40 keys (less than one
+    key tile), and at lengths that are multiples of no tile (1000, 4097); a
+    batch whose keys are all masked gives exactly 0 and lse -1e30."""
     dev = _cuda_or_skip()
-    b, h, L = 2, 4, (1000 if lk is None else 300)
+    b, h = 2, 4
     q, k, v, _, bias = _attn_case(dev, 3, b, h, L, padded, lk)
     got = tfa.flash_attn_fwd(q, k, v, bias)
     o, lse = tfa.flash_attn_fwd_lse(q, k, v, bias)
@@ -139,18 +142,24 @@ def test_gpu_flash_mha_grads_match_autograd_oracle():
         assert rel.item() <= 2e-2, rel.item()
 
 
-@pytest.mark.gpu
-def test_gpu_flash_attn_rope_matches_plain():
-    dev = _cuda_or_skip()
-    g = torch.Generator(device=dev).manual_seed(0)
-    b, h, L, d = 2, 4, 1000, 128
+def _rope_case(dev, seed, L):
+    """Kernel A's inputs: N(0,1) bf16 q, k, v of (2, 4, L, 128), RoPE tables,
+    and a bias by which batch 0 loses its last 100 keys, batch 1 every key."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, d = 2, 4, 128
     q, k, v = (torch.randn((b, h, L, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
     ang = torch.rand((b, L, d // 2), generator=g, device=dev) * 6.0
-    cos, sin = torch.cos(ang), torch.sin(ang)
     mask = torch.ones((b, L), dtype=torch.int32, device=dev)
-    mask[0, 900:] = 0
+    mask[0, L - 100:] = 0
     mask[1] = 0
-    bias = mask_to_bias(mask)
+    return q, k, v, mask_to_bias(mask), torch.cos(ang), torch.sin(ang)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1000, 4097])
+def test_gpu_flash_attn_rope_matches_plain(L):
+    dev = _cuda_or_skip()
+    q, k, v, bias, cos, sin = _rope_case(dev, 0, L)
     got = tfa.flash_attn_rope(q, k, v, bias, cos, sin)
     torch.cuda.synchronize()
     want = tfa.flash_attention_plain(q, k, v, bias, cos, sin)
@@ -158,9 +167,25 @@ def test_gpu_flash_attn_rope_matches_plain():
     _close(got, want, tol)
     assert (got[1] == 0).all()
     # batch 0 against fp32 attention that never sees its 100 padded keys
+    n = L - 100
     q32, k32 = (tfa._rot_half(t[:1].float(), cos[:1], sin[:1]) for t in (q, k))
-    s = torch.matmul(q32, k32[..., :900, :].transpose(-1, -2)) * d ** -0.5
-    _close(got[:1], torch.matmul(torch.softmax(s, dim=-1), v[:1, :, :900].float()), tol)
+    s = torch.matmul(q32, k32[..., :n, :].transpose(-1, -2)) * 128 ** -0.5
+    _close(got[:1], torch.matmul(torch.softmax(s, dim=-1), v[:1, :, :n].float()), tol)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attn_fwd_is_deterministic():
+    """Two launches of A, D and E on the same inputs give the same bits
+    (every sum is taken in a fixed order)."""
+    dev = _cuda_or_skip()
+    q, k, v, bias, cos, sin = _rope_case(dev, 7, 1000)
+    for run in (lambda: (tfa.flash_attn_rope(q, k, v, bias, cos, sin),),
+                lambda: (tfa.flash_attn_fwd(q, k, v, bias),),
+                lambda: tfa.flash_attn_fwd_lse(q, k, v, bias)):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

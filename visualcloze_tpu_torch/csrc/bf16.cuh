@@ -1,4 +1,5 @@
-// bf16 <-> fp32 helpers shared by the kernels: 8 bf16 values in one 16-byte vector.
+// bf16 <-> fp32 helpers shared by the kernels: 8 bf16 values in one 16-byte
+// vector, bf16 pairs in one 32-bit register.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +26,26 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return u;
+}
+
+// two fp32 values -> a bf16 pair, round-to-nearest-even (JAX's astype)
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// a bf16 pair times s in fp32, rounded back to bf16: bf16(q * scale * log2(e))
+__device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return pack2(f.x * s, f.y * s);
+}
+
+// a 16-byte vector of 8 bf16 values of q -> q' = bf16(q * qscale)
+__device__ __forceinline__ void scale8(uint4& x, float qscale) {
+  x.x = scale2(x.x, qscale);
+  x.y = scale2(x.y, qscale);
+  x.z = scale2(x.z, qscale);
+  x.w = scale2(x.w, qscale);
 }
 
 }  // namespace vc

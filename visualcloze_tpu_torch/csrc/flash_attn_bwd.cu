@@ -58,7 +58,6 @@
 
 #include "bf16.cuh"
 #include "hopper.cuh"
-#include "mma.cuh"
 
 namespace {
 
@@ -83,23 +82,6 @@ constexpr int KV_BAR = KV_LSE + 2 * ST * 64 * 4;        // kvbar, full[ST], qful
 constexpr size_t KV_SMEM = KV_BAR + 8 * (1 + 3 * ST) + 1024;
 
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 128 * 40 + 256 * 232 = 384 * 168
-
-// the warpgroup index, warp-uniform as the compiler sees it (a shuffle from
-// lane 0, as CUTLASS derives it; F-dkv measured 0.70-0.71 ms on the H100
-// with threadIdx.x / 128 instead, 0.67-0.69 with the shuffle)
-__device__ __forceinline__ int warpgroup() { return __shfl_sync(0xffffffff, (int)threadIdx.x / 128, 0); }
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
-}
-
-// a 16-byte vector of 8 bf16 values of q -> q' = bf16(q * qscale)
-__device__ __forceinline__ void scale8(uint4& x, float qscale) {
-  x.x = scale2(x.x, qscale);
-  x.y = scale2(x.y, qscale);
-  x.z = scale2(x.z, qscale);
-  x.w = scale2(x.w, qscale);
-}
 
 __global__ void __launch_bounds__(NT, 1)
     flash_bwd_dq(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -420,41 +402,6 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // ---------------------------------------------------------------- host
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// the 3-D map {128, L, B*H} of a contiguous (B, H, L, 128) bf16 tensor, boxes
-// of 64 columns x 64 rows, 128-byte swizzle, out-of-range rows read as zeros
-int tensor_map(CUtensorMap* map, const void* ptr, int L, int BH) {
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  EncodeTiled encode = encoder();
-  if (!encode) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {128, (cuuint64_t)L, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {128 * 2, (cuuint64_t)L * 128 * 2};
-  const cuuint32_t box[3] = {64, 64, 1}, elem[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 // maps of q, k, v, do; 0 or the first error
 int tensor_maps(CUtensorMap* m, const void* q, const void* k, const void* v, const void* dout, int BH, int Lq,

@@ -15,8 +15,10 @@
 // Function, in the log2 domain as in JAX: rot(x) = [cos*x1 - sin*x2 |
 // cos*x2 + sin*x1] in fp32 (kernel A only); q' = bf16(q * scale*log2(e)),
 // k' = bf16(rot(k)) or k; S = q'.k'^T + bias*log2(e) in fp32; an online row
-// max starting at -1e30; P = exp2(S - max) rounded to bf16 before P.V; rows
-// whose keys are all masked give 0.
+// max starting at -1e30; P = exp2(S - max) rounded to bf16 before P.V;
+// O * (1 / l) rounded once to bf16; rows whose keys are all masked give 0
+// (and lse -1e30). The order of every sum is
+// fixed: two launches on the same inputs give the same bits.
 //
 // Bound on the H100: 4*B*H*Lq*Lk*128 FLOPs -> about 0.20 ms at L = 3968 and
 // 0.26 ms at L = 4608 (B = 1, H = 24) at 989 TFLOP/s; compute-bound.
@@ -25,34 +27,105 @@
 //   - rope_rotate (kernel A) rotates and scales q and k ONCE into bf16
 //     scratch: about 25 MB each way at L = 3968, against the ~3 GB of L2
 //     reads that rotating every k tile in every q-tile CTA from the fp32
-//     tables costs. D and E skip it: their flash_fwd scales q' as it loads
-//     the Q fragments (once per CTA), so they read the caller's q and k;
-//   - flash_fwd: one CTA of 8 warps per 128 query rows, each warp owning 16
-//     rows (the FlashAttention-2 split); mma.sync m16n8k16 bf16 with fp32
-//     accumulation; S, P and the (16, 128) output accumulator of a warp stay
-//     in registers (the S accumulator layout of two 8-key tiles IS the A
-//     operand layout of P.V); K and V tiles of 64 keys are double-buffered in
-//     shared memory with cp.async, so the next tile loads while this one
-//     computes; V's B operand comes through ldmatrix.trans;
-//   - the TPU's ping-pong s-tile pipeline and pipelined/blocked split do not
-//     carry over: one kernel takes every length, ragged edges masked.
+//     tables costs. D and E skip it and read the caller's q and k;
+//   - flash_fwd (Hopper: TMA, wgmma, warp specialisation, after
+//     FlashAttention-3's forward): a CTA of 384 threads owns 128 query rows
+//     of one (b, h). Warpgroup 0 is the producer (setmaxnreg down to 24
+//     registers): one warp loads Q once and streams K and V tiles of 128
+//     keys by TMA into a 3-stage ring, K and V with their own full and empty
+//     mbarriers (a K tile is free once S is done, a V tile only after P.V),
+//     and writes each key tile's bias * log2(e) beside it, -inf past Lk
+//     (TMA fills rows past L with zeros, which would score s = 0). Warpgroups
+//     1 and 2 (up to 240 registers) own 64 query rows each: each thread
+//     reads its A fragments of Q once from the swizzled tile, as q' =
+//     bf16(q * qscale) (D and E; A's q comes scaled, qscale = 1), then per
+//     key tile S = q'.K^T is wgmma m64n128k16 with q' in registers and K a
+//     K-major operand in shared memory, the online softmax runs in registers
+//     (a tile inside Lk with no bias adds none), and P, rounded to bf16 in
+//     the accumulator layout, is the register A operand of O += P.V
+//     (m64n128k16, V an MN-major B). Query rows past Lq are computed and
+//     never stored. With both A operands in registers the products read
+//     only K and V from shared memory: 64 B a tensor-core cycle where q'
+//     from shared memory made it 96, beside TMA's 32 of the 128 the SM has;
+//   - the loop is skewed: step j issues S_j, rescales O by the previous
+//     tile's alpha while S_j runs, issues P_{j-1}.V_{j-1}, and runs the
+//     softmax of S_j as soon as S_j is done (wgmma.wait_group 1), while
+//     P_{j-1}.V_{j-1} still runs. The two consumer warpgroups take turns
+//     issuing their products (named barriers 3 and 4: ping-pong), so one's
+//     softmax (exp2 on the SFU, reductions on the CUDA cores) also overlaps
+//     the other's products;
+//   - exp2 is one ex2.approx.ftz (a P below 2^-126 is flushed to 0 where
+//     exp2f would keep it subnormal: invisible after the sum over keys, and
+//     exp2f's subnormal guard costs three instructions an element);
+//   - every tile lies in shared memory as TMA writes it (128-byte swizzle,
+//     boxes of 64 x 64 of a 3-D map {128, L, B*H}, 1024-byte aligned), read
+//     by the wgmma descriptors as it lies (hopper.cuh);
+//   - the tensor maps are encoded on the host per call (hopper.cuh:
+//     tensor_map); a base pointer that is not 16-byte aligned is refused
+//     (cudaErrorMisalignedAddress).
+// Measured variants (fwd_variants.py; PERF.md): q' from shared memory,
+// 64-key tiles (3 stages), 2 stages, no ping-pong, no intra-warpgroup
+// overlap (one wait for both products), exp2f. The VC_FWD_* macros select
+// them; the defaults are the kept design.
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "bf16.cuh"
-#include "mma.cuh"
+#include "hopper.cuh"
+
+#ifndef VC_FWD_BK
+#define VC_FWD_BK 128  // keys per tile: 128 or 64
+#endif
+#ifndef VC_FWD_STAGES
+#define VC_FWD_STAGES 3  // stages of the K/V ring
+#endif
+#ifndef VC_FWD_PINGPONG
+#define VC_FWD_PINGPONG 1  // consumer warpgroups take turns issuing their products
+#endif
+#ifndef VC_FWD_OVERLAP
+#define VC_FWD_OVERLAP 1  // softmax of S_j while P_{j-1}.V_{j-1} runs (wgmma.wait_group 1)
+#endif
+#ifndef VC_FWD_FAST_EXP
+#define VC_FWD_FAST_EXP 1  // exp2 as ex2.approx.ftz (subnormal P flushed to 0) instead of exp2f
+#endif
+#ifndef VC_FWD_Q_REGS
+#define VC_FWD_Q_REGS 1  // q' as the register A operand of S (read once) instead of a shared-memory one
+#endif
+#ifndef VC_FWD_PRODUCER_REGS
+#define VC_FWD_PRODUCER_REGS 24
+#endif
 
 namespace {
 
 using namespace vc;
 
 constexpr int D = 128;
-constexpr int NWARPS = 8, NT = NWARPS * 32;
-constexpr int BQ = 16 * NWARPS;  // query rows per CTA
-constexpr int BK = 64;           // keys per tile
-constexpr int LDS = D + 8;       // bf16 smem row stride: 272 bytes, conflict-free fragment loads
-constexpr size_t SMEM = (size_t)(BQ + 4 * BK) * LDS * 2;  // Q + 2 x (K, V)
+constexpr int NT = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int BQ = 128;  // query rows per CTA, 64 per consumer warpgroup
+constexpr int BK = VC_FWD_BK;
+constexpr int ST = VC_FWD_STAGES;
+constexpr bool kPingPong = VC_FWD_PINGPONG;
+constexpr bool kOverlap = VC_FWD_OVERLAP;
+constexpr bool kQRegs = VC_FWD_Q_REGS;
+static_assert(BK == 64 || BK == 128, "key tiles of 64 or 128");
+static_assert(!kQRegs || BK == 128, "q' in registers with 128-key tiles");
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;
+
+// shared memory (bytes from a 1024-byte aligned base): Q, K[ST], V[ST],
+// bias[ST][BK] fp32, then the mbarriers qbar, K full[ST], V full[ST],
+// K empty[ST], V empty[ST]
+constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+constexpr int SM_Q = 0, SM_K = Q_BYTES, SM_V = SM_K + ST * KV_BYTES, SM_BIAS = SM_V + ST * KV_BYTES;
+constexpr int SM_BAR = SM_BIAS + ST * BK * 4;
+constexpr size_t SMEM = SM_BAR + 8 * (1 + 4 * ST) + 1024;
+static_assert(SMEM <= 232448, "more shared memory than a CTA may have");
+enum Ring { K_FULL = 0, V_FULL = 1, K_EMPTY = 2, V_EMPTY = 3 };
+
+// setmaxnreg: the consumers take what the producer gives up from the 168
+// registers a thread has at launch (384 threads a CTA, one CTA an SM)
+constexpr int PRODUCER_REGS = VC_FWD_PRODUCER_REGS, CONSUMER_REGS = 168 + (168 - PRODUCER_REGS) / 2;
+static_assert(PRODUCER_REGS % 16 == 8 && CONSUMER_REGS <= 256, "setmaxnreg takes multiples of 8");
 
 // q' = bf16(rot(q) * qscale), k' = bf16(rot(k)); one thread per 8 channel pairs
 __global__ void __launch_bounds__(256)
@@ -92,177 +165,340 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <bool kLse>
-__global__ void __launch_bounds__(NT)
-    flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const float* __restrict__ bias,
-              bf16* __restrict__ o, float* __restrict__ lse, int H, int Lq, int Lk, float qscale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks[2] = {Qs + BQ * LDS, Qs + (BQ + 2 * BK) * LDS};
-  bf16* Vs[2] = {Qs + (BQ + BK) * LDS, Qs + (BQ + 3 * BK) * LDS};
-
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * BQ;
-  const size_t bh = (size_t)b * H + blockIdx.y;
-  const size_t qhead = bh * (size_t)Lq * D;
-  const size_t khead = bh * (size_t)Lk * D;
-  const float* biasb = bias ? bias + (size_t)b * Lk : nullptr;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread in group
-  const int nk = (Lk + BK - 1) / BK;
-
-  load_rows_async<BQ, NT, D, LDS>(Qs, q + qhead, q0, Lq);
-  load_rows_async<BK, NT, D, LDS>(Ks[0], k + khead, 0, Lk);
-  load_rows_async<BK, NT, D, LDS>(Vs[0], v + khead, 0, Lk);
-  cp_async_commit();
-
-  uint32_t qa[D / 16][4];
-  float acc[D / 8][4];
+// this thread's A fragments of S = q'.K^T, q' = bf16(q * qscale) (rows row
+// and row + 8 of the Q tile, 8 k16 steps), from the swizzled tile (hopper.cuh)
+__device__ __forceinline__ void load_q(const unsigned char* qs, int row, int t, float qscale, uint32_t* qf) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  float m[2] = {kNegInf, kNegInf};  // rows g and g + 8 of this warp
-  float l[2] = {0.0f, 0.0f};
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {  // the next tile loads while this one computes
-      load_rows_async<BK, NT, D, LDS>(Ks[cur ^ 1], k + khead, (kt + 1) * BK, Lk);
-      load_rows_async<BK, NT, D, LDS>(Vs[cur ^ 1], v + khead, (kt + 1) * BK, Lk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row + 8 * (i & 1), col = 16 * kk + 2 * t + 8 * (i >> 1);
+      const int off = (col >> 6) * BQ * 128 + r * 128 + ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2;
+      const uint32_t x = *reinterpret_cast<const uint32_t*>(qs + off);
+      qf[4 * kk + i] = qscale != 1.0f ? scale2(x, qscale) : x;
     }
-    __syncthreads();
-    if (kt == 0) {  // q' = bf16(q * qscale); qscale = 1 when rope_rotate already scaled
-      const bf16* qw = Qs + warp * 16 * LDS;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        qa[kk][0] = scale2(ld32(qw + g * LDS + kk * 16 + 2 * t), qscale);
-        qa[kk][1] = scale2(ld32(qw + (g + 8) * LDS + kk * 16 + 2 * t), qscale);
-        qa[kk][2] = scale2(ld32(qw + g * LDS + kk * 16 + 8 + 2 * t), qscale);
-        qa[kk][3] = scale2(ld32(qw + (g + 8) * LDS + kk * 16 + 8 + 2 * t), qscale);
-      }
-    }
-
-    // S = q'.k'^T for this warp's 16 rows x 64 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const bf16* kp = Ks[cur] + (j * 8 + g) * LDS + kk * 16 + 2 * t;
-        mma16816(s[j], qa[kk], ld32(kp), ld32(kp + 8));
-      }
-    }
-
-    // bias, ragged edge, online max
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt * BK + j * 8 + 2 * t + (e & 1);
-        float val = s[j][e];
-        if (key >= Lk) {
-          val = -INFINITY;
-        } else if (biasb) {
-          val += __ldg(biasb + key) * kLog2e;
-        }
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // P = exp2(S - m) in fp32 for the row sums, bf16 for P.V
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const float p0 = exp2f(s[j][0] - m[0]);
-      const float p1 = exp2f(s[j][1] - m[0]);
-      const float p2 = exp2f(s[j][2] - m[1]);
-      const float p3 = exp2f(s[j][3] - m[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pa[j / 2][(j & 1) * 2] = pack2(p0, p1);
-      pa[j / 2][(j & 1) * 2 + 1] = pack2(p2, p3);
-    }
-
-    // O += P.V
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(
-            vb, Vs[cur] + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + n * 8 + (lane >> 4) * 8);
-        mma16816(acc[n], pa[kk], vb[0], vb[1]);
-        mma16816(acc[n + 1], pa[kk], vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
   }
+}
 
+// S = q'.K^T: rows [r0, r0 + 64) of the Q tile at qa (or q' in registers)
+// x the BK keys of the K tile at ka
+__device__ __forceinline__ void issue_s(float* sc, const uint32_t* qf, uint32_t qa, int r0, uint32_t ka) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (kQRegs)
+      wgmma_m64n128_rs(sc, qf + 4 * kk, desc_kmajor<BK>(ka, 0, kk), kk > 0);
+    else if constexpr (BK == 128)
+      wgmma_m64n128_ss(sc, desc_kmajor<BQ>(qa, r0, kk), desc_kmajor<BK>(ka, 0, kk), kk > 0);
+    else
+      wgmma_m64n64_ss(sc, desc_kmajor<BQ>(qa, r0, kk), desc_kmajor<BK>(ka, 0, kk), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P.V: P (64 x BK) in registers, the V tile at va as an MN-major B
+__device__ __forceinline__ void issue_pv(float* acc, const uint32_t* pa, uint32_t va) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) wgmma_m64n128_rs_tb(acc, pa + 4 * kk, desc_mnmajor<BK>(va, kk));
+  wgmma_commit();
+}
+
+#if VC_FWD_FAST_EXP
+// 2^x with subnormal results flushed to zero (one MUFU.EX2)
+__device__ __forceinline__ float exp2_(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+#else
+__device__ __forceinline__ float exp2_(float x) { return exp2f(x); }
+#endif
+
+// S + bias (kBias: a tile without bias inside Lk adds nothing), the online
+// row max m (rows g and g + 8 of the warp; the 4 threads of a row agree),
+// alpha = 2^(m_old - m), and in place of S the fp32 P = 2^(S - m), whose row
+// sums update l = l * alpha + sum
+template <bool kBias>
+__device__ __forceinline__ void softmax_tile(float* sc, const float* bs, int t, float* m, float* l, float* alpha) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const float2 bj = kBias ? *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t) : float2{0.0f, 0.0f};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kBias) sc[4 * j + e] += (e & 1) ? bj.y : bj.x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (l[r] == 0.0f) l[r] = 1.0f;  // fully masked rows -> 0, not NaN
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = exp2_(m[r] - mx[r]);
+    m[r] = mx[r];
+    l[r] *= alpha[r];
   }
-  const int row0 = q0 + warp * 16 + g;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (row0 < Lq)
-      *reinterpret_cast<uint32_t*>(o + qhead + (size_t)row0 * D + col) =
-          pack2(acc[n][0] / l[0], acc[n][1] / l[0]);
-    if (row0 + 8 < Lq)
-      *reinterpret_cast<uint32_t*>(o + qhead + (size_t)(row0 + 8) * D + col) =
-          pack2(acc[n][2] / l[1], acc[n][3] / l[1]);
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[4 * j + e] = exp2_(sc[4 * j + e] - m[e >> 1]);
+    l[0] += sc[4 * j] + sc[4 * j + 1];
+    l[1] += sc[4 * j + 2] + sc[4 * j + 3];
   }
-  if (kLse && t == 0) {  // m and l are the same in the 4 threads of a row
-    if (row0 < Lq) lse[bh * Lq + row0] = m[0] + log2f(l[0]);
-    if (row0 + 8 < Lq) lse[bh * Lq + row0 + 8] = m[1] + log2f(l[1]);
+}
+
+__device__ __forceinline__ void softmax(bool biased, float* sc, const float* bs, int t, float* m, float* l,
+                                        float* alpha) {
+  if (biased)
+    softmax_tile<true>(sc, bs, t, m, l, alpha);
+  else
+    softmax_tile<false>(sc, bs, t, m, l, alpha);
+}
+
+__device__ __forceinline__ void rescale(float* acc, const float* alpha) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 4) {
+    acc[i] *= alpha[0];
+    acc[i + 1] *= alpha[0];
+    acc[i + 2] *= alpha[1];
+    acc[i + 3] *= alpha[1];
+  }
+}
+
+// P rounded to bf16 pairs as the A operand of P.V: two neighbouring 8-key
+// accumulator blocks are one k16 step (hopper.cuh)
+__device__ __forceinline__ void pack_p(const float* sc, uint32_t* pa) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    pa[2 * j] = pack2(sc[4 * j], sc[4 * j + 1]);
+    pa[2 * j + 1] = pack2(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+// a stage of the ring and the parity of its current phase, stepped tile by tile
+struct Slot {
+  int s = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++s == ST) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// the ping-pong: consumer warpgroup c waits for its turn to issue products,
+// and hands the turn to the other one after issuing
+__device__ __forceinline__ void turn_begin(int c) {
+  if (!kPingPong) return;
+  if (c == 0)
+    named_barrier<3, 256>();
+  else
+    named_barrier<4, 256>();
+}
+
+__device__ __forceinline__ void turn_end(int c) {
+  if (!kPingPong) return;
+  if (c == 0)
+    named_arrive<4, 256>();
+  else
+    named_arrive<3, 256>();
+}
+
+template <bool kLse>
+__global__ void __launch_bounds__(NT, 1)
+    flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const float* __restrict__ bias,
+              bf16* __restrict__ o, float* __restrict__ lse, int H, int Lq, int Lk, float qscale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_addr(smem);
+  float* bias_s = reinterpret_cast<float*>(smem + SM_BIAS);
+  const uint32_t qbar = base + SM_BAR;
+  auto bar = [&](Ring r, int s) { return qbar + 8 + 8 * (r * ST + s); };
+  auto k_tile = [&](int s) { return base + SM_K + s * KV_BYTES; };
+  auto v_tile = [&](int s) { return base + SM_V + s * KV_BYTES; };
+
+  const int b = blockIdx.z;
+  const int bh = b * H + blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int nk = (Lk + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar(K_FULL, s), 32);    // the producer warp: one arrive with the TMA bytes, 31 after the bias
+      mbar_init(bar(V_FULL, s), 1);     // the producer's lane 0, with the TMA bytes
+      mbar_init(bar(K_EMPTY, s), 256);  // every consumer thread
+      mbar_init(bar(V_EMPTY, s), 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  if (wg == 0) {  // ------------------------------------------------ producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(qbar, Q_BYTES);
+        tma_load_tile<BQ>(base + SM_Q, &tq, q0, bh, qbar);
+      }
+      const float* biasb = bias ? bias + (size_t)b * Lk : nullptr;
+      Slot sl;
+      for (int kt = 0; kt < nk; ++kt, sl.next()) {
+        const int s = sl.s;
+        // from the second round on, wait for the release of the stage's last tile
+        if (kt >= ST) mbar_wait(bar(K_EMPTY, s), sl.phase ^ 1);
+        for (int i = lane; i < BK; i += 32) {
+          const int key = kt * BK + i;
+          bias_s[s * BK + i] = key < Lk ? (biasb ? biasb[key] * kLog2e : 0.0f) : -INFINITY;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(bar(K_FULL, s), KV_BYTES);
+          tma_load_tile<BK>(k_tile(s), &tk, kt * BK, bh, bar(K_FULL, s));
+          if (kt >= ST) mbar_wait(bar(V_EMPTY, s), sl.phase ^ 1);
+          mbar_arrive_expect_tx(bar(V_FULL, s), KV_BYTES);
+          tma_load_tile<BK>(v_tile(s), &tv, kt * BK, bh, bar(V_FULL, s));
+        } else {
+          mbar_arrive(bar(K_FULL, s));
+        }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int w = tid / 32, lane = tid % 32, t = lane % 4;
+    const int r0 = 64 * c;
+    const int row0 = q0 + r0 + 16 * w + lane / 4;  // this thread's rows: row0, row0 + 8
+    const uint32_t qa = base + SM_Q;
+
+    mbar_wait(qbar, 0);
+    uint32_t qf[kQRegs ? 32 : 1];
+    if constexpr (kQRegs) {
+      load_q(smem + SM_Q, r0 + 16 * w + lane / 4, t, qscale, qf);
+    } else if (qscale != 1.0f) {  // q' = bf16(q * qscale), once: this warpgroup's 64 rows of both halves
+      uint4* qv = reinterpret_cast<uint4*>(smem + SM_Q);
+      for (int u = tid; u < 1024; u += 128) scale8(qv[(u >> 9) * 1024 + c * 512 + (u & 511)], qscale);
+      fence_proxy_async();
+      if (c == 0)
+        named_barrier<1, 128>();
+      else
+        named_barrier<2, 128>();
+    }
+    if (c == 1) turn_end(c);  // warpgroup 1 issues first
+
+    float acc[64], sc[BK / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, alpha[2];
+    uint32_t pa[BK / 4];  // P of the tile before, the A operand of its P.V
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    Slot ks, vs;  // the K tile of this step, the V tile of the step before
+
+    // a key tile adds its bias row unless there is none and the tile lies inside Lk
+    auto biased = [&](int kt) { return bias != nullptr || (kt + 1) * BK > Lk; };
+
+    // step 0: S_0 alone
+    mbar_wait(bar(K_FULL, 0), 0);
+    turn_begin(c);
+    wgmma_fence();
+    issue_s(sc, qf, qa, r0, k_tile(0));
+    turn_end(c);
+    wgmma_wait0();
+    fence_operands<BK / 2>(sc);
+    mbar_arrive(bar(K_EMPTY, 0));
+    softmax(biased(0), sc, bias_s, t, m, l, alpha);
+    pack_p(sc, pa);
+
+    // step j: S_j, then O rescaled by alpha of S_{j-1} while S_j runs, then
+    // P_{j-1}.V_{j-1}; the softmax of S_j follows the burst
+    for (int j = 1; j < nk; ++j) {
+      ks.next();
+      mbar_wait(bar(K_FULL, ks.s), ks.phase);
+      mbar_wait(bar(V_FULL, vs.s), vs.phase);
+      turn_begin(c);
+      wgmma_fence();
+      issue_s(sc, qf, qa, r0, k_tile(ks.s));
+      rescale(acc, alpha);
+      fence_operands<64>(acc);
+      wgmma_fence();
+      issue_pv(acc, pa, v_tile(vs.s));
+      turn_end(c);
+      if (kOverlap) {
+        wgmma_wait<1>();  // S_j is done; P_{j-1}.V_{j-1} may still run
+      } else {
+        wgmma_wait0();
+      }
+      fence_operands<BK / 2>(sc);
+      mbar_arrive(bar(K_EMPTY, ks.s));
+      softmax(biased(j), sc, bias_s + ks.s * BK, t, m, l, alpha);
+      if (kOverlap) wgmma_wait0();
+      fence_operands<64>(acc);
+      fence_operands<BK / 4>(pa);
+      mbar_arrive(bar(V_EMPTY, vs.s));
+      vs.next();
+      pack_p(sc, pa);
+    }
+
+    // the last step: P_{nk-1}.V_{nk-1} alone
+    mbar_wait(bar(V_FULL, vs.s), vs.phase);
+    turn_begin(c);
+    rescale(acc, alpha);
+    fence_operands<64>(acc);
+    wgmma_fence();
+    issue_pv(acc, pa, v_tile(vs.s));
+    turn_end(c);
+    wgmma_wait0();
+    fence_operands<64>(acc);
+    fence_operands<BK / 4>(pa);
+    if (c == 0) turn_begin(c);  // takes warpgroup 2's last hand-over: every arrive is matched
+
+    float inv[2];  // 1 / l, correctly rounded: O * (1 / l) in fp32, then one bf16 rounding
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (l[r] == 0.0f) l[r] = 1.0f;  // fully masked rows -> 0, not NaN
+      inv[r] = __frcp_rn(l[r]);
+    }
+    bf16* out = o + (size_t)bh * Lq * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (row0 < Lq)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row0 * D + col) = pack2(acc[4 * j] * inv[0], acc[4 * j + 1] * inv[0]);
+      if (row0 + 8 < Lq)
+        *reinterpret_cast<uint32_t*>(out + (size_t)(row0 + 8) * D + col) =
+            pack2(acc[4 * j + 2] * inv[1], acc[4 * j + 3] * inv[1]);
+    }
+    if (kLse && t == 0) {  // m and l are the same in the 4 threads of a row
+      if (row0 < Lq) lse[(size_t)bh * Lq + row0] = m[0] + log2f(l[0]);
+      if (row0 + 8 < Lq) lse[(size_t)bh * Lq + row0 + 8] = m[1] + log2f(l[1]);
+    }
   }
 }
 
 template <bool kLse>
-cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* o,
-                       float* lse, int B, int H, int Lq, int Lk, float qscale, cudaStream_t s) {
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_fwd<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-  if (err != cudaSuccess) return err;
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float* bias, bf16* o, float* lse,
+                       int B, int H, int Lq, int Lk, float qscale, cudaStream_t s) {
+  CUtensorMap m[3];
+  int err = tensor_map(&m[0], q, Lq, B * H);
+  if (!err) err = tensor_map(&m[1], k, Lk, B * H);
+  if (!err) err = tensor_map(&m[2], v, Lk, B * H);
+  if (err) return (cudaError_t)err;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (e != cudaSuccess) return e;
   dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  flash_fwd<kLse><<<grid, NT, SMEM, s>>>(q, k, v, bias, o, lse, H, Lq, Lk, qscale);
+  flash_fwd<kLse><<<grid, NT, SMEM, s>>>(m[0], m[1], m[2], bias, o, lse, H, Lq, Lk, qscale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Kernel A. qr, kr: (B, H, L, 128) bf16 scratch for the rotated (and, for q,
-// scaled) q and k. Launches both kernels on `stream`; returns
-// cudaGetLastError() (0 on success).
+// scaled) q and k, 16-byte aligned. Launches both kernels on `stream`;
+// returns a cudaError_t (0 on success).
 extern "C" int flash_attn_rope(const void* q, const void* k, const void* v, const void* bias,
                                const void* cos_t, const void* sin_t, void* qr, void* kr, void* o,
                                int B, int H, int L, float qscale, void* stream) {
@@ -275,21 +511,19 @@ extern "C" int flash_attn_rope(const void* q, const void* k, const void* v, cons
       units);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_fwd<false>(static_cast<const bf16*>(qr), static_cast<const bf16*>(kr),
-                                static_cast<const bf16*>(v), static_cast<const float*>(bias),
-                                static_cast<bf16*>(o), nullptr, B, H, L, L, 1.0f, s);
+  return (int)launch_fwd<false>(qr, kr, v, static_cast<const float*>(bias), static_cast<bf16*>(o), nullptr, B, H,
+                                L, L, 1.0f, s);
 }
 
-// Kernels D (lse null) and E: q (B, H, Lq, 128), k, v (B, H, Lk, 128) bf16;
-// bias (B, Lk) fp32 or null; o (B, H, Lq, 128) bf16; lse (B, H, Lq) fp32.
+// Kernels D (lse null) and E: q (B, H, Lq, 128), k, v (B, H, Lk, 128) bf16,
+// 16-byte aligned; bias (B, Lk) fp32 or null; o (B, H, Lq, 128) bf16; lse
+// (B, H, Lq) fp32.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
                               void* lse, int B, int H, int Lq, int Lk, float qscale, void* stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
-             *vp = static_cast<const bf16*>(v);
   const float* bp = static_cast<const float*>(bias);
   bf16* op = static_cast<bf16*>(o);
-  if (lse == nullptr) return (int)launch_fwd<false>(qp, kp, vp, bp, op, nullptr, B, H, Lq, Lk, qscale, s);
-  return (int)launch_fwd<true>(qp, kp, vp, bp, op, static_cast<float*>(lse), B, H, Lq, Lk, qscale, s);
+  if (lse == nullptr) return (int)launch_fwd<false>(q, k, v, bp, op, nullptr, B, H, Lq, Lk, qscale, s);
+  return (int)launch_fwd<true>(q, k, v, bp, op, static_cast<float*>(lse), B, H, Lq, Lk, qscale, s);
 }

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels
-// (flash_attn_bwd.cu): mbarriers, TMA tile loads, warpgroup MMA (wgmma) with
-// shared-memory descriptors for the 128-byte swizzle, register reallocation.
+// (flash_attn_rope.cu, flash_attn_bwd.cu): mbarriers, named barriers, TMA
+// tile loads and the host-side tensor maps they read, warpgroup MMA (wgmma)
+// with shared-memory descriptors for the 128-byte swizzle, register
+// reallocation.
 //
 // Tile layout in shared memory (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
 // and a box of 64 columns x 64 rows): a tile of R rows x 128 bf16 columns is
@@ -81,6 +83,22 @@ __device__ __forceinline__ void named_barrier() {
   asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
 }
 
+// arrive on barrier ID without waiting: COUNT counts the arriving threads
+// and those that wait in named_barrier<ID, COUNT>
+template <int ID, int COUNT>
+__device__ __forceinline__ void named_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
+}
+
+// the warpgroup index, warp-uniform as the compiler sees it (a shuffle from
+// lane 0, as CUTLASS derives it; F-dkv measured 0.70-0.71 ms on the H100
+// with threadIdx.x / 128 instead, 0.67-0.69 with the shuffle)
+__device__ __forceinline__ int warpgroup() { return __shfl_sync(0xffffffff, (int)threadIdx.x / 128, 0); }
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
 // ---------------------------------------------------------------- TMA
 
 // one 64-column x box-rows box of a 3-D tensor map {128, L, B*H} at (col,
@@ -141,11 +159,24 @@ __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.a
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
 
+// wait until at most N committed groups are still running (groups complete in order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // keeps the compiler from moving accumulator reads across the async MMAs
 template <int N>
 __device__ __forceinline__ void fence_operands(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for register A operands, live until the MMAs that read them are done
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 #define VC_F4(d, i, c) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3])
@@ -168,6 +199,48 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float* d, uint64_t a, uint64_t b
     asm volatile(VC_WGMMA_M64N64_SS : VC_F16(d, 0, "=f"), VC_F16(d, 16, "=f") : "l"(a), "l"(b), "r"(0));
 }
 
+#define VC_WGMMA_M64N128_SS                                                               \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                          \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+  "%64, %65, p, 1, 1, 0, 0;\n}\n"
+
+// d (64 x 128, fp32) (+)= A (64 x 16, smem K-major) . B (16 x 128, smem K-major)
+__device__ __forceinline__ void wgmma_m64n128_ss(float* d, uint64_t a, uint64_t b, bool accumulate) {
+  if (accumulate)
+    asm volatile(VC_WGMMA_M64N128_SS
+                 : VC_F16(d, 0, "+f"), VC_F16(d, 16, "+f"), VC_F16(d, 32, "+f"), VC_F16(d, 48, "+f")
+                 : "l"(a), "l"(b), "r"(1));
+  else
+    asm volatile(VC_WGMMA_M64N128_SS
+                 : VC_F16(d, 0, "=f"), VC_F16(d, 16, "=f"), VC_F16(d, 32, "=f"), VC_F16(d, 48, "=f")
+                 : "l"(a), "l"(b), "r"(0));
+}
+
+// d (64 x 128, fp32) (+)= A (64 x 16, bf16 registers) . B (16 x 128, smem K-major)
+__device__ __forceinline__ void wgmma_m64n128_rs(float* d, const uint32_t* a, uint64_t b, bool accumulate) {
+#define VC_WGMMA_M64N128_RS                                                                \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                          \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+  "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+  if (accumulate)
+    asm volatile(VC_WGMMA_M64N128_RS
+                 : VC_F16(d, 0, "+f"), VC_F16(d, 16, "+f"), VC_F16(d, 32, "+f"), VC_F16(d, 48, "+f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  else
+    asm volatile(VC_WGMMA_M64N128_RS
+                 : VC_F16(d, 0, "=f"), VC_F16(d, 16, "=f"), VC_F16(d, 32, "=f"), VC_F16(d, 48, "=f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+#undef VC_WGMMA_M64N128_RS
+}
+
 // d (64 x 128, fp32) += A (64 x 16, bf16 registers) . B (16 x 128, smem MN-major)
 __device__ __forceinline__ void wgmma_m64n128_rs_tb(float* d, const uint32_t* a, uint64_t b) {
   asm volatile(
@@ -183,7 +256,46 @@ __device__ __forceinline__ void wgmma_m64n128_rs_tb(float* d, const uint32_t* a,
 }
 
 #undef VC_WGMMA_M64N64_SS
+#undef VC_WGMMA_M64N128_SS
 #undef VC_F16
 #undef VC_F4
+
+// ---------------------------------------------------------------- host: tensor maps
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the 3-D map {128, L, B*H} of a contiguous (B, H, L, 128) bf16 tensor, boxes
+// of 64 columns x 64 rows, 128-byte swizzle, out-of-range rows read as zeros;
+// 0 or a cudaError_t (a base that is not 16-byte aligned is refused)
+inline int tensor_map(CUtensorMap* map, const void* ptr, int L, int BH) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  EncodeTiled encode = encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {128, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {128 * 2, (cuuint64_t)L * 128 * 2};
+  const cuuint32_t box[3] = {64, 64, 1}, elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
 
 }  // namespace vc

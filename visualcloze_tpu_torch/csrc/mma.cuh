@@ -1,8 +1,6 @@
-// Warp-level building blocks of the D = 128 attention forward
-// (flash_attn_rope.cu) and of the int8-weight matmul (int8_matmul.cu):
+// Warp-level building blocks of the int8-weight matmul (int8_matmul.cu):
 // mma.sync m16n8k16 bf16 with fp32 accumulators, ldmatrix, cp.async tile
-// loads into shared memory; pack2 and scale2 serve the backward
-// (flash_attn_bwd.cu) too.
+// loads into shared memory.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..), a2 = (g, 2t+8..),
@@ -29,7 +27,7 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b
 }
 
 // B fragments of two neighbouring n tiles from a (k, n) row-major tile in shared
-// memory (the V of P.V): r[0], r[1] for columns [8n, 8n + 8), r[2], r[3] for the next 8
+// memory (G's converted w tile): r[0], r[1] for columns [8n, 8n + 8), r[2], r[3] for the next 8
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -44,22 +42,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two fp32 values -> a bf16 pair, round-to-nearest-even (JAX's astype)
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// a bf16 pair times s in fp32, rounded back to bf16: bf16(q * scale * log2(e))
-__device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-  return pack2(f.x * s, f.y * s);
 }
 
 __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool pred) {
@@ -80,20 +62,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [row0, row0 + ROWS) of an (L, D) bf16 matrix -> shared memory with row
-// stride LDS, by NT threads; rows >= L are zero-filled
-template <int ROWS, int NT, int D, int LDS>
-__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* __restrict__ src, int row0,
-                                                int L) {
-  for (int u = threadIdx.x; u < ROWS * (D / 8); u += NT) {
-    const int r = u / (D / 8);
-    const int c = (u % (D / 8)) * 8;
-    const int row = row0 + r;
-    const bool ok = row < L;
-    cp_async16(dst + r * LDS + c, src + (size_t)(ok ? row : 0) * D + c, ok);
-  }
 }
 
 }  // namespace vc
