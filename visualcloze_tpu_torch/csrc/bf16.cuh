@@ -40,12 +40,4 @@ __device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
   return pack2(f.x * s, f.y * s);
 }
 
-// a 16-byte vector of 8 bf16 values of q -> q' = bf16(q * qscale)
-__device__ __forceinline__ void scale8(uint4& x, float qscale) {
-  x.x = scale2(x.x, qscale);
-  x.y = scale2(x.y, qscale);
-  x.z = scale2(x.z, qscale);
-  x.w = scale2(x.w, qscale);
-}
-
 }  // namespace vc

@@ -83,6 +83,14 @@ constexpr size_t KV_SMEM = KV_BAR + 8 * (1 + 3 * ST) + 1024;
 
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 128 * 40 + 256 * 232 = 384 * 168
 
+// a 16-byte vector of 8 bf16 values of q -> q' = bf16(q * qscale)
+__device__ __forceinline__ void scale8(uint4& x, float qscale) {
+  x.x = scale2(x.x, qscale);
+  x.y = scale2(x.y, qscale);
+  x.z = scale2(x.z, qscale);
+  x.w = scale2(x.w, qscale);
+}
+
 __global__ void __launch_bounds__(NT, 1)
     flash_bwd_dq(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,

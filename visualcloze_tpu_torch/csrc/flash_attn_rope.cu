@@ -45,8 +45,8 @@
 //     the accumulator layout, is the register A operand of O += P.V
 //     (m64n128k16, V an MN-major B). Query rows past Lq are computed and
 //     never stored. With both A operands in registers the products read
-//     only K and V from shared memory: 64 B a tensor-core cycle where q'
-//     from shared memory made it 96, beside TMA's 32 of the 128 the SM has;
+//     only K and V from shared memory: 64 bytes a tensor-core cycle, where
+//     S with q' from shared memory reads 96, beside TMA's 32 of the SM's 128;
 //   - the loop is skewed: step j issues S_j, rescales O by the previous
 //     tile's alpha while S_j runs, issues P_{j-1}.V_{j-1}, and runs the
 //     softmax of S_j as soon as S_j is done (wgmma.wait_group 1), while
@@ -63,37 +63,13 @@
 //   - the tensor maps are encoded on the host per call (hopper.cuh:
 //     tensor_map); a base pointer that is not 16-byte aligned is refused
 //     (cudaErrorMisalignedAddress).
-// Measured variants (fwd_variants.py; PERF.md): q' from shared memory,
-// 64-key tiles (3 stages), 2 stages, no ping-pong, no intra-warpgroup
-// overlap (one wait for both products), exp2f. The VC_FWD_* macros select
-// them; the defaults are the kept design.
+// Variants measured on the H100 and not kept (PERF.md): q' from shared
+// memory, 64-key tiles, 2 stages, one wait for both products, exp2f.
 #include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "bf16.cuh"
 #include "hopper.cuh"
-
-#ifndef VC_FWD_BK
-#define VC_FWD_BK 128  // keys per tile: 128 or 64
-#endif
-#ifndef VC_FWD_STAGES
-#define VC_FWD_STAGES 3  // stages of the K/V ring
-#endif
-#ifndef VC_FWD_PINGPONG
-#define VC_FWD_PINGPONG 1  // consumer warpgroups take turns issuing their products
-#endif
-#ifndef VC_FWD_OVERLAP
-#define VC_FWD_OVERLAP 1  // softmax of S_j while P_{j-1}.V_{j-1} runs (wgmma.wait_group 1)
-#endif
-#ifndef VC_FWD_FAST_EXP
-#define VC_FWD_FAST_EXP 1  // exp2 as ex2.approx.ftz (subnormal P flushed to 0) instead of exp2f
-#endif
-#ifndef VC_FWD_Q_REGS
-#define VC_FWD_Q_REGS 1  // q' as the register A operand of S (read once) instead of a shared-memory one
-#endif
-#ifndef VC_FWD_PRODUCER_REGS
-#define VC_FWD_PRODUCER_REGS 24
-#endif
 
 namespace {
 
@@ -102,13 +78,8 @@ using namespace vc;
 constexpr int D = 128;
 constexpr int NT = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int BQ = 128;  // query rows per CTA, 64 per consumer warpgroup
-constexpr int BK = VC_FWD_BK;
-constexpr int ST = VC_FWD_STAGES;
-constexpr bool kPingPong = VC_FWD_PINGPONG;
-constexpr bool kOverlap = VC_FWD_OVERLAP;
-constexpr bool kQRegs = VC_FWD_Q_REGS;
-static_assert(BK == 64 || BK == 128, "key tiles of 64 or 128");
-static_assert(!kQRegs || BK == 128, "q' in registers with 128-key tiles");
+constexpr int BK = 128;  // keys per tile
+constexpr int ST = 3;    // stages of the K/V ring
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;
 
@@ -124,8 +95,7 @@ enum Ring { K_FULL = 0, V_FULL = 1, K_EMPTY = 2, V_EMPTY = 3 };
 
 // setmaxnreg: the consumers take what the producer gives up from the 168
 // registers a thread has at launch (384 threads a CTA, one CTA an SM)
-constexpr int PRODUCER_REGS = VC_FWD_PRODUCER_REGS, CONSUMER_REGS = 168 + (168 - PRODUCER_REGS) / 2;
-static_assert(PRODUCER_REGS % 16 == 8 && CONSUMER_REGS <= 256, "setmaxnreg takes multiples of 8");
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 128 * (168 - 24) = 256 * (240 - 168)
 
 // q' = bf16(rot(q) * qscale), k' = bf16(rot(k)); one thread per 8 channel pairs
 __global__ void __launch_bounds__(256)
@@ -180,18 +150,10 @@ __device__ __forceinline__ void load_q(const unsigned char* qs, int row, int t, 
   }
 }
 
-// S = q'.K^T: rows [r0, r0 + 64) of the Q tile at qa (or q' in registers)
-// x the BK keys of the K tile at ka
-__device__ __forceinline__ void issue_s(float* sc, const uint32_t* qf, uint32_t qa, int r0, uint32_t ka) {
+// S = q'.K^T: q' of 64 rows in registers x the BK keys of the K tile at ka
+__device__ __forceinline__ void issue_s(float* sc, const uint32_t* qf, uint32_t ka) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    if constexpr (kQRegs)
-      wgmma_m64n128_rs(sc, qf + 4 * kk, desc_kmajor<BK>(ka, 0, kk), kk > 0);
-    else if constexpr (BK == 128)
-      wgmma_m64n128_ss(sc, desc_kmajor<BQ>(qa, r0, kk), desc_kmajor<BK>(ka, 0, kk), kk > 0);
-    else
-      wgmma_m64n64_ss(sc, desc_kmajor<BQ>(qa, r0, kk), desc_kmajor<BK>(ka, 0, kk), kk > 0);
-  }
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n128_rs(sc, qf + 4 * kk, desc_kmajor<BK>(ka, 0, kk), kk > 0);
   wgmma_commit();
 }
 
@@ -202,16 +164,12 @@ __device__ __forceinline__ void issue_pv(float* acc, const uint32_t* pa, uint32_
   wgmma_commit();
 }
 
-#if VC_FWD_FAST_EXP
 // 2^x with subnormal results flushed to zero (one MUFU.EX2)
 __device__ __forceinline__ float exp2_(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
-#else
-__device__ __forceinline__ float exp2_(float x) { return exp2f(x); }
-#endif
 
 // S + bias (kBias: a tile without bias inside Lk adds nothing), the online
 // row max m (rows g and g + 8 of the warp; the 4 threads of a row agree),
@@ -289,7 +247,6 @@ struct Slot {
 // the ping-pong: consumer warpgroup c waits for its turn to issue products,
 // and hands the turn to the other one after issuing
 __device__ __forceinline__ void turn_begin(int c) {
-  if (!kPingPong) return;
   if (c == 0)
     named_barrier<3, 256>();
   else
@@ -297,7 +254,6 @@ __device__ __forceinline__ void turn_begin(int c) {
 }
 
 __device__ __forceinline__ void turn_end(int c) {
-  if (!kPingPong) return;
   if (c == 0)
     named_arrive<4, 256>();
   else
@@ -370,24 +326,13 @@ __global__ void __launch_bounds__(NT, 1)
     setmaxnreg_inc<CONSUMER_REGS>();
     const int c = wg - 1;
     const int tid = threadIdx.x % 128;
-    const int w = tid / 32, lane = tid % 32, t = lane % 4;
-    const int r0 = 64 * c;
-    const int row0 = q0 + r0 + 16 * w + lane / 4;  // this thread's rows: row0, row0 + 8
-    const uint32_t qa = base + SM_Q;
+    const int lane = tid % 32, t = lane % 4;
+    const int rq = 64 * c + 16 * (tid / 32) + lane / 4;  // this thread's rows of the tile: rq, rq + 8
+    const int row0 = q0 + rq;
 
     mbar_wait(qbar, 0);
-    uint32_t qf[kQRegs ? 32 : 1];
-    if constexpr (kQRegs) {
-      load_q(smem + SM_Q, r0 + 16 * w + lane / 4, t, qscale, qf);
-    } else if (qscale != 1.0f) {  // q' = bf16(q * qscale), once: this warpgroup's 64 rows of both halves
-      uint4* qv = reinterpret_cast<uint4*>(smem + SM_Q);
-      for (int u = tid; u < 1024; u += 128) scale8(qv[(u >> 9) * 1024 + c * 512 + (u & 511)], qscale);
-      fence_proxy_async();
-      if (c == 0)
-        named_barrier<1, 128>();
-      else
-        named_barrier<2, 128>();
-    }
+    uint32_t qf[32];  // q', the A operand of S: 8 k16 steps
+    load_q(smem + SM_Q, rq, t, qscale, qf);
     if (c == 1) turn_end(c);  // warpgroup 1 issues first
 
     float acc[64], sc[BK / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, alpha[2];
@@ -403,7 +348,7 @@ __global__ void __launch_bounds__(NT, 1)
     mbar_wait(bar(K_FULL, 0), 0);
     turn_begin(c);
     wgmma_fence();
-    issue_s(sc, qf, qa, r0, k_tile(0));
+    issue_s(sc, qf, k_tile(0));
     turn_end(c);
     wgmma_wait0();
     fence_operands<BK / 2>(sc);
@@ -419,21 +364,17 @@ __global__ void __launch_bounds__(NT, 1)
       mbar_wait(bar(V_FULL, vs.s), vs.phase);
       turn_begin(c);
       wgmma_fence();
-      issue_s(sc, qf, qa, r0, k_tile(ks.s));
+      issue_s(sc, qf, k_tile(ks.s));
       rescale(acc, alpha);
       fence_operands<64>(acc);
       wgmma_fence();
       issue_pv(acc, pa, v_tile(vs.s));
       turn_end(c);
-      if (kOverlap) {
-        wgmma_wait<1>();  // S_j is done; P_{j-1}.V_{j-1} may still run
-      } else {
-        wgmma_wait0();
-      }
+      wgmma_wait<1>();  // S_j is done; P_{j-1}.V_{j-1} may still run
       fence_operands<BK / 2>(sc);
       mbar_arrive(bar(K_EMPTY, ks.s));
       softmax(biased(j), sc, bias_s + ks.s * BK, t, m, l, alpha);
-      if (kOverlap) wgmma_wait0();
+      wgmma_wait0();
       fence_operands<64>(acc);
       fence_operands<BK / 4>(pa);
       mbar_arrive(bar(V_EMPTY, vs.s));

@@ -199,29 +199,6 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float* d, uint64_t a, uint64_t b
     asm volatile(VC_WGMMA_M64N64_SS : VC_F16(d, 0, "=f"), VC_F16(d, 16, "=f") : "l"(a), "l"(b), "r"(0));
 }
 
-#define VC_WGMMA_M64N128_SS                                                               \
-  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                          \
-  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
-  "%64, %65, p, 1, 1, 0, 0;\n}\n"
-
-// d (64 x 128, fp32) (+)= A (64 x 16, smem K-major) . B (16 x 128, smem K-major)
-__device__ __forceinline__ void wgmma_m64n128_ss(float* d, uint64_t a, uint64_t b, bool accumulate) {
-  if (accumulate)
-    asm volatile(VC_WGMMA_M64N128_SS
-                 : VC_F16(d, 0, "+f"), VC_F16(d, 16, "+f"), VC_F16(d, 32, "+f"), VC_F16(d, 48, "+f")
-                 : "l"(a), "l"(b), "r"(1));
-  else
-    asm volatile(VC_WGMMA_M64N128_SS
-                 : VC_F16(d, 0, "=f"), VC_F16(d, 16, "=f"), VC_F16(d, 32, "=f"), VC_F16(d, 48, "=f")
-                 : "l"(a), "l"(b), "r"(0));
-}
-
-// d (64 x 128, fp32) (+)= A (64 x 16, bf16 registers) . B (16 x 128, smem K-major)
-__device__ __forceinline__ void wgmma_m64n128_rs(float* d, const uint32_t* a, uint64_t b, bool accumulate) {
 #define VC_WGMMA_M64N128_RS                                                                \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                          \
   "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                             \
@@ -230,6 +207,9 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float* d, const uint32_t* a, ui
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
   "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+
+// d (64 x 128, fp32) (+)= A (64 x 16, bf16 registers) . B (16 x 128, smem K-major)
+__device__ __forceinline__ void wgmma_m64n128_rs(float* d, const uint32_t* a, uint64_t b, bool accumulate) {
   if (accumulate)
     asm volatile(VC_WGMMA_M64N128_RS
                  : VC_F16(d, 0, "+f"), VC_F16(d, 16, "+f"), VC_F16(d, 32, "+f"), VC_F16(d, 48, "+f")
@@ -238,7 +218,6 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float* d, const uint32_t* a, ui
     asm volatile(VC_WGMMA_M64N128_RS
                  : VC_F16(d, 0, "=f"), VC_F16(d, 16, "=f"), VC_F16(d, 32, "=f"), VC_F16(d, 48, "=f")
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
-#undef VC_WGMMA_M64N128_RS
 }
 
 // d (64 x 128, fp32) += A (64 x 16, bf16 registers) . B (16 x 128, smem MN-major)
@@ -256,7 +235,7 @@ __device__ __forceinline__ void wgmma_m64n128_rs_tb(float* d, const uint32_t* a,
 }
 
 #undef VC_WGMMA_M64N64_SS
-#undef VC_WGMMA_M64N128_SS
+#undef VC_WGMMA_M64N128_RS
 #undef VC_F16
 #undef VC_F4
 

@@ -7,7 +7,9 @@ Counterparts of the Pallas kernels in visualcloze_tpu/ops/flash_attention.py:
   - kernel A replaces `flash_mha_rope` (the pipelined `_flash_fwd_pipelined`
     with `_flash_kernel_pipe_rope`, and the blocked `_flash_fwd_rope`): the
     RoPE rotation of q and k on the card (one pass into bf16 scratch), then
-    an online-softmax attention kernel with a key-padding bias, D = 128;
+    an online-softmax attention kernel with a key-padding bias, D = 128 (a
+    warp-specialised Hopper kernel: TMA into an mbarrier ring, wgmma in two
+    consumer warpgroups that take turns issuing; deterministic);
   - kernel C replaces `_flash_fwd` as the VAE bottleneck calls it
     (`autoencoder._flash_fwd_only`): one head, D = 512, no bias;
   - kernel D replaces `flash_mha`'s primal (`_flash_fwd_pipelined` without
