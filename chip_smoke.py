@@ -24,7 +24,9 @@ Phases, each followed by one flushed JSON line on stdout:
              also report share_of_bound and whether two launches gave the
              same bits (deterministic, required); D/E and F run at 3968, 5760
              padded and 7680 (the trainer's longest sequence) with a bias,
-             D/E also with 300 queries against 1000 keys;
+             D/E also with 300 queries against 1000 keys; A and D/E also
+             with keys masked inside a sequence 32 key tiles long (a block
+             of a third of the keys in the middle, every third key);
   grad_reference  one full-width double block and one single block with a
              rank-128 LoRA: the LoRA gradients through kernels E and F against
              the same blocks through their plain versions (relative RMS);
@@ -149,10 +151,34 @@ def attention_over_keys(q, k, v, cos, sin, n: int):
     return torch.matmul(torch.softmax(s, dim=-1), v[..., :n, :].float())
 
 
+def holes_mask(b: int, L: int):
+    """A (b, L) key mask with masked keys inside the sequence, many key tiles
+    apart: batch 0 loses the middle third of its keys (a padded image between
+    real tokens), batch 1 every third key."""
+    import torch
+
+    mask = torch.ones((b, L), dtype=torch.int32, device="cuda")
+    mask[0, L // 3: 2 * L // 3] = 0
+    mask[1, ::3] = 0
+    return mask
+
+
+def kept_keys_err(got, q, k, v, bias) -> float:
+    """max |got - fp32 attention over each batch's unmasked keys only| (q, k
+    as the kernel multiplies them)."""
+    err = 0.0
+    for i in range(q.shape[0]):
+        keep = bias[i] > -1.0
+        s = (q[i].float() @ k[i][:, keep].float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+        want = s.softmax(dim=-1) @ v[i][:, keep].float()
+        err = max(err, (got[i].float() - want).abs().max().item())
+    return err
+
+
 # ----------------------------- kernel checks -----------------------------
 
 
-def check_attention_rope(L: int, padded: bool, reps: int) -> dict:
+def check_attention_rope(L: int, padded: bool, reps: int, holes: bool = False) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -162,7 +188,7 @@ def check_attention_rope(L: int, padded: bool, reps: int) -> dict:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(L)
-    b, h, d = (2 if padded else 1), 24, 128
+    b, h, d = (2 if padded or holes else 1), 24, 128
     q, k, v = (torch.randn((b, h, L, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
     ang = torch.rand((b, L, d // 2), generator=g, device=dev) * 40.0
     cos, sin = torch.cos(ang), torch.sin(ang)
@@ -174,6 +200,10 @@ def check_attention_rope(L: int, padded: bool, reps: int) -> dict:
         mask[1] = 0
         bias = mask_to_bias(mask)
         valid = [L - 64, 0]
+    if holes:
+        mask = holes_mask(b, L)
+        bias = mask_to_bias(mask)
+        valid = mask.sum(dim=1).tolist()
     got = fa.flash_attn_rope(q, k, v, bias, cos, sin)
     deterministic = torch.equal(got, fa.flash_attn_rope(q, k, v, bias, cos, sin))
     torch.cuda.synchronize()
@@ -188,16 +218,18 @@ def check_attention_rope(L: int, padded: bool, reps: int) -> dict:
         want0 = attention_over_keys(q[:1], k[:1], v[:1], cos[:1], sin[:1], L - 64)
         pad_err = (got[:1].float() - want0).abs().max().item()
         del want0
+    if holes:  # every batch against attention over its unmasked keys only
+        pad_err = kept_keys_err(got, fa._rot_half(q.float(), cos, sin), fa._rot_half(k.float(), cos, sin), v, bias)
     ms = cuda_ms(lambda: fa.flash_attn_rope(q, k, v, bias, cos, sin), reps)
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias, cos, sin), 2)
     qr, kr = apply_rope_half(q, cos[:, None], sin[:, None]), apply_rope_half(k, cos[:, None], sin[:, None])
     amask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=amask), reps)
     flops = sum(4.0 * h * L * n * d for n in valid)
-    nbytes = 4 * b * h * L * d * 2 + 2 * b * L * (d // 2) * 4 + (b * L * 4 if padded else 0)
+    nbytes = 4 * b * h * L * d * 2 + 2 * b * L * (d // 2) * 4 + (b * L * 4 if bias is not None else 0)
     bms, by = bound(flops, nbytes)
-    return dict(name="flash_attn_rope", shape=[b, h, L, d], bias=padded, max_abs_err=err, tol=tol,
-                rms_plain=rms, padded_keys_err=pad_err,
+    return dict(name="flash_attn_rope", shape=[b, h, L, d], bias=bias is not None, holes=holes, max_abs_err=err,
+                tol=tol, rms_plain=rms, padded_keys_err=pad_err,
                 ok=err <= tol and masked_zero and (pad_err is None or pad_err <= tol) and deterministic,
                 masked_batch_zero=masked_zero, deterministic=deterministic, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, library="F.scaled_dot_product_attention on pre-rotated q, k",
@@ -270,10 +302,11 @@ def check_conv(shape, pre: bool, reps: int) -> dict:
                 bound_ms=bms, bound_by=by)
 
 
-def attention_case(b: int, L: int, padded: bool, seed: int):
+def attention_case(b: int, L: int, padded: bool, seed: int, holes: bool = False):
     """N(0,1) bf16 q, k, v, dO of (b, 24, L, 128); padded: batch 0's last 64
     keys are padding (and their query rows' dO is 0, as attention() zeroes
-    those outputs). Returns the tensors, the bias and each batch's real keys."""
+    those outputs); holes (b = 2): holes_mask's keys are masked. Returns the
+    tensors, the bias and each batch's count of real keys."""
     import torch
 
     from visualcloze_tpu_torch.ops.attention import mask_to_bias
@@ -288,6 +321,10 @@ def attention_case(b: int, L: int, padded: bool, seed: int):
         bias = mask_to_bias(mask)
         valid[0] = L - 64
         do = do * mask[:, None, :, None].to(do.dtype)
+    if holes:
+        mask = holes_mask(b, L)
+        bias = mask_to_bias(mask)
+        valid = mask.sum(dim=1).tolist()
     return q, k, v, do, bias, valid
 
 
@@ -297,17 +334,20 @@ def sdpa_mask(bias):
     return None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
 
 
-def check_attention_fwd(b: int, L: int, padded: bool, reps: int, lk: int | None = None) -> list[dict]:
+def check_attention_fwd(b: int, L: int, padded: bool, reps: int, lk: int | None = None,
+                        holes: bool = False) -> list[dict]:
     """Kernels D and E against their plain version; E's LSE too; for the
     padded batch, batch 0 against fp32 attention over its real keys only;
-    lk: that many keys against the L queries (no padding); a second launch
-    of each gives the same bits (deterministic)."""
+    lk: that many keys against the L queries (no padding); holes: keys
+    masked inside the sequence (holes_mask), every batch against attention
+    over its unmasked keys; a second launch of each gives the same bits
+    (deterministic)."""
     import torch
     import torch.nn.functional as F
 
     from visualcloze_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, _, bias, valid = attention_case(b, L, padded, L + 1)
+    q, k, v, _, bias, valid = attention_case(b, L, padded, L + 1, holes)
     if lk is not None:
         _, k, v, _, _, _ = attention_case(b, lk, False, lk + 1)
         valid = [lk] * b
@@ -334,6 +374,8 @@ def check_attention_fwd(b: int, L: int, padded: bool, reps: int, lk: int | None 
         del s
         pad_err = max((got_d[:1].float() - want0).abs().max().item(), (got_e[:1].float() - want0).abs().max().item())
         del want0
+    if holes:
+        pad_err = max(kept_keys_err(got_d, q, k, v, bias), kept_keys_err(got_e, q, k, v, bias))
     ms_d = cuda_ms(lambda: fa.flash_attn_fwd(q, k, v, bias), reps)
     ms_e = cuda_ms(lambda: fa.flash_attn_fwd_lse(q, k, v, bias), reps)
     plain_d = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias), 2)
@@ -342,9 +384,9 @@ def check_attention_fwd(b: int, L: int, padded: bool, reps: int, lk: int | None 
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask), reps)
     lk = k.shape[2]
     flops = sum(4.0 * 24 * L * n * 128 for n in valid)
-    nbytes = 2 * b * 24 * (L + lk) * 128 * 2 + (b * lk * 4 if padded else 0)
-    common = dict(shape=[b, 24, L, 128], keys=lk, bias=padded, tol=tol, rms_plain=rms, padded_keys_err=pad_err,
-                  deterministic=deterministic, library_ms=library_ms, library="F.scaled_dot_product_attention")
+    nbytes = 2 * b * 24 * (L + lk) * 128 * 2 + (b * lk * 4 if bias is not None else 0)
+    common = dict(shape=[b, 24, L, 128], keys=lk, bias=bias is not None, holes=holes, tol=tol, rms_plain=rms,
+                  padded_keys_err=pad_err, deterministic=deterministic, library_ms=library_ms, library="F.scaled_dot_product_attention")
     ok_pad = (pad_err is None or pad_err <= tol) and deterministic
     bms, by = bound(flops, nbytes)
     d = dict(name="flash_attn_fwd", max_abs_err=err_d, ok=err_d <= tol and ok_pad, ms=ms_d, plain_ms=plain_d,
@@ -833,6 +875,8 @@ def main() -> int:
         lambda: check_attention_fwd(2, 5760, True, 10),
         lambda: check_attention_fwd(1, 7680, True, 5),  # E's longest training sequence, with a bias
         lambda: check_attention_fwd(1, 300, False, 20, lk=1000),  # Lq != Lk, as a ring chunk passes them
+        lambda: [check_attention_rope(4096, False, 10, holes=True)],  # masked keys inside the sequence
+        lambda: check_attention_fwd(2, 4096, False, 10, holes=True),
         lambda: check_attention_bwd(1, 3968, False, 10),
         lambda: check_attention_bwd(2, 5760, True, 5),
         lambda: check_attention_bwd(1, 7680, True, 5),  # the trainer's longest Graph200K sequence

@@ -173,6 +173,48 @@ def test_gpu_flash_attn_rope_matches_plain(L):
     _close(got[:1], torch.matmul(torch.softmax(s, dim=-1), v[:1, :, :n].float()), tol)
 
 
+def _kept_keys_attention(q, k, v, keep):
+    """fp32 softmax(q k[keep]^T / sqrt(D)) v[keep] for one batch row (H, L, D)."""
+    s = torch.matmul(q.float(), k[:, keep].float().transpose(-1, -2)) * 128 ** -0.5
+    return torch.matmul(torch.softmax(s, dim=-1), v[:, keep].float())
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attn_fwd_masks_keys_inside_the_sequence():
+    """Keys masked inside a sequence 33 key tiles long, not only at its end:
+    batch 0 loses its middle third (a padded image between real tokens),
+    batch 1 every third key, so the bias of each key tile differs from the
+    next tiles'. A, D and E against their plain versions, and each batch
+    against fp32 attention that never sees its masked keys."""
+    dev = _cuda_or_skip()
+    b, h, L = 2, 4, 4097
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn((b, h, L, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    ang = torch.rand((b, L, 64), generator=g, device=dev) * 6.0
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    mask = torch.ones((b, L), dtype=torch.int32, device=dev)
+    mask[0, L // 3: 2 * L // 3] = 0
+    mask[1, ::3] = 0
+    bias = mask_to_bias(mask)
+    got = tfa.flash_attn_fwd(q, k, v, bias)
+    o, lse = tfa.flash_attn_fwd_lse(q, k, v, bias)
+    got_a = tfa.flash_attn_rope(q, k, v, bias, cos, sin)
+    torch.cuda.synchronize()
+    want, want_lse = tfa.flash_fwd_lse_plain(q, k, v, bias)
+    tol = _ulps_tol(want)
+    _close(got, want, tol)
+    assert torch.equal(o, got)
+    _close(lse, want_lse, 2.0 ** -13 * want_lse.abs().max().item())
+    want_a = tfa.flash_attention_plain(q, k, v, bias, cos, sin)
+    tol_a = _ulps_tol(want_a)
+    _close(got_a, want_a, tol_a)
+    qr, kr = (tfa._rot_half(t.float(), cos, sin) for t in (q, k))
+    for i in range(b):
+        keep = mask[i] > 0
+        _close(got[i], _kept_keys_attention(q[i], k[i], v[i], keep), tol)
+        _close(got_a[i], _kept_keys_attention(qr[i], kr[i], v[i], keep), tol_a)
+
+
 @pytest.mark.gpu
 def test_gpu_flash_attn_fwd_is_deterministic():
     """Two launches of A, D and E on the same inputs give the same bits

@@ -16,7 +16,7 @@
 // cos*x2 + sin*x1] in fp32 (kernel A only); q' = bf16(q * scale*log2(e)),
 // k' = bf16(rot(k)) or k; S = q'.k'^T + bias*log2(e) in fp32; an online row
 // max starting at -1e30; P = exp2(S - max) rounded to bf16 before P.V;
-// O * (1 / l) rounded once to bf16; rows whose keys are all masked give 0
+// O / l rounded once to bf16; rows whose keys are all masked give 0
 // (and lse -1e30). The order of every sum is
 // fixed: two launches on the same inputs give the same bits.
 //
@@ -33,9 +33,10 @@
 //     of one (b, h). Warpgroup 0 is the producer (setmaxnreg down to 24
 //     registers): one warp loads Q once and streams K and V tiles of 128
 //     keys by TMA into a 3-stage ring, K and V with their own full and empty
-//     mbarriers (a K tile is free once S is done, a V tile only after P.V),
-//     and writes each key tile's bias * log2(e) beside it, -inf past Lk
-//     (TMA fills rows past L with zeros, which would score s = 0). Warpgroups
+//     mbarriers (a K stage is free once its S and the softmax's read of its
+//     bias row are done, a V stage only after P.V), and writes each key
+//     tile's bias * log2(e) beside it, -inf past Lk (TMA fills rows past L
+//     with zeros, which would score s = 0). Warpgroups
 //     1 and 2 (up to 240 registers) own 64 query rows each: each thread
 //     reads its A fragments of Q once from the swizzled tile, as q' =
 //     bf16(q * qscale) (D and E; A's q comes scaled, qscale = 1), then per
@@ -64,7 +65,8 @@
 //     tensor_map); a base pointer that is not 16-byte aligned is refused
 //     (cudaErrorMisalignedAddress).
 // Variants measured on the H100 and not kept (PERF.md): q' from shared
-// memory, 64-key tiles, 2 stages, one wait for both products, exp2f.
+// memory, 64-key tiles, 2 stages, one wait for both products, exp2f, one
+// softmax body that adds the bias row to every tile (+7% without a bias).
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -352,8 +354,8 @@ __global__ void __launch_bounds__(NT, 1)
     turn_end(c);
     wgmma_wait0();
     fence_operands<BK / 2>(sc);
-    mbar_arrive(bar(K_EMPTY, 0));
     softmax(biased(0), sc, bias_s, t, m, l, alpha);
+    mbar_arrive(bar(K_EMPTY, 0));  // the stage's K tile and bias row are read
     pack_p(sc, pa);
 
     // step j: S_j, then O rescaled by alpha of S_{j-1} while S_j runs, then
@@ -372,8 +374,8 @@ __global__ void __launch_bounds__(NT, 1)
       turn_end(c);
       wgmma_wait<1>();  // S_j is done; P_{j-1}.V_{j-1} may still run
       fence_operands<BK / 2>(sc);
-      mbar_arrive(bar(K_EMPTY, ks.s));
       softmax(biased(j), sc, bias_s + ks.s * BK, t, m, l, alpha);
+      mbar_arrive(bar(K_EMPTY, ks.s));  // only now may the producer rewrite the bias row
       wgmma_wait0();
       fence_operands<64>(acc);
       fence_operands<BK / 4>(pa);
@@ -395,23 +397,21 @@ __global__ void __launch_bounds__(NT, 1)
     fence_operands<BK / 4>(pa);
     if (c == 0) turn_begin(c);  // takes warpgroup 2's last hand-over: every arrive is matched
 
-    float inv[2];  // 1 / l, correctly rounded: O * (1 / l) in fp32, then one bf16 rounding
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       if (l[r] == 0.0f) l[r] = 1.0f;  // fully masked rows -> 0, not NaN
-      inv[r] = __frcp_rn(l[r]);
     }
     bf16* out = o + (size_t)bh * Lq * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * t;
       if (row0 < Lq)
-        *reinterpret_cast<uint32_t*>(out + (size_t)row0 * D + col) = pack2(acc[4 * j] * inv[0], acc[4 * j + 1] * inv[0]);
+        *reinterpret_cast<uint32_t*>(out + (size_t)row0 * D + col) = pack2(acc[4 * j] / l[0], acc[4 * j + 1] / l[0]);
       if (row0 + 8 < Lq)
         *reinterpret_cast<uint32_t*>(out + (size_t)(row0 + 8) * D + col) =
-            pack2(acc[4 * j + 2] * inv[1], acc[4 * j + 3] * inv[1]);
+            pack2(acc[4 * j + 2] / l[1], acc[4 * j + 3] / l[1]);
     }
     if (kLse && t == 0) {  // m and l are the same in the 4 threads of a row
       if (row0 < Lq) lse[(size_t)bh * Lq + row0] = m[0] + log2f(l[0]);
