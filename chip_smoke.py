@@ -20,9 +20,13 @@ Phases, each followed by one flushed JSON line on stdout:
              timed as forward + backward minus forward; G's is
              torch._weight_int8pack_mm where it runs, else F.linear on a
              dequantized bf16 copy), and the bound from the H100 SXM data
-             sheet (989 TFLOP/s bf16 dense, 3.35 TB/s); A, D, E and F
-             also report share_of_bound and whether two launches gave the
-             same bits (deterministic, required); D/E and F run at 3968, 5760
+             sheet (989 TFLOP/s bf16 dense, 3.35 TB/s); A, B, C, D, E and
+             F also report share_of_bound and whether two launches gave the
+             same bits (deterministic, required); C runs at 6912 and 16384
+             (a 384x1152 row, the 1024^2 image), 2 x 1100 and 17 (shorter
+             than a tile); B at the VAE's level shapes, its 512->256 and
+             256->128 transitions and a ragged 37x91 image with a large b0
+             (the border zeroed after swish); D/E and F run at 3968, 5760
              padded and 7680 (the trainer's longest sequence) with a bias,
              D/E also with 300 queries against 1000 keys; A and D/E also
              with keys masked inside a sequence 32 key tiles long (a block
@@ -236,7 +240,9 @@ def check_attention_rope(L: int, padded: bool, reps: int, holes: bool = False) -
                 bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
 
 
-def check_attention_d512(L: int, reps: int) -> dict:
+def check_attention_d512(L: int, reps: int, b: int = 1) -> dict:
+    """Kernel C against its plain version at (b, 1, L, 512): 4 bf16 ulps at
+    the largest output; a second launch gives the same bits (deterministic)."""
     import torch
     import torch.nn.functional as F
 
@@ -244,8 +250,9 @@ def check_attention_d512(L: int, reps: int) -> dict:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(L)
-    q, k, v = (torch.randn((1, 1, L, 512), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    q, k, v = (torch.randn((b, 1, L, 512), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
     got = fa.flash_attn_d512(q, k, v)
+    deterministic = torch.equal(got, fa.flash_attn_d512(q, k, v))
     torch.cuda.synchronize()
     want = fa.flash_attention_plain(q, k, v)
     err = (got.float() - want.float()).abs().max().item()
@@ -255,14 +262,18 @@ def check_attention_d512(L: int, reps: int) -> dict:
     ms = cuda_ms(lambda: fa.flash_attn_d512(q, k, v), reps)
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 2)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps)
-    bms, by = bound(4.0 * L * L * 512, 4 * L * 512 * 2)
-    return dict(name="flash_attn_d512", shape=[1, 1, L, 512], max_abs_err=err, tol=tol, rms_plain=rms,
-                ok=err <= tol,
+    bms, by = bound(4.0 * b * L * L * 512, 4 * b * L * 512 * 2)
+    return dict(name="flash_attn_d512", shape=[b, 1, L, 512], max_abs_err=err, tol=tol, rms_plain=rms,
+                ok=err <= tol and deterministic, deterministic=deterministic,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms, library="F.scaled_dot_product_attention",
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
 
 
-def check_conv(shape, pre: bool, reps: int) -> dict:
+def check_conv(shape, pre: bool, reps: int, b0_scale: float = 1.0) -> dict:
+    """Kernel B against its plain version: 1% of the largest output; a
+    second launch gives the same bits (deterministic). b0_scale widens b0,
+    so that swish(b0) on the image border (zeroed after the activation) is
+    far from 0."""
     import torch
     import torch.nn.functional as F
 
@@ -276,9 +287,11 @@ def check_conv(shape, pre: bool, reps: int) -> dict:
     b = torch.randn((Co,), generator=g, device=dev) * 0.1
     aff = None
     if pre:
-        aff = (torch.rand((B, C), generator=g, device=dev) + 0.5, torch.randn((B, C), generator=g, device=dev))
+        aff = (torch.rand((B, C), generator=g, device=dev) + 0.5,
+               torch.randn((B, C), generator=g, device=dev) * b0_scale)
     act = "swish" if pre else "none"
     got = cv.conv3x3_gn_swish(x, w, b, pre_affine=aff, act=act)
+    deterministic = torch.equal(got, cv.conv3x3_gn_swish(x, w, b, pre_affine=aff, act=act))
     torch.cuda.synchronize()
     want = cv.conv3x3_plain(x, w, b, aff, act)
     err = (got.float() - want.float()).abs().max().item()
@@ -296,10 +309,11 @@ def check_conv(shape, pre: bool, reps: int) -> dict:
         lib = lambda: F.conv2d(x_nchw, w_oihw, b16, padding=1)  # noqa: E731
     library_ms = cuda_ms(lib, reps)
     bms, by = bound(2.0 * B * H * W * C * Co * 9, (B * H * W * (C + Co) + 9 * C * Co) * 2 + Co * 4)
-    return dict(name="conv3x3_gn_swish", shape=[B, H, W, C, Co], act=act, max_abs_err=err, tol=tol,
-                ok=err <= tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(name="conv3x3_gn_swish", shape=[B, H, W, C, Co], act=act, b0_scale=b0_scale, max_abs_err=err,
+                tol=tol, ok=err <= tol and deterministic, deterministic=deterministic, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms,
                 library="F.conv2d(F.silu(x * a + b0)) bf16 channels_last" if pre else "F.conv2d bf16",
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
 
 
 def attention_case(b: int, L: int, padded: bool, seed: int, holes: bool = False):
@@ -882,11 +896,16 @@ def main() -> int:
         lambda: check_attention_bwd(1, 7680, True, 5),  # the trainer's longest Graph200K sequence
         lambda: [check_attention_d512(6912, 10)],
         lambda: [check_attention_d512(16384, 5)],
+        lambda: [check_attention_d512(1100, 20, b=2)],  # several batches, a ragged L
+        lambda: [check_attention_d512(17, 20)],  # shorter than one tile
         lambda: [check_conv((1, 384, 1152, 128, 128), True, 10)],  # encoder/decoder level 0
         lambda: [check_conv((1, 192, 576, 128, 256), True, 10)],   # encoder level 1, first conv
         lambda: [check_conv((1, 96, 288, 512, 512), False, 10)],   # decoder upsample conv
         lambda: [check_conv((1, 48, 144, 512, 512), True, 20)],    # bottleneck
         lambda: [check_conv((1, 1024, 1024, 128, 128), True, 5)],  # SDEdit image, level 0
+        lambda: [check_conv((1, 192, 576, 512, 256), True, 10)],   # decoder 512 -> 256
+        lambda: [check_conv((1, 384, 1152, 256, 128), True, 10)],  # decoder 256 -> 128
+        lambda: [check_conv((1, 37, 91, 128, 128), True, 20, b0_scale=4.0)],  # ragged; swish(b0) on the border
         lambda: [check_int8_matmul(3968, 3072, 21504, "linear1", 20)],
         lambda: [check_int8_matmul(3968, 15360, 3072, "linear2", 20)],
         lambda: [check_int8_matmul(3456, 3072, 9216, "img_attn.qkv", 20)],

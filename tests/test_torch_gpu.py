@@ -263,6 +263,109 @@ def test_gpu_conv3x3_matches_plain(shape, pre):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b, h, L", [(2, 1, 1100), (1, 1, 17), (1, 2, 300), (2, 3, 65)])
+def test_gpu_flash_attn_d512_edge_cases(b, h, L):
+    """Kernel C against its plain version (4 bf16 ulps) where the tiles are
+    ragged: several batches and heads, a length that is a multiple of no
+    tile (1100, 300, 65: the last 32-key tile masked, the last 64-row query
+    tile cut) and one shorter than a single tile (17)."""
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(L + b)
+    q, k, v = (torch.randn((b, h, L, 512), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    got = tfa.flash_attn_d512(q, k, v)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_plain(q, k, v)
+    _close(got, want, _ulps_tol(want))
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attn_d512_is_deterministic():
+    """Two launches of kernel C on the same inputs give the same bits."""
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn((2, 1, 1100, 512), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    first, second = tfa.flash_attn_d512(q, k, v), tfa.flash_attn_d512(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _conv_inputs(dev, shape, pre, b0_scale=1.0, seed=2):
+    B, H, W, C, Co = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, H, W, C), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((3, 3, C, Co), generator=g, device=dev) * (9 * C) ** -0.5).to(torch.bfloat16)
+    b = torch.randn((Co,), generator=g, device=dev) * 0.1
+    aff = None
+    if pre:
+        aff = (torch.rand((B, C), generator=g, device=dev) + 0.5,
+               torch.randn((B, C), generator=g, device=dev) * b0_scale)
+    return x, w, b, aff
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, act", [
+    ((1, 3, 5, 128, 128), "swish"),      # smaller than one 4 x 64 tile
+    ((2, 37, 91, 128, 128), "swish"),    # rows and columns off the tile, two images
+    ((1, 24, 72, 512, 256), "swish"),    # the decoder's 512 -> 256 transition
+    ((1, 48, 144, 256, 128), "swish"),   # the decoder's 256 -> 128 transition
+    ((1, 20, 130, 128, 256), "swish"),   # the encoder's 128 -> 256 transition
+    ((1, 21, 66, 512, 512), "none"),     # the upsample conv: no affine, no activation
+    ((1, 9, 70, 24, 40), "swish"),       # channel counts that are multiples of 8 only
+    ((1, 9, 70, 24, 40), "affine"),      # the affine without the activation
+])
+def test_gpu_conv3x3_edge_cases(shape, act):
+    """Kernel B against its plain version (1% of the largest output) on
+    ragged tiles, the VAE's channel transitions, act "none", the affine
+    alone, and channel counts that fill no 64-channel chunk."""
+    dev = _cuda_or_skip()
+    x, w, b, aff = _conv_inputs(dev, shape, act != "none")
+    kw = dict(pre_affine=aff, act="none" if act == "affine" else act)
+    torch.backends.cudnn.allow_tf32 = False
+    got = tconv.conv3x3_gn_swish(x, w, b, **kw)
+    torch.cuda.synchronize()
+    want = tconv.conv3x3_plain(x, w, b, aff, kw["act"])
+    assert got.shape == want.shape
+    _close(got, want, 1e-2 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_gpu_conv3x3_zeroes_the_border_after_swish():
+    """With a large b0, swish(b0) is far from 0 on the image border: kernel B
+    must zero-pad AFTER the activation, as the plain version does. The
+    other order (padding x, then the activation) lands outside the
+    tolerance, so the check can tell them apart."""
+    dev = _cuda_or_skip()
+    x, w, b, aff = _conv_inputs(dev, (1, 37, 91, 128, 128), True, b0_scale=4.0, seed=5)
+    torch.backends.cudnn.allow_tf32 = False
+    got = tconv.conv3x3_gn_swish(x, w, b, pre_affine=aff, act="swish")
+    torch.cuda.synchronize()
+    want = tconv.conv3x3_plain(x, w, b, aff, "swish")
+    tol = 1e-2 * want.abs().max().item()
+    _close(got, want, tol)
+    a, b0 = aff
+    act = x.float() * a[:, None, None, :] + b0[:, None, None, :]
+    act = torch.nn.functional.pad((act * torch.sigmoid(act)).permute(0, 3, 1, 2), (1, 1, 1, 1), value=0.0)
+    swish_b0 = (b0 * torch.sigmoid(b0))[:, :, None, None]
+    act[:, :, 0, :] = swish_b0[:, :, 0]
+    act[:, :, -1, :] = swish_b0[:, :, 0]
+    act[:, :, :, 0] = swish_b0[:, :, :, 0]
+    act[:, :, :, -1] = swish_b0[:, :, :, 0]  # the wrong order: the padding's zeros went through the affine + swish
+    wrong = torch.nn.functional.conv2d(act.to(torch.bfloat16).float(), w.permute(3, 2, 0, 1).float()) + b[:, None, None]
+    assert (wrong.permute(0, 2, 3, 1) - want.float()).abs().max().item() > tol
+
+
+@pytest.mark.gpu
+def test_gpu_conv3x3_is_deterministic():
+    """Two launches of kernel B on the same inputs give the same bits."""
+    dev = _cuda_or_skip()
+    x, w, b, aff = _conv_inputs(dev, (1, 37, 91, 256, 128), True)
+    first = tconv.conv3x3_gn_swish(x, w, b, pre_affine=aff, act="swish")
+    second = tconv.conv3x3_gn_swish(x, w, b, pre_affine=aff, act="swish")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (333, 3072, 9216), (3456, 3072, 64), (3968, 3072, 21504)])
 def test_gpu_int8_matmul_matches_plain(m, k, n):
     """Kernel G against its plain version: the modulation GEMV (M = 1), a

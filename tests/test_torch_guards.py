@@ -137,6 +137,26 @@ def test_profile_step_classes_kernels_by_demangled_name():
     assert kernel_class("void at::native::reduce_kernel<512, 1>(at::native::ReduceOp)") == "other"
 
 
+def test_profile_step_classes_vae_kernels_by_demangled_name():
+    from visualcloze_tpu_torch.profile_step import vae_class
+
+    assert vae_class("void (anonymous namespace)::conv3x3_kernel<true, true>(CUtensorMap_st, CUtensorMap_st)") == \
+        "conv (kernel B)"
+    assert vae_class("(anonymous namespace)::flash_d512(CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)") == \
+        "attention (kernel C)"
+    assert vae_class("(anonymous namespace)::flash_d512_kernel(__nv_bfloat16 const*)") == "attention (kernel C)"
+    assert vae_class("void at::native::reduce_kernel<512, 1>(at::native::ReduceOp)") == "other"
+    assert vae_class("void at::native::conv_depthwise2d_forward_kernel<float>(float const*)") == "other"
+
+
+def test_profile_step_vae_mode_refuses_other_modes():
+    from visualcloze_tpu_torch.profile_step import main
+
+    for other in (["--train"], ["--quantize", "int8"]):
+        with pytest.raises(SystemExit):
+            main(["--vae", *other])
+
+
 def test_trainer_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     from visualcloze_tpu_torch.training.train import main
 
@@ -146,7 +166,8 @@ def test_trainer_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq",
-                                  "flash_attn_bwd_dkv", "flash_mha", "int8_matmul"])
+                                  "flash_attn_bwd_dkv", "flash_mha", "int8_matmul", "flash_attn_d512",
+                                  "conv3x3_gn_swish"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(name):
     """A tensor that is not on the CPU goes to the kernel path, which refuses
     what it does not take: here a meta tensor, never the plain version."""
@@ -157,6 +178,17 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(name):
         with pytest.raises(ValueError, match="CUDA"):
             ops.int8_matmul(x, torch.empty((128, 64), device="meta", dtype=torch.int8),
                             torch.empty((64,), device="meta"))
+        return
+    if name == "conv3x3_gn_swish":
+        x = torch.empty((1, 8, 8, 128), device="meta", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.conv3x3_gn_swish(x, torch.empty((3, 3, 128, 128), device="meta", dtype=torch.bfloat16),
+                                 torch.empty((128,), device="meta"), act="none")
+        return
+    if name == "flash_attn_d512":
+        q = torch.empty((1, 1, 16, 512), device="meta", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="CUDA"):
+            fa.flash_attn_d512(q, q, q)
         return
     q = torch.empty((1, 2, 16, 128), device="meta")
     lse = torch.empty((1, 2, 16), device="meta")

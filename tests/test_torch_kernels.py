@@ -92,6 +92,22 @@ def test_flash_attn_d512_plain_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
 
 
+def test_flash_attn_d512_plain_matches_pallas_at_a_ragged_length():
+    """Kernel C's plain version vs _flash_fwd at a length no block divides
+    (300: the Pallas kernel pads the keys with a -inf bias and slices the
+    padded query rows off), two batches."""
+    rng = np.random.default_rng(6)
+    b, L, d = 2, 300, 512
+    q, k, v = (rng.standard_normal((b, 1, L, d)).astype(np.float32) * 0.2 for _ in range(3))
+    with _interpret(jfa):
+        want = jfa._flash_fwd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, block_q=128, block_k=128
+        )
+    got = tfa.flash_attn_d512(_t(q), _t(k), _t(v))
+    assert got.shape == (b, 1, L, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
 def _conv_case(seed, B, H, W, C, Co):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, H, W, C)).astype(np.float32)
@@ -126,6 +142,22 @@ def test_conv3x3_plain_matches_pallas(mode):
     )
     if mode == "gn_swish_residual":
         got = got + _t(resid)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+
+def test_conv3x3_plain_matches_pallas_at_a_channel_transition():
+    """Kernel B's plain version vs conv3x3_fused(interpret=True) where the
+    channel count changes (128 -> 256, the encoder's first level-1 conv), on
+    a 10 x 19 image whose border gets swish(b0) != 0 before the zero
+    padding."""
+    x, w, b, gn, _ = _conv_case(3, 1, 10, 19, 128, 256)
+    gn["bias"] = gn["bias"] + 1.5  # swish(b0) far from 0 on the border
+    pre = jax_gn_affine(gn, jnp.asarray(x))
+    want = jconv.conv3x3_fused(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), pre_affine=pre, act="swish", interpret=True
+    )
+    got = tconv.conv3x3_gn_swish(_t(x), _t(w), _t(b), pre_affine=(_t(pre[0]), _t(pre[1])), act="swish")
+    assert got.shape == (1, 10, 19, 256)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
 
 

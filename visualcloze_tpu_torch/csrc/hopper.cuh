@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels
-// (flash_attn_rope.cu, flash_attn_bwd.cu): mbarriers, named barriers, TMA
-// tile loads and the host-side tensor maps they read, warpgroup MMA (wgmma)
-// with shared-memory descriptors for the 128-byte swizzle, register
-// reallocation.
+// (flash_attn_rope.cu, flash_attn_bwd.cu, flash_attn_d512.cu,
+// conv3x3_gn_swish.cu): mbarriers, named barriers, TMA tile loads and stores
+// and the host-side tensor maps they read, warpgroup MMA (wgmma) with
+// shared-memory descriptors for the 128-byte swizzle and for the unswizzled
+// K-major layout, register reallocation.
 //
 // Tile layout in shared memory (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
 // and a box of 64 columns x 64 rows): a tile of R rows x 128 bf16 columns is
@@ -101,7 +102,7 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 
 // ---------------------------------------------------------------- TMA
 
-// one 64-column x box-rows box of a 3-D tensor map {128, L, B*H} at (col,
+// one 64-column x box-rows box of a 3-D tensor map {D, L, B*H} at (col,
 // row, bh) into shared memory; completion counted in bytes on `bar`
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int col, int row, int bh,
                                             uint32_t bar) {
@@ -123,6 +124,35 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
     for (int r = 0; r < ROWS; r += 64) tma_load_3d(dst + h * ROWS * 128 + r * 128, map, h * 64, row0 + r, bh, bar);
 }
 
+// one box of a 4-D tensor map at (c0, c1, c2, c3) into shared memory;
+// completion counted in bytes on `bar`; coordinates may be negative or past
+// the end: those elements arrive as zeros
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of shared memory to a 4-D tensor map at (c0, c1, c2, c3); elements
+// past the tensor's end are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// the committed stores have read their shared memory (it may be rewritten)
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+
+// the committed stores are complete
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
 // ---------------------------------------------------------------- registers
 
 template <int N>
@@ -140,6 +170,13 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
          (1ull << 62);  // layout type 1: 128-byte swizzle
+}
+
+// the unswizzled ("interleave") layout: 8 x 16-byte core matrices, each 128
+// contiguous bytes. K-major: LBO = bytes from one core matrix to the next
+// along K, SBO = bytes from one 8-row group to the next along M (or N)
+__device__ __forceinline__ uint64_t gmma_desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
 }
 
 // K-major operand: rows [row0, row0 + 64) (or the N rows of B) of a [2][R][64]
@@ -234,7 +271,59 @@ __device__ __forceinline__ void wgmma_m64n128_rs_tb(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#define VC_WGMMA_M64N32_RS                                                                \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                          \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "            \
+  "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+
+// d (64 x 32, fp32) (+)= A (64 x 16, bf16 registers) . B (16 x 32, smem K-major)
+__device__ __forceinline__ void wgmma_m64n32_rs(float* d, const uint32_t* a, uint64_t b, bool accumulate) {
+  if (accumulate)
+    asm volatile(VC_WGMMA_M64N32_RS
+                 : VC_F16(d, 0, "+f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  else
+    asm volatile(VC_WGMMA_M64N32_RS
+                 : VC_F16(d, 0, "=f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+// d (64 x 256, fp32) += A (64 x 16, bf16 registers) . B (16 x 256, smem MN-major)
+__device__ __forceinline__ void wgmma_m64n256_rs_tb(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : VC_F16(d, 0, "+f"), VC_F16(d, 16, "+f"), VC_F16(d, 32, "+f"), VC_F16(d, 48, "+f"),
+        VC_F16(d, 64, "+f"), VC_F16(d, 80, "+f"), VC_F16(d, 96, "+f"), VC_F16(d, 112, "+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, smem K-major) . B (16 x 128, smem MN-major)
+__device__ __forceinline__ void wgmma_m64n128_ss_tb(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : VC_F16(d, 0, "+f"), VC_F16(d, 16, "+f"), VC_F16(d, 32, "+f"), VC_F16(d, 48, "+f")
+      : "l"(a), "l"(b), "r"(1));
+}
+
 #undef VC_WGMMA_M64N64_SS
+#undef VC_WGMMA_M64N32_RS
 #undef VC_WGMMA_M64N128_RS
 #undef VC_F16
 #undef VC_F4
@@ -261,20 +350,31 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// the 3-D map {128, L, B*H} of a contiguous (B, H, L, 128) bf16 tensor, boxes
-// of 64 columns x 64 rows, 128-byte swizzle, out-of-range rows read as zeros;
-// 0 or a cudaError_t (a base that is not 16-byte aligned is refused)
-inline int tensor_map(CUtensorMap* map, const void* ptr, int L, int BH) {
+// a tiled tensor map of `rank` dimensions over bf16 at ptr (dims innermost
+// first, strides in bytes of dims 1.., box in elements), out-of-range
+// elements read as zeros; 0 or a cudaError_t (a base or stride that is not
+// 16-byte aligned is refused)
+inline int encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  for (int i = 0; i + 1 < rank; ++i)
+    if (strides[i] % 16 != 0) return (int)cudaErrorMisalignedAddress;
   EncodeTiled encode = encoder();
   if (!encode) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {128, (cuuint64_t)L, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {128 * 2, (cuuint64_t)L * 128 * 2};
-  const cuuint32_t box[3] = {64, 64, 1}, elem[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// the 3-D map {D, L, B*H} of a contiguous (B, H, L, D) bf16 tensor, boxes of
+// 64 columns x `box_rows` rows, 128-byte swizzle, out-of-range rows read as zeros
+inline int tensor_map(CUtensorMap* map, const void* ptr, int L, int BH, int D = 128, int box_rows = 64) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  return encode_map(map, ptr, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace vc

@@ -1,7 +1,7 @@
-"""Where a denoise step of the default query (or a LoRA train step) spends
-its device time.
+"""Where a denoise step of the default query (or a LoRA train step, or the
+query's VAE work) spends its device time.
 
-    python -m visualcloze_tpu_torch.profile_step [--steps 3] [--out profile_step.json] [--train | --quantize int8]
+    python -m visualcloze_tpu_torch.profile_step [--steps 3] [--out profile_step.json] [--train | --quantize int8 | --vae]
 
 Builds the full-width random-weight model in bf16 on the GPU, prepares the
 default query (a 2x3 grid at 384: 3456 image + 512 text tokens), times
@@ -22,6 +22,15 @@ kernel G instead of cuBLAS GEMMs.
 interleaved layout with a rank-128 LoRA, per-block remat "full", one
 micro-batch of random tokens of the default query's size per step (3456
 image + 512 text); attention is then kernels E (forward) and F (backward).
+
+--vae profiles the default query's VAE work instead, on the full-width VAE
+alone (random weights, bf16): its vae_encode and vae_decode stages (two
+384x1152 rows encoded, two decoded) and the VAE calls of sdedit_prepare and
+sdedit_decode (the 1024^2 image and a blank one encoded, one decoded). Each
+part is timed with CUDA events (mean of --steps), then all are traced once;
+device time is summed as kernel B (GroupNorm affine + swish + conv3x3),
+kernel C (the D = 512 attention) and other (GroupNorm statistics, the plain
+convs, resampling, residual adds, casts).
 """
 
 from __future__ import annotations
@@ -45,6 +54,9 @@ LSE_KERNEL = re.compile(r"\bflash_fwd<true>")
 BACKWARD_KERNEL = re.compile(r"\bflash_bwd_(dq|dkv)\(")
 INT8_KERNEL = re.compile(r"\bint8_matmul_kernel<")  # csrc/int8_matmul.cu
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
+CONV_KERNEL = re.compile(r"\bconv3x3_kernel<")  # csrc/conv3x3_gn_swish.cu (B)
+D512_KERNEL = re.compile(r"\bflash_d512")  # csrc/flash_attn_d512.cu (C)
+VAE_ROW, VAE_SDEDIT = (384, 1152), (1024, 1024)  # the default query's rows and its SDEdit image
 
 
 def kernel_class(name: str) -> str:
@@ -59,6 +71,126 @@ def kernel_class(name: str) -> str:
     if any(m in name.lower() for m in GEMM_MARKS):
         return "gemm (linears)"
     return "other"
+
+
+def vae_class(name: str) -> str:
+    if CONV_KERNEL.search(name):
+        return "conv (kernel B)"
+    if D512_KERNEL.search(name):
+        return "attention (kernel C)"
+    return "other"
+
+
+def device_time(prof) -> tuple[dict[str, list], float, float]:
+    """({kernel name: [us, calls]}, busy us (the union of kernel intervals),
+    window us) of the CUDA kernels in a torch.profiler trace."""
+    per_kernel: dict[str, list] = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        acc = per_kernel.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.end - e.time_range.start
+        acc[1] += 1
+    busy, cursor = 0.0, None
+    for s, e in sorted(spans):
+        if cursor is None or s > cursor:
+            busy += e - s
+            cursor = e
+        elif e > cursor:
+            busy += e - cursor
+            cursor = e
+    window = max(e for _, e in spans) - min(s for s, _ in spans) if spans else 0.0
+    return per_kernel, busy, window
+
+
+def vae_work(ae, generator) -> dict:
+    """{part: run()} for the default query's VAE work: "rows" encodes and
+    decodes the two 384x1152 rows (vae_encode, vae_decode); "sdedit" encodes
+    the 1024^2 image and a blank one and decodes one (sdedit_prepare,
+    sdedit_decode). Inputs are made once from `generator`."""
+    dev = next(ae.parameters()).device
+    f, z = ae.cfg.downsample_factor, ae.cfg.z_channels
+
+    def inputs(h, w):
+        x = torch.rand((1, h, w, 3), generator=generator, device=dev) * 2 - 1
+        return x, torch.randn((1, h // f, w // f, z), generator=generator, device=dev)
+
+    rows = [inputs(*VAE_ROW) for _ in range(2)]
+    sdedit = [inputs(*VAE_SDEDIT) for _ in range(2)]
+
+    def run_rows():
+        for lat in [ae.encode(x, eps) for x, eps in rows]:
+            ae.decode(lat)
+
+    def run_sdedit():
+        lat = [ae.encode(x, eps) for x, eps in sdedit]
+        ae.decode(lat[0])
+
+    return {"rows": run_rows, "sdedit": run_sdedit}
+
+
+def vae_profile(ae, generator, reps: int) -> dict:
+    """CUDA-event ms of each part of vae_work (mean of `reps`, after a
+    warm-up), then one traced pass of every part: device ms by class
+    (vae_class), launches, idle share and the 20 costliest kernels."""
+    parts = vae_work(ae, generator)
+    for run in parts.values():
+        run()
+    torch.cuda.synchronize()
+    part_ms = {}
+    for name, run in parts.items():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        part_ms[name] = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for run in parts.values():
+            run()
+        torch.cuda.synchronize()
+    per_kernel, busy, window = device_time(prof)
+    if not per_kernel:
+        return {"error": "the trace holds no device events", "part_ms_cuda_events": part_ms}
+    classes: dict[str, list] = {}
+    for name, (us, n) in per_kernel.items():
+        acc = classes.setdefault(vae_class(name), [0.0, 0])
+        acc[0] += us / 1e3
+        acc[1] += n
+    kernel_ms = sum(ms for ms, _ in classes.values())
+    total_ms = sum(part_ms.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:20]
+    return dict(
+        part_ms_cuda_events=part_ms, ms_cuda_events=total_ms, kernel_ms_traced=kernel_ms,
+        class_ms={k: ms for k, (ms, _) in sorted(classes.items())},
+        class_share={k: ms / kernel_ms for k, (ms, _) in sorted(classes.items())},
+        class_launches={k: n for k, (_, n) in sorted(classes.items())},
+        device_idle_share=1.0 - kernel_ms / total_ms, device_idle_share_traced=1.0 - busy / window,
+        top=[dict(name=n, ms=us / 1e3, calls=c) for n, (us, c) in top],
+    )
+
+
+def smi_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def main_vae(args) -> int:
+    from .config import AutoEncoderConfig
+    from .models.autoencoder import build_autoencoder
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ae = build_autoencoder(AutoEncoderConfig(), torch.device("cuda"), torch.bfloat16).init_random_(gen)
+    result = vae_profile(ae, gen, args.steps)
+    result = dict(device=smi_line(), torch=torch.__version__, mode="vae", reps=args.steps, **result)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    result.pop("top", None)
+    print(json.dumps(result), flush=True)
+    return 0 if "error" not in result else 1
 
 
 def default_query(model):
@@ -103,9 +235,14 @@ def main(argv=None) -> int:
     p.add_argument("--train", action="store_true", help="profile a LoRA train step, not a denoise step")
     p.add_argument("--quantize", default=None, choices=[None, "int8"],
                    help="int8: the denoise step of the single-card int8 stack (kernel G)")
+    p.add_argument("--vae", action="store_true", help="profile the default query's VAE work (kernels B and C)")
     args = p.parse_args(argv)
     if args.train and args.quantize:
         p.error("--quantize profiles a denoise step; the trainer trains the bf16 DiT")
+    if args.vae and (args.train or args.quantize):
+        p.error("--vae profiles the VAE alone")
+    if args.vae:
+        return main_vae(args)
 
     if args.train:
         model, run, tokens = train_runner()
@@ -147,37 +284,17 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    per_kernel: dict[str, list] = {}
-    spans = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.time_range.end - e.time_range.start
-        spans.append((e.time_range.start, e.time_range.end))
-        acc = per_kernel.setdefault(e.name, [0.0, 0])
-        acc[0] += us
-        acc[1] += 1
-    if not spans:
+    per_kernel, busy, window = device_time(prof)
+    if not per_kernel:
         print(json.dumps({"error": "the trace holds no device events", "step_ms_cuda_events": step_ms}))
         return 1
-    busy, cursor = 0.0, None
-    for s, e in sorted(spans):  # union of kernel intervals
-        if cursor is None or s > cursor:
-            busy += e - s
-            cursor = e
-        elif e > cursor:
-            busy += e - cursor
-            cursor = e
-    window = max(e for _, e in spans) - min(s for s, _ in spans)
     classes: dict[str, float] = {}
     for name, (us, _) in per_kernel.items():
         classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + us
     kernel_ms = sum(classes.values()) / 1e3 / args.steps
     gemm_ms = (classes.get("gemm (linears)", 0.0) + classes.get("int8 matmul (kernel G)", 0.0)) / 1e3 / args.steps
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
     result = dict(
-        device=smi, torch=torch.__version__, mode="train" if args.train else "denoise", quantize=args.quantize,
+        device=smi_line(), torch=torch.__version__, mode="train" if args.train else "denoise", quantize=args.quantize,
         tokens=tokens,
         steps=args.steps,
         step_ms_cuda_events=step_ms, step_ms_traced_host=traced_ms,
