@@ -14,14 +14,17 @@ Phases, each followed by one flushed JSON line on stdout:
              against fp32 attention that never sees them; conv: 1% of the
              largest output; the int8 matmul G: 4 bf16 ulps of the largest
              output, at the int8 DiT's linear1, linear2, qkv, modulation
-             (M = 1), final_layer.linear (N = 64) and a ragged M), the
+             (M = 1), final_layer.linear (N = 64), a ragged M and the
+             512-token text stream's proj and linear2; G's launches timed
+             as a replayed CUDA graph, as the GEMV is shorter than its
+             wrapper's host-side launch), the
              kernel's, the plain version's and a PyTorch library call's ms
              (CUDA events; the backward's library call is SDPA's backward,
              timed as forward + backward minus forward; G's is
              torch._weight_int8pack_mm where it runs, else F.linear on a
              dequantized bf16 copy), and the bound from the H100 SXM data
-             sheet (989 TFLOP/s bf16 dense, 3.35 TB/s); A, B, C, D, E and
-             F also report share_of_bound and whether two launches gave the
+             sheet (989 TFLOP/s bf16 dense, 3.35 TB/s); every kernel also
+             reports share_of_bound and whether two launches gave the
              same bits (deterministic, required); C runs at 6912 and 16384
              (a 384x1152 row, the 1024^2 image), 2 x 1100 and 17 (shorter
              than a tile); B at the VAE's level shapes, its 512->256 and
@@ -114,15 +117,32 @@ def elapsed() -> float:
     return time.perf_counter() - T0
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, graph: bool = False) -> float:
+    """ms per call of fn, by CUDA events around `reps` calls after one more.
+    graph: the calls are captured into a CUDA graph and replayed, so a kernel
+    shorter than its wrapper's host-side launch is timed on the device."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    run, calls = fn, reps
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured, capture_error_mode="relaxed"):
+            for _ in range(reps):
+                fn()
+        captured.replay()
+        torch.cuda.synchronize()
+        run, calls = captured.replay, 1
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(calls):
+        run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -491,8 +511,9 @@ def int8pack_ms(x, w, scale) -> float | None:
 
 def check_int8_matmul(m: int, k: int, n: int, what: str, reps: int) -> dict:
     """Kernel G against its plain version: N(0,1) bf16 x, uniform int8 w,
-    scale d_in^-0.5 / 127; 4 bf16 ulps of the largest output. Beside the
-    library call, F.linear (cuBLAS bf16) on a copy dequantized beforehand."""
+    scale d_in^-0.5 / 127; 4 bf16 ulps of the largest output; a second
+    launch gives the same bits (deterministic). Beside the library call,
+    F.linear (cuBLAS bf16) on a copy dequantized beforehand."""
     import torch
     import torch.nn.functional as F
 
@@ -504,13 +525,14 @@ def check_int8_matmul(m: int, k: int, n: int, what: str, reps: int) -> dict:
     w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
     scale = torch.full((n,), k ** -0.5 / 127, device=dev)
     got = int8_matmul(x, w, scale)
+    deterministic = torch.equal(got, int8_matmul(x, w, scale))
     torch.cuda.synchronize()
     want = int8_matmul_plain(x, w, scale, torch.float32)
     err = (got.float() - want).abs().max().item()
     tol = bf16_ulps_tol(want)
     rms = want.pow(2).mean().sqrt().item()
     del want
-    ms = cuda_ms(lambda: int8_matmul(x, w, scale), reps)
+    ms = cuda_ms(lambda: int8_matmul(x, w, scale), reps, graph=True)
     plain_ms = cuda_ms(lambda: int8_matmul_plain(x, w, scale), 2)
     w16 = (w.t().float() * scale[:, None]).to(torch.bfloat16)  # (N, K), dequantized beforehand
     dequant_ms = cuda_ms(lambda: F.linear(x, w16), reps)
@@ -520,8 +542,9 @@ def check_int8_matmul(m: int, k: int, n: int, what: str, reps: int) -> dict:
         library_ms, library = dequant_ms, "F.linear on a bf16 copy dequantized beforehand"
     bms, by = bound(2.0 * m * n * k, 2 * m * k + k * n + 4 * n + 2 * m * n)
     return dict(name="int8_matmul", what=what, shape=[m, k, n], max_abs_err=err, tol=tol, rms_plain=rms,
-                ok=err <= tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=library,
-                dequant_f_linear_ms=dequant_ms, bound_ms=bms, bound_by=by, tflops=2.0 * m * n * k / ms / 1e9,
+                ok=err <= tol and deterministic, deterministic=deterministic, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, library=library, dequant_f_linear_ms=dequant_ms, bound_ms=bms, bound_by=by,
+                share_of_bound=bms / ms, tflops=2.0 * m * n * k / ms / 1e9,
                 weight_gbps=k * n / ms / 1e6)
 
 
@@ -912,6 +935,8 @@ def main() -> int:
         lambda: [check_int8_matmul(1, 3072, 18432, "double-block modulation", 50)],
         lambda: [check_int8_matmul(3456, 3072, 64, "final_layer.linear", 50)],
         lambda: [check_int8_matmul(4097, 3072, 3072, "ragged M (proj)", 20)],
+        lambda: [check_int8_matmul(512, 3072, 3072, "text stream proj", 50)],
+        lambda: [check_int8_matmul(512, 12288, 3072, "text stream linear2", 50)],
     ]
     first = {}
     for fn in checks:

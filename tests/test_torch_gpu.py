@@ -365,26 +365,53 @@ def test_gpu_conv3x3_is_deterministic():
     assert torch.equal(first, second)
 
 
+def _int8_case(dev, m, k, n):
+    """N(0,1) bf16 x, uniform int8 w, scale d_in^-0.5 / 127 times a factor
+    per column in [0.5, 1.5) (so a column mixed up with another shows)."""
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    scale = (torch.rand((n,), generator=g, device=dev) + 0.5) * k ** -0.5 / 127
+    return x, w, scale
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (333, 3072, 9216), (3456, 3072, 64), (3968, 3072, 21504)])
+@pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (333, 3072, 9216), (3456, 3072, 64), (3968, 3072, 21504),
+                                     (16, 3072, 3072), (17, 3072, 3072), (64, 3072, 272), (129, 256, 16),
+                                     (300, 64, 512), (200, 15360, 3072), (5, 15360, 64), (2, 64, 16)])
 def test_gpu_int8_matmul_matches_plain(m, k, n):
     """Kernel G against its plain version: the modulation GEMV (M = 1), a
-    ragged M, final_layer.linear (N = 64) and linear1. N(0,1) bf16 x, uniform
-    int8 w, scale d_in^-0.5 / 127; 4 bf16 ulps of the largest output (fp32
-    sums of K exact products in another order); the fp32 output within 1e-5
-    of it."""
+    ragged M, final_layer.linear (N = 64), linear1; M on both sides of the
+    GEMV body's threshold (16, 17) and at 64 and 129; N = 16 and 272 (not a
+    multiple of the 256-column tile); K = 64 (one stage) and 15360. 4 bf16
+    ulps of the largest output (fp32 sums of K exact products in another
+    order); the fp32 output within 1e-5 of it, times K / 3072 above K = 3072
+    (the rounding of a sum grows with its terms)."""
     from visualcloze_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
 
     dev = _cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
-    g = torch.Generator(device=dev).manual_seed(m + n)
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
-    scale = torch.full((n,), k ** -0.5 / 127, device=dev)
+    x, w, scale = _int8_case(dev, m, k, n)
     got = int8_matmul(x, w, scale)
     got32 = int8_matmul(x, w, scale, out_dtype=torch.float32)
     torch.cuda.synchronize()
     want = int8_matmul_plain(x, w, scale, torch.float32)
     assert got.dtype == torch.bfloat16 and got.shape == (m, n)
     _close(got, want, _ulps_tol(want))
-    _close(got32, want, 1e-5 * want.abs().max().item())
+    _close(got32, want, 1e-5 * max(1.0, k / 3072) * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (7, 3072, 3072), (333, 3072, 9216)])
+def test_gpu_int8_matmul_is_deterministic(m, k, n):
+    """Two launches of kernel G give the same bits, in its GEMV body (M = 1,
+    M = 7) and its wide body."""
+    from visualcloze_tpu_torch.ops.int8_matmul import int8_matmul
+
+    dev = _cuda_or_skip()
+    x, w, scale = _int8_case(dev, m, k, n)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        first = int8_matmul(x, w, scale, out_dtype=out_dtype)
+        second = int8_matmul(x, w, scale, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)

@@ -137,6 +137,18 @@ def test_profile_step_classes_kernels_by_demangled_name():
     assert kernel_class("void at::native::reduce_kernel<512, 1>(at::native::ReduceOp)") == "other"
 
 
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::int8_matmul_wide<__nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, float const*)",
+    "void (anonymous namespace)::int8_matmul_wide<float>(CUtensorMap_st, CUtensorMap_st, float const*)",
+    "void (anonymous namespace)::int8_gemv<__nv_bfloat16, 1>(__nv_bfloat16 const*, signed char const*)",
+    "void (anonymous namespace)::int8_gemv<float, 4>(__nv_bfloat16 const*, signed char const*)",
+])
+def test_profile_step_classes_both_bodies_of_kernel_g(name):
+    from visualcloze_tpu_torch.profile_step import kernel_class
+
+    assert kernel_class(name) == "int8 matmul (kernel G)"
+
+
 def test_profile_step_classes_vae_kernels_by_demangled_name():
     from visualcloze_tpu_torch.profile_step import vae_class
 

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels
 // (flash_attn_rope.cu, flash_attn_bwd.cu, flash_attn_d512.cu,
-// conv3x3_gn_swish.cu): mbarriers, named barriers, TMA tile loads and stores
-// and the host-side tensor maps they read, warpgroup MMA (wgmma) with
-// shared-memory descriptors for the 128-byte swizzle and for the unswizzled
-// K-major layout, register reallocation.
+// conv3x3_gn_swish.cu, int8_matmul.cu): mbarriers, named barriers, TMA tile
+// loads and stores and the host-side tensor maps they read, warpgroup MMA
+// (wgmma) with shared-memory descriptors for the 128-byte swizzle and for
+// the unswizzled K-major layout, register reallocation.
 //
 // Tile layout in shared memory (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
 // and a box of 64 columns x 64 rows): a tile of R rows x 128 bf16 columns is
@@ -350,19 +350,20 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// a tiled tensor map of `rank` dimensions over bf16 at ptr (dims innermost
-// first, strides in bytes of dims 1.., box in elements), out-of-range
-// elements read as zeros; 0 or a cudaError_t (a base or stride that is not
-// 16-byte aligned is refused)
+// a tiled tensor map of `rank` dimensions over elements of `type` (bf16
+// unless told otherwise) at ptr (dims innermost first, strides in bytes of
+// dims 1.., box in elements), out-of-range elements read as zeros; 0 or a
+// cudaError_t (a base or stride that is not 16-byte aligned is refused)
 inline int encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-                      const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+                      const cuuint32_t* box, CUtensorMapSwizzle swizzle,
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   for (int i = 0; i + 1 < rank; ++i)
     if (strides[i] % 16 != 0) return (int)cudaErrorMisalignedAddress;
   EncodeTiled encode = encoder();
   if (!encode) return (int)cudaErrorNotSupported;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box,
+  const CUresult r = encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
                             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -12,7 +12,9 @@ applied once to the sums, then one rounding to `out_dtype`. It is the int8
 linear of the port (models/layers.Int8Linear): the JAX package's int8 linear
 leaves the convert to XLA, which fuses it into the matmul's weight loads;
 PyTorch has no fused convert-dot, and a dequantized bf16 copy would write
-every weight to device memory on every call.
+every weight to device memory on every call. On the card the kernel takes
+M <= 16 rows (the modulation and embedder GEMVs) in a body that streams the
+weights without tensor cores, larger M in a wgmma body.
 """
 
 from __future__ import annotations

@@ -52,7 +52,7 @@ from .pipeline import random_components, synthetic_full_components
 ATTENTION_KERNEL = re.compile(r"\b(rope_rotate|flash_fwd)[<(]")
 LSE_KERNEL = re.compile(r"\bflash_fwd<true>")
 BACKWARD_KERNEL = re.compile(r"\bflash_bwd_(dq|dkv)\(")
-INT8_KERNEL = re.compile(r"\bint8_matmul_kernel<")  # csrc/int8_matmul.cu
+INT8_KERNEL = re.compile(r"\bint8_(matmul\w*|gemv)<")  # csrc/int8_matmul.cu: its wide and GEMV bodies
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 CONV_KERNEL = re.compile(r"\bconv3x3_kernel<")  # csrc/conv3x3_gn_swish.cu (B)
 D512_KERNEL = re.compile(r"\bflash_d512")  # csrc/flash_attn_d512.cu (C)
