@@ -57,10 +57,35 @@ Phases, each followed by one flushed JSON line on stdout:
              line per step (loss, grad norm, tokens, Dataload/Encode/Train
              seconds, peak memory), then the checkpoint's files;
   query_interleaved  the trainer's base components (optimizer state freed)
-             serving a 2x2 grid at 384 in the interleaved layout (kernel D).
+             serving a 2x2 grid at 384 in the interleaved layout (kernel D);
+  checkpoint_write  the seed-0 bf16 stack (the `init` phase's) written as the
+             reference checkpoint files under build/ckpt_roundtrip/: the DiT
+             put back in the reference channel order as one BFL safetensors
+             file (read back bit for bit), a rank-256 reference-trainer LoRA
+             .pth (B and its bias N(0, 0.02)), the VAE, T5-XXL and CLIP-L as
+             HF shards; bytes, seconds, disk usage before and after;
+  load_checkpoint  build_visualcloze on those files (FLUX_DEV_FILL, AE,
+             T5_PATH, CLIP_PATH): the LoRA folded on the card, the DiT
+             permuted to the half layout; every tensor without LoRA bit-
+             identical to the file's, every folded one within 1 bf16 ulp of
+             the float64 fold; load seconds, resident and peak memory, the
+             host's resident set before the load and its peak (sampled);
+  request_loaded  request 1's query on the loaded stack: A, B and C launch as
+             often as in request 1, no other kernel;
+  solvers    a 2x2 query at 384 without SDEdit on 10 grid points with heun,
+             ab2, cached:3 and dopri5: DiT evaluations (A's launches / 57)
+             as each solver's schedule says (dopri5: its own count);
+  load_checkpoint_int8  the same files with quantize="int8" and an int4 T5,
+             the default query: G 314 times per DiT evaluation;
+  load_snapshot  the BFL file removed, the seed-0 DiT written as a diffusers
+             snapshot (transformer/ shards, model_index.json) and loaded:
+             every tensor bit-identical to the seed-0 DiT it was written
+             from (rebuilt after the load); a 2x2 Euler query.
+The checkpoint files are removed after the last of them, also on failure.
 Launch counters are zeroed just before each main-path phase (request,
-request_int8, train, query_interleaved) and read just after; G runs in
-request_int8 only. Then the kernels line, the nvidia-smi
+request_int8, train, query_interleaved, request_loaded, solvers,
+load_checkpoint_int8, load_snapshot) and read just after; G runs in
+request_int8 and load_checkpoint_int8 only. Then the kernels line, the nvidia-smi
 line, and {"ok": true, "device": ...} last. Exits non-zero, with no result
 line, without a CUDA device, outside a checkout of the repository, or when
 any phase fails.
@@ -68,6 +93,7 @@ any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -874,6 +900,430 @@ def run_training(tmp, remat_policy: str):
     return out, result
 
 
+# ----------------------------- checkpoint files -----------------------------
+
+CKPT_DIR = "build/ckpt_roundtrip"  # under the checkout, git-ignored, removed at the end
+SHARD_BYTES = 5 * 2 ** 30
+CKPT_RANK = 256  # build_visualcloze's default lora_rank
+
+
+def unpermute_rope_layout_(flux, cfg):
+    """The inverse of permute_rope_layout, in place: the half layout's q/k
+    channels (qkv rows, linear1's first 3h rows, the norm scales) back in the
+    reference's interleaved order, as a BFL checkpoint holds them."""
+    import numpy as np
+    import torch
+
+    from visualcloze_tpu_torch.models import weights as W
+
+    dev = next(flux.parameters()).device
+    inv = torch.from_numpy(np.argsort(W._qkv_out_perm(cfg))).to(dev)
+    inv_d = torch.from_numpy(np.argsort(W._half_perm(cfg.head_dim))).to(dev)
+
+    def lin(m):
+        idx = torch.cat([inv, torch.arange(len(inv), m.weight.shape[0], device=dev)])
+        m.weight.copy_(m.weight[idx])
+        m.bias.copy_(m.bias[idx])
+
+    def norm(n):
+        n.q_scale.copy_(n.q_scale[inv_d])
+        n.k_scale.copy_(n.k_scale[inv_d])
+
+    with torch.no_grad():
+        for block in flux.double_blocks:
+            for attn in (block.img_attn, block.txt_attn):
+                lin(attn.qkv)
+                norm(attn.norm)
+        for block in flux.single_blocks:
+            lin(block.linear1)
+            norm(block.norm)
+    return flux
+
+
+def half_rows(name: str, t, cfg):
+    """A tensor of the port's Flux named `name`, in the reference order ->
+    the half layout (what permute_rope_layout does to that parameter)."""
+    import numpy as np
+    import torch
+
+    from visualcloze_tpu_torch.models import weights as W
+
+    if re.fullmatch(r"double_blocks\.\d+\.(img|txt)_attn\.qkv\.(weight|bias)|single_blocks\.\d+\.linear1\.(weight|bias)",
+                    name):
+        perm = W._qkv_out_perm(cfg)
+        idx = np.concatenate([perm, np.arange(len(perm), t.shape[0])])
+    elif name.endswith(("norm.q_scale", "norm.k_scale")):
+        idx = W._half_perm(cfg.head_dim)
+    else:
+        return t
+    return t[torch.from_numpy(idx).to(t.device)]
+
+
+def hf_state(module, keys: dict) -> dict:
+    """The inverse of convert_t5 / convert_clip: a T5 or CLIP module's tensors
+    under their HF names (keys: HF name -> the port's name)."""
+    from visualcloze_tpu_torch.models import weights as W
+
+    state = W.module_state(module)
+    return {hf: state[port] for hf, port in keys.items()}
+
+
+def save_sharded(state: dict, directory, prefix: str = "model") -> int:
+    """state as HF-style shards of at most SHARD_BYTES each; returns the bytes."""
+    from visualcloze_tpu_torch.models import weights as W
+
+    directory.mkdir(parents=True, exist_ok=True)
+    shards, size = [[]], 0
+    for k in sorted(state):
+        n = state[k].numel() * state[k].element_size()
+        if shards[-1] and size + n > SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append(k)
+        size += n
+    total = 0
+    for i, keys in enumerate(shards):
+        path = directory / f"{prefix}-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        total += W.save_safetensors({k: state[k] for k in keys}, str(path))
+    return total
+
+
+def random_lora(flux, rank: int, seed: int):
+    """A LoRA on every linear of flux: init_lora's A, B and B's bias N(0, 0.02)
+    (a visible delta: zero-init B folds to nothing)."""
+    import torch
+
+    from visualcloze_tpu_torch.models.lora import init_lora, lora_entries
+
+    dev = next(flux.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lora = init_lora(flux, rank, generator=g)
+    with torch.no_grad():
+        for entry in lora_entries(lora).values():
+            entry["b"].normal_(0.0, 0.02, generator=g)
+            entry["b_bias"].normal_(0.0, 0.02, generator=g)
+    return lora
+
+
+def write_checkpoints(model, lora, root) -> dict:
+    """The serving stack `model` (its DiT in the half layout) as the reference
+    checkpoint files under root: (a) the DiT, put back in the reference order,
+    as one BFL safetensors file, read back and checked bit for bit; (b) the
+    LoRA as a reference-trainer .pth; (c) the VAE; (d) T5 and CLIP as HF
+    shards. The DiT is left in the reference order. Returns paths, bytes and
+    seconds per file."""
+    import torch
+
+    from visualcloze_tpu_torch.models import weights as W
+
+    cfg = model.cfg
+    out = {"paths": {}, "bytes": {}, "seconds": {}}
+
+    def timed(key, path, fn):
+        t0 = time.perf_counter()
+        nbytes = fn()
+        out["paths"][key], out["bytes"][key] = str(path), nbytes
+        out["seconds"][key] = time.perf_counter() - t0
+
+    unpermute_rope_layout_(model.flux, cfg)
+    dit = root / "flux1-fill-dev.safetensors"
+    timed("dit", dit, lambda: W.save_safetensors(W.flux_to_torch_state(model.flux, cfg), str(dit)))
+    t0 = time.perf_counter()
+    back = W.convert_flux(W.load_safetensors(str(dit)), cfg)
+    mine = W.module_state(model.flux)
+    out["dit_readback_mismatches"] = sum(not torch.equal(back[k].to(v.device), v) for k, v in mine.items())
+    out["dit_readback_tensors"] = len(mine)
+    out["seconds"]["dit_readback"] = time.perf_counter() - t0
+    del back
+    lora_path = root / "visualcloze-lora.pth"
+
+    def save_lora():
+        torch.save(W.lora_to_torch_state(lora), lora_path)
+        return lora_path.stat().st_size
+
+    timed("lora", lora_path, save_lora)
+    ae = root / "ae.safetensors"
+    timed("vae", ae, lambda: W.save_safetensors(W.vae_to_torch_state(model.ae), str(ae)))
+    timed("t5", root / "t5", lambda: save_sharded(hf_state(model.t5.model, W.t5_keys(model.t5.cfg)), root / "t5"))
+    timed("clip", root / "clip",
+          lambda: save_sharded(hf_state(model.clip.model, W.clip_keys(model.clip.cfg)), root / "clip"))
+    return out
+
+
+def write_snapshot(flux, cfg, root) -> dict:
+    """A DiT in the reference order as a diffusers pipeline snapshot:
+    transformer/ shards in FluxTransformer2DModel naming and model_index.json."""
+    from visualcloze_tpu_torch.models import weights as W
+
+    t0 = time.perf_counter()
+    snap = root / "snapshot"
+    nbytes = save_sharded(W.flux_to_diffusers_state(flux, cfg), snap / "transformer",
+                          prefix="diffusion_pytorch_model")
+    (snap / "model_index.json").write_text(json.dumps({"_class_name": "VisualClozePipeline"}))
+    return {"path": str(snap), "bytes": nbytes, "seconds": time.perf_counter() - t0}
+
+
+def check_loaded_dit(flux, cfg, base_state: dict, lora_half=None) -> dict:
+    """A loaded DiT (half layout) against the checkpoint it came from:
+    base_state, the file's tensors under the port's names in the reference
+    order; lora_half, the LoRA in the half layout. Every tensor no LoRA entry
+    touches must be bit-identical to the file's (permuted). Every folded
+    weight and bias must be within 1 bf16 ulp of the fold computed in float64
+    (bf16(w + A@B), bf16(b + b_B)), beyond the rounding bound of the fold's
+    own fp32 arithmetic: r * 2^-24 * |A|@|B| for the rank-r product plus
+    2^-24 * (|w| + |A@B|) for the sum (the textbook bounds). That bound
+    matters only where w and A@B nearly cancel, where a bf16 ulp of the
+    result is smaller than the fp32 product's own rounding; such elements are
+    counted apart (folded_elems_over_1_ulp, with the largest |result| among
+    them)."""
+    import torch
+
+    from visualcloze_tpu_torch.models import weights as W
+    from visualcloze_tpu_torch.models.lora import lora_entries
+
+    u32 = 2.0 ** -24
+    entries = lora_entries(lora_half) if lora_half else {}
+    exact = exact_bad = folded = folded_bad = over_ulp = 0
+    max_ulps = over_ulp_top = 0.0
+    for name, got in W.module_state(flux).items():
+        dev = got.device
+        base = half_rows(name, base_state[name].to(dev), cfg).double()
+        path, leaf = name.rsplit(".", 1)
+        e = entries.get(path)
+        if e is None:
+            exact += 1
+            exact_bad += not torch.equal(got, base.to(got.dtype))
+            continue
+        if leaf == "weight":
+            a, b = e["a"].to(dev, torch.float64), e["b"].to(dev, torch.float64)
+            prod = (a @ b).T
+            want64 = base + prod
+            bound = a.shape[1] * u32 * (a.abs() @ b.abs()).T + u32 * (base.abs() + prod.abs())
+        else:
+            bb = e["b_bias"].to(dev, torch.float64)
+            want64 = base + bb
+            bound = u32 * (base.abs() + bb.abs())
+        want = want64.to(got.dtype).double()
+        diff = (got.double() - want).abs()
+        top = torch.maximum(got.double().abs(), want.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        max_ulps = max(max_ulps, (diff / ulp).max().item())
+        beyond = diff > ulp
+        over_ulp += int(beyond.sum())
+        if beyond.any():
+            over_ulp_top = max(over_ulp_top, want[beyond].abs().max().item())
+        folded += 1
+        folded_bad += bool((diff > ulp + bound).any())
+    return dict(exact_tensors=exact, exact_mismatches=exact_bad, folded_tensors=folded,
+                folded_over_bound=folded_bad, folded_max_ulps=max_ulps, folded_elems_over_1_ulp=over_ulp,
+                folded_largest_abs_over_1_ulp=over_ulp_top,
+                ok=exact_bad == 0 and folded_bad == 0 and exact + folded > 0)
+
+
+def host_rss_gib() -> float:
+    """The process's resident set now (VmRSS), in GiB."""
+    with open("/proc/self/status") as f:
+        kib = next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS:"))
+    return kib / 2 ** 20
+
+
+@contextlib.contextmanager
+def host_rss_peak(interval_s: float = 0.005):
+    """The resident set before a with-block and its peak during it, sampled
+    from VmRSS every interval_s by a thread: a sandboxed /proc may have no
+    VmHWM and refuse clear_refs, and ru_maxrss keeps the earlier phases'
+    higher peak. Yields the dict that the fields are written into."""
+    import threading
+
+    out = {"host_rss_before_gib": host_rss_gib(), "host_rss_sample_s": interval_s}
+    peak = [out["host_rss_before_gib"]]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(interval_s):
+            peak[0] = max(peak[0], host_rss_gib())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        done.set()
+        thread.join()
+        out["host_peak_rss_gib"] = max(peak[0], host_rss_gib())
+
+
+def disk(root) -> dict:
+    """The file system's usage under root, and the host's available memory."""
+    import shutil
+
+    u = shutil.disk_usage(root)
+    with open("/proc/meminfo") as f:
+        avail = next(int(ln.split()[1]) for ln in f if ln.startswith("MemAvailable:"))
+    return {"total_gib": u.total / 2 ** 30, "used_gib": u.used / 2 ** 30, "free_gib": u.free / 2 ** 30,
+            "host_mem_available_gib": avail / 2 ** 20}
+
+
+def load_timed(t5_int4: bool = False, **kw):
+    """build_visualcloze(**kw) on the card (then the T5 quantized to int4, as
+    the CLI's --t5_int4): (model, the load line's fields: seconds, resident
+    and peak GiB, the host's resident GiB before and at its peak)."""
+    import torch
+
+    from visualcloze_tpu_torch.models.quant import quantize_t5_int4
+    from visualcloze_tpu_torch.pipeline import build_visualcloze
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with host_rss_peak() as host:
+        t0 = time.perf_counter()
+        model = build_visualcloze(device="cuda", **kw)
+        if t5_int4:
+            model.t5.model = quantize_t5_int4(model.t5.model)
+            free()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return model, dict(load_seconds=seconds, **host,
+                       resident_gib=torch.cuda.memory_allocated() / 2 ** 30,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def free() -> None:
+    """Return what no longer has a reference to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
+    """Write the seed-0 stack as checkpoint files, serve from them through
+    build_visualcloze (bf16 with the LoRA folded, every solver, int8 with an
+    int4 T5, a diffusers snapshot), each checked; returns the main-path runs
+    (for the kernels line). The files are removed at the end, whatever happens."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from visualcloze_tpu_torch.models import weights as W
+    from visualcloze_tpu_torch.models.flux import build_flux
+    from visualcloze_tpu_torch.models.lora import lora_param_count, tree_map
+    from visualcloze_tpu_torch.pipeline import random_components
+    from visualcloze_tpu_torch.transport.sampling import cached_fresh_schedule
+
+    root = Path(CKPT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    runs = []
+    try:
+        disk_before = disk(root)
+        model = random_components(tiny=False, dtype=torch.bfloat16, device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(0), resolution=384)
+        cfg = model.cfg
+        lora = random_lora(model.flux, CKPT_RANK, seed=5)
+        written = write_checkpoints(model, lora, root)
+        line = dict(phase="checkpoint_write", **written, total_bytes=sum(written["bytes"].values()),
+                    disk_before=disk_before, disk_after=disk(root), lora_rank=CKPT_RANK,
+                    lora_params=lora_param_count(lora))
+        line["ok"] = written["dit_readback_mismatches"] == 0
+        emit(line)
+        if not line["ok"]:
+            raise RuntimeError("the written DiT does not read back bit for bit")
+        # the check's LoRA waits on the host, so that the load's resident and peak are the stack's
+        lora_half = tree_map(lambda x: x.cpu(), W.permute_rope_layout_lora(lora, cfg))
+        del lora, model
+        free()
+
+        paths = written["paths"]
+        os.environ.update(FLUX_DEV_FILL=paths["dit"], AE=paths["vae"], T5_PATH=paths["t5"], CLIP_PATH=paths["clip"])
+        model, load = load_timed(model_path=paths["lora"])
+        check = check_loaded_dit(model.flux, cfg, W.convert_flux(W.load_safetensors(paths["dit"]), cfg), lora_half)
+        emit(dict(phase="load_checkpoint", **load, **check, rope_layout=model.rope_layout))
+        if not check["ok"]:
+            raise RuntimeError(f"the loaded DiT differs from its checkpoint: {check}")
+        del lora_half
+
+        rl = run_request(model, "2x3 default query with SDEdit, from checkpoint files", 2, 3, 30, True, seed=1,
+                         used=serving, unused=bf16_unused)
+        same = {n: (rl["launches"][n], r1["launches"][n]) for n in serving}
+        rl.update(phase="request_loaded", launches_vs_request_1=same, stage_seconds_request_1=r1["stage_seconds"])
+        rl["ok"] = rl["ok"] and all(a == b for a, b in same.values())
+        emit(rl)
+        if not rl["ok"]:
+            raise RuntimeError("the query on the loaded stack failed")
+        runs.append(rl)
+
+        pairs = 9  # 10 grid points
+        for solver, want in (("heun", 2 * pairs), ("ab2", pairs + 1),
+                             ("cached:3", 1 + int(cached_fresh_schedule(pairs, 3)[1:].sum())), ("dopri5", None)):
+            model.solver = solver
+            r = run_request(model, f"2x2 query, {solver}", 2, 2, pairs + 1, False, seed=4, used=serving,
+                            unused=bf16_unused)
+            stats = model.solver_stats.get("denoise", {})
+            if want is None:
+                want = stats.get("evaluations")
+            a = r["launches"]["flash_attn_rope"]
+            r.update(phase="solvers", solver=solver, dit_evaluations=a / ATTENTION_CALLS,
+                     dit_evaluations_expected=want, solver_stats=stats)
+            r["ok"] = r["ok"] and want is not None and a == ATTENTION_CALLS * want
+            emit(r)
+            if not r["ok"]:
+                raise RuntimeError(f"solver {solver} failed")
+            runs.append(r)
+        del model
+        free()
+
+        # the int8 route on the same BFL files: int8 DiT (kernel G), int4 T5
+        model, load = load_timed(model_path=paths["lora"], quantize="int8", t5_int4=True)
+        rq = run_request(model, "2x3 default query with SDEdit, int8 DiT + int4 T5-XXL from checkpoint files",
+                         2, 3, 30, True, seed=1, used=serving + ("int8_matmul",), unused=training)
+        evals = rq["launches"]["flash_attn_rope"] // ATTENTION_CALLS
+        rq.update(phase="load_checkpoint_int8", **load, resident_gib_pr3_synthetic=14.0, dit_evaluations=evals,
+                  int8_launches_expected=INT8_LINEARS * evals)
+        rq["ok"] = rq["ok"] and rq["launches"]["int8_matmul"] == INT8_LINEARS * evals
+        emit(rq)
+        if not rq["ok"]:
+            raise RuntimeError("the int8 query from checkpoint files failed")
+        runs.append(rq)
+        del model
+        free()
+
+        # the same DiT as a diffusers snapshot, once the BFL file is gone
+        os.remove(paths["dit"])
+
+        def seed0_dit():  # random_components' first draw, in the reference order
+            return unpermute_rope_layout_(build_flux(cfg, torch.device("cuda"), torch.bfloat16).init_random_(
+                torch.Generator(device="cuda").manual_seed(0)), cfg)
+
+        flux = seed0_dit()
+        snap = write_snapshot(flux, cfg, root)
+        del flux
+        free()
+        emit(dict(phase="checkpoint_write", part="diffusers snapshot", **snap, disk_after=disk(root), ok=True))
+        model, load = load_timed(model_path=snap["path"])
+        flux = seed0_dit()  # the DiT the snapshot was written from, rebuilt once the load is measured
+        check = check_loaded_dit(model.flux, cfg, W.module_state(flux))
+        del flux
+        free()
+        rs = run_request(model, "2x2 query from a diffusers snapshot", 2, 2, 10, False, seed=4, used=serving,
+                         unused=bf16_unused)
+        rs.update(phase="load_snapshot", **load, **{f"dit_{k}": v for k, v in check.items()})
+        rs["ok"] = rs["ok"] and check["ok"] and check["folded_tensors"] == 0
+        emit(rs)
+        if not rs["ok"]:
+            raise RuntimeError("the snapshot route failed")
+        runs.append(rs)
+        del model
+        free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs
+
+
 def main() -> int:
     import gc
     import tempfile
@@ -1031,13 +1481,17 @@ def main() -> int:
     emit(dict(r3, phase="query_interleaved", rope_layout=model.rope_layout))
     if not r3["ok"]:
         raise RuntimeError("interleaved query failed")
+    del model
+    free()
+
+    loaded = checkpoint_phases(r1, serving, bf16_unused, training)
 
     kernels = []
     for name in REPLACES:
         r = first[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=sum(run["launches"][name] for run in (r1, r2, rq, train, r3)),
+            launches=sum(run["launches"][name] for run in (r1, r2, rq, train, r3, *loaded)),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
         ))

@@ -415,3 +415,62 @@ def test_gpu_int8_matmul_is_deterministic(m, k, n):
         second = int8_matmul(x, w, scale, out_dtype=out_dtype)
         torch.cuda.synchronize()
         assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_gpu_checkpoint_files_load_fold_and_permute_on_the_card(tmp_path, monkeypatch):
+    """build_visualcloze with device cuda on tiny checkpoint files (written as
+    tests/test_torch_guards.py writes them): every DiT tensor placed on the
+    card in bf16, the LoRA folded there, the caller's TF32 setting restored,
+    and chip_smoke's check (unfolded tensors bit-identical to the file,
+    folded ones within 1 bf16 ulp of the float64 fold) passes."""
+    _cuda_or_skip()
+    from pathlib import Path
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from test_torch_guards import patch_loader_tiny
+    from visualcloze_tpu_torch.models import weights as W
+    from visualcloze_tpu_torch.pipeline import build_visualcloze, random_components
+
+    model = random_components(tiny=True, device="cpu")
+    cfg = model.cfg
+    lora = chip_smoke.random_lora(model.flux, 4, seed=5)
+    paths = chip_smoke.write_checkpoints(model, lora, tmp_path)["paths"]
+    for var, key in (("FLUX_DEV_FILL", "dit"), ("AE", "vae"), ("T5_PATH", "t5"), ("CLIP_PATH", "clip")):
+        monkeypatch.setenv(var, paths[key])
+    patch_loader_tiny(monkeypatch)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    loaded = build_visualcloze(model_path=paths["lora"], dtype=torch.bfloat16, device="cuda")
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+    assert all(p.device.type == "cuda" and p.dtype == torch.bfloat16 for p in loaded.flux.parameters())
+    check = chip_smoke.check_loaded_dit(loaded.flux, cfg, W.convert_flux(W.load_safetensors(paths["dit"]), cfg),
+                                        W.permute_rope_layout_lora(lora, cfg))
+    assert check["ok"] and check["folded_tensors"] > 0, check
+
+
+@pytest.mark.gpu
+def test_gpu_fold_of_a_full_width_linear_is_a_true_fp32_product(monkeypatch):
+    """linear1 of a single block (3072 -> 21504) with a rank-256 LoRA folded on
+    the card with TF32 on outside the fold: the fp32 result is within 1e-5 of
+    the largest weight of the float64 fold (a TF32 product would be off by
+    ~5e-4 of it)."""
+    dev = _cuda_or_skip()
+    from visualcloze_tpu_torch.models.lora import fold_linear_
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    lin = torch.nn.Linear(3072, 21504, device=dev)
+    with torch.no_grad():
+        lin.weight.normal_(0.0, 3072 ** -0.5, generator=g)
+        lin.bias.normal_(0.0, 0.02, generator=g)
+    entry = {"a": (torch.rand((3072, 256), generator=g, device=dev) * 2 - 1) * 3072 ** -0.5,
+             "b": torch.randn((256, 21504), generator=g, device=dev) * 0.1,
+             "b_bias": torch.randn((21504,), generator=g, device=dev) * 0.02}
+    want_w = lin.weight.double() + 0.5 * (entry["a"].double() @ entry["b"].double()).T
+    want_b = lin.bias.double() + 0.5 * entry["b_bias"].double()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    fold_linear_(lin, entry, scale=0.5)
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+    top = want_w.abs().max().item()
+    assert (lin.weight.double() - want_w).abs().max().item() <= 1e-5 * top
+    assert (lin.bias.double() - want_b).abs().max().item() <= 1e-6

@@ -3,6 +3,7 @@ refuse to run without a GPU unless the caller asks for the CPU, and no file of
 it (nor chip_smoke.py) imports JAX or the JAX package."""
 
 import ast
+import dataclasses
 import importlib
 import pkgutil
 import sys
@@ -83,6 +84,128 @@ def test_port_imports_nothing_of_jax():
         text = path.read_text()
         assert "import jax" not in text and "visualcloze_tpu." not in text.replace(
             "visualcloze_tpu/", ""), path
+
+
+def _module_level_imports(path: Path) -> set[str]:
+    """Modules imported at import time of `path` (not inside a function)."""
+    found = set()
+
+    def visit(stmts):
+        for node in stmts:
+            if isinstance(node, ast.Import):
+                found.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                found.add(node.module)
+            elif isinstance(node, (ast.If, ast.Try, ast.With)):
+                visit(node.body)
+                visit(getattr(node, "orelse", []))
+                visit(getattr(node, "finalbody", []))
+                for h in getattr(node, "handlers", []):
+                    visit(h.body)
+
+    visit(ast.parse(path.read_text(), filename=str(path)).body)
+    return found
+
+
+def test_port_needs_neither_safetensors_nor_transformers():
+    """The card's machine has neither package: the port reads and writes
+    safetensors itself, and imports transformers only inside
+    load_hf_tokenizer (a local tokenizer directory)."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        tops = {m.split(".")[0] for m in _module_level_imports(path)}
+        assert not tops & {"safetensors", "transformers"}, path
+        everywhere = {m.split(".")[0] for m in _imports(path)}
+        assert "safetensors" not in everywhere, path
+        if "transformers" in everywhere:
+            assert path == PKG / "models" / "conditioner.py", path
+    tree = ast.parse((PKG / "models" / "conditioner.py").read_text())
+    importers = {f.name for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
+                 and any(isinstance(n, ast.ImportFrom) and n.module == "transformers" for n in ast.walk(f))}
+    assert importers == {"load_hf_tokenizer"}
+
+
+def patch_loader_tiny(mp) -> None:
+    """The port's loader reads the published widths, as JAX's does: patch in
+    the tiny configs and a FallbackTokenizer over each tiny vocabulary (as
+    tests/test_torch_checkpoints.py patches JAX's loader)."""
+    from visualcloze_tpu_torch import config
+    from visualcloze_tpu_torch.models.conditioner import FallbackTokenizer
+    from visualcloze_tpu_torch.pipeline import loader
+
+    flux, ae, t5, clip = loader._configs(True)
+    spec = config.configs["flux-dev-fill-lora"]
+    mp.setitem(config.configs, "flux-dev-fill-lora", dataclasses.replace(spec, flux=flux))
+    mp.setattr(loader, "AutoEncoderConfig", lambda: ae)
+    mp.setattr(loader, "T5Config", lambda max_length=512: t5)
+    mp.setattr(loader, "CLIPTextConfig", lambda: clip)
+    mp.setattr(loader, "default_tokenizer",
+               lambda kind, path=None: FallbackTokenizer((t5 if kind == "t5" else clip).vocab_size))
+
+
+def _write_tiny_checkpoints(root):
+    """A tiny random stack written as checkpoint files by chip_smoke's writers
+    (BFL DiT, reference LoRA .pth, VAE, T5 and CLIP HF shards) -> (model's
+    config, LoRA in the half layout, written)."""
+    import chip_smoke
+    from visualcloze_tpu_torch.models import weights as W
+
+    model = random_components(tiny=True, device="cpu")
+    lora = chip_smoke.random_lora(model.flux, 4, seed=5)
+    written = chip_smoke.write_checkpoints(model, lora, root)
+    assert written["dit_readback_mismatches"] == 0 and written["dit_readback_tensors"] > 0
+    return model, W.permute_rope_layout_lora(lora, model.cfg), written
+
+
+def test_inference_cli_serves_checkpoint_files_on_the_cpu(tmp_path, monkeypatch):
+    """The non-demo CLI on the CPU: tiny files written as the chip smoke test
+    writes them at full width, loaded through build_visualcloze (the LoRA
+    folded, the DiT permuted to the half layout and checked against its file),
+    then one query with --solver heun; a diffusers snapshot of the same DiT
+    loads bit for bit."""
+    from PIL import Image
+
+    from visualcloze_tpu_torch import inference
+    from visualcloze_tpu_torch.models import weights as W
+    from visualcloze_tpu_torch.pipeline import build_visualcloze
+
+    monkeypatch.syspath_prepend(str(ROOT))  # chip_smoke.py, at the root of the checkout
+    import chip_smoke
+
+    model, lora_half, written = _write_tiny_checkpoints(tmp_path)
+    paths = written["paths"]
+    for var, key in (("FLUX_DEV_FILL", "dit"), ("AE", "vae"), ("T5_PATH", "t5"), ("CLIP_PATH", "clip")):
+        monkeypatch.setenv(var, paths[key])
+    patch_loader_tiny(monkeypatch)
+    loaded = build_visualcloze(model_path=paths["lora"], dtype=torch.float32, device="cpu")
+    check = chip_smoke.check_loaded_dit(loaded.flux, model.cfg,
+                                        W.convert_flux(W.load_safetensors(paths["dit"]), model.cfg), lora_half)
+    assert check["ok"] and check["exact_tensors"] > 0 and check["folded_tensors"] > 0, check
+
+    cell = tmp_path / "cell.png"
+    Image.new("RGB", (64, 64), (120, 180, 90)).save(cell)
+    out = tmp_path / "out.jpg"
+    inference.main(["--model_path", paths["lora"], "--device", "cpu", "--resolution", "64",
+                    "--rows", f"{cell},{cell}", "--rows", f"{cell},MASK", "--steps", "3", "--solver", "heun",
+                    "--no_upsampling", "-o", str(out)])
+    assert Image.open(out).size == (64, 64)
+
+    snap = chip_smoke.write_snapshot(model.flux, model.cfg, tmp_path)  # model.flux: the reference order now
+    loaded = build_visualcloze(model_path=snap["path"], dtype=torch.float32, device="cpu")
+    check = chip_smoke.check_loaded_dit(loaded.flux, model.cfg, W.module_state(model.flux))
+    assert check["ok"] and check["folded_tensors"] == 0, check
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--lora", "style=style.pth"], 2), (["--adapter", "style"], 2), (["--lora_scale", "0.5"], 2),
+    (["--aot_dir", "aot"], 2), (["--no_aot"], 2), (["--tp", "2"], 4), (["--fsdp", "2"], 4), (["--cp", "2"], 4),
+    (["--quantize", "w8a8"], 1), (["--quantize", "w8a8_smooth"], 1),
+])
+def test_inference_cli_refuses_unported_flags_by_roadmap_item(flags, item):
+    from visualcloze_tpu_torch import inference
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        inference.main(["--model_path", "lora.pth", "--device", "cpu", "--rows", "a.png,MASK", *flags])
 
 
 def test_inference_cli_sizes_the_model_by_device(tmp_path, monkeypatch):
@@ -211,3 +334,14 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(name):
     q.requires_grad_(True)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_mha(q, q, q)
+
+
+@pytest.mark.parametrize("kw", [{"adapters": {"style": {}}}, {"lora_scale": 0.5}])
+def test_pipeline_refuses_runtime_adapters_by_roadmap_item(kw):
+    from visualcloze_tpu_torch.pipeline import VisualClozeModel
+
+    m = random_components(tiny=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
+        VisualClozeModel(m.cfg, m.flux, m.ae, m.t5, m.clip, permute_params=False, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
+        m.add_adapter("style", {})

@@ -49,6 +49,7 @@ def _models(rope_layout):
         convert.flux_from_jax(_np(jm.params), jm.cfg, device="cpu"),
         convert.vae_from_jax(_np(jm.ae.params), jm.ae.cfg, device="cpu"),
         t5, clip, resolution=64, device="cpu", rope_layout=rope_layout,
+        permute_params=False,  # the JAX constructor has already permuted jm.params
     )
     for m in (jm, pm):
         m.set_grid_size(2, 2)

@@ -342,7 +342,8 @@ def test_quantized_pipeline_matches_jax():
     assert isinstance(flux.img_in, Int8Linear) and isinstance(t5.model.embed, tq.Int8Embedding)
     pm = VisualClozeModel(convert.config_from(jm.cfg, tconfig.FluxConfig), flux,
                           convert.vae_from_jax(_np(jm.ae.params), jm.ae.cfg, device="cpu", dtype=bf),
-                          t5, clip, resolution=64, device="cpu")
+                          t5, clip, resolution=64, device="cpu",
+                          permute_params=False)  # jm.params as the JAX constructor left them
     for m in (jm, pm):
         m.set_grid_size(2, 2)
     grid = _grid()

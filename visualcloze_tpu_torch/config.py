@@ -1,15 +1,17 @@
 """Model configurations of the PyTorch port.
 
-A copy of the four hyperparameter records of `visualcloze_tpu/config.py`
-(FluxConfig, AutoEncoderConfig, T5Config, CLIPTextConfig), kept here so that
-the port imports nothing of the JAX package. Field names, defaults and
-`.tiny()` miniatures are identical, so a config of either package describes
-the same model.
+A copy of `visualcloze_tpu/config.py`: the four hyperparameter records
+(FluxConfig, AutoEncoderConfig, T5Config, CLIPTextConfig), the named-model
+registry (`ModelSpec`, `configs`) and the checkpoint environment variables
+(`checkpoint_path_env`), kept here so that the port imports nothing of the
+JAX package. Field names, defaults and `.tiny()` miniatures are identical,
+so a config of either package describes the same model.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 
@@ -128,3 +130,90 @@ class CLIPTextConfig:
             self, vocab_size=256, hidden_size=32, intermediate_size=64, num_layers=2,
             num_heads=4, max_length=16,
         )
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    """A named model configuration."""
+
+    name: str
+    flux: FluxConfig
+    ae: AutoEncoderConfig
+    repo_id: str | None = None
+    repo_flow: str | None = None
+    repo_ae: str | None = None
+    lora_repo_id: str | None = None
+    lora_filename: str | None = None
+
+
+_BASE_AE = AutoEncoderConfig()
+_DEV_FLUX = FluxConfig(in_channels=64, guidance_embed=True)
+_SCHNELL_FLUX = FluxConfig(in_channels=64, guidance_embed=False)
+_FILL_FLUX = FluxConfig(in_channels=384, guidance_embed=True)
+_CONTROL_FLUX = FluxConfig(in_channels=128, guidance_embed=True)
+
+# The nine named models of the JAX package's registry.
+configs: dict[str, ModelSpec] = {
+    "flux-dev": ModelSpec(
+        name="flux-dev", flux=_DEV_FLUX, ae=_BASE_AE,
+        repo_id="black-forest-labs/FLUX.1-dev", repo_flow="flux1-dev.safetensors",
+        repo_ae="ae.safetensors",
+    ),
+    "flux-dev-lora": ModelSpec(
+        name="flux-dev-lora", flux=_DEV_FLUX, ae=_BASE_AE,
+        repo_id="black-forest-labs/FLUX.1-dev", repo_flow="flux1-dev.safetensors",
+        repo_ae="ae.safetensors",
+    ),
+    "flux-dev-fill-lora": ModelSpec(
+        name="flux-dev-fill-lora", flux=_FILL_FLUX, ae=_BASE_AE,
+        repo_id="black-forest-labs/FLUX.1-Fill-dev", repo_flow="flux1-fill-dev.safetensors",
+        repo_ae="ae.safetensors",
+    ),
+    "flux-schnell": ModelSpec(
+        name="flux-schnell", flux=_SCHNELL_FLUX, ae=_BASE_AE,
+        repo_id="black-forest-labs/FLUX.1-schnell", repo_flow="flux1-schnell.safetensors",
+        repo_ae="ae.safetensors",
+    ),
+    "flux-dev-canny": ModelSpec(
+        name="flux-dev-canny", flux=_CONTROL_FLUX, ae=_BASE_AE,
+        repo_id="black-forest-labs/FLUX.1-Canny-dev", repo_flow="flux1-canny-dev.safetensors",
+        repo_ae="ae.safetensors",
+    ),
+    "flux-dev-canny-lora": ModelSpec(
+        name="flux-dev-canny-lora", flux=_DEV_FLUX, ae=_BASE_AE,
+        repo_id="black-forest-labs/FLUX.1-dev", repo_flow="flux1-dev.safetensors",
+        repo_ae="ae.safetensors",
+        lora_repo_id="black-forest-labs/FLUX.1-Canny-dev-lora",
+        lora_filename="flux1-canny-dev-lora.safetensors",
+    ),
+    "flux-dev-depth": ModelSpec(
+        name="flux-dev-depth", flux=_CONTROL_FLUX, ae=_BASE_AE,
+        repo_id="black-forest-labs/FLUX.1-Depth-dev", repo_flow="flux1-depth-dev.safetensors",
+        repo_ae="ae.safetensors",
+    ),
+    "flux-dev-depth-lora": ModelSpec(
+        name="flux-dev-depth-lora", flux=_DEV_FLUX, ae=_BASE_AE,
+        repo_id="black-forest-labs/FLUX.1-dev", repo_flow="flux1-dev.safetensors",
+        repo_ae="ae.safetensors",
+        lora_repo_id="black-forest-labs/FLUX.1-Depth-dev-lora",
+        lora_filename="flux1-depth-dev-lora.safetensors",
+    ),
+    "flux-dev-fill": ModelSpec(
+        name="flux-dev-fill", flux=_FILL_FLUX, ae=_BASE_AE,
+        repo_id="black-forest-labs/FLUX.1-Fill-dev", repo_flow="flux1-fill-dev.safetensors",
+        repo_ae="ae.safetensors",
+    ),
+}
+
+
+def checkpoint_path_env(name: str) -> str | None:
+    """The checkpoint path an environment variable names for a model (FLUX_DEV,
+    FLUX_DEV_FILL, FLUX_SCHNELL) or for the VAE ("ae" -> AE), else None."""
+    env = {
+        "flux-dev": "FLUX_DEV",
+        "flux-dev-fill": "FLUX_DEV_FILL",
+        "flux-dev-fill-lora": "FLUX_DEV_FILL",
+        "flux-schnell": "FLUX_SCHNELL",
+        "ae": "AE",
+    }.get(name)
+    return os.environ.get(env) if env else None

@@ -1,7 +1,23 @@
-"""Inference CLI of the port (counterpart of inference.py --demo).
+"""Inference CLI of the port (counterpart of inference.py).
 
 Runs one in-context grid through the pipeline and saves the generated cell.
-No checkpoints are in the repository, so the model has random weights:
+
+From checkpoint files (the reference flow):
+
+  FLUX_DEV_FILL=flux1-fill-dev.safetensors AE=ae.safetensors \\
+  T5_PATH=t5-v1_1-xxl/ CLIP_PATH=clip-vit-large-patch14/ \\
+  python -m visualcloze_tpu_torch.inference --model_path visualcloze-384.pth \\
+      --rows a.png,b.png --rows query.png,MASK --solver euler -o out.jpg
+      reads the FLUX.1-Fill base, folds the VisualCloze LoRA (a reference
+      .pth or a diffusers/peft .safetensors) into it on the card, permutes it
+      into the half RoPE layout and serves the query through the CUDA
+      kernels; --model_path may instead be a diffusers pipeline snapshot
+      directory (VisualClozePipeline-384/-512). --quantize int8 serves an
+      int8 DiT (every linear through kernel G), --t5_int4 an int4 T5-XXL.
+      The files hold the published widths; --device cpu runs the same flow
+      on the CPU (fp32, the kernels' plain versions).
+
+With random weights (no files):
 
   python -m visualcloze_tpu_torch.inference --demo -o out.jpg
       the full-width FLUX.1-Fill / T5-XXL / CLIP-L / VAE stack in bf16 on the
@@ -11,11 +27,14 @@ No checkpoints are in the repository, so the model has random weights:
       kernels). The device sets the size: the kernels take the published
       widths only, and the full-width model is too large for the CPU.
   ... --quantize int8 --t5_int4
-      the single-card int8 stack: on the GPU the full-width int8 DiT (every
-      linear through kernel G), int4 T5-XXL, int8 CLIP-L and bf16 VAE
-      (synthetic_full_components); on the CPU the tiny model quantized after
-      the fact. --quantize w8a8 / w8a8_smooth are not ported (they raise).
+      the single-card int8 stack: on the GPU the full-width int8 DiT, int4
+      T5-XXL, int8 CLIP-L and bf16 VAE (synthetic_full_components); on the
+      CPU the tiny model quantized after the fact.
 
+--quantize w8a8 / w8a8_smooth (ROADMAP item 1), runtime adapters (--lora,
+--adapter, --lora_scale: item 2), multi-card serving (--tp, --fsdp, --cp:
+item 4) and compiled-program caches (--aot_dir, --no_aot: item 2) are not
+ported: they raise NotImplementedError naming the item.
 --rows takes image paths per grid row (comma-separated, MASK for the target).
 """
 
@@ -28,12 +47,18 @@ from PIL import Image
 
 from .device import resolve_device
 from .models.quant import quantize_flux_int8, quantize_t5_int4
-from .pipeline import random_components, synthetic_full_components
+from .pipeline import build_visualcloze, random_components, synthetic_full_components
+from .transport.sampling import solver_arg
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--demo", action="store_true", help="random weights (required: no checkpoints)")
+    p.add_argument("--model_path", default=None,
+                   help="VisualCloze LoRA checkpoint, or a diffusers pipeline snapshot directory")
+    p.add_argument("--model_name", default="flux-dev-fill-lora")
+    p.add_argument("--resolution", type=int, default=384)
+    p.add_argument("--lora_rank", type=int, default=256)
+    p.add_argument("--demo", action="store_true", help="random weights, no checkpoint files")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--rows", action="append", default=[],
                    help="comma-separated image paths per row; MASK for the target cell")
@@ -46,29 +71,56 @@ def parse_args(argv=None):
     p.add_argument("--upsampling_steps", type=int, default=10)
     p.add_argument("--upsampling_noise", type=float, default=0.4)
     p.add_argument("--no_upsampling", action="store_true")
+    p.add_argument("--solver", default="euler", type=solver_arg,
+                   help="ODE method: euler, heun, ab2, dopri5, or cached[:K] (K >= 1: the model every "
+                        "K-th step, the velocity extrapolated between)")
     p.add_argument("--quantize", default=None, choices=[None, "int8", "w8a8", "w8a8_smooth"],
                    help="int8: weight-only int8 DiT (every linear through kernel G); w8a8 modes not ported")
     p.add_argument("--t5_int4", action="store_true", help="int4 weight-only T5-XXL")
+    p.add_argument("--tp", type=int, default=1, help="not ported (ROADMAP item 4)")
+    p.add_argument("--fsdp", type=int, default=1, help="not ported (ROADMAP item 4)")
+    p.add_argument("--cp", type=int, default=1, help="not ported (ROADMAP item 4)")
+    p.add_argument("--lora", action="append", default=[], metavar="NAME=PATH",
+                   help="runtime LoRA adapter: not ported (ROADMAP item 2)")
+    p.add_argument("--adapter", default=None, help="not ported (ROADMAP item 2)")
+    p.add_argument("--lora_scale", type=float, default=1.0, help="not ported (ROADMAP item 2)")
+    p.add_argument("--aot_dir", default=None, help="not ported (ROADMAP item 2: CUDA graphs)")
+    p.add_argument("--no_aot", action="store_true", help="not ported (ROADMAP item 2: CUDA graphs)")
     p.add_argument("-o", "--output", default="example.jpg")
     return p.parse_args(argv)
+
+
+def refuse_unported(args) -> None:
+    """The reference CLI's flags the port does not serve yet, by ROADMAP item."""
+    if args.quantize in ("w8a8", "w8a8_smooth"):
+        raise NotImplementedError(f"--quantize {args.quantize} is not ported yet: ROADMAP item 1")
+    if args.lora or args.adapter is not None or args.lora_scale != 1.0:
+        raise NotImplementedError("runtime LoRA adapters (--lora, --adapter, --lora_scale) are not ported yet: "
+                                  "ROADMAP item 2")
+    if max(args.tp, args.fsdp, args.cp) > 1:
+        raise NotImplementedError("multi-card serving (--tp, --fsdp, --cp) is not ported yet: ROADMAP item 4")
+    if args.aot_dir is not None or args.no_aot:
+        raise NotImplementedError("compiled-program caches (--aot_dir, --no_aot) are not ported yet: "
+                                  "ROADMAP item 2 (CUDA graphs of the denoise step)")
 
 
 def build_model(args, device: torch.device):
     """The demo model for `device`: on the card the full-width stack (the
     single-card int8 one with --quantize int8), on the CPU the tiny fp32 one,
     quantized after the fact as the JAX CLI's --demo does."""
-    if args.quantize in ("w8a8", "w8a8_smooth"):
-        raise NotImplementedError(f"--quantize {args.quantize} is not ported yet: ROADMAP item 1")
     full = device.type == "cuda"
     resolution = 384 if full else 64
     if full and args.quantize == "int8":
-        return synthetic_full_components(t5_int4=args.t5_int4, device=device, resolution=resolution)
+        model = synthetic_full_components(t5_int4=args.t5_int4, device=device, resolution=resolution)
+        model.solver = args.solver
+        return model
     model = random_components(
         tiny=not full,
         dtype=torch.bfloat16 if full else torch.float32,
         device=device,
         resolution=resolution,
     )
+    model.solver = args.solver
     if args.quantize == "int8":
         model.flux = quantize_flux_int8(model.flux)
     if args.t5_int4:
@@ -76,12 +128,32 @@ def build_model(args, device: torch.device):
     return model
 
 
+def load_model(args, device: torch.device):
+    """The model from checkpoint files (build_visualcloze): bf16 on the card,
+    fp32 on the CPU."""
+    model = build_visualcloze(
+        model_path=args.model_path,
+        model_name=args.model_name,
+        lora_rank=args.lora_rank,
+        solver=args.solver,
+        resolution=args.resolution,
+        dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
+        quantize=args.quantize,
+        device=device,
+    )
+    if args.t5_int4:
+        model.t5.model = quantize_t5_int4(model.t5.model)
+    return model
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if not args.demo:
-        raise SystemExit("no checkpoints can be loaded yet: pass --demo (random weights)")
+    refuse_unported(args)
+    if not args.demo and not args.rows:
+        raise SystemExit("--rows is required (repeat once per grid row, comma-separated cells, MASK for "
+                         "the target), e.g. --rows a.png,b.png --rows query.png,MASK")
     device = resolve_device(args.device)
-    model = build_model(args, device)
+    model = build_model(args, device) if args.demo else load_model(args, device)
     resolution = model.resolution
     if args.rows:
         grid = [

@@ -2,14 +2,17 @@
 visualcloze_tpu/models/conditioner.py).
 
 Pad-to-max tokenization, no attention mask to either encoder; T5 returns its
-last hidden state and CLIP its pooled output. No tokenizer files are in the
-repository, so the deterministic FallbackTokenizer (a copy of the JAX
-package's) stands in for the HF tokenizers.
+last hidden state and CLIP its pooled output. A local HF tokenizer directory
+is read with `transformers` (imported only inside load_hf_tokenizer: the
+port needs it for nothing else); without one, the deterministic
+FallbackTokenizer (a copy of the JAX package's) stands in. No tokenizer
+files are in the repository.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 from typing import Sequence
 
 import numpy as np
@@ -45,8 +48,52 @@ class FallbackTokenizer:
         return out
 
 
-def default_tokenizer(kind: str) -> FallbackTokenizer:
-    """The full-vocabulary stand-ins for the T5 and CLIP tokenizers."""
+def load_hf_tokenizer(path: str):
+    """A transformers tokenizer from a local directory (no network)."""
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(path, local_files_only=True)
+
+
+class HFTokenizerAdapter:
+    """A transformers tokenizer called as FallbackTokenizer is: pad to
+    max_length, truncate, int32 ids."""
+
+    def __init__(self, tok):
+        self.tok = tok
+
+    def __call__(self, texts: Sequence[str], max_length: int) -> np.ndarray:
+        enc = self.tok(
+            list(texts),
+            truncation=True,
+            max_length=max_length,
+            return_length=False,
+            return_overflowing_tokens=False,
+            padding="max_length",
+            return_tensors="np",
+        )
+        return enc["input_ids"].astype(np.int32)
+
+
+# a file any HF tokenizer directory holds (fast, sentencepiece or BPE)
+_TOKENIZER_FILES = ("tokenizer_config.json", "tokenizer.json", "spiece.model", "vocab.json")
+
+
+def is_tokenizer_dir(path: str | None) -> bool:
+    return bool(path) and os.path.isdir(path) and any(
+        os.path.exists(os.path.join(path, f)) for f in _TOKENIZER_FILES)
+
+
+def default_tokenizer(kind: str, local_path: str | None = None):
+    """The HF tokenizer of `local_path` (or of $T5_TOKENIZER_PATH /
+    $CLIP_TOKENIZER_PATH) when that directory holds tokenizer files, else the
+    full-vocabulary FallbackTokenizer. A directory of weights alone (a T5_PATH
+    of safetensors shards) falls back too, where the JAX package hands it to
+    transformers and fails."""
+    env = {"t5": "T5_TOKENIZER_PATH", "clip": "CLIP_TOKENIZER_PATH"}[kind]
+    path = local_path or os.environ.get(env)
+    if is_tokenizer_dir(path):
+        return HFTokenizerAdapter(load_hf_tokenizer(path))
     if kind == "t5":
         return FallbackTokenizer(vocab_size=32100, pad_id=0, eos_id=1)
     return FallbackTokenizer(vocab_size=49408, pad_id=49407, eos_id=49407, bos_id=49406)

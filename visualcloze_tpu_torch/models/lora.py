@@ -8,13 +8,17 @@ nn.Linear's default init, as the reference), B and its bias zero. Where JAX
 stacks the block entries along a leading depth axis, the port keeps a list
 with one entry per block. Leaves are plain tensors: the trainer makes them
 require grad, and models/layers.py applies them unfolded.
-fold_lora (merging the factors into the base weights) is not ported yet:
-ROADMAP item 7.
+
+fold_lora merges the factors into the base weights for serving, one linear
+at a time on the weights' device: W + scale * A@B and b + scale * b_B in
+fp32 (TF32 off, so the product is a true fp32 product), rounded once to the
+weight's dtype.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import contextlib
+from typing import Any, Callable, Mapping
 
 import torch
 from torch import nn
@@ -99,3 +103,75 @@ def tree_replace(tree, values: dict[str, torch.Tensor], prefix: str = ""):
 
 def lora_param_count(lora: Lora) -> int:
     return sum(t.numel() for t in tree_leaves(lora))
+
+
+def lora_entries(lora: Lora, prefix: str = "") -> dict[str, Lora]:
+    """{dotted module path of the linear: its entry} ("double_blocks.3.img_attn.qkv", ...)."""
+    if isinstance(lora, Mapping) and ("a" in lora or "expert_a" in lora):
+        return {prefix: lora}
+    children = lora.items() if isinstance(lora, Mapping) else enumerate(lora)
+    out: dict[str, Lora] = {}
+    for key, sub in children:
+        out.update(lora_entries(sub, f"{prefix}.{key}" if prefix else str(key)))
+    return out
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """CUDA matmuls in true fp32 (TF32 off) inside the block."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def check_foldable(entry: Lora, linear: nn.Module) -> None:
+    if "expert_a" in entry:
+        raise ValueError(
+            "MoE-LoRA entries are input-gated and cannot be folded into dense weights"
+        )
+    if not isinstance(linear, nn.Linear):
+        raise ValueError(
+            "cannot fold LoRA into int8-quantized weights; fold before quantization"
+        )
+
+
+@torch.no_grad()
+def fold_linear_(linear: nn.Linear, entry: Lora, scale: float = 1.0,
+                 w_src: torch.Tensor | None = None, b_src: torch.Tensor | None = None) -> None:
+    """linear.weight = (fp32(w) + scale * (A@B)^T) in the weight's dtype, and
+    the bias likewise with B's bias (created when the linear has none). w_src,
+    b_src: the base weight and bias to fold into, in any dtype and on any
+    device (a checkpoint's tensors); default the linear's own."""
+    check_foldable(entry, linear)
+    w = linear.weight
+    dev = w.device
+    with full_fp32_matmul():
+        delta = torch.matmul(entry["a"].to(dev, torch.float32), entry["b"].to(dev, torch.float32)) * scale
+    base = w if w_src is None else w_src
+    w.copy_(base.to(dev).to(torch.float32) + delta.T)  # host -> card in the file's dtype
+    if "b_bias" in entry:
+        bb = entry["b_bias"].to(dev, torch.float32) * scale
+        if linear.bias is None:
+            linear.bias = nn.Parameter(bb.to(w.dtype), requires_grad=False)
+        else:
+            base_b = linear.bias if b_src is None else b_src
+            linear.bias.copy_(base_b.to(dev).to(torch.float32) + bb)
+    elif b_src is not None:
+        linear.bias.copy_(b_src)
+
+
+def fold_lora(flux: nn.Module, lora: Lora, scale: float = 1.0) -> nn.Module:
+    """Merge a LoRA tree into the linears of `flux` in place (W += scale A@B,
+    b += scale b_B); returns flux. Refuses MoE-LoRA entries and int8 linears,
+    as the JAX package does."""
+    entries = lora_entries(lora)
+    modules = dict(flux.named_modules())
+    missing = sorted(set(entries) - set(modules))
+    if missing:
+        raise ValueError(f"LoRA entries with no linear in the model: {missing[:8]}")
+    for path, entry in entries.items():
+        fold_linear_(modules[path], entry, scale)
+    return flux

@@ -2,8 +2,8 @@
 visualcloze_tpu/pipeline/visualcloze.py).
 
 grid preprocessing -> a VAE encode per row -> T5/CLIP + token packing -> the
-Euler rectified-flow denoise of the DiT -> a VAE decode per row -> crop of the
-query cells -> the optional SDEdit upsampling pass.
+rectified-flow denoise of the DiT with the chosen ODE solver -> a VAE decode
+per row -> crop of the query cells -> the optional SDEdit upsampling pass.
 
 Noise: a query draws its Gaussians from a torch.Generator seeded with `seed`,
 in this order: per grid row the VAE posterior noise then the row's latent
@@ -29,9 +29,10 @@ from ..device import resolve_device
 from ..models.autoencoder import AutoEncoder
 from ..models.flux import Flux
 from ..models.sampling import prepare_modified
+from ..models.weights import permute_rope_layout
 from ..ops.packing import pack_mask, patchify, unpatchify
 from ..ops.schedule import ode_timesteps
-from ..transport.sampling import denoise_ode
+from ..transport.sampling import denoise_ode, denoise_ode_adaptive
 from . import preprocessing as pp
 
 CONTENT_INSTRUCTIONS = [
@@ -81,11 +82,20 @@ def _bf16_scalar(value: float, device) -> torch.Tensor:
 class VisualClozeModel:
     """construct, set_grid_size, process_images, upsampling.
 
-    flux: the DiT with LoRA folded in, its qkv weights in `rope_layout`'s
-    channel order: "half" (the serving layout: kernel A rotates inside the
-    attention kernel) or "interleaved" (the reference's order, as the trainer
-    keeps it: q and k are rotated in PyTorch and kernel D attends); ae, t5,
-    clip: the VAE and the two TextEncoders."""
+    flux: the DiT with LoRA folded in (models/lora.fold_lora; the loader
+    folds while it places the weights); ae, t5, clip: the VAE and the two
+    TextEncoders. rope_layout "half" (the serving layout: kernel A rotates
+    inside the attention kernel) or "interleaved" (the reference's channel
+    order, as the trainer keeps it: q and k are rotated in PyTorch and kernel
+    D attends). With "half" and permute_params the constructor permutes the
+    q/k channels of `flux` from the reference order in place
+    (models/weights.permute_rope_layout), as the JAX constructor does;
+    permute_params=False: the caller's weights already sit in the half order
+    (a JAX model's converted params, or random weights, where any order is a
+    valid half layout). solver: euler, heun, ab2, cached[:K] or dopri5;
+    time_shifting_factor warps the stage-1 grid. Runtime (unfolded) adapters
+    and their lora_scale are not ported: ROADMAP item 2. The text length is
+    the TextEncoders' own (the loader's max_length)."""
 
     def __init__(
         self,
@@ -96,22 +106,38 @@ class VisualClozeModel:
         clip,
         *,
         resolution: int = 384,
-        device: str | torch.device | None = None,
+        solver: str = "euler",
+        time_shifting_factor: float = 1.0,
         rope_layout: str = "half",
+        adapters: dict[str, dict] | None = None,
+        lora_scale: float = 1.0,
+        permute_params: bool = True,
+        device: str | torch.device | None = None,
     ):
         if rope_layout not in ("half", "interleaved"):
             raise ValueError(f"rope_layout must be 'half' or 'interleaved', got {rope_layout!r}")
+        if adapters or lora_scale != 1.0:  # the scale weighs runtime adapters only
+            raise NotImplementedError("runtime LoRA adapters (adapters=, lora_scale=) are not ported yet: "
+                                      "ROADMAP item 2")
         self.cfg = flux_cfg
+        if rope_layout == "half" and permute_params:
+            permute_rope_layout(flux, flux_cfg)
         self.rope_layout = rope_layout
         self.flux = flux
         self.ae = ae
         self.t5 = t5
         self.clip = clip
         self.resolution = resolution
+        self.solver = solver
+        self.time_shifting_factor = time_shifting_factor
         self.device = resolve_device(device)
         self.grid_h: int | None = None
         self.grid_w: int | None = None
         self.stage_seconds: dict[str, float] = {}
+        self.solver_stats: dict[str, dict] = {}
+
+    def add_adapter(self, name: str, lora: dict) -> None:
+        raise NotImplementedError("runtime LoRA adapters are not ported yet: ROADMAP item 2")
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -153,6 +179,7 @@ class VisualClozeModel:
     ) -> list[Image.Image]:
         """Generate the masked query cells: prepare -> denoise -> finalize."""
         self.stage_seconds = {}
+        self.solver_stats = {}
         q = self.prepare_query(images, prompts, seed=seed, cfg=cfg, steps=steps, noise=noise)
         samples = self.denoise_query(q)
         return self.finalize_query(
@@ -208,7 +235,7 @@ class VisualClozeModel:
                 img_cond = F.pad(img_cond, (0, 0, 0, inp["img"].shape[1] - true_len))
 
         ts = ode_timesteps(
-            steps, true_len, do_shift=True, time_shifting_factor=1.0
+            steps, true_len, do_shift=True, time_shifting_factor=self.time_shifting_factor
         )
         full = bool(inp["img_mask"].all())
         return {
@@ -233,12 +260,17 @@ class VisualClozeModel:
 
     @torch.no_grad()
     def denoise_query(self, q: dict[str, Any], stage: str = "denoise") -> torch.Tensor:
-        """The rectified-flow loop over the full DiT."""
+        """The rectified-flow loop over the full DiT with the model's solver."""
+        stats: dict = {}
         with self._stage(stage):
-            return _denoise(
+            out = _denoise(
                 self.flux, q["x"], q["ts"], q["img_cond"], q["txt"], q["txt_ids"],
                 q["txt_mask"], q["vec"], q["img_ids"], q["img_mask"], q["guidance"], self.rope_layout,
+                method=self.solver, stats=stats,
             )
+        if stats:
+            self.solver_stats[stage] = stats
+        return out
 
     @torch.no_grad()
     def finalize_query(
@@ -379,8 +411,10 @@ class VisualClozeModel:
             return pp.array_to_image(self.decode_latent(lat))
 
 
-def _denoise(flux: Flux, x, ts, cond, txt, txt_ids, txt_mask, vec, img_ids, img_mask, guidance, rope_layout):
-    """The hot loop: Euler steps over the full DiT."""
+def _denoise(flux: Flux, x, ts, cond, txt, txt_ids, txt_mask, vec, img_ids, img_mask, guidance, rope_layout,
+             method: str = "euler", stats: dict | None = None):
+    """The hot loop: the solver's steps over the full DiT (dopri5 from the
+    grid's first to its last time, adaptively)."""
 
     def model_fn(img, timesteps):
         return flux(
@@ -388,4 +422,6 @@ def _denoise(flux: Flux, x, ts, cond, txt, txt_ids, txt_mask, vec, img_ids, img_
             txt_mask=txt_mask, img_mask=img_mask, guidance=guidance, rope_layout=rope_layout,
         )
 
-    return denoise_ode(model_fn, x, ts, cond=cond)
+    if method == "dopri5":
+        return denoise_ode_adaptive(model_fn, x, ts[0], ts[-1], cond=cond, stats=stats)
+    return denoise_ode(model_fn, x, ts, cond=cond, method=method)
