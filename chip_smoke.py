@@ -17,7 +17,14 @@ Phases, each followed by one flushed JSON line on stdout:
              (M = 1), final_layer.linear (N = 64), a ragged M and the
              512-token text stream's proj and linear2; G's launches timed
              as a replayed CUDA graph, as the GEMV is shorter than its
-             wrapper's host-side launch), the
+             wrapper's host-side launch; the w8a8 matmul H and the
+             activation quantize I bit for bit (tolerance 0): H at the w8a8
+             DiT's six linear shapes at M = 3968, the 3456-token image
+             stream's and the 512-token text stream's qkv, the text
+             stream's mlp.2 and a ragged M, I at K = 3072, 12288 and 15360
+             in fp32 and bf16, with and without a_sinv, an all-zero row in
+             each, and at 7 rows; H's library call torch._int_mm, also
+             followed by the plain rescale, int8 dense peak 1,979 TOP/s), the
              kernel's, the plain version's and a PyTorch library call's ms
              (CUDA events; the backward's library call is SDPA's backward,
              timed as forward + backward minus forward; G's is
@@ -47,6 +54,12 @@ Phases, each followed by one flushed JSON line on stdout:
   quant_reference  the bf16 DiT quantized beside itself (quantize_flux_int8):
              the int8 DiT through G vs through G's plain version, and vs the
              bf16 DiT (correlation, as the JAX package's int8 test);
+  quant_reference_w8a8  the same for the w8a8 DiT (I, H and G vs their
+             plain versions) and for the SmoothQuant w8a8 DiT calibrated on
+             the default query (30 steps, statistics every 5th);
+  request_w8a8  the bf16 DiT swapped for its w8a8 copy (bf16 T5, CLIP-L and
+             VAE) serving request 1's query: I and H 228 times per DiT
+             evaluation, G 86; stage seconds beside request 1's;
   request_int8  the bf16 model freed, the single-card int8 stack
              (synthetic_full_components: int8 DiT through G, int4 T5-XXL,
              int8 CLIP-L, bf16 VAE) serving request 1's query, seed 1;
@@ -77,15 +90,20 @@ Phases, each followed by one flushed JSON line on stdout:
              as each solver's schedule says (dopri5: its own count);
   load_checkpoint_int8  the same files with quantize="int8" and an int4 T5,
              the default query: G 314 times per DiT evaluation;
+  load_checkpoint_w8a8_smooth  the same files with quantize="w8a8_smooth":
+             the folded bf16 DiT calibrated at load (a blank 2x2 grid, 30
+             steps: 29 evaluations through A, no quantized kernel), then the
+             default query: I and H 228 times per evaluation, G 86;
   load_snapshot  the BFL file removed, the seed-0 DiT written as a diffusers
              snapshot (transformer/ shards, model_index.json) and loaded:
              every tensor bit-identical to the seed-0 DiT it was written
              from (rebuilt after the load); a 2x2 Euler query.
 The checkpoint files are removed after the last of them, also on failure.
 Launch counters are zeroed just before each main-path phase (request,
-request_int8, train, query_interleaved, request_loaded, solvers,
-load_checkpoint_int8, load_snapshot) and read just after; G runs in
-request_int8 and load_checkpoint_int8 only. Then the kernels line, the nvidia-smi
+request_w8a8, request_int8, train, query_interleaved, request_loaded,
+solvers, load_checkpoint_int8, the calibrating load and the query of
+load_checkpoint_w8a8_smooth, load_snapshot) and read just after; G runs in
+the int8 and w8a8 phases only, H and I in the w8a8 ones only. Then the kernels line, the nvidia-smi
 line, and {"ok": true, "device": ...} last. Exits non-zero, with no result
 line, without a CUDA device, outside a checkout of the repository, or when
 any phase fails.
@@ -105,6 +123,7 @@ import traceback
 T0 = time.perf_counter()
 TIME_LIMIT_S = 1200
 PEAK_FLOPS = 989e12  # H100 SXM, bf16 dense
+PEAK_INT8_OPS = 1979e12  # H100 SXM, int8 dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # the trainer's per-block remat: "full" (recompute each block) keeps the
 # peak far under 80 GB at the largest Graph200K grid at 384 (see PERF.md)
@@ -118,6 +137,8 @@ REPLACES = {
     "flash_attn_bwd_dq": "visualcloze_tpu/ops/flash_attention.py:699",
     "flash_attn_bwd_dkv": "visualcloze_tpu/ops/flash_attention.py:730",
     "int8_matmul": "visualcloze_tpu/ops/int8_matmul.py:52",
+    "w8a8_matmul": "visualcloze_tpu/models/layers.py:85",  # linear's w8a8 branch: an XLA fusion, no Pallas kernel
+    "act_quant_int8": "visualcloze_tpu/models/quant.py:181",  # likewise
 }
 SOURCES = {
     "flash_attn_rope": "visualcloze_tpu_torch/csrc/flash_attn_rope.cu",
@@ -128,11 +149,16 @@ SOURCES = {
     "flash_attn_bwd_dq": "visualcloze_tpu_torch/csrc/flash_attn_bwd.cu",
     "flash_attn_bwd_dkv": "visualcloze_tpu_torch/csrc/flash_attn_bwd.cu",
     "int8_matmul": "visualcloze_tpu_torch/csrc/int8_matmul.cu",
+    "w8a8_matmul": "visualcloze_tpu_torch/csrc/w8a8_matmul.cu",
+    "act_quant_int8": "visualcloze_tpu_torch/csrc/act_quant_int8.cu",
 }
 # kernel G per DiT evaluation: every linear of the int8 DiT once (19 double
 # blocks x 10, 38 single blocks x 3, 8 embedder and 2 final-layer linears);
-# kernel A once per block (19 + 38)
+# kernel A once per block (19 + 38); in the w8a8 DiT kernels I and H each
+# once per token-dim block linear (19 x 8 + 38 x 2) and G the other 86
 INT8_LINEARS, ATTENTION_CALLS = 314, 57
+W8A8_LINEARS = 19 * 8 + 38 * 2
+W8A8_KERNELS = ("w8a8_matmul", "act_quant_int8")
 
 
 def emit(obj) -> None:
@@ -174,8 +200,8 @@ def cuda_ms(fn, reps: int, graph: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak_ops: float = PEAK_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -574,6 +600,99 @@ def check_int8_matmul(m: int, k: int, n: int, what: str, reps: int) -> dict:
                 weight_gbps=k * n / ms / 1e6)
 
 
+def int_mm_ms(a, w, x_scale, w_scale, bias) -> tuple[float | None, float | None]:
+    """torch._int_mm (cuBLASLt s8 x s8 -> s32) on the K-major weight, alone
+    and followed by the plain rescale to bf16 and the bias (H's function),
+    where it runs on the card: H's library yardsticks, never called by the
+    port."""
+    import torch
+
+    wt = w.t()  # (K, N) column-major: the layout cuBLASLt's int8 product takes
+    try:
+        torch._int_mm(a, wt)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError):
+        return None, None
+
+    def rescaled():
+        y = (torch._int_mm(a, wt).float() * x_scale[:, None] * w_scale).to(torch.bfloat16)
+        return y if bias is None else y + bias
+
+    return cuda_ms(lambda: torch._int_mm(a, wt), 10), cuda_ms(rescaled, 10)
+
+
+def check_w8a8_matmul(m: int, k: int, n: int, what: str, reps: int, with_bias: bool = True) -> dict:
+    """Kernel H against its plain version: activation and weight codes
+    uniform over [-127, 127] (act_quant_int8's and quantize_linear_int8's
+    range), x_scale uniform, w_scale d_in^-0.5 / 127, a bf16 N(0, 0.1) bias
+    (every w8a8 linear of the DiT has one). The integer sums are exact, so
+    the tolerance is 0: bit for bit; a second launch gives the same bits.
+    Beside the library call (torch._int_mm), the same followed by the plain
+    rescale and bias."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11 * m + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    x_scale = torch.rand((m,), generator=g, device=dev) * 0.05 + 1e-3
+    w_scale = torch.full((n,), k ** -0.5 / 127, device=dev)
+    bias = (torch.randn((n,), generator=g, device=dev) * 0.1).to(torch.bfloat16) if with_bias else None
+    got = w8a8_matmul(a, w, x_scale, w_scale, bias)
+    deterministic = torch.equal(got, w8a8_matmul(a, w, x_scale, w_scale, bias))
+    torch.cuda.synchronize()
+    want = w8a8_matmul_plain(a, w, x_scale, w_scale, bias)
+    err = (got.float() - want.float()).abs().max().item()
+    rms = want.float().pow(2).mean().sqrt().item()
+    del want
+    ms = cuda_ms(lambda: w8a8_matmul(a, w, x_scale, w_scale, bias), reps)
+    plain_ms = cuda_ms(lambda: w8a8_matmul_plain(a, w, x_scale, w_scale, bias), 2)
+    library_ms, rescaled_ms = int_mm_ms(a, w, x_scale, w_scale, bias)
+    bms, by = bound(2.0 * m * n * k, m * k + n * k + 4 * (m + n) + 2 * m * n + (2 * n if with_bias else 0),
+                    PEAK_INT8_OPS)
+    return dict(name="w8a8_matmul", what=what, shape=[m, k, n], bias=with_bias, max_abs_err=err, tol=0.0,
+                rms_plain=rms,
+                ok=err == 0.0 and deterministic, deterministic=deterministic, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, library="torch._int_mm (s32 out)", int_mm_rescale_bias_ms=rescaled_ms,
+                bound_ms=bms, bound_by=by, share_of_bound=bms / ms, tops=2.0 * m * n * k / ms / 1e9)
+
+
+def check_act_quant(m: int, k: int, bf16: bool, smooth: bool, reps: int) -> dict:
+    """Kernel I against its plain version: x N(0, 9) in fp32 or bf16 with one
+    outlier channel and an all-zero row (scale 1e-8 / 127, codes 0), a_sinv
+    uniform over [0.2, 5] or none. IEEE division and round half to even in
+    both: codes and scales bit for bit (tolerance 0); a second launch gives
+    the same bits. No single PyTorch call computes it: no library time."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_int8, act_quant_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13 * m + k + bf16 + 2 * smooth)
+    x = torch.randn((m, k), generator=g, device=dev) * 3.0
+    x[:, k // 3] *= 40.0
+    x[m // 2] = 0.0
+    x = x.to(torch.bfloat16 if bf16 else torch.float32)
+    a_sinv = torch.rand((k,), generator=g, device=dev) * 4.8 + 0.2 if smooth else None
+    codes, scale = act_quant_int8(x, a_sinv)
+    again = act_quant_int8(x, a_sinv)
+    deterministic = torch.equal(codes, again[0]) and torch.equal(scale, again[1])
+    torch.cuda.synchronize()
+    want_codes, want_scale = act_quant_plain(x, a_sinv)
+    err = max((codes.int() - want_codes.int()).abs().max().item(), (scale - want_scale).abs().max().item())
+    zero_row = bool((codes[m // 2] == 0).all().item())
+    ms = cuda_ms(lambda: act_quant_int8(x, a_sinv), reps, graph=True)
+    plain_ms = cuda_ms(lambda: act_quant_plain(x, a_sinv), 5)
+    nbytes = m * k * x.element_size() + m * k + 4 * m + (4 * k if smooth else 0)
+    bms, by = bound(0.0, nbytes)
+    return dict(name="act_quant_int8", shape=[m, k], dtype="bf16" if bf16 else "fp32", a_sinv=smooth,
+                max_abs_err=err, tol=0.0, zero_row_codes_zero=zero_row, ok=err == 0 and deterministic and zero_row,
+                deterministic=deterministic, ms=ms, plain_ms=plain_ms, library_ms=None,
+                library="none (no single PyTorch call)", bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
+
+
 # ----------------------------- gradients at full width -----------------------------
 
 
@@ -759,6 +878,98 @@ def quant_reference(model) -> dict:
     return out
 
 
+def _plain_w8a8_kernels():
+    """Kernels I, H and G replaced by their plain versions in the DiT's
+    linears, until the returned function restores them."""
+    import visualcloze_tpu_torch.models.layers as layers_mod
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_plain
+    from visualcloze_tpu_torch.ops.int8_matmul import int8_matmul_plain
+    from visualcloze_tpu_torch.ops.w8a8_matmul import w8a8_matmul_plain
+
+    saved = (layers_mod.act_quant_int8, layers_mod.w8a8_matmul, layers_mod.int8_matmul)
+    layers_mod.act_quant_int8, layers_mod.w8a8_matmul, layers_mod.int8_matmul = (
+        act_quant_plain, w8a8_matmul_plain, int8_matmul_plain)
+
+    def restore():
+        layers_mod.act_quant_int8, layers_mod.w8a8_matmul, layers_mod.int8_matmul = saved
+
+    return restore
+
+
+def quant_reference_w8a8(model) -> dict:
+    """The bf16 serving DiT quantized beside itself to w8a8 (quantize_flux_w8a8)
+    and to SmoothQuant w8a8 (quantize_flux_w8a8_smooth, calibrated on the
+    default query: 2x3 grid at 384, 30 Euler steps, statistics every 5th and
+    at the last, seed 1), one at a time (~12 GB more): on reference_inputs,
+    each through kernels I, H and G vs through their plain versions
+    (relative RMS, 5%, as quant_reference), and vs the bf16 DiT under the
+    JAX package's own w8a8 criterion (tests/test_quant.py:93-113:
+    correlation > 0.97, mean |Δ| / max |bf16| < 0.2)."""
+    import numpy as np
+    import torch
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.models.quant import quantize_flux_w8a8, quantize_flux_w8a8_smooth
+
+    inp, _ = reference_inputs(model)
+    with torch.no_grad():
+        ref = model.flux(**inp).float()
+    torch.cuda.synchronize()
+    model.stage_seconds = {}
+    t = time.perf_counter()
+    stats = model.w8a8_calibration_stats(queries=[(synthetic_grid(2, 3, 1), query_prompts(2, 3))], steps=30,
+                                         stride=5, seed=1)
+    torch.cuda.synchronize()
+    out = dict(phase="quant_reference_w8a8", calibration_seconds=time.perf_counter() - t,
+               calibration_stage_seconds=dict(model.stage_seconds), tol=5e-2)
+    ok = True
+    for mode in ("w8a8", "w8a8_smooth"):
+        t = time.perf_counter()
+        qflux = quantize_flux_w8a8(model.flux) if mode == "w8a8" else quantize_flux_w8a8_smooth(model.flux, stats)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t
+        with torch.no_grad():
+            ops.reset_kernel_launches()
+            got = qflux(**inp).float()
+            launches = {k: v for k, v in ops.kernel_launches().items() if k in W8A8_KERNELS + ("int8_matmul",)}
+            restore = _plain_w8a8_kernels()
+            try:
+                plain = qflux(**inp).float()
+            finally:
+                restore()
+        gib = sum(b.numel() * b.element_size() for b in qflux.buffers()) / 2 ** 30
+        del qflux
+        corr = float(np.corrcoef(ref.flatten().cpu().numpy(), got.flatten().cpu().numpy())[0, 1])
+        r = dict(quantize_seconds=quantize_s, quantized_buffers_gib=gib, launches=launches,
+                 kernels_vs_plain_rel_rms_err=rel_rms(got, plain), vs_bf16_corr=corr,
+                 vs_bf16_mean_abs_over_max=((got - ref).abs().mean() / ref.abs().max()).item(),
+                 vs_bf16_rel_rms=rel_rms(got, ref), finite=bool(torch.isfinite(got).all()))
+        r["ok"] = (r["finite"] and r["kernels_vs_plain_rel_rms_err"] <= out["tol"] and corr > 0.97
+                   and r["vs_bf16_mean_abs_over_max"] < 0.2
+                   and launches == {"int8_matmul": INT8_LINEARS - W8A8_LINEARS, "w8a8_matmul": W8A8_LINEARS,
+                                    "act_quant_int8": W8A8_LINEARS})
+        out[mode] = r
+        ok = ok and r["ok"]
+        torch.cuda.empty_cache()
+    out["ok"] = ok
+    return out
+
+
+W8A8_USED_WITH = ("int8_matmul",) + W8A8_KERNELS
+
+
+def w8a8_launches_ok(run: dict) -> dict:
+    """DiT evaluations (A's launches / 57) and, for a w8a8 DiT, I and H
+    launched 228 times each per evaluation, G 86 times: the fields for the
+    run's line, with `ok` folded in."""
+    evals = run["launches"]["flash_attn_rope"] // ATTENTION_CALLS
+    want = {"w8a8_matmul": W8A8_LINEARS * evals, "act_quant_int8": W8A8_LINEARS * evals,
+            "int8_matmul": (INT8_LINEARS - W8A8_LINEARS) * evals}
+    got = {k: run["launches"][k] for k in want}
+    return dict(dit_evaluations=evals, w8a8_launches_expected=want,
+                ok=run["ok"] and got == want and run["launches"]["flash_attn_rope"] == ATTENTION_CALLS * evals)
+
+
 # ----------------------------- the main path -----------------------------
 
 
@@ -775,6 +986,14 @@ def synthetic_grid(rows: int, cols: int, seed: int):
     grid = [[cell() for _ in range(cols)] for _ in range(rows)]
     grid[-1][-1] = None
     return grid
+
+
+def query_prompts(rows: int, cols: int) -> list[str]:
+    return [
+        f"A grid layout with {rows} rows and {cols} columns, displaying {rows * cols} images arranged side by side.",
+        "Each row shows a photo and its edited versions.",
+        "The content of the last image in the final row is: a photo.",
+    ]
 
 
 def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=()) -> dict:
@@ -795,11 +1014,7 @@ def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(
     model.denoise_query = recording
     grid = synthetic_grid(rows, cols, seed)
     model.set_grid_size(rows, cols)
-    prompts = [
-        f"A grid layout with {rows} rows and {cols} columns, displaying {rows * cols} images arranged side by side.",
-        "Each row shows a photo and its edited versions.",
-        "The content of the last image in the final row is: a photo.",
-    ]
+    prompts = query_prompts(rows, cols)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_kernel_launches()
@@ -1201,7 +1416,7 @@ def free() -> None:
 def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
     """Write the seed-0 stack as checkpoint files, serve from them through
     build_visualcloze (bf16 with the LoRA folded, every solver, int8 with an
-    int4 T5, a diffusers snapshot), each checked; returns the main-path runs
+    int4 T5, SmoothQuant w8a8, a diffusers snapshot), each checked; returns the main-path runs
     (for the kernels line). The files are removed at the end, whatever happens."""
     import os
     import shutil
@@ -1209,6 +1424,7 @@ def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
 
     import torch
 
+    from visualcloze_tpu_torch import ops
     from visualcloze_tpu_torch.models import weights as W
     from visualcloze_tpu_torch.models.flux import build_flux
     from visualcloze_tpu_torch.models.lora import lora_param_count, tree_map
@@ -1280,7 +1496,7 @@ def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
         # the int8 route on the same BFL files: int8 DiT (kernel G), int4 T5
         model, load = load_timed(model_path=paths["lora"], quantize="int8", t5_int4=True)
         rq = run_request(model, "2x3 default query with SDEdit, int8 DiT + int4 T5-XXL from checkpoint files",
-                         2, 3, 30, True, seed=1, used=serving + ("int8_matmul",), unused=training)
+                         2, 3, 30, True, seed=1, used=serving + ("int8_matmul",), unused=training + W8A8_KERNELS)
         evals = rq["launches"]["flash_attn_rope"] // ATTENTION_CALLS
         rq.update(phase="load_checkpoint_int8", **load, resident_gib_pr3_synthetic=14.0, dit_evaluations=evals,
                   int8_launches_expected=INT8_LINEARS * evals)
@@ -1289,6 +1505,26 @@ def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
         if not rq["ok"]:
             raise RuntimeError("the int8 query from checkpoint files failed")
         runs.append(rq)
+        del model
+        free()
+
+        # the SmoothQuant w8a8 route on the same files: calibrated at load (blank 2x2 grid, 30 steps)
+        ops.reset_kernel_launches()
+        model, load = load_timed(model_path=paths["lora"], quantize="w8a8_smooth")
+        calib_launches = ops.kernel_launches()
+        calib = dict(model.stage_seconds)
+        rw = run_request(model, "2x3 default query with SDEdit, SmoothQuant w8a8 DiT from checkpoint files",
+                         2, 3, 30, True, seed=1, used=serving + W8A8_USED_WITH, unused=training)
+        rw.update(phase="load_checkpoint_w8a8_smooth", **load, calibration_stage_seconds=calib,
+                  calibration_seconds=sum(calib.values()), calibration_launches=calib_launches,
+                  **w8a8_launches_ok(rw))
+        # the calibration: 29 evaluations of the bf16 DiT (kernel A), no quantized kernel
+        rw["ok"] = (rw["ok"] and calib_launches["flash_attn_rope"] == 29 * ATTENTION_CALLS
+                    and all(calib_launches[k] == 0 for k in W8A8_USED_WITH))
+        emit(rw)
+        if not rw["ok"]:
+            raise RuntimeError("the SmoothQuant w8a8 query from checkpoint files failed")
+        runs.append(rw)
         del model
         free()
 
@@ -1387,6 +1623,29 @@ def main() -> int:
         lambda: [check_int8_matmul(4097, 3072, 3072, "ragged M (proj)", 20)],
         lambda: [check_int8_matmul(512, 3072, 3072, "text stream proj", 50)],
         lambda: [check_int8_matmul(512, 12288, 3072, "text stream linear2", 50)],
+        lambda: [check_w8a8_matmul(3968, 3072, 21504, "linear1", 20)],
+        lambda: [check_w8a8_matmul(3968, 15360, 3072, "linear2", 20)],
+        lambda: [check_w8a8_matmul(3968, 3072, 9216, "qkv", 20)],
+        lambda: [check_w8a8_matmul(3968, 3072, 3072, "proj", 20)],
+        lambda: [check_w8a8_matmul(3968, 3072, 12288, "mlp.0", 20)],
+        lambda: [check_w8a8_matmul(3968, 12288, 3072, "mlp.2", 20)],
+        lambda: [check_w8a8_matmul(3456, 3072, 9216, "img_attn.qkv", 20)],
+        lambda: [check_w8a8_matmul(512, 3072, 9216, "text stream qkv", 50)],
+        lambda: [check_w8a8_matmul(512, 12288, 3072, "text stream mlp.2", 50)],
+        lambda: [check_w8a8_matmul(4097, 3072, 3072, "ragged M (proj)", 20)],
+        lambda: [check_w8a8_matmul(3968, 3072, 21504, "linear1 without a bias", 20, with_bias=False)],
+        lambda: [check_act_quant(3456, 3072, False, False, 50)],  # a double block's qkv / mlp.0 input (fp32)
+        lambda: [check_act_quant(3968, 3072, True, False, 50)],   # linear1's input
+        lambda: [check_act_quant(3456, 12288, True, False, 50)],  # mlp.2's input
+        lambda: [check_act_quant(3968, 15360, True, False, 50)],  # linear2's input
+        lambda: [check_act_quant(3456, 3072, False, True, 50)],   # the same with SmoothQuant's a_sinv
+        lambda: [check_act_quant(3968, 3072, True, True, 50)],
+        lambda: [check_act_quant(3456, 12288, True, True, 50)],
+        lambda: [check_act_quant(3968, 15360, True, True, 50)],
+        lambda: [check_act_quant(3456, 12288, False, False, 50)],  # fp32 at the wider K too
+        lambda: [check_act_quant(3968, 15360, False, True, 50)],
+        lambda: [check_act_quant(512, 3072, False, True, 50)],    # the text stream
+        lambda: [check_act_quant(7, 15360, False, False, 50)],    # a few rows
     ]
     first = {}
     for fn in checks:
@@ -1418,7 +1677,7 @@ def main() -> int:
 
     serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
     training = ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
-    bf16_unused = training + ("int8_matmul",)
+    bf16_unused = training + ("int8_matmul",) + W8A8_KERNELS
     r1 = run_request(model, "2x3 default query with SDEdit", 2, 3, 30, True, seed=1, used=serving,
                      unused=bf16_unused)
     emit(r1)
@@ -1437,6 +1696,24 @@ def main() -> int:
     emit(qref)
     if not qref["ok"]:
         raise RuntimeError(f"int8 reference failed: {qref}")
+    wref = quant_reference_w8a8(model)
+    emit(wref)
+    if not wref["ok"]:
+        raise RuntimeError(f"w8a8 reference failed: {wref}")
+
+    # the bf16 DiT swapped for its w8a8 copy (bf16 T5, CLIP and VAE), serving request 1's query
+    from visualcloze_tpu_torch.models.quant import quantize_flux_w8a8
+
+    model.flux = quantize_flux_w8a8(model.flux)
+    free()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    rw = run_request(model, "2x3 default query with SDEdit, w8a8 DiT", 2, 3, 30, True, seed=1,
+                     used=serving + W8A8_USED_WITH, unused=training)
+    rw.update(phase="request_w8a8", resident_gib=resident, w8a8_launches_predicted=W8A8_LINEARS * 38,
+              stage_seconds_bf16=r1["stage_seconds"], **w8a8_launches_ok(rw))
+    emit(rw)
+    if not rw["ok"]:
+        raise RuntimeError("w8a8 request failed")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1451,7 +1728,7 @@ def main() -> int:
     emit(dict(phase="init_int8", seconds=time.perf_counter() - t, resident_gib=resident,
               init_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
     rq = run_request(qmodel, "2x3 default query with SDEdit, int8 DiT + int4 T5-XXL + int8 CLIP-L", 2, 3, 30, True,
-                     seed=1, used=serving + ("int8_matmul",), unused=training)
+                     seed=1, used=serving + ("int8_matmul",), unused=training + W8A8_KERNELS)
     evals = rq["launches"]["flash_attn_rope"] // ATTENTION_CALLS  # DiT evaluations: 29 + 9 predicted
     rq.update(phase="request_int8", resident_gib=resident, dit_evaluations=evals,
               int8_launches_predicted=INT8_LINEARS * 38, int8_launches_expected=INT8_LINEARS * evals,
@@ -1477,7 +1754,7 @@ def main() -> int:
     r3 = run_request(model, "2x2 query, interleaved layout", 2, 2, 9, False, seed=3,
                      used=("flash_attn_fwd", "conv3x3_gn_swish", "flash_attn_d512"),
                      unused=("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
-                             "int8_matmul"))
+                             "int8_matmul") + W8A8_KERNELS)
     emit(dict(r3, phase="query_interleaved", rope_layout=model.rope_layout))
     if not r3["ok"]:
         raise RuntimeError("interleaved query failed")
@@ -1491,7 +1768,7 @@ def main() -> int:
         r = first[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=sum(run["launches"][name] for run in (r1, r2, rq, train, r3, *loaded)),
+            launches=sum(run["launches"][name] for run in (r1, r2, rw, rq, train, r3, *loaded)),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
         ))

@@ -549,7 +549,7 @@ def test_build_visualcloze_query_matches_jax(tiny_jax_loader, stack_files, sourc
 
 
 def test_build_visualcloze_refuses_unported_modes(stack_files):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
-        tloader.build_visualcloze(model_path=str(stack_files["lora"]), quantize="w8a8", device="cpu")
+    with pytest.raises(ValueError, match="unknown quantize mode"):
+        tloader.build_visualcloze(model_path=str(stack_files["lora"]), quantize="int4", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         tloader.build_visualcloze(model_path=str(stack_files["lora"]), mesh=object(), device="cpu")

@@ -417,6 +417,125 @@ def test_gpu_int8_matmul_is_deterministic(m, k, n):
         assert torch.equal(first, second)
 
 
+def _w8a8_case(dev, m, k, n):
+    """Codes uniform over [-127, 127] (act_quant_int8's and the weight
+    quantizer's range), x_scale uniform, w_scale d_in^-0.5 / 127 times a
+    factor per column in [0.5, 1.5)."""
+    g = torch.Generator(device=dev).manual_seed(3 * m + n + k)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    x_scale = torch.rand((m,), generator=g, device=dev) * 0.05 + 1e-3
+    w_scale = (torch.rand((n,), generator=g, device=dev) + 0.5) * k ** -0.5 / 127
+    return a, w, x_scale, w_scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n", [(3968, 3072, 21504), (3456, 12288, 3072), (512, 3072, 9216), (4097, 128, 16),
+                                     (1, 3072, 3072), (129, 15360, 272), (200, 256, 144)])
+def test_gpu_w8a8_matmul_matches_plain_bit_for_bit(m, k, n):
+    """Kernel H equals its plain version bit for bit (exact int32 sums, the
+    same fp32 rescale, one rounding, the bias as a bf16 add), with and
+    without a bias, and twice launched gives the same bits: linear1, mlp.2,
+    the text stream's qkv; ragged M (4097, 1, 129, 200), N not a multiple of
+    the 256-column tile (16, 272, 144), K of one stage (128) and 15360."""
+    from visualcloze_tpu_torch.ops.w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
+
+    dev = _cuda_or_skip()
+    a, w, xs, ws = _w8a8_case(dev, m, k, n)
+    bias = torch.randn((n,), device=dev).to(torch.bfloat16)
+    for b in (None, bias):
+        got = w8a8_matmul(a, w, xs, ws, b)
+        again = w8a8_matmul(a, w, xs, ws, b)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+        assert torch.equal(got, w8a8_matmul_plain(a, w, xs, ws, b))
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_gpu_w8a8_matmul_refuses_what_it_cannot_take():
+    from visualcloze_tpu_torch.ops.w8a8_matmul import w8a8_matmul
+
+    dev = _cuda_or_skip()
+    a, w, xs, ws = _w8a8_case(dev, 64, 192, 64)  # K not a multiple of 128
+    with pytest.raises(ValueError, match="K a multiple of 128"):
+        w8a8_matmul(a, w, xs, ws)
+    a, w, xs, ws = _w8a8_case(dev, 64, 256, 24)  # N not a multiple of 16
+    with pytest.raises(ValueError, match="N of 16"):
+        w8a8_matmul(a, w, xs, ws)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, dtype, smooth", [(3456, 3072, torch.float32, False), (3968, 15360, torch.bfloat16, True),
+                                                 (512, 12288, torch.bfloat16, False), (3, 8, torch.float32, True),
+                                                 (1, 3072, torch.bfloat16, True)])
+def test_gpu_act_quant_int8_matches_plain_bit_for_bit(m, k, dtype, smooth):
+    """Kernel I equals its plain version bit for bit (an IEEE division, round
+    half to even) and twice launched gives the same bits; an all-zero row
+    gives codes 0 and scale 1e-8 / 127."""
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_int8, act_quant_plain
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    x = torch.randn((m, k), generator=g, device=dev) * 3.0
+    x[:, k // 2] *= 50.0
+    x[m - 1] = 0.0
+    x = x.to(dtype)
+    a_sinv = torch.rand((k,), generator=g, device=dev) * 4.8 + 0.2 if smooth else None
+    codes, scale = act_quant_int8(x, a_sinv)
+    again = act_quant_int8(x, a_sinv)
+    torch.cuda.synchronize()
+    want_codes, want_scale = act_quant_plain(x, a_sinv)
+    assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
+    assert torch.equal(codes, again[0]) and torch.equal(scale, again[1])
+    assert not codes[m - 1].any()
+
+
+@pytest.mark.gpu
+def test_gpu_weight_quantizer_matches_the_cpu_bit_for_bit():
+    """quantize_linear_int8 on the card gives the CPU's (and so JAX's) codes
+    and scales: its division by 127 is a tensor division, not the
+    reciprocal multiply PyTorch uses for a Python scalar on CUDA."""
+    from visualcloze_tpu_torch.models.quant import quantize_linear_int8
+
+    dev = _cuda_or_skip()
+    w = torch.randn((3072, 1024), generator=torch.Generator().manual_seed(9)) * 0.02
+    got, want = quantize_linear_int8({"w": w.to(dev)}), quantize_linear_int8({"w": w})
+    for key in ("w_int8", "w_scale"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
+@pytest.mark.gpu
+def test_gpu_w8a8_linear_launches_i_then_h():
+    """A W8A8Linear on the card: I then H once each per call, the same bits
+    as the layer through the plain versions."""
+    import visualcloze_tpu_torch.models.layers as layers_mod
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_plain
+    from visualcloze_tpu_torch.ops.w8a8_matmul import w8a8_matmul_plain
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(5)
+    lin = layers_mod.W8A8Linear(3072, 1024, smooth=True).to(dev)
+    lin.w_int8.random_(-127, 128, generator=g)
+    lin.w_scale.fill_(3072 ** -0.5 / 127)
+    lin.a_sinv.uniform_(0.5, 2.0, generator=g)
+    lin.bias.data.normal_(0.0, 0.1, generator=g)
+    x = torch.randn((2, 300, 3072), generator=g, device=dev)
+    ops.reset_kernel_launches()
+    with torch.no_grad():
+        got = lin(x)
+        launches = ops.kernel_launches()
+        saved = layers_mod.act_quant_int8, layers_mod.w8a8_matmul
+        layers_mod.act_quant_int8, layers_mod.w8a8_matmul = act_quant_plain, w8a8_matmul_plain
+        try:
+            want = lin(x)
+        finally:
+            layers_mod.act_quant_int8, layers_mod.w8a8_matmul = saved
+    assert launches["act_quant_int8"] == 1 and launches["w8a8_matmul"] == 1
+    assert got.shape == (2, 300, 1024) and torch.equal(got, want)
+
+
 @pytest.mark.gpu
 def test_gpu_checkpoint_files_load_fold_and_permute_on_the_card(tmp_path, monkeypatch):
     """build_visualcloze with device cuda on tiny checkpoint files (written as

@@ -53,9 +53,14 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
     assert q4.grad is not None and out.shape == q4.shape
     y = ops.int8_matmul(torch.randn(3, 64), torch.ones(64, 16, dtype=torch.int8), torch.ones(16))
     assert y.shape == (3, 16) and y.dtype == torch.bfloat16
+    codes, scale = ops.act_quant_int8(torch.randn(3, 128))
+    assert codes.dtype == torch.int8 and scale.shape == (3,)
+    y = ops.w8a8_matmul(codes, torch.ones(16, 128, dtype=torch.int8), scale, torch.ones(16))
+    assert y.shape == (3, 16) and y.dtype == torch.bfloat16
     assert ops.kernel_launches() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"flash_attn_rope", "flash_attn_d512", "conv3x3_gn_swish", "flash_attn_fwd",
-                                "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "int8_matmul"}
+                                "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "int8_matmul",
+                                "w8a8_matmul", "act_quant_int8"}
 
 
 def _imports(path: Path) -> set[str]:
@@ -199,13 +204,34 @@ def test_inference_cli_serves_checkpoint_files_on_the_cpu(tmp_path, monkeypatch)
 @pytest.mark.parametrize("flags, item", [
     (["--lora", "style=style.pth"], 2), (["--adapter", "style"], 2), (["--lora_scale", "0.5"], 2),
     (["--aot_dir", "aot"], 2), (["--no_aot"], 2), (["--tp", "2"], 4), (["--fsdp", "2"], 4), (["--cp", "2"], 4),
-    (["--quantize", "w8a8"], 1), (["--quantize", "w8a8_smooth"], 1),
 ])
 def test_inference_cli_refuses_unported_flags_by_roadmap_item(flags, item):
     from visualcloze_tpu_torch import inference
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         inference.main(["--model_path", "lora.pth", "--device", "cpu", "--rows", "a.png,MASK", *flags])
+
+
+@pytest.mark.parametrize("mode", ["w8a8", "w8a8_smooth"])
+def test_inference_cli_serves_the_w8a8_modes_on_the_cpu(tmp_path, mode):
+    """--demo --device cpu --quantize w8a8 | w8a8_smooth: the tiny fp32 model
+    with its DiT quantized after the fact (w8a8_smooth calibrated first, 4
+    steps, statistics every 2nd, as the JAX CLI's demo), served through the
+    plain versions of kernels I, H and G; the image is written."""
+    from PIL import Image
+
+    from visualcloze_tpu_torch import inference
+    from visualcloze_tpu_torch.models.layers import Int8Linear, W8A8Linear
+
+    out = tmp_path / f"{mode}.jpg"
+    argv = ["--demo", "--device", "cpu", "--steps", "2", "--upsampling_steps", "2", "--quantize", mode,
+            "-o", str(out)]
+    inference.main(argv)
+    assert Image.open(out).size == (64, 64)
+    model = inference.build_model(inference.parse_args(argv), torch.device("cpu"))
+    lin = model.flux.single_blocks[0].linear1
+    assert isinstance(lin, W8A8Linear) and (lin.a_sinv is not None) == (mode == "w8a8_smooth")
+    assert isinstance(model.flux.single_blocks[0].modulation.lin, Int8Linear)
 
 
 def test_inference_cli_sizes_the_model_by_device(tmp_path, monkeypatch):
@@ -223,8 +249,7 @@ def test_inference_cli_sizes_the_model_by_device(tmp_path, monkeypatch):
 
 def test_inference_cli_serves_the_int8_stack_on_the_cpu(tmp_path):
     """--quantize int8 --t5_int4 on the CPU: the tiny model quantized after the
-    fact (int8 DiT through G's plain version, int4 T5), as JAX's --demo; the
-    w8a8 modes are refused."""
+    fact (int8 DiT through G's plain version, int4 T5), as JAX's --demo."""
     from PIL import Image
 
     from visualcloze_tpu_torch import inference
@@ -239,9 +264,6 @@ def test_inference_cli_serves_the_int8_stack_on_the_cpu(tmp_path):
     model = inference.build_model(inference.parse_args(argv), torch.device("cpu"))
     assert isinstance(model.flux.single_blocks[0].linear1, Int8Linear)
     assert isinstance(model.t5.model.blocks[0].attn.q, Int4Linear)
-    for mode in ("w8a8", "w8a8_smooth"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
-            inference.main(["--demo", "--device", "cpu", "--quantize", mode, "-o", str(out)])
 
 
 def test_profile_step_classes_kernels_by_demangled_name():
@@ -256,6 +278,10 @@ def test_profile_step_classes_kernels_by_demangled_name():
     assert kernel_class("(anonymous namespace)::rope_rotate(__nv_bfloat16 const*)") == "attention (kernel A)"
     assert kernel_class("void (anonymous namespace)::int8_matmul_kernel<__nv_bfloat16>(__nv_bfloat16 const*, "
                         "signed char const*)") == "int8 matmul (kernel G)"
+    assert kernel_class("(anonymous namespace)::w8a8_matmul_kernel(CUtensorMap, CUtensorMap, float const*)") == \
+        "w8a8 matmul (kernel H)"
+    assert kernel_class("void (anonymous namespace)::act_quant_kernel<__nv_bfloat16>(__nv_bfloat16 const*)") == \
+        "activation quantize (kernel I)"
     assert kernel_class("nvjet_tst_192x192_64x4_2x1_v_bz_coopB_bias_TNN") == "gemm (linears)"
     assert kernel_class("void at::native::reduce_kernel<512, 1>(at::native::ReduceOp)") == "other"
 

@@ -302,8 +302,10 @@ def test_convert_refuses_what_it_cannot_carry():
     del q["final_layer"]["linear"]["w_scale"]
     with pytest.raises(ValueError, match="not in the JAX tree"):
         convert.flux_from_jax(q, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
-        convert.flux_from_jax(_np(jq.quantize_flux_w8a8(params)), cfg, device="cpu")
+    mixed = _np(jq.quantize_flux_w8a8(params))  # w8a8 entries beside a dense one
+    mixed["final_layer"]["linear"] = _np(params["final_layer"]["linear"])
+    with pytest.raises(ValueError, match="together"):
+        convert.flux_from_jax(mixed, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
         convert.flux_from_jax(_np(jq.quantize_flux_int4(params)), cfg, device="cpu")
     q = _np(jq.quantize_flux_int8(params))

@@ -9,14 +9,18 @@ VAE conv weights stay (kh, kw, in, out) and NHWC, as in JAX.
 Quantized entries ({"w_int8", "w_scale", "b"?}, {"w_int4", "w_scale"}, and
 {"w_int8", "w_scale"} token tables) keep the JAX layout in the port's
 quantized modules (models/quant.py, layers.Int8Linear): int8 and uint8 codes
-are copied exactly, every other leaf through fp32.
+are copied exactly, every other leaf through fp32. A w8a8 entry ({"w_int8",
+"w_scale", "b"?, "a8", "a_sinv"?}: quantize_flux_w8a8[_smooth]) becomes a
+layers.W8A8Linear, its codes transposed to (out, in), the layout of kernel
+H, here and once; the "a8" marker carries no data.
 
 flux_from_jax takes the `params` of a JAX VisualClozeModel as they stand:
 permuted by its constructor for rope_layout="half", in the reference's order
 for "interleaved"; the port's Flux is then run in the same layout.
 Every parameter and buffer of the target module must be assigned exactly once.
 LoRA trees carry over with lora_from_jax (stacked block entries -> one per
-block) and back with lora_to_jax, for the tests.
+block) and back with lora_to_jax, for the tests; so do the SmoothQuant
+calibration statistics, which are trees of per-block entries too.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from .device import resolve_device
 from .models.autoencoder import AutoEncoder, build_autoencoder
 from .models.clip import CLIPTextEncoder, build_clip
 from .models.flux import Flux, build_flux
-from .models.layers import linear_kind
+from .models.layers import W8A8Linear, linear_kind
 from .models.quant import QUANTIZED_MODULES, build_clip_int8, build_t5_int4
 from .models.t5 import T5Encoder, build_t5
 
@@ -77,6 +81,11 @@ class _Loader:
                         self.copy(target.bias, val["b"], where + ".b")
                 elif isinstance(target, QUANTIZED_MODULES):  # leaves named as the entry's; "b" is the bias
                     for leaf, arr in val.items():
+                        if isinstance(target, W8A8Linear):
+                            if leaf == "a8":  # the marker: no data
+                                continue
+                            if leaf == "w_int8":  # (in, out) -> kernel H's K-major (out, in)
+                                arr = np.asarray(arr).T
                         self.copy(getattr(target, "bias" if leaf == "b" else leaf), arr, f"{where}.{leaf}")
                 else:
                     self.load(target, val, where)
@@ -117,22 +126,29 @@ def _carry(module: nn.Module, tree: Mapping, stacked: dict[str, int]) -> nn.Modu
 
 
 def _linear_kinds(tree: Mapping) -> set[str]:
-    """linear_kind of every linear entry ({"w"...} or {"w_int8"...}) in the tree."""
+    """linear_kind of every linear entry ({"w"...} or {"w_int8"...}) in the
+    tree; "w8a8_smooth" for a w8a8 entry with an a_sinv leaf."""
     kinds = set()
     for val in tree.values():
         if isinstance(val, Mapping):
-            kinds |= {linear_kind(val)} if {"w", "w_int8", "w_int4"} & set(val) else _linear_kinds(val)
+            if {"w", "w_int8", "w_int4"} & set(val):
+                kinds.add("w8a8_smooth" if "a_sinv" in val else linear_kind(val))
+            else:
+                kinds |= _linear_kinds(val)
     return kinds
 
 
 def flux_from_jax(params: Mapping, cfg: FluxConfig, device=None, dtype=torch.float32) -> Flux:
-    """A dense tree, or a quantize_flux_int8 / init_flux_int8 one (every
-    linear int8: Int8Linear through kernel G; biases and norms in `dtype`)."""
+    """A dense tree, a quantize_flux_int8 / init_flux_int8 one (every linear
+    int8: Int8Linear through kernel G; biases and norms in `dtype`), or a
+    quantize_flux_w8a8[_smooth] one (the token-dim block linears W8A8Linear
+    through kernels I and H, the rest Int8Linear)."""
     cfg = config_from(cfg, FluxConfig)
     kinds = _linear_kinds(params)
-    if len(kinds) > 1:
-        raise ValueError(f"a Flux tree with dense and int8 linears mixed is not supported: {kinds}")
-    model = build_flux(cfg, resolve_device(device), dtype, int8=kinds == {"int8"})
+    if kinds not in ({"dense"}, {"int8"}, {"int8", "w8a8"}, {"int8", "w8a8_smooth"}):
+        raise ValueError(f"a Flux tree with these linears together is not supported: {sorted(kinds)}")
+    model = build_flux(cfg, resolve_device(device), dtype, int8=kinds == {"int8"}, w8a8=len(kinds) == 2,
+                       smooth="w8a8_smooth" in kinds)
     return _carry(model, params, {"double_blocks": cfg.depth, "single_blocks": cfg.depth_single_blocks})
 
 

@@ -13,7 +13,10 @@ From checkpoint files (the reference flow):
       into the half RoPE layout and serves the query through the CUDA
       kernels; --model_path may instead be a diffusers pipeline snapshot
       directory (VisualClozePipeline-384/-512). --quantize int8 serves an
-      int8 DiT (every linear through kernel G), --t5_int4 an int4 T5-XXL.
+      int8 DiT (every linear through kernel G), --quantize w8a8 a w8a8 one
+      (the token-dim block linears through kernels I and H, the rest
+      through G), --quantize w8a8_smooth the same after a SmoothQuant
+      calibration on a blank 2x2 grid (30 steps), --t5_int4 an int4 T5-XXL.
       The files hold the published widths; --device cpu runs the same flow
       on the CPU (fp32, the kernels' plain versions).
 
@@ -30,11 +33,15 @@ With random weights (no files):
       the single-card int8 stack: on the GPU the full-width int8 DiT, int4
       T5-XXL, int8 CLIP-L and bf16 VAE (synthetic_full_components); on the
       CPU the tiny model quantized after the fact.
+  ... --quantize w8a8 | w8a8_smooth
+      the bf16 (GPU) or tiny fp32 (CPU) model with its DiT quantized to
+      w8a8 after the fact; w8a8_smooth calibrates first, on a blank 2x2
+      grid with 4 Euler steps, statistics every 2nd, as the JAX CLI's demo.
 
---quantize w8a8 / w8a8_smooth (ROADMAP item 1), runtime adapters (--lora,
---adapter, --lora_scale: item 2), multi-card serving (--tp, --fsdp, --cp:
-item 4) and compiled-program caches (--aot_dir, --no_aot: item 2) are not
-ported: they raise NotImplementedError naming the item.
+Runtime adapters (--lora, --adapter, --lora_scale: ROADMAP item 2),
+multi-card serving (--tp, --fsdp, --cp: item 4) and compiled-program caches
+(--aot_dir, --no_aot: item 2) are not ported: they raise
+NotImplementedError naming the item.
 --rows takes image paths per grid row (comma-separated, MASK for the target).
 """
 
@@ -46,7 +53,7 @@ import torch
 from PIL import Image
 
 from .device import resolve_device
-from .models.quant import quantize_flux_int8, quantize_t5_int4
+from .models.quant import quantize_flux_int8, quantize_flux_w8a8, quantize_t5_int4
 from .pipeline import build_visualcloze, random_components, synthetic_full_components
 from .transport.sampling import solver_arg
 
@@ -75,7 +82,9 @@ def parse_args(argv=None):
                    help="ODE method: euler, heun, ab2, dopri5, or cached[:K] (K >= 1: the model every "
                         "K-th step, the velocity extrapolated between)")
     p.add_argument("--quantize", default=None, choices=[None, "int8", "w8a8", "w8a8_smooth"],
-                   help="int8: weight-only int8 DiT (every linear through kernel G); w8a8 modes not ported")
+                   help="int8: weight-only int8 DiT (every linear through kernel G); w8a8: int8 activations "
+                        "too in the token-dim block linears (kernels I and H); w8a8_smooth: the same after "
+                        "a SmoothQuant calibration")
     p.add_argument("--t5_int4", action="store_true", help="int4 weight-only T5-XXL")
     p.add_argument("--tp", type=int, default=1, help="not ported (ROADMAP item 4)")
     p.add_argument("--fsdp", type=int, default=1, help="not ported (ROADMAP item 4)")
@@ -92,8 +101,6 @@ def parse_args(argv=None):
 
 def refuse_unported(args) -> None:
     """The reference CLI's flags the port does not serve yet, by ROADMAP item."""
-    if args.quantize in ("w8a8", "w8a8_smooth"):
-        raise NotImplementedError(f"--quantize {args.quantize} is not ported yet: ROADMAP item 1")
     if args.lora or args.adapter is not None or args.lora_scale != 1.0:
         raise NotImplementedError("runtime LoRA adapters (--lora, --adapter, --lora_scale) are not ported yet: "
                                   "ROADMAP item 2")
@@ -106,8 +113,9 @@ def refuse_unported(args) -> None:
 
 def build_model(args, device: torch.device):
     """The demo model for `device`: on the card the full-width stack (the
-    single-card int8 one with --quantize int8), on the CPU the tiny fp32 one,
-    quantized after the fact as the JAX CLI's --demo does."""
+    single-card int8 one with --quantize int8), on the CPU the tiny fp32 one;
+    the DiT quantized after the fact as the JAX CLI's --demo does (w8a8_smooth
+    after calibrating with steps=4, stride=2)."""
     full = device.type == "cuda"
     resolution = 384 if full else 64
     if full and args.quantize == "int8":
@@ -121,8 +129,10 @@ def build_model(args, device: torch.device):
         resolution=resolution,
     )
     model.solver = args.solver
-    if args.quantize == "int8":
-        model.flux = quantize_flux_int8(model.flux)
+    if args.quantize == "w8a8_smooth":
+        model.calibrate_w8a8_smooth(steps=4, stride=2)
+    elif args.quantize:
+        model.flux = {"int8": quantize_flux_int8, "w8a8": quantize_flux_w8a8}[args.quantize](model.flux)
     if args.t5_int4:
         model.t5.model = quantize_t5_int4(model.t5.model)
     return model

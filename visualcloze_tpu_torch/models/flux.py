@@ -12,7 +12,9 @@ around the scanned block body:
   - "dots_split": two checkpointed segments per block with the attention
     call between them, so the attention's own saved tensors (rotated q, k,
     v, o, lse) are kept and its forward is not rerun.
-No activation capture and no calibration statistics.
+`collect_a8_stats` (no remat) also returns the SmoothQuant calibration
+statistics: the per-input-channel absmax of every w8a8 linear's input, one
+tree per block (layers.py). No activation capture.
 """
 
 from __future__ import annotations
@@ -27,9 +29,13 @@ from ..config import FluxConfig
 from ..ops.rope import embed_nd
 from ..ops.schedule import timestep_embedding
 from .init import init_linears_, materialize, swap_modules
-from .layers import DoubleBlock, Int8Linear, LastLayer, Linear, MLPEmbedder, SingleBlock
+from .layers import DoubleBlock, Int8Linear, LastLayer, Linear, MLPEmbedder, SingleBlock, W8A8Linear
 
 REMAT_POLICIES = (None, "dots", "dots_split")
+# the token-dim linears of the blocks, which w8a8 quantizes (JAX quant._A8_KEYS):
+# qkv and proj of each stream, its mlp's "0" and "2", linear1 and linear2;
+# the modulation, embedder and final-layer linears stay weight-only int8
+A8_KEYS = frozenset({"qkv", "proj", "0", "2", "linear1", "linear2"})
 _dots_context = functools.partial(
     create_selective_checkpoint_contexts, [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 )
@@ -92,13 +98,16 @@ class Flux(nn.Module):
 
     def forward(self, *, img, img_ids, txt, txt_ids, timesteps, y, txt_mask=None, img_mask=None,
                 guidance=None, lora=None, lora_scale: float = 1.0, remat: bool = False,
-                remat_policy: str | None = None, rope_layout: str = "half") -> torch.Tensor:
+                remat_policy: str | None = None, rope_layout: str = "half", collect_a8_stats: bool = False):
         """(B, L_img, in_channels) tokens -> (B, L_img, out_channels) velocity.
         txt/img masks are (B, L) int {1 real, 0 pad}; timesteps (B,) flux time;
         rope_layout "half" (the serving layout, kernel A) or "interleaved"
-        (the reference's, which the trainer keeps)."""
+        (the reference's, which the trainer keeps). collect_a8_stats: returns
+        (velocity, {"double_blocks": [per-block stats], "single_blocks": [...]})."""
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {remat_policy!r}")
+        if collect_a8_stats and remat:
+            raise ValueError("collect_a8_stats is a calibration (no-remat) mode")
         l = lora or {}
         img, txt, vec, pe, attn_mask = self.embed_inputs(
             img, img_ids, txt, txt_ids, timesteps, y, txt_mask, img_mask, guidance, l, lora_scale
@@ -108,8 +117,14 @@ class Flux(nn.Module):
         if remat and remat_policy == "dots_split":
             seg = functools.partial(_checkpointed, policy="dots")
 
-        def run(block, *args):
+        stats = {"double_blocks": [], "single_blocks": []}
+
+        def run(block, stack, *args):
             fn = functools.partial(block, lora_scale=lora_scale, rope_layout=rope_layout, seg=seg)
+            if collect_a8_stats:
+                out, st = fn(*args, collect_stats=True)
+                stats[stack].append(st)
+                return out
             if remat and seg is None:
                 fn = _checkpointed(fn, remat_policy)
             return fn(*args)
@@ -117,22 +132,40 @@ class Flux(nn.Module):
         d_lora = l.get("double_blocks") or [None] * len(self.double_blocks)
         s_lora = l.get("single_blocks") or [None] * len(self.single_blocks)
         for block, bl in zip(self.double_blocks, d_lora):
-            img, txt = run(block, img, txt, vec, pe, attn_mask, bl)
+            img, txt = run(block, "double_blocks", img, txt, vec, pe, attn_mask, bl)
         x = torch.cat([txt, img], dim=1)
         for block, bl in zip(self.single_blocks, s_lora):
-            x = run(block, x, vec, pe, attn_mask, bl)
-        return self.final_layer(x[:, txt_len:], vec, l.get("final_layer"), lora_scale)
+            x = run(block, "single_blocks", x, vec, pe, attn_mask, bl)
+        out = self.final_layer(x[:, txt_len:], vec, l.get("final_layer"), lora_scale)
+        return (out, stats) if collect_a8_stats else out
 
 
-def build_flux(cfg: FluxConfig, device, dtype, int8: bool = False) -> Flux:
+def a8_linears(flux: Flux):
+    """(parent module, child name, linear) of every w8a8 linear position:
+    the A8_KEYS children inside the double and single blocks."""
+    for block in [*flux.double_blocks, *flux.single_blocks]:
+        for parent in list(block.modules()):
+            for name, child in list(parent.named_children()):
+                if name in A8_KEYS and isinstance(child, (Linear, Int8Linear, W8A8Linear)):
+                    yield parent, name, child
+
+
+def build_flux(cfg: FluxConfig, device, dtype, int8: bool = False, w8a8: bool = False,
+               smooth: bool = False) -> Flux:
     """A Flux with uninitialized weights of `dtype` allocated on `device`.
     int8: every linear an Int8Linear (the JAX package's quantize_flux_int8
-    tree: int8 codes, fp32 scales, biases and norm scales in `dtype`)."""
+    tree: int8 codes, fp32 scales, biases and norm scales in `dtype`).
+    w8a8: the quantize_flux_w8a8 tree, the same with a W8A8Linear at every
+    a8_linears position (with an a_sinv buffer if smooth:
+    quantize_flux_w8a8_smooth's)."""
 
     def ctor():
         flux = Flux(cfg)
-        if int8:
+        if int8 or w8a8:
             swap_modules(flux, Linear, lambda m: Int8Linear(m.in_features, m.out_features, m.bias is not None))
+        if w8a8:
+            for parent, name, m in list(a8_linears(flux)):
+                setattr(parent, name, W8A8Linear(m.in_features, m.out_features, m.bias is not None, smooth))
         return flux
 
     return materialize(ctor, device, dtype)

@@ -4,15 +4,19 @@ Precision policy, as in the JAX package: matmuls in the parameter dtype,
 LayerNorm / RMSNorm / RoPE / softmax in fp32, modulation arithmetic in fp32
 cast to the stream dtype at the residual add. Module and parameter names
 mirror the JAX parameter tree so that convert.py maps one onto the other.
-The dense linear and the int8 weight-only one (`Int8Linear`, through kernel
-G) are ported; w8a8 and int4 DiT entries wait for a later slice (convert.py
-refuses them).
+The dense linear, the int8 weight-only one (`Int8Linear`, through kernel G)
+and the w8a8 one (`W8A8Linear`, through kernels I and H) are ported; int4
+DiT entries wait for a later slice (convert.py refuses them).
 
 LoRA is unfolded, as in JAX: every forward takes an optional `lora` tree
 (the entries of models/lora.py keyed like the module's own children) and
 adds x @ A @ B (+ B's bias) times `lora_scale` to each linear. Blocks take
 `seg`, a wrapper applied to their pre- and post-attention halves (the
 two-segment remat of models/flux.py); RoPE then runs inside the first half.
+With collect_stats, a block also returns the per-input-channel absmax of
+each w8a8 linear's input (the SmoothQuant calibration of models/quant.py),
+keyed as the block's modules: {"img_attn": {"qkv", "proj"}, "img_mlp":
+{"0", "2"}, "txt_..."} and {"linear1", "linear2"}.
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import FluxConfig
+from ..ops.act_quant import act_quant_int8
 from ..ops.attention import attention, rope_qk
 from ..ops.int8_matmul import int8_matmul
+from ..ops.w8a8_matmul import w8a8_matmul
 from .lora import Lora
 
 
@@ -56,12 +62,13 @@ class Linear(nn.Linear):
 
 
 def linear_kind(entry) -> str:
-    """"dense" or "int8" for a JAX linear entry (a mapping of its leaves);
-    the w8a8 and int4 DiT entries are not ported yet."""
-    if "a8" in entry or "a_sinv" in entry:
-        raise NotImplementedError("w8a8 linears (quantize_flux_w8a8[_smooth]) are not ported yet: ROADMAP item 1")
+    """"dense", "int8" or "w8a8" (an "a8" marker, with or without "a_sinv")
+    for a JAX linear entry (a mapping of its leaves); the int4 DiT entries
+    are not ported yet."""
     if "w_int4" in entry:
         raise NotImplementedError("int4 DiT linears (quantize_flux_int4) are not ported yet: ROADMAP item 1")
+    if "a8" in entry:
+        return "w8a8"
     return "int8" if "w_int8" in entry else "dense"
 
 
@@ -88,6 +95,45 @@ class Int8Linear(nn.Module):
         if lora is not None:
             y = y + _lora_delta(lora, x, lora_scale)
         return y
+
+
+class W8A8Linear(nn.Module):
+    """The w8a8 linear (JAX `linear`'s "a8" branch): int8 weights, int8
+    activations quantized per token at each call. Buffers w_int8 (out, in)
+    int8 -- K-major, the JAX entry's (in, out) codes transposed once where
+    the linear is quantized or converted, since the 8-bit tensor-core
+    products take both operands K-major -- w_scale (out,) fp32 and, for
+    SmoothQuant, a_sinv (in,) fp32; a bias in the compute dtype.
+
+    x is quantized as it arrives (the double blocks' qkv and mlp.0 inputs
+    are fp32; JAX does not round them to bf16 first) by kernel I, times
+    a_sinv; kernel H takes the codes and returns bf16((acc * x_scale) *
+    w_scale) + bf16 bias (a bf16 add, in its epilogue); then + the LoRA
+    delta of bf16(x), in JAX's order.
+    On CPU tensors both kernels run their plain versions, which equal JAX's
+    arithmetic bit for bit."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, smooth: bool = False):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("w_int8", torch.empty((out_features, in_features), dtype=torch.int8))
+        self.register_buffer("w_scale", torch.empty((out_features,), dtype=torch.float32))
+        self.register_buffer("a_sinv", torch.empty((in_features,), dtype=torch.float32) if smooth else None)
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor, lora: Lora | None = None, lora_scale: float = 1.0) -> torch.Tensor:
+        codes, x_scale = act_quant_int8(x.contiguous(), self.a_sinv)
+        y = w8a8_matmul(codes, self.w_int8, x_scale, self.w_scale, self.bias)
+        y = y.reshape(*x.shape[:-1], self.out_features)
+        if lora is not None:
+            y = y + _lora_delta(lora, x.to(torch.bfloat16), lora_scale)
+        return y
+
+
+def _absmax_in(t: torch.Tensor) -> torch.Tensor:
+    """Per-input-channel absmax over every leading axis: (..., in) -> (in,)
+    fp32 (the SmoothQuant calibration statistic, JAX `_absmax_in`)."""
+    return t.to(torch.float32).abs().reshape(-1, t.shape[-1]).amax(dim=0)
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -182,27 +228,43 @@ class DoubleBlock(nn.Module):
         self.img_mlp = nn.ModuleDict({"0": Linear(h, mh), "2": Linear(mh, h)})
         self.txt_mlp = nn.ModuleDict({"0": Linear(h, mh), "2": Linear(mh, h)})
 
-    def _qkv(self, attn: SelfAttention, x, mod, lora: Lora, lora_scale):
-        qkv = attn.qkv(_modulate(x, mod), lora.get("qkv"), lora_scale)
+    def _qkv(self, attn: SelfAttention, x, mod, lora: Lora, lora_scale, stats: dict | None):
+        x_mod = _modulate(x, mod)
+        if stats is not None:
+            stats["qkv"] = _absmax_in(x_mod)
+        qkv = attn.qkv(x_mod, lora.get("qkv"), lora_scale)
         q, k, v = _split_heads(qkv, self.num_heads)
         q, k = attn.norm(q, k, v)
         return q, k, v
 
     @staticmethod
-    def _mlp(mlp: nn.ModuleDict, x, mod, lora: Lora, lora_scale):
-        h = F.gelu(mlp["0"](_modulate(x, mod), lora.get("0"), lora_scale), approximate="tanh")
+    def _mlp(mlp: nn.ModuleDict, x, mod, lora: Lora, lora_scale, stats: dict | None):
+        x_mod = _modulate(x, mod)
+        if stats is not None:
+            stats["0"] = _absmax_in(x_mod)
+        h = F.gelu(mlp["0"](x_mod, lora.get("0"), lora_scale), approximate="tanh")
+        if stats is not None:
+            stats["2"] = _absmax_in(h)
         return mlp["2"](h, lora.get("2"), lora_scale)
 
     def forward(self, img, txt, vec, pe, attn_mask, lora: Lora | None = None, lora_scale: float = 1.0,
-                rope_layout: str = "half", seg: Callable | None = None):
+                rope_layout: str = "half", seg: Callable | None = None, collect_stats: bool = False):
         l = lora or {}
         txt_len = txt.shape[1]
+        if collect_stats and seg is not None:
+            raise ValueError("collect_stats is a calibration (no-remat) mode")
+        stats = {k: {} for k in ("img_attn", "txt_attn", "img_mlp", "txt_mlp")} if collect_stats else None
+
+        def st(key: str) -> dict | None:
+            return None if stats is None else stats[key]
 
         def pre(img, txt):
             img_mod1, img_mod2 = self.img_mod(vec, l.get("img_mod", {}).get("lin"), lora_scale)
             txt_mod1, txt_mod2 = self.txt_mod(vec, l.get("txt_mod", {}).get("lin"), lora_scale)
-            img_q, img_k, img_v = self._qkv(self.img_attn, img, img_mod1, l.get("img_attn", {}), lora_scale)
-            txt_q, txt_k, txt_v = self._qkv(self.txt_attn, txt, txt_mod1, l.get("txt_attn", {}), lora_scale)
+            img_q, img_k, img_v = self._qkv(self.img_attn, img, img_mod1, l.get("img_attn", {}), lora_scale,
+                                            st("img_attn"))
+            txt_q, txt_k, txt_v = self._qkv(self.txt_attn, txt, txt_mod1, l.get("txt_attn", {}), lora_scale,
+                                            st("txt_attn"))
             q = torch.cat([txt_q, img_q], dim=2)
             k = torch.cat([txt_k, img_k], dim=2)
             v = torch.cat([txt_v, img_v], dim=2)
@@ -213,22 +275,26 @@ class DoubleBlock(nn.Module):
         def post(img, txt, attn, mods):
             img_mod1, img_mod2, txt_mod1, txt_mod2 = mods
             txt_attn, img_attn = attn[:, :txt_len], attn[:, txt_len:]
+            if stats is not None:
+                stats["img_attn"]["proj"] = _absmax_in(img_attn)
+                stats["txt_attn"]["proj"] = _absmax_in(txt_attn)
             li, lt = l.get("img_attn", {}), l.get("txt_attn", {})
             img = img + (img_mod1["gate"] * self.img_attn.proj(img_attn, li.get("proj"), lora_scale).to(
                 torch.float32)).to(img.dtype)
             img = img + (img_mod2["gate"] * self._mlp(self.img_mlp, img, img_mod2, l.get("img_mlp", {}),
-                                                      lora_scale).to(torch.float32)).to(img.dtype)
+                                                      lora_scale, st("img_mlp")).to(torch.float32)).to(img.dtype)
             txt = txt + (txt_mod1["gate"] * self.txt_attn.proj(txt_attn, lt.get("proj"), lora_scale).to(
                 torch.float32)).to(txt.dtype)
             txt = txt + (txt_mod2["gate"] * self._mlp(self.txt_mlp, txt, txt_mod2, l.get("txt_mlp", {}),
-                                                      lora_scale).to(torch.float32)).to(txt.dtype)
+                                                      lora_scale, st("txt_mlp")).to(torch.float32)).to(txt.dtype)
             return img, txt
 
         if seg is not None:
             pre, post = seg(pre), seg(post)
         q, k, v, mods = pre(img, txt)
         attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout)
-        return post(img, txt, attn, mods)
+        out = post(img, txt, attn, mods)
+        return (out, stats) if collect_stats else out
 
 
 class SingleBlock(nn.Module):
@@ -245,12 +311,17 @@ class SingleBlock(nn.Module):
         self.modulation = Modulation(h, False)
 
     def forward(self, x, vec, pe, attn_mask, lora: Lora | None = None, lora_scale: float = 1.0,
-                rope_layout: str = "half", seg: Callable | None = None):
+                rope_layout: str = "half", seg: Callable | None = None, collect_stats: bool = False):
         l = lora or {}
+        if collect_stats and seg is not None:
+            raise ValueError("collect_stats is a calibration (no-remat) mode")
+        stats: dict | None = {} if collect_stats else None
 
         def pre(x):
             mod, _ = self.modulation(vec, l.get("modulation", {}).get("lin"), lora_scale)
             x_mod = _modulate(x, mod).to(x.dtype)
+            if stats is not None:
+                stats["linear1"] = _absmax_in(x_mod)
             h = self.linear1(x_mod, l.get("linear1"), lora_scale)
             q, k, v = _split_heads(h[..., : 3 * self.hidden_size], self.num_heads)
             q, k = self.norm(q, k, v)
@@ -261,6 +332,8 @@ class SingleBlock(nn.Module):
         def post(x, attn, h, mod):
             mlp_h = h[..., 3 * self.hidden_size :]
             cat = torch.cat([attn, F.gelu(mlp_h, approximate="tanh")], dim=-1)
+            if stats is not None:
+                stats["linear2"] = _absmax_in(cat)
             out = self.linear2(cat, l.get("linear2"), lora_scale)
             return x + (mod["gate"] * out.to(torch.float32)).to(x.dtype)
 
@@ -268,7 +341,8 @@ class SingleBlock(nn.Module):
             pre, post = seg(pre), seg(post)
         q, k, v, h, mod = pre(x)
         attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout)
-        return post(x, attn, h, mod)
+        out = post(x, attn, h, mod)
+        return (out, stats) if collect_stats else out
 
 
 class LastLayer(nn.Module):

@@ -11,8 +11,18 @@ The port's own copy of what single-card int8 serving needs:
     (`Int4Linear`, JAX `t5._w`);
   - int8 token tables with one scale per row (`quantize_embedding_int8`),
     dequantized after the gather (`embedding_lookup`, `Int8Embedding`).
+  - w8a8 DiT linears (`quantize_flux_w8a8`, JAX's quantize_flux_w8a8 and
+    mark_w8a8): the token-dim block linears (flux.A8_KEYS) as
+    layers.W8A8Linear, int8 weights K-major and int8 activations quantized
+    per token at each call (`act_quant_int8`, kernels I and H), the other
+    linears Int8Linear through G;
+  - SmoothQuant (`smooth_scales`, `quantize_flux_w8a8_smooth`,
+    `calibrate_flux_a8`): per-input-channel scales s from calibration
+    absmax statistics, folded into the weights before quantizing, 1 / s
+    (a_sinv) applied to the activations inside kernel I.
 Rounding is half-to-even in both frameworks (jnp.round, torch.round), so the
-codes and scales match the JAX package's bit for bit.
+codes and scales match the JAX package's bit for bit (the smooth weights up
+to the last ulp of s: the two frameworks' pow differ there).
 
 The model-level functions take and return modules. `quantize_*` build a new
 quantized module beside the source one, one leaf at a time (the fp32
@@ -20,7 +30,7 @@ temporaries never exceed one weight); `init_*` draw random codes straight on
 the device from a torch.Generator (uniform over the code range, like JAX's
 random bits), so peak memory equals resident memory. Their leaves are named
 as the JAX trees' entries, so convert.py carries either tree into the other's
-module. w8a8, SmoothQuant and the int4 DiT are not ported (ROADMAP item 1).
+module. The int4 DiT is not ported (ROADMAP item 1).
 """
 
 from __future__ import annotations
@@ -32,10 +42,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import CLIPTextConfig, FluxConfig, T5Config
+from ..ops.act_quant import act_quant_int8 as _act_quant_kernel
 from .clip import CLIPTextEncoder, LayerNorm
-from .flux import Flux, build_flux
+from .flux import Flux, a8_linears, build_flux
 from .init import materialize, normal_, swap_modules
-from .layers import Int8Linear
+from .layers import Int8Linear, W8A8Linear
+from .lora import tree_items, tree_replace
 from .t5 import T5Encoder
 
 INT4_GROUP = 128
@@ -48,7 +60,8 @@ def quantize_linear_int8(p: Mapping) -> dict:
     """{"w" (..., in, out), "b"?} -> {"w_int8", "w_scale" (..., out) fp32,
     "b"?}; symmetric absmax per output channel."""
     w = p["w"].to(torch.float32)
-    scale = torch.clamp_min(w.abs().amax(dim=-2, keepdim=True), 1e-8) / 127.0
+    amax = torch.clamp_min(w.abs().amax(dim=-2, keepdim=True), 1e-8)
+    scale = amax / torch.full_like(amax, 127.0)  # a tensor divisor: on CUDA a scalar one is a reciprocal multiply
     out = {"w_int8": torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8),
            "w_scale": scale[..., 0, :]}
     if "b" in p:
@@ -70,6 +83,24 @@ def _int4_group_for(din: int, group: int = INT4_GROUP) -> int:
     if group < 2:
         raise ValueError(f"no even int4 group divides the input dim {din}")
     return group
+
+
+def act_quant_int8(x: torch.Tensor, a_sinv: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric absmax int8 (JAX act_quant_int8, with the w8a8
+    branch's a_sinv product): x (..., in) -> (codes (..., in) int8, scale
+    (..., 1) fp32), through kernel I (its plain version for CPU tensors)."""
+    codes, scale = _act_quant_kernel(x.contiguous(), a_sinv)
+    return codes.reshape(x.shape), scale.reshape(*x.shape[:-1], 1)
+
+
+def smooth_scales(a_stat: torch.Tensor, weight: torch.Tensor, alpha: float = 0.5, eps: float = 1e-5) -> torch.Tensor:
+    """SmoothQuant equalization scales s (in,) from an activation absmax
+    a_stat (in,) and an nn.Linear weight (out, in): s = a^alpha /
+    wmax^(1 - alpha), wmax the absmax of each input column, clipped to
+    [1e-3, 1e3] (JAX smooth_scales, whose w is (in, out))."""
+    a = torch.clamp_min(a_stat.to(torch.float32), eps)
+    wmax = torch.clamp_min(weight.to(torch.float32).abs().amax(dim=0), eps)
+    return torch.clamp(a.pow(alpha) / wmax.pow(1.0 - alpha), 1e-3, 1e3)
 
 
 def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP) -> dict:
@@ -162,7 +193,7 @@ class DequantInt8Linear(nn.Module):
         return torch.matmul(x, w) + self.bias.to(x.dtype)
 
 
-QUANTIZED_MODULES = (Int8Linear, DequantInt8Linear, Int4Linear, Int8Embedding)
+QUANTIZED_MODULES = (Int8Linear, W8A8Linear, DequantInt8Linear, Int4Linear, Int8Embedding)
 
 
 def build_t5_int4(cfg: T5Config, device, dtype, int8_embed: bool, group: int = INT4_GROUP) -> T5Encoder:
@@ -194,10 +225,12 @@ def build_clip_int8(cfg: CLIPTextConfig, device, dtype, int8_embed: bool = True)
 
 
 @torch.no_grad()
-def _quantized_copy(dst: nn.Module, src: nn.Module) -> nn.Module:
+def _quantized_copy(dst: nn.Module, src: nn.Module, smooth: dict | None = None, alpha: float = 0.5) -> nn.Module:
     """Fill the quantized module `dst` from the dense `src` of the same tree:
     every parameter copied by name, every quantized leaf quantized from the
-    source's weight (one leaf at a time)."""
+    source's weight (one leaf at a time); smooth: {linear name: calibration
+    stat} for the W8A8Linears with an a_sinv buffer (SmoothQuant), with
+    `alpha`."""
     src_params, src_mods = dict(src.named_parameters()), dict(src.named_modules())
     for name, p in dst.named_parameters():
         p.copy_(src_params[name])
@@ -208,11 +241,25 @@ def _quantized_copy(dst: nn.Module, src: nn.Module) -> nn.Module:
             q = quantize_embedding_int8(src_params[name])
         elif isinstance(m, Int4Linear):
             q = quantize_weight_int4(src_mods[name].weight.t(), m.group)
+        elif isinstance(m, W8A8Linear):
+            q = _quantize_w8a8(src_mods[name].weight, smooth[name] if m.a_sinv is not None else None, alpha)
         else:
             q = quantize_linear_int8({"w": src_mods[name].weight.t()})
         for key, val in q.items():
             getattr(m, key).copy_(val)
     return dst
+
+
+def _quantize_w8a8(weight: torch.Tensor, stat: torch.Tensor | None, alpha: float = 0.5) -> dict:
+    """An nn.Linear weight (out, in) -> W8A8Linear's buffers: the codes of
+    quantize_linear_int8 transposed to (out, in); with a calibration stat,
+    the weight times s per input channel first, and a_sinv = 1 / s."""
+    if stat is None:
+        q = quantize_linear_int8({"w": weight.t()})
+        return {"w_int8": q["w_int8"].t(), "w_scale": q["w_scale"]}
+    s = smooth_scales(stat.to(weight.device), weight, alpha)
+    q = quantize_linear_int8({"w": (weight.to(torch.float32) * s).t()})
+    return {"w_int8": q["w_int8"].t(), "w_scale": q["w_scale"], "a_sinv": 1.0 / s}
 
 
 def _dtype_of(module: nn.Module) -> torch.dtype:
@@ -224,6 +271,69 @@ def quantize_flux_int8(flux: Flux) -> Flux:
     biases and norm scales keep their dtype. The source is left as it is."""
     dev = next(flux.parameters()).device
     return _quantized_copy(build_flux(flux.cfg, dev, _dtype_of(flux), int8=True), flux)
+
+
+def quantize_flux_w8a8(flux: Flux) -> Flux:
+    """A new w8a8 Flux on flux's device (JAX quantize_flux_w8a8): the
+    token-dim block linears W8A8Linear (kernels I and H), every other linear
+    Int8Linear (G); the source is left as it is."""
+    dev = next(flux.parameters()).device
+    return _quantized_copy(build_flux(flux.cfg, dev, _dtype_of(flux), w8a8=True), flux)
+
+
+def quantize_flux_w8a8_smooth(flux: Flux, stats, alpha: float = 0.5) -> Flux:
+    """quantize_flux_w8a8 with SmoothQuant equalization (JAX
+    quantize_flux_w8a8_smooth): each w8a8 linear gets its weight times
+    s = smooth_scales(stat, w, alpha) per input channel before quantizing,
+    and a_sinv = 1 / s. `stats` is the tree of calibrate_flux_a8 /
+    Flux(collect_a8_stats=True), whose dotted paths are the linears' names;
+    it must hold every w8a8 linear (a calibration pass does)."""
+    dev = next(flux.parameters()).device
+    dst = build_flux(flux.cfg, dev, _dtype_of(flux), w8a8=True, smooth=True)
+    smooth = dict(tree_items(stats))
+    missing = [n for n, m in dst.named_modules() if isinstance(m, W8A8Linear) and n not in smooth]
+    if missing:
+        raise ValueError(f"no calibration statistics for the w8a8 linears {missing[:4]}")
+    return _quantized_copy(dst, flux, smooth, alpha)
+
+
+@torch.no_grad()
+def mark_w8a8(flux: Flux) -> Flux:
+    """An int8 Flux (every linear Int8Linear) -> the w8a8 Flux of the same
+    codes (JAX mark_w8a8 on a quantize_flux_int8 tree): each a8_linears
+    position becomes a W8A8Linear holding the codes transposed to (out, in).
+    The other modules are moved, not copied."""
+    for parent, name, m in list(a8_linears(flux)):
+        if not isinstance(m, Int8Linear):
+            raise ValueError(f"mark_w8a8 takes an int8 Flux, got {type(m).__name__} at {name}")
+        with torch.device("meta"):
+            new = W8A8Linear(m.in_features, m.out_features, m.bias is not None)
+        new.w_int8 = m.w_int8.t().contiguous()
+        new.w_scale = m.w_scale
+        new.bias = m.bias
+        setattr(parent, name, new.requires_grad_(False).eval())
+    return flux
+
+
+def merge_a8_stats(agg, stats):
+    """The elementwise max of two calibration-statistics trees (agg None: stats)."""
+    if agg is None:
+        return stats
+    new = dict(tree_items(stats))
+    return tree_replace(agg, {p: torch.maximum(t, new[p]) for p, t in tree_items(agg)})
+
+
+@torch.no_grad()
+def calibrate_flux_a8(flux: Flux, batches, **forward_kw):
+    """The elementwise max, over `batches` (each a dict of Flux.forward
+    keyword arguments), of the unquantized model's w8a8-input statistics
+    (JAX calibrate_flux_a8); kept on the model's device."""
+    agg = None
+    for b in batches:
+        agg = merge_a8_stats(agg, flux(**b, **forward_kw, collect_a8_stats=True)[1])
+    if agg is None:
+        raise ValueError("calibrate_flux_a8 needs at least one batch")
+    return agg
 
 
 def quantize_t5_int4(t5: T5Encoder, group: int = INT4_GROUP, quantize_embed: bool = False) -> T5Encoder:

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from ..config import AutoEncoderConfig, CLIPTextConfig, FluxConfig, T5Config
+from .layers import W8A8Linear
 from .lora import Lora, check_foldable, fold_linear_, lora_entries
 
 State = Mapping[str, torch.Tensor]
@@ -283,8 +284,9 @@ def permute_rope_layout(flux: nn.Module, cfg: FluxConfig) -> nn.Module:
     double blocks' qkv, the first 3h outputs of the single blocks' linear1)
     and the q/k norm scales into the "half" RoPE layout, in place; returns
     flux. Exact gathers on the weights' device. Valid because attention is
-    invariant to one permutation of q's and k's channels. Dense and int8
-    linears (Int8Linear: w_int8 (in, out) and w_scale (out,)) alike."""
+    invariant to one permutation of q's and k's channels. Dense, int8
+    (Int8Linear: w_int8 (in, out) and w_scale (out,)) and w8a8 linears
+    (W8A8Linear: w_int8 (out, in); its a_sinv is on the input side) alike."""
     perm_d = torch.from_numpy(_half_perm(cfg.head_dim))
     qkv_perm = _qkv_out_perm(cfg)
 
@@ -292,6 +294,10 @@ def permute_rope_layout(flux: nn.Module, cfg: FluxConfig) -> nn.Module:
         if isinstance(lin, nn.Linear):
             idx = _extend(qkv_perm, lin.weight.shape[0], lin.weight.device)
             lin.weight.copy_(lin.weight[idx])
+        elif isinstance(lin, W8A8Linear):
+            idx = _extend(qkv_perm, lin.w_int8.shape[0], lin.w_int8.device)
+            lin.w_int8.copy_(lin.w_int8[idx])
+            lin.w_scale.copy_(lin.w_scale[idx])
         else:
             idx = _extend(qkv_perm, lin.w_int8.shape[1], lin.w_int8.device)
             lin.w_int8.copy_(lin.w_int8[:, idx])

@@ -1,5 +1,6 @@
 """Tensor ops of the port and the wrappers of its hand-written CUDA kernels."""
 
+from .act_quant import act_quant_int8
 from .conv2d import conv3x3_gn_swish
 from .flash_attention import (
     flash_attn_bwd_dkv,
@@ -10,6 +11,7 @@ from .flash_attention import (
     flash_attn_rope,
 )
 from .int8_matmul import int8_matmul
+from .w8a8_matmul import w8a8_matmul
 
 KERNELS = {
     "flash_attn_rope": flash_attn_rope,
@@ -20,6 +22,8 @@ KERNELS = {
     "flash_attn_bwd_dq": flash_attn_bwd_dq,
     "flash_attn_bwd_dkv": flash_attn_bwd_dkv,
     "int8_matmul": int8_matmul,
+    "w8a8_matmul": w8a8_matmul,
+    "act_quant_int8": act_quant_int8,
 }
 
 

@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _ROOT = CSRC.parents[1]
 BUILD_DIR = (_ROOT / "build" if (_ROOT / "setup.py").exists() else CSRC.parent / "_build") / "torch_kernels"
 # one library per source file
-SOURCES = ("flash_attn_rope", "flash_attn_bwd", "flash_attn_d512", "conv3x3_gn_swish", "int8_matmul")
+SOURCES = ("flash_attn_rope", "flash_attn_bwd", "flash_attn_d512", "conv3x3_gn_swish", "int8_matmul", "w8a8_matmul",
+           "act_quant_int8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

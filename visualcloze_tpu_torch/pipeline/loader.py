@@ -34,7 +34,7 @@ from ..models.clip import build_clip
 from ..models.conditioner import FallbackTokenizer, TextEncoder, default_tokenizer
 from ..models.flux import Flux, build_flux
 from ..models.lora import Lora
-from ..models.quant import init_clip_int8, init_flux_int8, init_t5_int4, quantize_flux_int8
+from ..models.quant import init_clip_int8, init_flux_int8, init_t5_int4, quantize_flux_int8, quantize_flux_w8a8
 from ..models.t5 import build_t5
 from .visualcloze import VisualClozeModel
 
@@ -246,6 +246,7 @@ def build_visualcloze(
     dtype: torch.dtype = torch.bfloat16,
     quantize: str | None = None,
     device: str | torch.device | None = None,
+    calib_queries=None,
 ) -> VisualClozeModel:
     """The serving pipeline from checkpoint files (the JAX build_visualcloze).
 
@@ -255,13 +256,16 @@ def build_visualcloze(
     already merged into transformer/; vae/ and the text encoders are taken
     from the snapshot where present, else from AE / T5_PATH / CLIP_PATH).
     quantize="int8": the weight-only int8 DiT (every linear through kernel
-    G), quantized from the folded weights; "w8a8" and "w8a8_smooth" are not
-    ported (ROADMAP item 1), nor is mesh sharding (item 4). lora_rank is read
-    from the checkpoint's shapes."""
+    G), quantized from the folded weights; "w8a8": the token-dim block
+    linears w8a8 (kernels I and H), the others int8 (G); "w8a8_smooth": the
+    folded DiT, permuted to the half layout, calibrated on calib_queries
+    (process_images' (images, prompts) pairs; None: a blank 2x2 grid) with
+    VisualClozeModel.calibrate_w8a8_smooth's defaults, then quantized with
+    SmoothQuant equalization. Each frees the dense DiT once its quantized
+    copy exists. Mesh sharding is not ported (ROADMAP item 4). lora_rank is
+    read from the checkpoint's shapes."""
     del lora_rank
-    if quantize in ("w8a8", "w8a8_smooth"):
-        raise NotImplementedError(f"quantize={quantize!r} is not ported yet: ROADMAP item 1")
-    if quantize not in (None, "int8"):
+    if quantize not in (None, "int8", "w8a8", "w8a8_smooth"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
     if mesh is not None:
         raise NotImplementedError("mesh sharding of the DiT is not ported yet: ROADMAP item 4")
@@ -271,14 +275,14 @@ def build_visualcloze(
         flux_cfg, flux = load_flux_params(model_name, dtype=dtype, base_path=snapshot, device=device)
     else:
         flux_cfg, flux = load_flux_params(model_name, lora_path=model_path, dtype=dtype, device=device)
-    if quantize == "int8":  # the dense DiT is freed as soon as its int8 copy is made
-        flux = quantize_flux_int8(flux)
+    if quantize in ("int8", "w8a8"):  # the dense DiT is freed as soon as its quantized copy is made
+        flux = (quantize_flux_int8 if quantize == "int8" else quantize_flux_w8a8)(flux)
 
     def sub(name: str) -> str | None:
         p = os.path.join(snapshot, name) if snapshot else None
         return p if p and os.path.isdir(p) else None
 
-    return VisualClozeModel(
+    model = VisualClozeModel(
         flux_cfg,
         flux,
         load_ae(dtype, path=sub("vae"), device=device),
@@ -290,3 +294,7 @@ def build_visualcloze(
         time_shifting_factor=time_shifting_factor,
         device=device,
     )
+    if quantize == "w8a8_smooth":  # the calibration runs the dense DiT in the model's (half) layout
+        del flux
+        model.calibrate_w8a8_smooth(queries=calib_queries)
+    return model

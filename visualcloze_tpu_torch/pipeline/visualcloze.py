@@ -16,6 +16,7 @@ torch.Generator give different numbers from one seed.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from typing import Any, Sequence
 
@@ -28,11 +29,12 @@ from ..config import FluxConfig
 from ..device import resolve_device
 from ..models.autoencoder import AutoEncoder
 from ..models.flux import Flux
+from ..models.quant import merge_a8_stats, quantize_flux_w8a8_smooth
 from ..models.sampling import prepare_modified
 from ..models.weights import permute_rope_layout
 from ..ops.packing import pack_mask, patchify, unpatchify
 from ..ops.schedule import ode_timesteps
-from ..transport.sampling import denoise_ode, denoise_ode_adaptive
+from ..transport.sampling import _velocity_fn, denoise_ode, denoise_ode_adaptive
 from . import preprocessing as pp
 
 CONTENT_INSTRUCTIONS = [
@@ -271,6 +273,90 @@ class VisualClozeModel:
         if stats:
             self.solver_stats[stage] = stats
         return out
+
+    @torch.no_grad()
+    def calibrate_w8a8_smooth(
+        self,
+        queries: list[tuple[list, Sequence[str]]] | None = None,
+        grid_size: tuple[int, int] = (2, 2),
+        steps: int = 30,
+        stride: int = 5,
+        alpha: float = 0.5,
+        seed: int = 1,
+        noise: list[dict | None] | None = None,
+    ):
+        """SmoothQuant calibration, then the swap of the resident unquantized
+        DiT for the equalized w8a8 one (JAX calibrate_w8a8_smooth):
+        w8a8_calibration_stats, then models/quant.quantize_flux_w8a8_smooth
+        with `alpha`. The old DiT is dropped from the model (freed unless the
+        caller holds it). Returns the statistics tree. stage_seconds holds the
+        calibration queries' prepare stages, "calibrate_denoise" and
+        "quantize"."""
+        self.stage_seconds = {}
+        stats = self.w8a8_calibration_stats(queries, grid_size, steps, stride, seed, noise)
+        with self._stage("quantize"):
+            self.flux = quantize_flux_w8a8_smooth(self.flux, stats, alpha)
+        return stats
+
+    @torch.no_grad()
+    def w8a8_calibration_stats(
+        self,
+        queries: list[tuple[list, Sequence[str]]] | None = None,
+        grid_size: tuple[int, int] = (2, 2),
+        steps: int = 30,
+        stride: int = 5,
+        seed: int = 1,
+        noise: list[dict | None] | None = None,
+    ):
+        """The elementwise max of the w8a8 linears' input statistics over
+        each query's Euler trajectory with the resident unquantized DiT:
+        collected at every `stride`-th step and the last, the plain forward
+        on the others. queries: (images, prompts) pairs in process_images'
+        format; None calibrates on a blank grid of grid_size (gray cells at
+        the model's resolution, the last one masked). noise: per query, the
+        draws to use in place of the generator's (see NoiseSource)."""
+        if queries is None:
+            gh, gw = grid_size
+            blank = Image.new("RGB", (self.resolution, self.resolution), (128, 128, 128))
+            grid = [[blank] * gw for _ in range(gh)]
+            grid[-1][-1] = None
+            queries = [(grid, ["calibration", "", ""])]
+        noise = noise or [None] * len(queries)
+        saved = (self.grid_h, self.grid_w)
+        stats = None
+        try:
+            for (images, prompts), given in zip(queries, noise):
+                self.set_grid_size(len(images), len(images[0]))
+                q = self.prepare_query(images, list(prompts), seed=seed, steps=steps, noise=given)
+                ts = np.asarray(q["ts"], np.float32)
+                x = q["x"]
+
+                def model_fn(img, timesteps, collect):
+                    return self.flux(
+                        img=img, img_ids=q["img_ids"], txt=q["txt"], txt_ids=q["txt_ids"], timesteps=timesteps,
+                        y=q["vec"], txt_mask=q["txt_mask"], img_mask=q["img_mask"], guidance=q["guidance"],
+                        rope_layout=self.rope_layout, collect_a8_stats=collect,
+                    )
+
+                plain = _velocity_fn(functools.partial(model_fn, collect=False), x, q["img_cond"])
+                collecting = _velocity_fn(functools.partial(model_fn, collect=True), x, q["img_cond"])
+                n = len(ts) - 1
+                with self._stage("calibrate_denoise"):
+                    for i in range(n):
+                        if i % stride == 0 or i == n - 1:
+                            v, st = collecting(x, ts[i])
+                            stats = merge_a8_stats(stats, st)
+                        else:
+                            v = plain(x, ts[i])
+                        # JAX's step: the fp32 difference as a weakly typed scalar of v's dtype
+                        dt = torch.tensor(float(ts[i + 1] - ts[i]), dtype=v.dtype, device=v.device)
+                        x = x + (dt * v).to(x.dtype)
+        finally:
+            self.set_grid_size(*saved)
+        if stats is None:
+            raise ValueError("calibration collected no statistics (steps >= 2 and one query at least are "
+                             "needed): refusing to quantize unequalized")
+        return stats
 
     @torch.no_grad()
     def finalize_query(

@@ -1,7 +1,7 @@
 """Where a denoise step of the default query (or a LoRA train step, or the
 query's VAE work) spends its device time.
 
-    python -m visualcloze_tpu_torch.profile_step [--steps 3] [--out profile_step.json] [--train | --quantize int8 | --vae]
+    python -m visualcloze_tpu_torch.profile_step [--steps 3] [--out profile_step.json] [--train | --quantize int8|w8a8 | --vae]
 
 Builds the full-width random-weight model in bf16 on the GPU, prepares the
 default query (a 2x3 grid at 384: 3456 image + 512 text tokens), times
@@ -16,7 +16,9 @@ Exits 1 if the trace holds no device events.
 
 --quantize int8 profiles the same step of the single-card int8 stack
 (synthetic_full_components: int8 DiT, int4 T5, int8 CLIP), whose linears are
-kernel G instead of cuBLAS GEMMs.
+kernel G instead of cuBLAS GEMMs. --quantize w8a8 profiles it on the
+random bf16 model with its DiT quantized to w8a8 (quantize_flux_w8a8): the
+token-dim block linears are kernels I and H, the others G.
 
 --train profiles the trainer's step instead: the same model in the
 interleaved layout with a rank-128 LoRA, per-block remat "full", one
@@ -45,7 +47,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .models.layers import Int8Linear, Linear
+from .models.layers import Int8Linear, Linear, W8A8Linear
+from .models.quant import quantize_flux_w8a8
 from .pipeline import random_components, synthetic_full_components
 
 # demangled names of csrc/flash_attn_rope.cu (A, D, E) and flash_attn_bwd.cu (F)
@@ -53,6 +56,8 @@ ATTENTION_KERNEL = re.compile(r"\b(rope_rotate|flash_fwd)[<(]")
 LSE_KERNEL = re.compile(r"\bflash_fwd<true>")
 BACKWARD_KERNEL = re.compile(r"\bflash_bwd_(dq|dkv)\(")
 INT8_KERNEL = re.compile(r"\bint8_(matmul\w*|gemv)<")  # csrc/int8_matmul.cu: its wide and GEMV bodies
+W8A8_KERNEL = re.compile(r"\bw8a8_matmul_kernel\(")  # csrc/w8a8_matmul.cu (H)
+ACT_QUANT_KERNEL = re.compile(r"\bact_quant_kernel<")  # csrc/act_quant_int8.cu (I)
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 CONV_KERNEL = re.compile(r"\bconv3x3_kernel<")  # csrc/conv3x3_gn_swish.cu (B)
 D512_KERNEL = re.compile(r"\bflash_d512")  # csrc/flash_attn_d512.cu (C)
@@ -60,6 +65,10 @@ VAE_ROW, VAE_SDEDIT = (384, 1152), (1024, 1024)  # the default query's rows and 
 
 
 def kernel_class(name: str) -> str:
+    if W8A8_KERNEL.search(name):
+        return "w8a8 matmul (kernel H)"
+    if ACT_QUANT_KERNEL.search(name):
+        return "activation quantize (kernel I)"
     if INT8_KERNEL.search(name):
         return "int8 matmul (kernel G)"
     if LSE_KERNEL.search(name):
@@ -233,8 +242,9 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--out", default="profile_step.json")
     p.add_argument("--train", action="store_true", help="profile a LoRA train step, not a denoise step")
-    p.add_argument("--quantize", default=None, choices=[None, "int8"],
-                   help="int8: the denoise step of the single-card int8 stack (kernel G)")
+    p.add_argument("--quantize", default=None, choices=[None, "int8", "w8a8"],
+                   help="int8: the denoise step of the single-card int8 stack (kernel G); w8a8: of the "
+                        "bf16 model with a w8a8 DiT (kernels I, H and G)")
     p.add_argument("--vae", action="store_true", help="profile the default query's VAE work (kernels B and C)")
     args = p.parse_args(argv)
     if args.train and args.quantize:
@@ -251,6 +261,8 @@ def main(argv=None) -> int:
             model = synthetic_full_components(t5_int4=True, device="cuda", resolution=384)
         else:
             model = random_components(tiny=False, dtype=torch.bfloat16, device="cuda", resolution=384)
+            if args.quantize == "w8a8":
+                model.flux = quantize_flux_w8a8(model.flux)
         q = default_query(model)
         tokens = q["x"].shape[1] + q["txt"].shape[1]
 
@@ -263,7 +275,8 @@ def main(argv=None) -> int:
         rows = inp[0].numel() // mod.in_features
         flops[0] += 2.0 * rows * mod.in_features * mod.out_features
 
-    hooks = [m.register_forward_hook(count) for m in model.flux.modules() if isinstance(m, (Linear, Int8Linear))]
+    hooks = [m.register_forward_hook(count) for m in model.flux.modules()
+             if isinstance(m, (Linear, Int8Linear, W8A8Linear))]
     run(1)  # warm-up, and the linears' FLOPs of one step
     for h in hooks:
         h.remove()
@@ -292,7 +305,8 @@ def main(argv=None) -> int:
     for name, (us, _) in per_kernel.items():
         classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + us
     kernel_ms = sum(classes.values()) / 1e3 / args.steps
-    gemm_ms = (classes.get("gemm (linears)", 0.0) + classes.get("int8 matmul (kernel G)", 0.0)) / 1e3 / args.steps
+    gemm_ms = sum(classes.get(k, 0.0) for k in ("gemm (linears)", "int8 matmul (kernel G)",
+                                                "w8a8 matmul (kernel H)")) / 1e3 / args.steps
     result = dict(
         device=smi_line(), torch=torch.__version__, mode="train" if args.train else "denoise", quantize=args.quantize,
         tokens=tokens,
