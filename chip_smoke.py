@@ -51,6 +51,19 @@ Phases, each followed by one flushed JSON line on stdout:
              VisualClozeModel.process_images: a 2x3 grid at 384 with SDEdit
              (30 + 10 steps, the default query) and a 3x3 grid at 384 without
              (5760 tokens with padding, so kernel A's bias path runs);
+  serve      two random runtime adapters on that stack (init_lora +
+             randomize_lora_b: r64 rank 64, r128 rank 128, fixed seeds), the
+             HTTP frontend over PipelinedServer(max_inflight=2) on 127.0.0.1;
+             the default query POSTed by four client threads at once (no
+             adapter, r64, r128, no adapter), the same four again through a
+             server of depth 1 (arrival order), then the r64 query through
+             process_images: the adapter-free answers equal request 1's
+             images bit for bit, the HTTP r64 answer the sequential one, the
+             depth-1 answers the depth-2 ones, each adapter moves the image;
+             A, B and C launch nine times request 1's count, no other kernel;
+             each request's latency at both depths, the wall seconds and mean
+             latency of the four, the /metrics counters, the adapters' bytes
+             and the resident memory with them;
   quant_reference  the bf16 DiT quantized beside itself (quantize_flux_int8):
              the int8 DiT through G vs through G's plain version, and vs the
              bf16 DiT (correlation, as the JAX package's int8 test);
@@ -97,12 +110,19 @@ Phases, each followed by one flushed JSON line on stdout:
   load_snapshot  the BFL file removed, the seed-0 DiT written as a diffusers
              snapshot (transformer/ shards, model_index.json) and loaded:
              every tensor bit-identical to the seed-0 DiT it was written
-             from (rebuilt after the load); a 2x2 Euler query.
+             from (rebuilt after the load); a 2x2 Euler query;
+  diffusers_api  VisualClozePipeline over that model: the reference LoRA
+             .pth as the runtime adapter "ref" (load_lora_weights with
+             adapter_name), a 2x2 call at 10 steps with
+             upsampling_strength=0 with and without it, then the file folded
+             (load_lora_weights without a name) and the call again: the
+             adapter's image is closer to the folded one than half its
+             distance to the base image (mean |Δ|, 0-255).
 The checkpoint files are removed after the last of them, also on failure.
 Launch counters are zeroed just before each main-path phase (request,
-request_w8a8, request_int8, train, query_interleaved, request_loaded,
+serve, request_w8a8, request_int8, train, query_interleaved, request_loaded,
 solvers, load_checkpoint_int8, the calibrating load and the query of
-load_checkpoint_w8a8_smooth, load_snapshot) and read just after; G runs in
+load_checkpoint_w8a8_smooth, load_snapshot, diffusers_api) and read just after; G runs in
 the int8 and w8a8 phases only, H and I in the w8a8 ones only. Then the kernels line, the nvidia-smi
 line, and {"ok": true, "device": ...} last. Exits non-zero, with no result
 line, without a CUDA device, outside a checkout of the repository, or when
@@ -996,9 +1016,10 @@ def query_prompts(rows: int, cols: int) -> list[str]:
     ]
 
 
-def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=()) -> dict:
+def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(), images_out=None) -> dict:
     """One query through process_images; ok if finite, of the right size, and
-    every kernel in `used` launched and none in `unused`."""
+    every kernel in `used` launched and none in `unused`. images_out: a list
+    that receives the images."""
     import torch
 
     from visualcloze_tpu_torch import ops
@@ -1029,6 +1050,8 @@ def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(
     launches = ops.kernel_launches()
     import numpy as np
 
+    if images_out is not None:
+        images_out.extend(images)
     arrs = [np.asarray(im) for im in images]
     finite = all(bool(torch.isfinite(s).all()) for _, _, s in samples)
     want_size = (1024, 1024) if upsampling else (384, 384)
@@ -1044,6 +1067,215 @@ def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(
                  and all(s > 0 for s in out["image_std"]) and all(launches[n] > 0 for n in used)
                  and all(launches[n] == 0 for n in unused))
     return out
+
+
+# ----------------------------- serving -----------------------------
+
+SERVE_ADAPTERS = (("r64", 64, 64), ("r128", 128, 128))  # name, rank, seed: two adapter signatures
+SERVE_REQUESTS = (None, "r64", "r128", None)  # the adapter of each concurrent HTTP request
+
+
+def _pixel_diff(a, b) -> int | None:
+    """Largest |Δ| of two uint8 images (None when their shapes differ)."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.int32), np.asarray(b, np.int32)
+    return int(np.abs(a - b).max()) if a.shape == b.shape else None
+
+
+def serve_phase(model, r1, base_images) -> dict:
+    """Two random adapters registered on the resident bf16 stack, the HTTP
+    frontend over PipelinedServer(max_inflight=2) on 127.0.0.1, four default
+    queries (request 1's grid, prompts and seed) POSTed at once from four
+    client threads (no adapter, r64, r128, no adapter), the same four through
+    a server of depth 1 (the CLI's default on one card), then the r64 query
+    through process_images. ok: every answer 200; the adapter-free answers
+    are request 1's images bit for bit, the HTTP r64 answer the sequential
+    r64 images bit for bit, the depth-1 answers the depth-2 ones, each
+    adapter's images differ from the base images; A, B and C launch 9 x
+    their count in request 1 and no other kernel launches."""
+    import json as _json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.models.lora import init_lora, randomize_lora_b, tree_leaves
+    from visualcloze_tpu_torch.pipeline import PipelinedServer
+    from visualcloze_tpu_torch.pipeline.server import _b64_to_image, _image_to_b64, run_frontend
+
+    def gen(seed):
+        return torch.Generator(device=model.device).manual_seed(seed)
+
+    t = time.perf_counter()
+    for name, rank, seed in SERVE_ADAPTERS:
+        model.add_adapter(name, randomize_lora_b(init_lora(model.flux, rank, generator=gen(seed)), gen(seed + 1)))
+    free()
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t
+    adapter_bytes = {n: sum(x.numel() * x.element_size() for x in tree_leaves(model.adapters[n]))
+                     for n, _, _ in SERVE_ADAPTERS}
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+
+    rows, cols, seed = 2, 3, 1
+    grid = synthetic_grid(rows, cols, seed)
+    prompts = query_prompts(rows, cols)
+    payload = {"images": [[None if c is None else _image_to_b64(c) for c in row] for row in grid], "prompts": prompts,
+               "seed": seed, "steps": 30, "upsampling": True, "upsampling_steps": 10, "upsampling_noise": 0.4}
+
+    def post_all(max_inflight: int):
+        """The four requests at once through a fresh frontend and server of
+        this depth: (answers, wall seconds, /metrics)."""
+        server = PipelinedServer(model, max_inflight=max_inflight)
+        httpd, _ = run_frontend(server, host="127.0.0.1", port=0, block=False, max_inflight=max_inflight,
+                                max_queue=8)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        answers: list = [None] * len(SERVE_REQUESTS)
+
+        def post(i: int, adapter) -> None:
+            body = dict(payload, **({"adapter": adapter} if adapter else {}))
+            req = urllib.request.Request(url + "/v1/generate", data=_json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    out = _json.loads(r.read())
+                    answers[i] = dict(status=r.status, images=out["images"], server_latency_s=out["latency_s"])
+            except urllib.error.HTTPError as e:
+                answers[i] = dict(status=e.code, error=e.read().decode()[:500])
+            answers[i]["client_seconds"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        try:
+            clients = [threading.Thread(target=post, args=(i, a)) for i, a in enumerate(SERVE_REQUESTS)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join()
+            wall = time.perf_counter() - t0
+            with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+                metrics = {ln.split(" ")[0]: float(ln.split(" ")[1]) for ln in r.read().decode().splitlines()
+                           if ln and not ln.startswith("#")}
+        finally:
+            httpd.shutdown()
+            server.close()
+        return answers, wall, metrics
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    answers, wall, metrics = post_all(2)
+    fifo_answers, fifo_wall, fifo_metrics = post_all(1)
+    t1 = time.perf_counter()
+    sequential = model.process_images(grid, prompts, seed=seed, steps=30, upsampling_steps=10, upsampling_noise=0.4,
+                                      is_upsampling=True, adapter="r64", grid_size=(rows, cols))
+    torch.cuda.synchronize()
+    sequential_s = time.perf_counter() - t1
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.adapters.clear()
+    free()
+
+    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
+    queries = 2 * len(SERVE_REQUESTS) + 1
+    expected = {n: (queries * r1["launches"][n] if n in serving else 0) for n in launches}
+    statuses = [a["status"] for a in answers + fifo_answers]
+    ok_http = all(st == 200 for st in statuses)
+    diff = {}
+    if ok_http:
+        got = [[np.asarray(_b64_to_image(b)) for b in a["images"]] for a in answers]
+        fifo_got = [[np.asarray(_b64_to_image(b)) for b in a["images"]] for a in fifo_answers]
+        for i, adapter in enumerate(SERVE_REQUESTS):
+            diff[f"request {i} ({adapter or 'base'}) at depth 1 vs depth 2"] = \
+                [_pixel_diff(g, w) for g, w in zip(fifo_got[i], got[i])]
+        base = [np.asarray(im) for im in base_images]
+        seq = [np.asarray(im) for im in sequential]
+        for i, adapter in enumerate(SERVE_REQUESTS):
+            ref = base if adapter is None else seq if adapter == "r64" else None
+            if ref is not None:
+                diff[f"request {i} ({adapter or 'base'}) vs {'request 1' if adapter is None else 'sequential r64'}"] = \
+                    [_pixel_diff(g, w) for g, w in zip(got[i], ref)]
+            if adapter is not None:
+                diff[f"request {i} ({adapter}) vs base"] = [_pixel_diff(g, w) for g, w in zip(got[i], base)]
+    bit_equal = {k: all(d == 0 for d in v) for k, v in diff.items() if not k.endswith("vs base")}
+    adapters_act = {k: all(d is None or d > 0 for d in v) for k, v in diff.items() if k.endswith("vs base")}
+    def summary(answers):
+        return [{"adapter": a, **{k: v for k, v in ans.items() if k != "images"}}
+                for a, ans in zip(SERVE_REQUESTS, answers)]
+
+    def mean_latency(answers):
+        return sum(a["client_seconds"] for a in answers) / len(answers)
+
+    line = dict(
+        phase="serve", requests=summary(answers), wall_seconds_concurrent=wall,
+        mean_latency_seconds=mean_latency(answers), sequential_r64_seconds=sequential_s,
+        request_1_seconds=r1["seconds"], max_inflight=2, metrics=metrics,
+        fifo=dict(max_inflight=1, requests=summary(fifo_answers), wall_seconds_concurrent=fifo_wall,
+                  mean_latency_seconds=mean_latency(fifo_answers), metrics=fifo_metrics),
+        adapters={n: r for n, r, _ in SERVE_ADAPTERS}, adapter_bytes=adapter_bytes,
+        adapter_register_seconds=register_s, resident_gib_with_adapters=resident, peak_gib=peak,
+        pixel_max_diff=diff, bit_equal=bit_equal, adapters_act=adapters_act, launches=launches,
+        launches_expected=expected,
+    )
+    line["ok"] = (ok_http and len(bit_equal) == 7 and all(bit_equal.values()) and len(adapters_act) == 2
+                  and all(adapters_act.values()) and launches == expected)
+    return line
+
+
+def diffusers_phase(model, lora_path: str) -> dict:
+    """VisualClozePipeline over the loaded model: the reference LoRA file as
+    the runtime adapter "ref", a 2x2 call at 10 steps with
+    upsampling_strength=0 (the plain resize) with and without it, then the
+    same file folded into the DiT and the call again. ok: the mean |Δ|
+    (0-255) of the adapter's image against the folded one is below half of
+    its |Δ| against the base image (JAX's criterion), A runs 57 x 9 x 3
+    times, B and C run, no other kernel."""
+    import numpy as np
+    import torch
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.pipeline import VisualClozePipeline
+
+    pipe = VisualClozePipeline(model).to(model.device)
+    grid = synthetic_grid(2, 2, seed=4)
+    kw = dict(task_prompt="Each row shows a photo and its edited versions.", content_prompt="a photo.",
+              image=grid, num_inference_steps=10, upsampling_strength=0.0, seed=4)
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    pipe.load_lora_weights(lora_path, adapter_name="ref")
+    torch.cuda.synchronize()
+    seconds = {"load_lora_weights_adapter": time.perf_counter() - t}
+
+    def call(name, **extra):
+        t0 = time.perf_counter()
+        img = pipe(**kw, **extra).images[0][0]
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return np.asarray(img, np.float32)
+
+    adapted = call("call_adapter", adapter="ref")
+    base = call("call_base")
+    model.adapters.clear()
+    t = time.perf_counter()
+    pipe.load_lora_weights(lora_path)
+    torch.cuda.synchronize()
+    seconds["load_lora_weights_fold"] = time.perf_counter() - t
+    folded = call("call_folded")
+    launches = ops.kernel_launches()
+    vs_folded = float(np.abs(adapted - folded).mean())
+    vs_base = float(np.abs(adapted - base).mean())
+    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
+    line = dict(phase="diffusers_api", grid=[2, 2], steps=10, image=list(adapted.shape), seconds=seconds,
+                mean_abs_diff_adapter_vs_folded=vs_folded, mean_abs_diff_adapter_vs_base=vs_base,
+                launches=launches, attention_launches_expected=ATTENTION_CALLS * 9 * 3)
+    line["ok"] = (vs_folded < 0.5 * vs_base and launches["flash_attn_rope"] == ATTENTION_CALLS * 9 * 3
+                  and all(launches[n] > 0 for n in serving)
+                  and all(v == 0 for n, v in launches.items() if n not in serving))
+    return line
 
 
 # ----------------------------- training -----------------------------
@@ -1553,6 +1785,13 @@ def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
         if not rs["ok"]:
             raise RuntimeError("the snapshot route failed")
         runs.append(rs)
+
+        # the diffusers-style API on the snapshot's model, with the reference LoRA file still on disk
+        rd = diffusers_phase(model, paths["lora"])
+        emit(rd)
+        if not rd["ok"]:
+            raise RuntimeError("the diffusers-style API phase failed")
+        runs.append(rd)
         del model
         free()
     finally:
@@ -1678,8 +1917,9 @@ def main() -> int:
     serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
     training = ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
     bf16_unused = training + ("int8_matmul",) + W8A8_KERNELS
+    r1_images = []
     r1 = run_request(model, "2x3 default query with SDEdit", 2, 3, 30, True, seed=1, used=serving,
-                     unused=bf16_unused)
+                     unused=bf16_unused, images_out=r1_images)
     emit(r1)
     if not r1["ok"]:
         raise RuntimeError("request 1 failed")
@@ -1692,6 +1932,10 @@ def main() -> int:
     emit(r2)
     if not r2["ok"]:
         raise RuntimeError("request 2 failed")
+    rserve = serve_phase(model, r1, r1_images)
+    emit(rserve)
+    if not rserve["ok"]:
+        raise RuntimeError("the serving phase failed")
     qref = quant_reference(model)
     emit(qref)
     if not qref["ok"]:
@@ -1768,7 +2012,7 @@ def main() -> int:
         r = first[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=sum(run["launches"][name] for run in (r1, r2, rw, rq, train, r3, *loaded)),
+            launches=sum(run["launches"][name] for run in (r1, r2, rserve, rw, rq, train, r3, *loaded)),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
         ))

@@ -1,6 +1,7 @@
 """Guards of the port: it imports without CUDA or triton, its entry points
 refuse to run without a GPU unless the caller asks for the CPU, and no file of
-it (nor chip_smoke.py) imports JAX or the JAX package."""
+it (nor chip_smoke.py) imports JAX, the JAX package or the root examples
+package (which imports the JAX package)."""
 
 import ast
 import dataclasses
@@ -9,6 +10,7 @@ import pkgutil
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -80,12 +82,13 @@ def test_port_imports_nothing_of_jax():
     for module in ("training/train.py", "training/step.py", "training/batch.py", "training/checkpoint.py",
                    "data/dataset.py", "data/data_reader.py", "data/degradations.py", "data/loader.py",
                    "transport/transport.py", "models/lora.py", "models/weights.py", "utils/misc.py",
-                   "models/quant.py", "ops/int8_matmul.py"):
+                   "models/quant.py", "ops/int8_matmul.py", "serve.py", "app.py", "sample.py", "gradio_tasks.py",
+                   "pipeline/orchestrator.py", "pipeline/server.py", "pipeline/diffusers_api.py", "utils/metrics.py"):
         assert module in scanned, module
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "visualcloze_tpu", "flax"), (path, mod)
+            assert top not in ("jax", "jaxlib", "visualcloze_tpu", "flax", "examples"), (path, mod)
         text = path.read_text()
         assert "import jax" not in text and "visualcloze_tpu." not in text.replace(
             "visualcloze_tpu/", ""), path
@@ -201,15 +204,59 @@ def test_inference_cli_serves_checkpoint_files_on_the_cpu(tmp_path, monkeypatch)
     assert check["ok"] and check["folded_tensors"] == 0, check
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--lora", "style=style.pth"], 2), (["--adapter", "style"], 2), (["--lora_scale", "0.5"], 2),
-    (["--aot_dir", "aot"], 2), (["--no_aot"], 2), (["--tp", "2"], 4), (["--fsdp", "2"], 4), (["--cp", "2"], 4),
-])
+@pytest.mark.parametrize("flags, item", [(["--tp", "2"], 4), (["--fsdp", "2"], 4), (["--cp", "2"], 4)])
 def test_inference_cli_refuses_unported_flags_by_roadmap_item(flags, item):
     from visualcloze_tpu_torch import inference
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         inference.main(["--model_path", "lora.pth", "--device", "cpu", "--rows", "a.png,MASK", *flags])
+
+
+def test_inference_cli_serves_a_runtime_adapter_on_the_cpu(tmp_path, monkeypatch):
+    """--demo --lora a=random --adapter a --lora_scale 0.5: the adapter is
+    registered (rank 4, B drawn) at scale 0.5 and the query goes through it;
+    the image differs from the one without --adapter."""
+    from PIL import Image
+
+    from visualcloze_tpu_torch import inference
+
+    from visualcloze_tpu_torch.pipeline.visualcloze import VisualClozeModel
+
+    used = []
+
+    orig = VisualClozeModel.denoise_query
+
+    def recording(self, q, stage="denoise"):
+        used.append((q.get("adapter"), self.lora_scale, sorted(self.adapters)))
+        return orig(self, q, stage)
+
+    monkeypatch.setattr(VisualClozeModel, "denoise_query", recording)
+    base = ["--demo", "--device", "cpu", "--steps", "2", "--no_upsampling", "--lora", "a=random", "--lora",
+            "b=random", "--lora_scale", "0.5"]
+    inference.main([*base, "--adapter", "a", "-o", str(tmp_path / "a.jpg")])
+    inference.main([*base, "-o", str(tmp_path / "base.jpg")])
+    assert used == [("a", 0.5, ["a", "b"]), (None, 0.5, ["a", "b"])]
+    a, b = (np.asarray(Image.open(tmp_path / f"{n}.jpg"), np.float32) for n in ("a", "base"))
+    assert a.shape == b.shape == (64, 64, 3) and np.abs(a - b).mean() > 0.5
+
+
+@pytest.mark.parametrize("flags", [["--aot_dir", "DIR"], ["--no_aot"]])
+def test_inference_cli_takes_the_kernel_directory_flags(tmp_path, monkeypatch, flags):
+    """--aot_dir points the kernel build at DIR (the default is
+    $VISUALCLOZE_AOT_DIR, else build/torch_kernels/); --no_aot rebuilds the
+    kernels, which on the CPU means nothing: no nvcc runs."""
+    from visualcloze_tpu_torch import inference
+    from visualcloze_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.DEFAULT_BUILD_DIR)
+    monkeypatch.delenv("VISUALCLOZE_AOT_DIR", raising=False)
+    ran = []
+    monkeypatch.setattr(cuda_build.subprocess, "Popen", lambda *a, **k: ran.append(a))
+    flags = [str(tmp_path / "kernels") if f == "DIR" else f for f in flags]
+    inference.main(["--demo", "--device", "cpu", "--steps", "2", "--no_upsampling", *flags,
+                    "-o", str(tmp_path / "out.jpg")])
+    want = tmp_path / "kernels" if "--aot_dir" in flags else cuda_build.DEFAULT_BUILD_DIR
+    assert cuda_build.BUILD_DIR == want.resolve() and ran == [] and (tmp_path / "out.jpg").exists()
 
 
 @pytest.mark.parametrize("mode", ["w8a8", "w8a8_smooth"])
@@ -362,12 +409,19 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(name):
         fa.flash_mha(q, q, q)
 
 
-@pytest.mark.parametrize("kw", [{"adapters": {"style": {}}}, {"lora_scale": 0.5}])
-def test_pipeline_refuses_runtime_adapters_by_roadmap_item(kw):
+@pytest.mark.parametrize("kw", ["adapters", "lora_scale"])
+def test_pipeline_accepts_runtime_adapters_and_their_scale(kw):
+    """VisualClozeModel(adapters=, lora_scale=) registers the adapters (in the
+    half layout, on the model's device) and keeps the scale; add_adapter
+    adds one more."""
+    from visualcloze_tpu_torch.models.lora import init_lora, tree_leaves
     from visualcloze_tpu_torch.pipeline import VisualClozeModel
 
     m = random_components(tiny=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        VisualClozeModel(m.cfg, m.flux, m.ae, m.t5, m.clip, permute_params=False, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        m.add_adapter("style", {})
+    style = init_lora(m.flux, 2, generator=torch.Generator().manual_seed(0))
+    args = {"adapters": {"style": style}} if kw == "adapters" else {"lora_scale": 0.5}
+    model = VisualClozeModel(m.cfg, m.flux, m.ae, m.t5, m.clip, permute_params=False, device="cpu", **args)
+    assert model.lora_scale == (0.5 if kw == "lora_scale" else 1.0)
+    assert sorted(model.adapters) == (["style"] if kw == "adapters" else [])
+    model.add_adapter("other", style)
+    assert "other" in model.adapters and len(tree_leaves(model.adapters["other"])) == len(tree_leaves(style))

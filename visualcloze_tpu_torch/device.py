@@ -21,3 +21,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def same_device(a, b) -> bool:
+    """Whether two devices are one ("cuda" is the current CUDA device)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device
+    return (current() if a.index is None else a.index) == (current() if b.index is None else b.index)

@@ -38,23 +38,31 @@ With random weights (no files):
       w8a8 after the fact; w8a8_smooth calibrates first, on a blank 2x2
       grid with 4 Euler steps, statistics every 2nd, as the JAX CLI's demo.
 
-Runtime adapters (--lora, --adapter, --lora_scale: ROADMAP item 2),
-multi-card serving (--tp, --fsdp, --cp: item 4) and compiled-program caches
-(--aot_dir, --no_aot: item 2) are not ported: they raise
-NotImplementedError naming the item.
+Runtime adapters: --lora NAME=PATH (repeatable; PATH a reference .pth or a
+diffusers/peft safetensors LoRA, or `random` with --demo) registers an
+unfolded adapter, --adapter NAME applies it to the query, --lora_scale
+weighs its delta. The kernels' shared libraries live under --aot_dir
+(default $VISUALCLOZE_AOT_DIR, else build/torch_kernels/), where the next
+process finds them built; --no_aot rebuilds them. Multi-card serving (--tp,
+--fsdp, --cp) is not ported: it raises NotImplementedError naming ROADMAP
+item 4.
 --rows takes image paths per grid row (comma-separated, MASK for the target).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 
 import torch
 from PIL import Image
 
 from .device import resolve_device
+from .models.lora import init_lora, randomize_lora_b
 from .models.quant import quantize_flux_int8, quantize_flux_w8a8, quantize_t5_int4
+from .ops import cuda_build
 from .pipeline import build_visualcloze, random_components, synthetic_full_components
+from .pipeline.loader import convert_lora_any, load_torch_checkpoint
 from .transport.sampling import solver_arg
 
 
@@ -89,26 +97,72 @@ def parse_args(argv=None):
     p.add_argument("--tp", type=int, default=1, help="not ported (ROADMAP item 4)")
     p.add_argument("--fsdp", type=int, default=1, help="not ported (ROADMAP item 4)")
     p.add_argument("--cp", type=int, default=1, help="not ported (ROADMAP item 4)")
-    p.add_argument("--lora", action="append", default=[], metavar="NAME=PATH",
-                   help="runtime LoRA adapter: not ported (ROADMAP item 2)")
-    p.add_argument("--adapter", default=None, help="not ported (ROADMAP item 2)")
-    p.add_argument("--lora_scale", type=float, default=1.0, help="not ported (ROADMAP item 2)")
-    p.add_argument("--aot_dir", default=None, help="not ported (ROADMAP item 2: CUDA graphs)")
-    p.add_argument("--no_aot", action="store_true", help="not ported (ROADMAP item 2: CUDA graphs)")
+    add_adapter_args(p)
+    p.add_argument("--adapter", default=None, help="the runtime adapter (a --lora NAME) this query uses")
+    add_aot_args(p)
     p.add_argument("-o", "--output", default="example.jpg")
     return p.parse_args(argv)
 
 
+def add_adapter_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--lora", action="append", default=[], metavar="NAME=PATH",
+                   help="register a runtime LoRA adapter (repeatable): PATH a reference .pth or a diffusers/peft "
+                        "safetensors LoRA, or 'random' with --demo (rank 4, B drawn N(0, 0.02))")
+    p.add_argument("--lora_scale", type=float, default=1.0, help="weight of the runtime adapters' deltas")
+
+
+def add_aot_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--aot_dir", default=None,
+                   help="directory of the compiled kernels (default $VISUALCLOZE_AOT_DIR, else "
+                        "build/torch_kernels/): a later process loads them instead of running nvcc")
+    p.add_argument("--no_aot", action="store_true", help="rebuild the kernels (nvcc) instead of loading them")
+
+
 def refuse_unported(args) -> None:
     """The reference CLI's flags the port does not serve yet, by ROADMAP item."""
-    if args.lora or args.adapter is not None or args.lora_scale != 1.0:
-        raise NotImplementedError("runtime LoRA adapters (--lora, --adapter, --lora_scale) are not ported yet: "
-                                  "ROADMAP item 2")
     if max(args.tp, args.fsdp, args.cp) > 1:
         raise NotImplementedError("multi-card serving (--tp, --fsdp, --cp) is not ported yet: ROADMAP item 4")
-    if args.aot_dir is not None or args.no_aot:
-        raise NotImplementedError("compiled-program caches (--aot_dir, --no_aot) are not ported yet: "
-                                  "ROADMAP item 2 (CUDA graphs of the denoise step)")
+
+
+def parse_adapters(specs: list[str]) -> dict[str, str]:
+    """--lora NAME=PATH specs -> {name: path}; a repeated name is refused."""
+    out: dict[str, str] = {}
+    for spec in specs:
+        if "=" not in spec:
+            raise SystemExit(f"--lora expects NAME=PATH, got {spec!r}")
+        name, path = spec.split("=", 1)
+        if name in out:
+            raise SystemExit(f"duplicate --lora adapter name {name!r} ({out[name]!r} vs {path!r})")
+        out[name] = path
+    return out
+
+
+def add_adapters(model, args) -> None:
+    """Register the --lora adapters on `model` at --lora_scale. `random`
+    (with --demo only): init_lora rank 4 and randomize_lora_b, from seeds
+    100 + i and 200 + i on the model's device."""
+    model.lora_scale = args.lora_scale
+    for i, (name, path) in enumerate(parse_adapters(args.lora).items()):
+        if path == "random":
+            if not args.demo:
+                raise SystemExit("--lora NAME=random needs --demo")
+            gen = functools.partial(torch.Generator, device=model.device)
+            tree = randomize_lora_b(init_lora(model.flux, 4, generator=gen().manual_seed(100 + i)),
+                                    gen().manual_seed(200 + i))
+        else:
+            tree = convert_lora_any(load_torch_checkpoint(path), model.cfg)
+        model.add_adapter(name, tree)
+
+
+def kernel_cache(args, device: torch.device):
+    """--aot_dir / --no_aot, before anything launches a kernel: build and
+    load the kernels under the directory (VisualClozeModel.enable_aot's);
+    with --no_aot on the card, rebuild every kernel now. Returns the
+    directory."""
+    directory = cuda_build.set_build_dir(args.aot_dir)
+    if args.no_aot and device.type == "cuda":
+        cuda_build.build(force=True)
+    return directory
 
 
 def build_model(args, device: torch.device):
@@ -144,7 +198,6 @@ def load_model(args, device: torch.device):
     model = build_visualcloze(
         model_path=args.model_path,
         model_name=args.model_name,
-        lora_rank=args.lora_rank,
         solver=args.solver,
         resolution=args.resolution,
         dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
@@ -163,7 +216,9 @@ def main(argv=None):
         raise SystemExit("--rows is required (repeat once per grid row, comma-separated cells, MASK for "
                          "the target), e.g. --rows a.png,b.png --rows query.png,MASK")
     device = resolve_device(args.device)
+    kernel_cache(args, device)
     model = build_model(args, device) if args.demo else load_model(args, device)
+    add_adapters(model, args)
     resolution = model.resolution
     if args.rows:
         grid = [
@@ -185,6 +240,7 @@ def main(argv=None):
         seed=args.seed, cfg=args.cfg, steps=args.steps,
         upsampling_steps=args.upsampling_steps, upsampling_noise=args.upsampling_noise,
         is_upsampling=not args.no_upsampling,
+        adapter=args.adapter,
     )
     images[0].save(args.output)
     print(f"saved {args.output} ({images[0].size})")

@@ -50,6 +50,13 @@ def _lora_delta(lora: Lora, x: torch.Tensor, scale: float) -> torch.Tensor:
     return y
 
 
+def lora_delta_dtype(linear: nn.Module) -> torch.dtype:
+    """The dtype `linear` computes its LoRA delta in, which _lora_delta casts
+    the entry's factors to at every call: a dense Linear's weight dtype, bf16
+    for the int8 and w8a8 linears."""
+    return linear.weight.dtype if isinstance(linear, Linear) else torch.bfloat16
+
+
 class Linear(nn.Linear):
     """y = x W^T + b (+ LoRA delta) with x cast to the weight dtype first (JAX `linear`)."""
 
@@ -79,6 +86,8 @@ class Int8Linear(nn.Module):
     through kernel G (its plain version for CPU tensors), + b, + the LoRA
     delta. G rounds once, after the fp32 rescale; JAX rounds the bf16 dot to
     bf16 first, so the two differ by at most one bf16 ulp."""
+
+    lora_target = True  # models/lora.init_lora gives it a LoRA entry
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
@@ -112,6 +121,8 @@ class W8A8Linear(nn.Module):
     delta of bf16(x), in JAX's order.
     On CPU tensors both kernels run their plain versions, which equal JAX's
     arithmetic bit for bit."""
+
+    lora_target = True  # models/lora.init_lora gives it a LoRA entry
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, smooth: bool = False):
         super().__init__()

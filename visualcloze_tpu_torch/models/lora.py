@@ -26,10 +26,16 @@ from torch import nn
 Lora = dict[str, Any]
 
 
-def _walk(module: nn.Module, make: Callable[[nn.Linear], Lora]) -> Lora:
+def _is_linear(module: nn.Module) -> bool:
+    """A dense linear, or a quantized one that takes a LoRA delta
+    (layers.Int8Linear, W8A8Linear: their class sets lora_target)."""
+    return isinstance(module, nn.Linear) or getattr(type(module), "lora_target", False)
+
+
+def _walk(module: nn.Module, make: Callable[[nn.Module], Lora]) -> Lora:
     out: Lora = {}
     for name, child in module.named_children():
-        if isinstance(child, nn.Linear):
+        if _is_linear(child):
             out[name] = make(child)
         elif isinstance(child, nn.ModuleList):
             out[name] = [_walk(c, make) for c in child]
@@ -46,10 +52,10 @@ def init_lora(
     generator: torch.Generator | None = None,
     dtype: torch.dtype = torch.float32,
 ) -> Lora:
-    """A LoRA tree for every linear of `flux`, on flux's device."""
+    """A LoRA tree for every linear of `flux` (dense or quantized), on flux's device."""
     device = next(flux.parameters()).device
 
-    def make(lin: nn.Linear) -> Lora:
+    def make(lin: nn.Module) -> Lora:
         d_in, d_out = lin.in_features, lin.out_features
         r = min(rank, d_in, d_out)
         bound = d_in ** -0.5
@@ -62,6 +68,21 @@ def init_lora(
         }
 
     return _walk(flux, make)
+
+
+def randomize_lora_b(lora: Lora, generator: torch.Generator, scale: float = 0.02) -> Lora:
+    """`lora` with its zero-init output factors ("b"; MoE-LoRA's "shared_b"
+    and "expert_b") replaced by scale * N(0, 1), drawn from `generator` in
+    tree order (JAX randomize_lora_b draws a key per path instead): a visible
+    but bounded delta, for serving random adapters (B = 0 adds nothing)."""
+
+    def draw(path: str, x: torch.Tensor) -> torch.Tensor:
+        if path.rsplit(".", 1)[-1] not in ("b", "shared_b", "expert_b"):
+            return x
+        noise = torch.randn(x.shape, generator=generator, dtype=torch.float32, device=x.device)
+        return (noise * scale).to(x.dtype)
+
+    return tree_replace(lora, {path: draw(path, x) for path, x in tree_items(lora)})
 
 
 def tree_items(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:

@@ -71,7 +71,7 @@ def act_quant_int8(x: torch.Tensor, a_sinv: torch.Tensor | None = None) -> tuple
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     cuda_build.check("act_quant_int8", status)
-    act_quant_int8.launches += 1
+    cuda_build.count_launch(act_quant_int8)
     return codes, scale
 
 

@@ -97,7 +97,7 @@ def conv3x3_gn_swish(
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     cuda_build.check(name, status)
-    conv3x3_gn_swish.launches += 1
+    cuda_build.count_launch(conv3x3_gn_swish)
     return y
 
 

@@ -5,6 +5,8 @@ with nvcc for sm_90a (Hopper) into `build/torch_kernels/` of the checkout at
 first use (an installed package builds into `_build/torch_kernels/` beside
 its own files) and rebuilt when a source is newer than its library. Nothing here
 runs when the package is imported: a CPU-only install never needs nvcc.
+set_build_dir moves the libraries elsewhere (VisualClozeModel.enable_aot,
+the CLIs' --aot_dir), before any is loaded.
 
     python -m visualcloze_tpu_torch.ops.cuda_build   # build every kernel now
 """
@@ -15,12 +17,14 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _ROOT = CSRC.parents[1]
-BUILD_DIR = (_ROOT / "build" if (_ROOT / "setup.py").exists() else CSRC.parent / "_build") / "torch_kernels"
+DEFAULT_BUILD_DIR = (_ROOT / "build" if (_ROOT / "setup.py").exists() else CSRC.parent / "_build") / "torch_kernels"
+BUILD_DIR = DEFAULT_BUILD_DIR
 # one library per source file
 SOURCES = ("flash_attn_rope", "flash_attn_bwd", "flash_attn_d512", "conv3x3_gn_swish", "int8_matmul", "w8a8_matmul",
            "act_quant_int8")
@@ -31,6 +35,28 @@ NVCC_FLAGS = (
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}  # name -> nvcc's stderr (ptxas register/spill report)
+_LOCK = threading.RLock()  # server threads load and launch at once
+_COUNT_LOCK = threading.Lock()
+
+
+def set_build_dir(path=None) -> Path:
+    """Build and load the kernel libraries under `path` from now on (None:
+    $VISUALCLOZE_AOT_DIR, else DEFAULT_BUILD_DIR). Raises if a library is
+    already loaded from another directory. Returns the directory."""
+    global BUILD_DIR
+    path = Path(path or os.environ.get("VISUALCLOZE_AOT_DIR") or DEFAULT_BUILD_DIR).resolve()
+    with _LOCK:
+        if _LIBS and path != BUILD_DIR:
+            raise RuntimeError(f"kernel libraries are already loaded from {BUILD_DIR}; "
+                               f"cannot move the build directory to {path}")
+        BUILD_DIR = path
+    return path
+
+
+def count_launch(wrapper) -> None:
+    """Add one to the launch count of a kernel wrapper (read by ops.kernel_launches)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def nvcc_path() -> str:
@@ -88,13 +114,14 @@ def load(name: str, argtypes: list, source: str | None = None):
     built if needed, typed with `argtypes`. Pointers and the stream must be
     ctypes.c_void_p, or ctypes cuts them to 32 bits."""
     source = source or name
-    if source not in _LIBS:
-        build([source])
-        _LIBS[source] = ctypes.CDLL(str(_lib_path(source)))
-    fn = getattr(_LIBS[source], name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    with _LOCK:
+        if source not in _LIBS:
+            build([source])
+            _LIBS[source] = ctypes.CDLL(str(_lib_path(source)))
+        fn = getattr(_LIBS[source], name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return fn
 
 

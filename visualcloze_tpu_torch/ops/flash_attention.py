@@ -214,7 +214,7 @@ def flash_attn_rope(
         b, h, L, ctypes.c_float(d ** -0.5 * LOG2E), _stream(),
     )
     cuda_build.check(name, status)
-    flash_attn_rope.launches += 1
+    cuda_build.count_launch(flash_attn_rope)
     return o
 
 
@@ -242,7 +242,7 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias)
     o = _launch_fwd("flash_attn_fwd", q, k, v, bias, None)
-    flash_attn_fwd.launches += 1
+    cuda_build.count_launch(flash_attn_fwd)
     return o
 
 
@@ -257,7 +257,7 @@ def flash_attn_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, lq, _ = q.shape
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     o = _launch_fwd("flash_attn_fwd_lse", q, k, v, bias, lse)
-    flash_attn_fwd_lse.launches += 1
+    cuda_build.count_launch(flash_attn_fwd_lse)
     return o, lse
 
 
@@ -279,7 +279,7 @@ def flash_attn_bwd_dq(q, k, v, bias, do, lse, delta) -> torch.Tensor:
         b, h, lq, k.shape[2], ctypes.c_float(d ** -0.5 * LOG2E), ctypes.c_float(d ** -0.5), _stream(),
     )
     cuda_build.check(name, status)
-    flash_attn_bwd_dq.launches += 1
+    cuda_build.count_launch(flash_attn_bwd_dq)
     return dq
 
 
@@ -300,7 +300,7 @@ def flash_attn_bwd_dkv(q, k, v, bias, do, lse, delta) -> tuple[torch.Tensor, tor
         b, h, lq, k.shape[2], ctypes.c_float(d ** -0.5 * LOG2E), ctypes.c_float(d ** -0.5), _stream(),
     )
     cuda_build.check(name, status)
-    flash_attn_bwd_dkv.launches += 1
+    cuda_build.count_launch(flash_attn_bwd_dkv)
     return dk, dv
 
 
@@ -391,7 +391,7 @@ def flash_attn_d512(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         _ptr(q), _ptr(k), _ptr(v), _ptr(o), b, h, L, ctypes.c_float(d ** -0.5 * LOG2E), _stream(),
     )
     cuda_build.check(name, status)
-    flash_attn_d512.launches += 1
+    cuda_build.count_launch(flash_attn_d512)
     return o
 
 

@@ -76,7 +76,7 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     cuda_build.check("int8_matmul", status)
-    int8_matmul.launches += 1
+    cuda_build.count_launch(int8_matmul)
     return y
 
 

@@ -80,7 +80,7 @@ def w8a8_matmul(codes: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor, w_s
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     cuda_build.check("w8a8_matmul", status)
-    w8a8_matmul.launches += 1
+    cuda_build.count_launch(w8a8_matmul)
     return y
 
 

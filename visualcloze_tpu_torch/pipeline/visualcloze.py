@@ -10,7 +10,16 @@ in this order: per grid row the VAE posterior noise then the row's latent
 noise; per upsampled cell the posterior noise of the image, of the blank
 image, then the latent noise. `noise={"vae": [...], "latent": [...]}` hands
 the arrays in instead (in the same order), since jax.random and
-torch.Generator give different numbers from one seed.
+torch.Generator give different numbers from one seed. Every path that runs
+the stages one by one (pipeline/orchestrator.py) draws from the query's own
+source in this order, so its images equal process_images' bit for bit.
+
+Runtime LoRA adapters (add_adapter) are applied unfolded at denoise time and
+selected per query (`adapter=`), so one base DiT serves many tasks. A query
+keeps its own stage seconds and solver statistics (q["stage_seconds"],
+q["solver_stats"]) and takes its grid size as an argument, so that server
+threads can run queries at once; process_images copies them to the model's
+stage_seconds and solver_stats for its sequential callers.
 """
 
 from __future__ import annotations
@@ -18,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -29,9 +38,12 @@ from ..config import FluxConfig
 from ..device import resolve_device
 from ..models.autoencoder import AutoEncoder
 from ..models.flux import Flux
+from ..models.layers import lora_delta_dtype
+from ..models.lora import Lora, lora_entries, tree_items, tree_replace
 from ..models.quant import merge_a8_stats, quantize_flux_w8a8_smooth
 from ..models.sampling import prepare_modified
-from ..models.weights import permute_rope_layout
+from ..models.weights import permute_rope_layout, permute_rope_layout_lora
+from ..ops import cuda_build
 from ..ops.packing import pack_mask, patchify, unpatchify
 from ..ops.schedule import ode_timesteps
 from ..transport.sampling import _velocity_fn, denoise_ode, denoise_ode_adaptive
@@ -95,9 +107,10 @@ class VisualClozeModel:
     permute_params=False: the caller's weights already sit in the half order
     (a JAX model's converted params, or random weights, where any order is a
     valid half layout). solver: euler, heun, ab2, cached[:K] or dopri5;
-    time_shifting_factor warps the stage-1 grid. Runtime (unfolded) adapters
-    and their lora_scale are not ported: ROADMAP item 2. The text length is
-    the TextEncoders' own (the loader's max_length)."""
+    time_shifting_factor warps the stage-1 grid. adapters: named runtime
+    LoRA trees (add_adapter), applied unfolded when a query names one, with
+    their delta times lora_scale. The text length is the TextEncoders' own
+    (the loader's max_length)."""
 
     def __init__(
         self,
@@ -118,9 +131,6 @@ class VisualClozeModel:
     ):
         if rope_layout not in ("half", "interleaved"):
             raise ValueError(f"rope_layout must be 'half' or 'interleaved', got {rope_layout!r}")
-        if adapters or lora_scale != 1.0:  # the scale weighs runtime adapters only
-            raise NotImplementedError("runtime LoRA adapters (adapters=, lora_scale=) are not ported yet: "
-                                      "ROADMAP item 2")
         self.cfg = flux_cfg
         if rope_layout == "half" and permute_params:
             permute_rope_layout(flux, flux_cfg)
@@ -137,18 +147,93 @@ class VisualClozeModel:
         self.grid_w: int | None = None
         self.stage_seconds: dict[str, float] = {}
         self.solver_stats: dict[str, dict] = {}
+        self.adapters: dict[str, Lora] = {}
+        self.lora_scale = lora_scale
+        for name, tree in (adapters or {}).items():
+            self.add_adapter(name, tree)
 
-    def add_adapter(self, name: str, lora: dict) -> None:
-        raise NotImplementedError("runtime LoRA adapters are not ported yet: ROADMAP item 2")
+    def add_adapter(self, name: str, lora: Lora) -> None:
+        """Register a runtime LoRA adapter (a tree of models/lora.py, in the
+        reference channel order: init_lora, convert_lora_any). It is permuted
+        into the half layout where the model serves in it, and put on the
+        model's device once, each entry's factors already in the dtype its
+        linear computes the delta in (the cast models/layers._lora_delta
+        would make at every call, made once). An entry with no linear in the
+        DiT is refused, as fold_lora refuses it."""
+        if self.rope_layout == "half":
+            lora = permute_rope_layout_lora(lora, self.cfg)
+        modules = dict(self.flux.named_modules())
+        placed = {}
+        for path, entry in lora_entries(lora).items():
+            if path not in modules:
+                raise ValueError(f"adapter {name!r}: LoRA entry {path!r} has no linear in the model")
+            dtype = None if "expert_a" in entry else lora_delta_dtype(modules[path])
+            placed.update({f"{path}.{k}": v.to(self.device, dtype) for k, v in entry.items()})
+        self.adapters[name] = tree_replace(lora, placed)
+
+    def _resolve_adapter(self, name: str | None) -> Lora | None:
+        if name is None:
+            return None
+        if name not in self.adapters:
+            raise ValueError(f"unknown adapter {name!r}; loaded: {sorted(self.adapters)}")
+        return self.adapters[name]
+
+    def adapter_warm_set(self) -> list[str | None]:
+        """[None] + the first registered adapter of each signature (leaf
+        paths, shapes and dtypes: rank and coverage), as JAX's, where one
+        signature is one compiled denoise program. Here it is one set of
+        GEMM shapes, whose cuBLAS heuristics a warmup pass settles."""
+        passes: list[str | None] = [None]
+        seen: set = set()
+        for name, tree in self.adapters.items():
+            sig = tuple((path, tuple(x.shape), x.dtype) for path, x in tree_items(tree))
+            if sig not in seen:
+                seen.add(sig)
+                passes.append(name)
+        return passes
+
+    def warmup(self, grid_shapes: list[tuple[int, int]], steps: int = 30, upsampling_steps: int = 10,
+               upsampling_noise: float = 0.4, upsampling_sizes: Sequence[tuple[int, int]] = (),
+               submit: Callable[..., list[Image.Image]] | None = None) -> None:
+        """One blank query per grid shape, query-cell size and adapter
+        signature: the kernels are built and loaded, and the caching
+        allocator and cuBLAS have seen every shape before the first request.
+        The cell sizes are (resolution, resolution) and each (W, H) of
+        upsampling_sizes, since the SDEdit pass runs at the query cell's own
+        size. submit: the callable the queries go through, with
+        process_images' arguments (default process_images; the server passes
+        its own submit path, so the warmup runs where the requests run)."""
+        run = submit or self.process_images
+        res = self.resolution
+        cell_sizes = [(res, res)] + [s for s in upsampling_sizes if s != (res, res)]
+        for gh, gw in grid_shapes:
+            for cw, ch in cell_sizes:
+                blank = Image.new("RGB", (cw, ch), (0, 0, 0))
+                grid = [[blank] * gw for _ in range(gh)]
+                grid[-1][-1] = None
+                for adapter in self.adapter_warm_set():
+                    run(grid, ["warmup", "", ""], grid_size=(gh, gw), seed=1, steps=steps,
+                        upsampling_steps=upsampling_steps, upsampling_noise=upsampling_noise, is_upsampling=True,
+                        adapter=adapter)
+
+    def enable_aot(self, cache_dir: str | None = None) -> str:
+        """Keep the compiled kernels under cache_dir (default
+        $VISUALCLOZE_AOT_DIR, else build/torch_kernels/ of the checkout), so
+        that the next process loads them instead of running nvcc: the
+        counterpart of JAX's serialized executables (pipeline/aot.py), since
+        the port's compiled artefacts are the kernels' shared libraries.
+        Raises if a kernel library is already loaded from another directory.
+        Returns the directory."""
+        return str(cuda_build.set_build_dir(cache_dir))
 
     @contextlib.contextmanager
-    def _stage(self, name: str):
-        """Adds the stage's wall time (device work included) to stage_seconds."""
+    def _stage(self, name: str, seconds: dict[str, float]):
+        """Adds the stage's wall time (device work included) to seconds[name]."""
         t0 = time.perf_counter()
         yield
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + time.perf_counter() - t0
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
 
     def set_grid_size(self, h: int, w: int) -> None:
         self.grid_h = h
@@ -178,11 +263,16 @@ class VisualClozeModel:
         upsampling_noise: float = 0.4,
         is_upsampling: bool = True,
         noise: dict | None = None,
+        adapter: str | None = None,
+        grid_size: tuple[int, int] | None = None,
     ) -> list[Image.Image]:
-        """Generate the masked query cells: prepare -> denoise -> finalize."""
-        self.stage_seconds = {}
-        self.solver_stats = {}
-        q = self.prepare_query(images, prompts, seed=seed, cfg=cfg, steps=steps, noise=noise)
+        """Generate the masked query cells: prepare -> denoise -> finalize.
+        `adapter` selects a registered runtime LoRA for both denoise stages;
+        grid_size defaults to set_grid_size's. The query's stage seconds and
+        solver statistics become the model's stage_seconds and solver_stats."""
+        q = self.prepare_query(images, prompts, seed=seed, cfg=cfg, steps=steps, noise=noise, adapter=adapter,
+                               grid_size=grid_size)
+        self.stage_seconds, self.solver_stats = q["stage_seconds"], q["solver_stats"]
         samples = self.denoise_query(q)
         return self.finalize_query(
             q, samples,
@@ -200,22 +290,29 @@ class VisualClozeModel:
         cfg: float = 30.0,
         steps: int = 30,
         noise: dict | None = None,
+        grid_size: tuple[int, int] | None = None,
+        adapter: str | None = None,
     ) -> dict[str, Any]:
-        """Preprocess, VAE-encode each row, encode the prompt and pack tokens."""
+        """Preprocess, VAE-encode each row, encode the prompt and pack tokens.
+        Safe to run from several threads at once when grid_size is given (no
+        use of set_grid_size's state); an unknown adapter raises before any
+        work."""
+        self._resolve_adapter(adapter)
         if seed == 0:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
         src = NoiseSource(self.device, seed, noise)
-        grid_h, grid_w = self.grid_h, self.grid_w
+        grid_h, grid_w = grid_size if grid_size is not None else (self.grid_h, self.grid_w)
         assert grid_h is not None and grid_w is not None, "call set_grid_size first"
         dev = self.device
+        seconds: dict[str, float] = {}
 
-        with self._stage("preprocess"):
+        with self._stage("preprocess", seconds):
             processed, mask_position, _, upsampling_size = pp.preprocess_grid(
                 images, grid_h, grid_w, self.resolution
             )
             row_images, row_masks = pp.build_grid_rows(processed, mask_position, grid_h, grid_w)
 
-        with self._stage("vae_encode"):
+        with self._stage("vae_encode", seconds):
             cond_tokens, mask_tokens, noise_rows, sizes = [], [], [], []
             for row, mask in zip(row_images, row_masks):
                 lat = self.encode_row(row, src)
@@ -227,7 +324,7 @@ class VisualClozeModel:
                 [torch.cat(cond_tokens, dim=0), torch.cat(mask_tokens, dim=0)], dim=-1
             )[None]
 
-        with self._stage("text_encode"):
+        with self._stage("text_encode", seconds):
             true_len = sum(h * w // 256 for (h, w) in sizes)
             # bucket to 128 only: kernel A takes any length
             inp = prepare_modified(
@@ -258,20 +355,27 @@ class VisualClozeModel:
             "cfg": cfg,
             "noise": src,
             "content_prompt": prompts[2] if len(prompts) > 2 else "",
+            "adapter": adapter,
+            "stage_seconds": seconds,
+            "solver_stats": {},
         }
 
     @torch.no_grad()
     def denoise_query(self, q: dict[str, Any], stage: str = "denoise") -> torch.Tensor:
-        """The rectified-flow loop over the full DiT with the model's solver."""
+        """The rectified-flow loop over the full DiT with the model's solver
+        and the query's adapter (q["adapter"]); its seconds and solver
+        statistics go to the query's records."""
+        lora = self._resolve_adapter(q.get("adapter"))
         stats: dict = {}
-        with self._stage(stage):
+        with self._stage(stage, q.setdefault("stage_seconds", {})):
             out = _denoise(
                 self.flux, q["x"], q["ts"], q["img_cond"], q["txt"], q["txt_ids"],
                 q["txt_mask"], q["vec"], q["img_ids"], q["img_mask"], q["guidance"], self.rope_layout,
-                method=self.solver, stats=stats,
+                method=self.solver, stats=stats, lora=lora,
+                lora_scale=self.lora_scale if lora is not None else 1.0,
             )
         if stats:
-            self.solver_stats[stage] = stats
+            q.setdefault("solver_stats", {})[stage] = stats
         return out
 
     @torch.no_grad()
@@ -294,7 +398,7 @@ class VisualClozeModel:
         "quantize"."""
         self.stage_seconds = {}
         stats = self.w8a8_calibration_stats(queries, grid_size, steps, stride, seed, noise)
-        with self._stage("quantize"):
+        with self._stage("quantize", self.stage_seconds):
             self.flux = quantize_flux_w8a8_smooth(self.flux, stats, alpha)
         return stats
 
@@ -314,7 +418,8 @@ class VisualClozeModel:
         on the others. queries: (images, prompts) pairs in process_images'
         format; None calibrates on a blank grid of grid_size (gray cells at
         the model's resolution, the last one masked). noise: per query, the
-        draws to use in place of the generator's (see NoiseSource)."""
+        draws to use in place of the generator's (see NoiseSource). The
+        prepare stages and "calibrate_denoise" add to stage_seconds."""
         if queries is None:
             gh, gw = grid_size
             blank = Image.new("RGB", (self.resolution, self.resolution), (128, 128, 128))
@@ -322,37 +427,35 @@ class VisualClozeModel:
             grid[-1][-1] = None
             queries = [(grid, ["calibration", "", ""])]
         noise = noise or [None] * len(queries)
-        saved = (self.grid_h, self.grid_w)
         stats = None
-        try:
-            for (images, prompts), given in zip(queries, noise):
-                self.set_grid_size(len(images), len(images[0]))
-                q = self.prepare_query(images, list(prompts), seed=seed, steps=steps, noise=given)
-                ts = np.asarray(q["ts"], np.float32)
-                x = q["x"]
+        for (images, prompts), given in zip(queries, noise):
+            q = self.prepare_query(images, list(prompts), seed=seed, steps=steps, noise=given,
+                                   grid_size=(len(images), len(images[0])))
+            for k, v in q["stage_seconds"].items():
+                self.stage_seconds[k] = self.stage_seconds.get(k, 0.0) + v
+            ts = np.asarray(q["ts"], np.float32)
+            x = q["x"]
 
-                def model_fn(img, timesteps, collect):
-                    return self.flux(
-                        img=img, img_ids=q["img_ids"], txt=q["txt"], txt_ids=q["txt_ids"], timesteps=timesteps,
-                        y=q["vec"], txt_mask=q["txt_mask"], img_mask=q["img_mask"], guidance=q["guidance"],
-                        rope_layout=self.rope_layout, collect_a8_stats=collect,
-                    )
+            def model_fn(img, timesteps, collect):
+                return self.flux(
+                    img=img, img_ids=q["img_ids"], txt=q["txt"], txt_ids=q["txt_ids"], timesteps=timesteps,
+                    y=q["vec"], txt_mask=q["txt_mask"], img_mask=q["img_mask"], guidance=q["guidance"],
+                    rope_layout=self.rope_layout, collect_a8_stats=collect,
+                )
 
-                plain = _velocity_fn(functools.partial(model_fn, collect=False), x, q["img_cond"])
-                collecting = _velocity_fn(functools.partial(model_fn, collect=True), x, q["img_cond"])
-                n = len(ts) - 1
-                with self._stage("calibrate_denoise"):
-                    for i in range(n):
-                        if i % stride == 0 or i == n - 1:
-                            v, st = collecting(x, ts[i])
-                            stats = merge_a8_stats(stats, st)
-                        else:
-                            v = plain(x, ts[i])
-                        # JAX's step: the fp32 difference as a weakly typed scalar of v's dtype
-                        dt = torch.tensor(float(ts[i + 1] - ts[i]), dtype=v.dtype, device=v.device)
-                        x = x + (dt * v).to(x.dtype)
-        finally:
-            self.set_grid_size(*saved)
+            plain = _velocity_fn(functools.partial(model_fn, collect=False), x, q["img_cond"])
+            collecting = _velocity_fn(functools.partial(model_fn, collect=True), x, q["img_cond"])
+            n = len(ts) - 1
+            with self._stage("calibrate_denoise", self.stage_seconds):
+                for i in range(n):
+                    if i % stride == 0 or i == n - 1:
+                        v, st = collecting(x, ts[i])
+                        stats = merge_a8_stats(stats, st)
+                    else:
+                        v = plain(x, ts[i])
+                    # JAX's step: the fp32 difference as a weakly typed scalar of v's dtype
+                    dt = torch.tensor(float(ts[i + 1] - ts[i]), dtype=v.dtype, device=v.device)
+                    x = x + (dt * v).to(x.dtype)
         if stats is None:
             raise ValueError("calibration collected no statistics (steps >= 2 and one query at least are "
                              "needed): refusing to quantize unequalized")
@@ -367,8 +470,9 @@ class VisualClozeModel:
         upsampling_noise: float = 0.4,
         is_upsampling: bool = True,
     ) -> list[Image.Image]:
-        """Per-row decode, query-cell crop, optional SDEdit upsampling."""
-        with self._stage("vae_decode"):
+        """Per-row decode, query-cell crop, optional SDEdit upsampling (with
+        the query's adapter, its stages added to the query's records)."""
+        with self._stage("vae_decode", q.setdefault("stage_seconds", {})):
             output_rows = []
             start = 0
             for (h, w) in q["sizes"]:
@@ -393,6 +497,8 @@ class VisualClozeModel:
                         upsampling_noise=upsampling_noise,
                         noise=q["noise"],
                         content_prompt=q["content_prompt"],
+                        adapter=q.get("adapter"),
+                        parent=q,
                     )
                 )
             else:
@@ -409,13 +515,15 @@ class VisualClozeModel:
         upsampling_noise: float,
         noise: NoiseSource,
         content_prompt: str,
+        adapter: str | None = None,
+        parent: dict[str, Any] | None = None,
     ) -> Image.Image:
         """SDEdit stage-2 refinement of one cell."""
         q = self.prepare_upsampling(
             image, target_size, cfg,
             upsampling_steps=upsampling_steps,
             upsampling_noise=upsampling_noise,
-            noise=noise, content_prompt=content_prompt,
+            noise=noise, content_prompt=content_prompt, adapter=adapter, parent=parent,
         )
         if isinstance(q, Image.Image):  # noise >= 1.0: plain resize
             return q
@@ -432,9 +540,16 @@ class VisualClozeModel:
         upsampling_noise: float,
         noise: NoiseSource,
         content_prompt: str,
+        adapter: str | None = None,
+        parent: dict[str, Any] | None = None,
     ) -> dict[str, Any] | Image.Image:
         """Resize cap (1024^2), re-encode, noise mix, packing. Returns the
-        resized image directly when upsampling_noise >= 1.0."""
+        resized image directly when upsampling_noise >= 1.0. parent: the
+        stage-1 query, whose stage seconds and solver statistics the SDEdit
+        stages add to (else records of their own)."""
+        self._resolve_adapter(adapter)
+        seconds = parent.setdefault("stage_seconds", {}) if parent is not None else {}
+        solver_stats = parent.setdefault("solver_stats", {}) if parent is not None else {}
         for c in CONTENT_INSTRUCTIONS:
             if content_prompt.startswith(c):
                 content_prompt = content_prompt.replace(c, "")
@@ -450,7 +565,7 @@ class VisualClozeModel:
 
         dev = self.device
         arr = pp.image_to_array(image)
-        with self._stage("sdedit_prepare"):
+        with self._stage("sdedit_prepare", seconds):
             latent = self.encode_row(arr, noise)
             blank = self.encode_row(np.zeros_like(arr), noise)
             h, w = arr.shape[:2]
@@ -486,26 +601,30 @@ class VisualClozeModel:
             "guidance": torch.full((1,), cfg, dtype=BF16, device=dev),
             "true_len": true_len,
             "hw": (h, w),
+            "adapter": adapter,
+            "stage_seconds": seconds,
+            "solver_stats": solver_stats,
         }
 
     @torch.no_grad()
     def finalize_upsampling(self, q: dict[str, Any], samples: torch.Tensor) -> Image.Image:
         """SDEdit decode."""
         h, w = q["hw"]
-        with self._stage("sdedit_decode"):
+        with self._stage("sdedit_decode", q.setdefault("stage_seconds", {})):
             lat = unpatchify(samples[:, : q["true_len"]], h // 8, w // 8)
             return pp.array_to_image(self.decode_latent(lat))
 
 
 def _denoise(flux: Flux, x, ts, cond, txt, txt_ids, txt_mask, vec, img_ids, img_mask, guidance, rope_layout,
-             method: str = "euler", stats: dict | None = None):
+             method: str = "euler", stats: dict | None = None, lora: Lora | None = None, lora_scale: float = 1.0):
     """The hot loop: the solver's steps over the full DiT (dopri5 from the
-    grid's first to its last time, adaptively)."""
+    grid's first to its last time, adaptively), with an unfolded LoRA."""
 
     def model_fn(img, timesteps):
         return flux(
             img=img, img_ids=img_ids, txt=txt, txt_ids=txt_ids, timesteps=timesteps, y=vec,
             txt_mask=txt_mask, img_mask=img_mask, guidance=guidance, rope_layout=rope_layout,
+            lora=lora, lora_scale=lora_scale,
         )
 
     if method == "dopri5":
