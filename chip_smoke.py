@@ -17,7 +17,10 @@ Phases, each followed by one flushed JSON line on stdout:
              (M = 1), final_layer.linear (N = 64), a ragged M and the
              512-token text stream's proj and linear2; G's launches timed
              as a replayed CUDA graph, as the GEMV is shorter than its
-             wrapper's host-side launch; the w8a8 matmul H and the
+             wrapper's host-side launch; the int4 matmul G4 likewise, at
+             the same shapes, group 128, with the library calls
+             torch._weight_int4pack_mm and F.linear on a dequantized copy;
+             the w8a8 matmul H and the
              activation quantize I bit for bit (tolerance 0): H at the w8a8
              DiT's six linear shapes at M = 3968, the 3456-token image
              stream's and the 512-token text stream's qkv, the text
@@ -70,9 +73,31 @@ Phases, each followed by one flushed JSON line on stdout:
   quant_reference_w8a8  the same for the w8a8 DiT (I, H and G vs their
              plain versions) and for the SmoothQuant w8a8 DiT calibrated on
              the default query (30 steps, statistics every 5th);
+  samplers_sde  a 2x2 query at 384 through Sampler.sample_sde (Euler-Maruyama
+             and Heun, 10 points), each twice from one generator seed: DiT
+             evaluations 9 and 17 (A's launches / 57), bit-equal runs;
+  likelihood sample_ode_likelihood on a 2x2 grid at 256, 3 steps: the
+             divergence by one vjp, so E and F (57 x 3 each), no A;
+  quant_reference_int4  the bf16 DiT quantized beside itself to int4
+             (quantize_flux_int4): G4 vs its plain version (5% RMS),
+             correlation with the bf16 DiT > 0.5; the copy parked in host
+             memory;
+  bfl_route  (Fill part) prepare_fill on the bf16 Fill DiT at 512^2, 10
+             Euler steps, decoded and saved through the ViT-base NSFW gate
+             and the watermark;
   request_w8a8  the bf16 DiT swapped for its w8a8 copy (bf16 T5, CLIP-L and
              VAE) serving request 1's query: I and H 228 times per DiT
              evaluation, G 86; stage seconds beside request 1's;
+  request_int4  the w8a8 DiT swapped for the int4 copy, request 1's query:
+             G4 314 x 38 times, no G, H or I, A, B and C as in request 1;
+             resident and peak memory;
+  bfl_route  the serving DiT freed: Canny and Depth queries (the full-width
+             DepthAnything-large tower at 518) on a flux-dev-depth DiT
+             (in_channels 128, seed 2), then a Redux query (SigLIP so400m
+             at 384: 729 tokens after the 512 text tokens) on a flux-dev
+             DiT (seed 3), each as the Fill one; one line with the Fill
+             part: finite outputs, A, B and C in each query, the towers'
+             seconds, the watermark's score read back;
   request_int8  the bf16 model freed, the single-card int8 stack
              (synthetic_full_components: int8 DiT through G, int4 T5-XXL,
              int8 CLIP-L, bf16 VAE) serving request 1's query, seed 1;
@@ -120,10 +145,12 @@ Phases, each followed by one flushed JSON line on stdout:
              distance to the base image (mean |Δ|, 0-255).
 The checkpoint files are removed after the last of them, also on failure.
 Launch counters are zeroed just before each main-path phase (request,
-serve, request_w8a8, request_int8, train, query_interleaved, request_loaded,
+serve, samplers_sde, likelihood, request_w8a8, request_int4, each query of
+bfl_route, request_int8, train, query_interleaved, request_loaded,
 solvers, load_checkpoint_int8, the calibrating load and the query of
 load_checkpoint_w8a8_smooth, load_snapshot, diffusers_api) and read just after; G runs in
-the int8 and w8a8 phases only, H and I in the w8a8 ones only. Then the kernels line, the nvidia-smi
+the int8 and w8a8 phases only, H and I in the w8a8 ones only, G4 in
+request_int4 only. Then the kernels line, the nvidia-smi
 line, and {"ok": true, "device": ...} last. Exits non-zero, with no result
 line, without a CUDA device, outside a checkout of the repository, or when
 any phase fails.
@@ -159,6 +186,7 @@ REPLACES = {
     "int8_matmul": "visualcloze_tpu/ops/int8_matmul.py:52",
     "w8a8_matmul": "visualcloze_tpu/models/layers.py:85",  # linear's w8a8 branch: an XLA fusion, no Pallas kernel
     "act_quant_int8": "visualcloze_tpu/models/quant.py:181",  # likewise
+    "int4_matmul": "visualcloze_tpu/models/layers.py:124",  # linear's w_int4 branch (dequant_weight_int4 :358), XLA
 }
 SOURCES = {
     "flash_attn_rope": "visualcloze_tpu_torch/csrc/flash_attn_rope.cu",
@@ -171,6 +199,7 @@ SOURCES = {
     "int8_matmul": "visualcloze_tpu_torch/csrc/int8_matmul.cu",
     "w8a8_matmul": "visualcloze_tpu_torch/csrc/w8a8_matmul.cu",
     "act_quant_int8": "visualcloze_tpu_torch/csrc/act_quant_int8.cu",
+    "int4_matmul": "visualcloze_tpu_torch/csrc/int4_matmul.cu",
 }
 # kernel G per DiT evaluation: every linear of the int8 DiT once (19 double
 # blocks x 10, 38 single blocks x 3, 8 embedder and 2 final-layer linears);
@@ -618,6 +647,63 @@ def check_int8_matmul(m: int, k: int, n: int, what: str, reps: int) -> dict:
                 library_ms=library_ms, library=library, dequant_f_linear_ms=dequant_ms, bound_ms=bms, bound_by=by,
                 share_of_bound=bms / ms, tflops=2.0 * m * n * k / ms / 1e9,
                 weight_gbps=k * n / ms / 1e6)
+
+
+def int4pack_ms(x, w_int4, scale, group: int) -> float | None:
+    """torch._weight_int4pack_mm (tinygemm: unsigned codes q + 8, bf16 scales
+    and zeros (K/g, N, 2), zero 0) where it runs on the card, else None: a
+    library yardstick of G4, never called by the port."""
+    import torch
+
+    lo, hi = (w_int4 & 0xF) ^ 8, (w_int4 >> 4) ^ 8  # q + 8 of rows 2i and 2i + 1
+    codes = torch.stack([lo, hi], dim=1).reshape(-1, w_int4.shape[1]).t()  # (N, K) in [0, 15]
+    sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).to(torch.bfloat16).contiguous()  # (K/g, N, 2)
+    try:
+        packed = torch._convert_weight_to_int4pack((codes[:, 0::2] << 4 | codes[:, 1::2]).contiguous(), 8)
+        torch._weight_int4pack_mm(x, packed, group, sz)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError, TypeError):
+        return None
+    return cuda_ms(lambda: torch._weight_int4pack_mm(x, packed, group, sz), 5)
+
+
+def check_int4_matmul(m: int, k: int, n: int, what: str, reps: int, group: int = 128) -> dict:
+    """Kernel G4 against its plain version: N(0,1) bf16 x, uniform packed
+    bytes (every nibble), one scale per (group, column) uniform over
+    [0.75, 1.25] x d_in^-0.5 / 7 (so the scale varies along K); 4 bf16 ulps
+    of the largest output; a second launch gives the same bits
+    (deterministic). Yardsticks: torch._weight_int4pack_mm where it runs
+    (library_ms), F.linear on a bf16 copy dequantized beforehand."""
+    import torch
+    import torch.nn.functional as F
+
+    from visualcloze_tpu_torch.ops.int4_matmul import dequant_int4_plain, int4_matmul, int4_matmul_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5 * m + n)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    scale = (torch.rand((k // group, n), generator=g, device=dev) * 0.5 + 0.75) * (k ** -0.5 / 7)
+    got = int4_matmul(x, w, scale)
+    deterministic = torch.equal(got, int4_matmul(x, w, scale))
+    torch.cuda.synchronize()
+    want = int4_matmul_plain(x, w, scale, torch.float32)
+    err = (got.float() - want).abs().max().item()
+    tol = bf16_ulps_tol(want)
+    rms = want.pow(2).mean().sqrt().item()
+    del want
+    ms = cuda_ms(lambda: int4_matmul(x, w, scale), reps, graph=True)
+    plain_ms = cuda_ms(lambda: int4_matmul_plain(x, w, scale), 2)
+    w16 = dequant_int4_plain(w, scale).t().contiguous()  # (N, K) bf16, dequantized beforehand
+    dequant_ms = cuda_ms(lambda: F.linear(x, w16), reps)
+    del w16
+    library_ms = int4pack_ms(x, w, scale, group)
+    bms, by = bound(2.0 * m * n * k, 2 * m * k + k * n // 2 + 4 * (k // group) * n + 2 * m * n)
+    return dict(name="int4_matmul", what=what, shape=[m, k, n], group=group, max_abs_err=err, tol=tol,
+                rms_plain=rms, ok=err <= tol and deterministic, deterministic=deterministic, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, library="torch._weight_int4pack_mm (bf16 scales, zero 0)",
+                dequant_f_linear_ms=dequant_ms, bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
+                tflops=2.0 * m * n * k / ms / 1e9, weight_gbps=k * n / 2 / ms / 1e6)
 
 
 def int_mm_ms(a, w, x_scale, w_scale, bias) -> tuple[float | None, float | None]:
@@ -1278,6 +1364,312 @@ def diffusers_phase(model, lora_path: str) -> dict:
     return line
 
 
+# ----------------------------- int4 DiT, samplers, BFL tools route -----------------------------
+
+
+def quant_reference_int4(model):
+    """The bf16 serving DiT quantized beside itself to int4
+    (quantize_flux_int4, ~6 GB more): on reference_inputs, the int4 DiT
+    through kernel G4 vs through G4's plain version (relative RMS, 5%, as
+    quant_reference), and its output's correlation with the bf16 DiT's
+    (> 0.5: a wrong nibble order or group would decorrelate it; random
+    weights say nothing of int4 quality). Returns (line, the int4 DiT
+    parked in host memory for request_int4)."""
+    import numpy as np
+    import torch
+
+    import visualcloze_tpu_torch.models.layers as layers_mod
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.models.quant import quantize_flux_int4
+    from visualcloze_tpu_torch.ops.int4_matmul import int4_matmul_plain
+
+    t = time.perf_counter()
+    qflux = quantize_flux_int4(model.flux)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t
+    int4_gib = sum(b.numel() * b.element_size() for b in qflux.buffers()) / 2 ** 30
+    inp, _ = reference_inputs(model)
+    with torch.no_grad():
+        ops.reset_kernel_launches()
+        got = qflux(**inp).float()
+        launches = ops.kernel_launches()["int4_matmul"]
+        saved = layers_mod.int4_matmul
+        layers_mod.int4_matmul = int4_matmul_plain
+        try:
+            plain = qflux(**inp).float()
+        finally:
+            layers_mod.int4_matmul = saved
+        ref = model.flux(**inp).float()
+    corr = float(np.corrcoef(ref.flatten().cpu().numpy(), got.flatten().cpu().numpy())[0, 1])
+    out = dict(phase="quant_reference_int4", quantize_seconds=quantize_s, int4_buffers_gib=int4_gib,
+               int4_linears=launches, g4_vs_plain_rel_rms_err=rel_rms(got, plain), tol=5e-2, int4_vs_bf16_corr=corr,
+               int4_vs_bf16_rel_rms=rel_rms(got, ref), corr_gate=0.5, finite=bool(torch.isfinite(got).all()))
+    out["ok"] = (out["finite"] and launches == INT8_LINEARS and out["g4_vs_plain_rel_rms_err"] <= out["tol"]
+                 and corr > out["corr_gate"])
+    return out, qflux.to("cpu")
+
+
+def _denoiser(flux, q):
+    """model_fn(img, timesteps) of the DiT on a prepared query's tokens."""
+
+    def model_fn(img, timesteps):
+        return flux(img=img, img_ids=q["img_ids"], txt=q["txt"], txt_ids=q["txt_ids"], timesteps=timesteps,
+                    y=q["vec"], txt_mask=q["txt_mask"], img_mask=q["img_mask"], guidance=q["guidance"])
+
+    return model_fn
+
+
+def samplers_sde(model) -> dict:
+    """A 2x2 query at 384 on the bf16 stack through Sampler.sample_sde on
+    10 grid points (SBDM diffusion from 1 - 1e-3, the deterministic Mean step
+    last): Euler-Maruyama (9 DiT evaluations) and Heun (17), each twice from
+    the same generator seed. ok: finite latents, evaluations = A's launches /
+    57 as the method says, the two runs bit-equal."""
+    import torch
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.transport import Sampler, create_transport
+
+    model.set_grid_size(2, 2)
+    q = model.prepare_query(synthetic_grid(2, 2, 5), query_prompts(2, 2), seed=5, steps=10)
+    sampler = Sampler(create_transport())
+    model_fn = _denoiser(model.flux, q)
+    runs, ok, total = {}, True, {}
+    for method, evals in (("Euler", 9), ("Heun", 17)):
+        sample = sampler.sample_sde(sampling_method=method, num_steps=10)
+        outs, seconds, counts = [], [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            ops.reset_kernel_launches()
+            t = time.perf_counter()
+            with torch.no_grad():
+                outs.append(sample(q["x"], model_fn, {"cond": q["img_cond"]},
+                                   generator=torch.Generator(device=model.device).manual_seed(6)))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            counts.append(ops.kernel_launches())
+        a = [c["flash_attn_rope"] for c in counts]
+        r = dict(seconds=seconds, dit_evaluations=[n // ATTENTION_CALLS for n in a],
+                 evaluations_expected=evals, finite=bool(torch.isfinite(outs[0]).all()),
+                 bit_equal_twice=torch.equal(outs[0], outs[1]), tokens_img=int(q["x"].shape[1]))
+        r["ok"] = (r["finite"] and r["bit_equal_twice"] and all(n == ATTENTION_CALLS * evals for n in a))
+        runs[method] = r
+        ok = ok and r["ok"]
+        for c in counts:
+            total = {k: total.get(k, 0) + v for k, v in c.items()}
+    return dict(phase="samplers_sde", grid=[2, 2], steps=10, runs=runs, launches=total, ok=ok)
+
+
+def likelihood(model) -> dict:
+    """sample_ode_likelihood on the bf16 DiT: a 2x2 grid at 256 (1024 image +
+    512 text tokens), 4 grid points (3 steps), one Rademacher probe a step,
+    the divergence by one vector-Jacobian product: the attention under
+    autograd is kernel E forward and F backward (57 x 3 each), kernel A not
+    at all. ok: a finite logp."""
+    import torch
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.transport import sample_ode_likelihood
+
+    resolution = model.resolution
+    model.resolution = 256
+    try:
+        model.set_grid_size(2, 2)
+        q = model.prepare_query(synthetic_grid(2, 2, 7), query_prompts(2, 2), seed=7, steps=4)
+    finally:
+        model.resolution = resolution
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    logp, x_t = sample_ode_likelihood(_denoiser(model.flux, q), q["x"].float(), 4, cond=q["img_cond"],
+                                      generator=torch.Generator(device=model.device).manual_seed(8))
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    out = dict(phase="likelihood", grid=[2, 2], resolution=256, tokens_img=int(q["x"].shape[1]),
+               tokens_txt=int(q["txt"].shape[1]), steps=3, seconds=time.perf_counter() - t,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, logp=logp.tolist(),
+               logp_per_dim=(logp / x_t[0].numel()).tolist(), finite=bool(torch.isfinite(logp).all()),
+               launches=launches)
+    want = ATTENTION_CALLS * 3
+    out["ok"] = (out["finite"] and launches["flash_attn_rope"] == 0
+                 and all(launches[n] == want for n in ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
+                                                        "flash_attn_bwd_dkv")))
+    return out
+
+
+BFL_SIZE = 512  # the tools route's image side (1024 image tokens)
+
+
+def _bfl_query(flux, ae, inp, guidance: float, steps: int = 10):
+    """The BFL route's denoise (Euler on steps + 1 grid points, img_cond
+    concatenated on channels) and decode: (1, H, W, 3) pixels in [-1, 1]."""
+    import torch
+
+    from visualcloze_tpu_torch.models.sampling import unpack
+    from visualcloze_tpu_torch.ops.schedule import ode_timesteps
+    from visualcloze_tpu_torch.transport import denoise_ode
+
+    bf16 = torch.bfloat16
+    q = dict(img_ids=inp["img_ids"], txt=inp["txt"].to(bf16), txt_ids=inp["txt_ids"], vec=inp["vec"].to(bf16),
+             txt_mask=None, img_mask=None, guidance=torch.full((1,), guidance, dtype=bf16, device=inp["img"].device))
+    cond = inp.get("img_cond")
+    with torch.no_grad():
+        x = denoise_ode(_denoiser(flux, q), inp["img"], ode_timesteps(steps + 1, inp["img"].shape[1]),
+                        cond=None if cond is None else cond.to(bf16))
+        return ae.decode(unpack(x, BFL_SIZE, BFL_SIZE).to(bf16)).float()
+
+
+def _bfl_save(pixels, name: str, nsfw, root) -> dict:
+    """save_image with the NSFW gate and the watermark; the watermark's score
+    read back from the file (or from the marked array if the gate refused)."""
+    import numpy as np
+    from PIL import Image
+
+    from visualcloze_tpu_torch.models.postprocess import embed_watermark, extract_watermark_score, save_image
+
+    arr = ((pixels[0].clamp(-1, 1) + 1) * 127.5).round().to("cpu").numpy().astype(np.uint8)
+    image = Image.fromarray(arr)
+    p_nsfw = nsfw(image)
+    path = save_image(image, str(root / f"{name}.png"), nsfw_classifier=nsfw, metadata={"query": name})
+    marked = np.asarray(Image.open(path).convert("RGB")) if path else embed_watermark(arr)
+    return dict(saved=path is not None, nsfw_prob=p_nsfw, watermark_score=extract_watermark_score(marked),
+                image_std=float(arr.std()), finite=bool(np.isfinite(pixels.cpu().numpy()).all()))
+
+
+def _bfl_prompt(name: str) -> str:
+    return f"A photo of a house by a lake, {name} conditioning."
+
+
+def nsfw_gate(dev):
+    """The NSFW gate of save_image: the ViT-base classifier, random (seed 4)."""
+    import torch
+
+    from visualcloze_tpu_torch.models.postprocess import build_nsfw_classifier
+    from visualcloze_tpu_torch.models.vision_towers import ViTClassifierConfig, build_vit_classifier, init_random_
+
+    vit = build_vit_classifier(ViTClassifierConfig(), dev)
+    return build_nsfw_classifier(model=init_random_(vit, torch.Generator(device=dev).manual_seed(4)))
+
+
+def bfl_fill(model, root) -> dict:
+    """The tools route's Fill query on the resident FLUX.1-Fill DiT:
+    prepare_fill at 512^2 (a centred square masked), 10 Euler steps,
+    decoded, saved through the NSFW gate and the watermark. Returns its
+    part of the bfl_route line."""
+    import numpy as np
+    import torch
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.models.sampling import get_noise, prepare_fill
+
+    dev = model.device
+    t = time.perf_counter()
+    nsfw = nsfw_gate(dev)
+    nsfw_build_s = time.perf_counter() - t
+    gen = torch.Generator(device=dev).manual_seed(21)
+    img_cond = np.asarray(synthetic_grid(1, 2, 21)[0][0].resize((BFL_SIZE, BFL_SIZE)), np.float32) / 127.5 - 1.0
+    mask = np.zeros((BFL_SIZE, BFL_SIZE), np.float32)
+    mask[BFL_SIZE // 4: 3 * BFL_SIZE // 4, BFL_SIZE // 4: 3 * BFL_SIZE // 4] = 1.0
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    noise = get_noise(1, BFL_SIZE // 8, BFL_SIZE // 8, generator=gen, device=dev)
+    inp = prepare_fill(model.t5, model.clip, noise, _bfl_prompt("fill"), model.ae, img_cond, mask, generator=gen)
+    pixels = _bfl_query(model.flux, model.ae, inp, guidance=30.0)
+    torch.cuda.synchronize()
+    r = dict(seconds=time.perf_counter() - t, tokens_img=int(inp["img"].shape[1]),
+             cond_channels=int(inp["img_cond"].shape[-1]), launches=ops.kernel_launches(),
+             **_bfl_save(pixels, "fill", nsfw, root))
+    return dict(fill=r, nsfw_build_seconds=nsfw_build_s)
+
+
+def bfl_route(model, fill: dict, root) -> dict:
+    """The rest of the tools route, on the stack's T5, CLIP and VAE with the
+    serving DiT freed: one flux-dev-depth DiT (in_channels 128, seed 2) for a
+    Canny query and a Depth query (the full-width DepthAnything-large tower
+    at 518, random, seed 3), freed; one flux-dev DiT (in_channels 64, seed 3)
+    for a Redux query (the SigLIP so400m tower at 384, random, seed 5: 729
+    tokens after the 512 text tokens; the projector random, seed 6). Each
+    query 10 Euler steps at 512^2, saved as the Fill one. ok: every output
+    finite, kernels A, B and C launched in each query and no other kernel."""
+    import torch
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.config import _CONTROL_FLUX, _DEV_FLUX
+    from visualcloze_tpu_torch.models.flux import build_flux
+    from visualcloze_tpu_torch.models.image_embedders import (CannyImageEncoder, DepthImageEncoder,
+                                                              ReduxImageEncoder, init_redux_projector)
+    from visualcloze_tpu_torch.models.sampling import get_noise, prepare_control, prepare_redux
+    from visualcloze_tpu_torch.models.vision_towers import (DepthAnythingTowerConfig, SigLIPVisionConfig,
+                                                            build_depth_anything, build_siglip, init_random_)
+
+    dev = model.device
+    cond_img = synthetic_grid(1, 2, 22)[0][0].resize((BFL_SIZE, BFL_SIZE))
+    out = dict(phase="bfl_route", size=BFL_SIZE, steps=10, **fill)
+    model.flux = None
+    free()
+    nsfw = nsfw_gate(dev)
+
+    def seeded(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def query(name, seed, flux, make_inp, guidance):
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        t = time.perf_counter()
+        gen = seeded(seed)
+        inp = make_inp(get_noise(1, BFL_SIZE // 8, BFL_SIZE // 8, generator=gen, device=dev), gen)
+        pixels = _bfl_query(flux, model.ae, inp, guidance)
+        torch.cuda.synchronize()
+        out[name] = dict(seconds=time.perf_counter() - t, tokens_img=int(inp["img"].shape[1]),
+                         tokens_txt=int(inp["txt"].shape[1]), launches=ops.kernel_launches(),
+                         **_bfl_save(pixels, name, nsfw, root))
+
+    t = time.perf_counter()
+    flux = build_flux(_CONTROL_FLUX, dev, torch.bfloat16).init_random_(seeded(2))
+    depth_tower = init_random_(build_depth_anything(DepthAnythingTowerConfig(), dev), seeded(3))
+    torch.cuda.synchronize()
+    out["control_build_seconds"] = time.perf_counter() - t
+    query("canny", 31, flux, lambda noise, gen: prepare_control(
+        model.t5, model.clip, noise, _bfl_prompt("canny"), model.ae, CannyImageEncoder(), cond_img,
+        generator=gen), 30.0)
+    depth = DepthImageEncoder(model=depth_tower)
+    t = time.perf_counter()
+    depth(cond_img)
+    torch.cuda.synchronize()
+    out["depth_tower_seconds"] = time.perf_counter() - t  # the tower at 518, the map back to 512 (a second call)
+    query("depth", 32, flux, lambda noise, gen: prepare_control(
+        model.t5, model.clip, noise, _bfl_prompt("depth"), model.ae, depth, cond_img, generator=gen), 10.0)
+    del flux, depth, depth_tower
+    free()
+
+    t = time.perf_counter()
+    flux = build_flux(_DEV_FLUX, dev, torch.bfloat16).init_random_(seeded(3))
+    siglip = init_random_(build_siglip(SigLIPVisionConfig(), dev), seeded(5))
+    redux = ReduxImageEncoder(init_redux_projector(seeded(6), device=dev), siglip_model=siglip)
+    torch.cuda.synchronize()
+    out["redux_build_seconds"] = time.perf_counter() - t
+    redux(cond_img)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out["redux_tokens"] = int(redux(cond_img).shape[1])
+    torch.cuda.synchronize()
+    out["siglip_redux_seconds"] = time.perf_counter() - t  # SigLIP at 384 and the projector (after a first call)
+    query("redux", 33, flux, lambda noise, gen: prepare_redux(
+        model.t5, model.clip, noise, _bfl_prompt("redux"), redux, cond_img), 3.5)
+    del flux, siglip, redux
+    free()
+
+    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
+    names = ("fill", "canny", "depth", "redux")
+    out["launches"] = {k: sum(out[n]["launches"][k] for n in names) for k in out["fill"]["launches"]}
+    out["ok"] = all(out[n]["finite"] and out[n]["image_std"] > 0 and all(out[n]["launches"][k] > 0 for k in serving)
+                    and all(v == 0 for k, v in out[n]["launches"].items() if k not in serving) for n in names)
+    out["ok"] = out["ok"] and out["redux_tokens"] == 729 and out["redux"]["tokens_txt"] == 512 + 729
+    return out
+
+
 # ----------------------------- training -----------------------------
 
 
@@ -1862,6 +2254,14 @@ def main() -> int:
         lambda: [check_int8_matmul(4097, 3072, 3072, "ragged M (proj)", 20)],
         lambda: [check_int8_matmul(512, 3072, 3072, "text stream proj", 50)],
         lambda: [check_int8_matmul(512, 12288, 3072, "text stream linear2", 50)],
+        lambda: [check_int4_matmul(3968, 3072, 21504, "linear1", 20)],
+        lambda: [check_int4_matmul(3968, 15360, 3072, "linear2", 20)],
+        lambda: [check_int4_matmul(3456, 3072, 9216, "img_attn.qkv", 20)],
+        lambda: [check_int4_matmul(1, 3072, 18432, "double-block modulation", 50)],
+        lambda: [check_int4_matmul(3456, 3072, 64, "final_layer.linear", 50)],
+        lambda: [check_int4_matmul(4097, 3072, 3072, "ragged M (proj)", 20)],
+        lambda: [check_int4_matmul(512, 3072, 3072, "text stream proj", 50)],
+        lambda: [check_int4_matmul(512, 12288, 3072, "text stream linear2", 50)],
         lambda: [check_w8a8_matmul(3968, 3072, 21504, "linear1", 20)],
         lambda: [check_w8a8_matmul(3968, 15360, 3072, "linear2", 20)],
         lambda: [check_w8a8_matmul(3968, 3072, 9216, "qkv", 20)],
@@ -1916,7 +2316,7 @@ def main() -> int:
 
     serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
     training = ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
-    bf16_unused = training + ("int8_matmul",) + W8A8_KERNELS
+    bf16_unused = training + ("int8_matmul", "int4_matmul") + W8A8_KERNELS
     r1_images = []
     r1 = run_request(model, "2x3 default query with SDEdit", 2, 3, 30, True, seed=1, used=serving,
                      unused=bf16_unused, images_out=r1_images)
@@ -1944,6 +2344,23 @@ def main() -> int:
     emit(wref)
     if not wref["ok"]:
         raise RuntimeError(f"w8a8 reference failed: {wref}")
+    rsde = samplers_sde(model)
+    emit(rsde)
+    if not rsde["ok"]:
+        raise RuntimeError("the SDE samplers failed")
+    free()
+    rlik = likelihood(model)
+    emit(rlik)
+    if not rlik["ok"]:
+        raise RuntimeError("the likelihood failed")
+    free()
+    qref4, qflux4 = quant_reference_int4(model)
+    emit(qref4)
+    if not qref4["ok"]:
+        raise RuntimeError(f"int4 reference failed: {qref4}")
+    bfl_dir = tempfile.TemporaryDirectory()
+    fill = bfl_fill(model, Path(bfl_dir.name))
+    free()
 
     # the bf16 DiT swapped for its w8a8 copy (bf16 T5, CLIP and VAE), serving request 1's query
     from visualcloze_tpu_torch.models.quant import quantize_flux_w8a8
@@ -1952,12 +2369,38 @@ def main() -> int:
     free()
     resident = torch.cuda.memory_allocated() / 2 ** 30
     rw = run_request(model, "2x3 default query with SDEdit, w8a8 DiT", 2, 3, 30, True, seed=1,
-                     used=serving + W8A8_USED_WITH, unused=training)
+                     used=serving + W8A8_USED_WITH, unused=training + ("int4_matmul",))
     rw.update(phase="request_w8a8", resident_gib=resident, w8a8_launches_predicted=W8A8_LINEARS * 38,
               stage_seconds_bf16=r1["stage_seconds"], **w8a8_launches_ok(rw))
     emit(rw)
     if not rw["ok"]:
         raise RuntimeError("w8a8 request failed")
+
+    # the w8a8 DiT swapped for the int4 copy (bf16 T5, CLIP and VAE), serving request 1's query
+    model.flux = None
+    free()
+    model.flux = qflux4.to(model.device)
+    del qflux4
+    free()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    r4 = run_request(model, "2x3 default query with SDEdit, int4 DiT", 2, 3, 30, True, seed=1,
+                     used=serving + ("int4_matmul",), unused=training + ("int8_matmul",) + W8A8_KERNELS)
+    evals = r4["launches"]["flash_attn_rope"] // ATTENTION_CALLS  # 29 + 9 predicted
+    r4.update(phase="request_int4", resident_gib=resident, dit_evaluations=evals,
+              int4_launches_predicted=INT8_LINEARS * 38, int4_launches_expected=INT8_LINEARS * evals,
+              stage_seconds_bf16=r1["stage_seconds"], launches_bf16=r1["launches"])
+    r4["ok"] = (r4["ok"] and evals == 38 and r4["launches"]["int4_matmul"] == INT8_LINEARS * 38
+                and all(r4["launches"][n] == r1["launches"][n] for n in serving))
+    emit(r4)
+    if not r4["ok"]:
+        raise RuntimeError("int4 request failed")
+    try:
+        rbfl = bfl_route(model, fill, Path(bfl_dir.name))
+    finally:
+        bfl_dir.cleanup()
+    emit(rbfl)
+    if not rbfl["ok"]:
+        raise RuntimeError("the BFL tools route failed")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1972,7 +2415,7 @@ def main() -> int:
     emit(dict(phase="init_int8", seconds=time.perf_counter() - t, resident_gib=resident,
               init_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
     rq = run_request(qmodel, "2x3 default query with SDEdit, int8 DiT + int4 T5-XXL + int8 CLIP-L", 2, 3, 30, True,
-                     seed=1, used=serving + ("int8_matmul",), unused=training + W8A8_KERNELS)
+                     seed=1, used=serving + ("int8_matmul",), unused=training + W8A8_KERNELS + ("int4_matmul",))
     evals = rq["launches"]["flash_attn_rope"] // ATTENTION_CALLS  # DiT evaluations: 29 + 9 predicted
     rq.update(phase="request_int8", resident_gib=resident, dit_evaluations=evals,
               int8_launches_predicted=INT8_LINEARS * 38, int8_launches_expected=INT8_LINEARS * evals,
@@ -1998,7 +2441,7 @@ def main() -> int:
     r3 = run_request(model, "2x2 query, interleaved layout", 2, 2, 9, False, seed=3,
                      used=("flash_attn_fwd", "conv3x3_gn_swish", "flash_attn_d512"),
                      unused=("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
-                             "int8_matmul") + W8A8_KERNELS)
+                             "int8_matmul", "int4_matmul") + W8A8_KERNELS)
     emit(dict(r3, phase="query_interleaved", rope_layout=model.rope_layout))
     if not r3["ok"]:
         raise RuntimeError("interleaved query failed")
@@ -2012,7 +2455,8 @@ def main() -> int:
         r = first[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=sum(run["launches"][name] for run in (r1, r2, rserve, rw, rq, train, r3, *loaded)),
+            launches=sum(run["launches"][name] for run in (r1, r2, rserve, rsde, rlik, rw, r4, rbfl, rq, train, r3,
+                                                           *loaded)),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
         ))

@@ -417,6 +417,70 @@ def test_gpu_int8_matmul_is_deterministic(m, k, n):
         assert torch.equal(first, second)
 
 
+def _int4_case(dev, m, k, n, group):
+    """N(0,1) bf16 x, uniform packed bytes (every nibble), one scale per
+    (group, column) uniform over [0.75, 1.25] x d_in^-0.5 / 7."""
+    g = torch.Generator(device=dev).manual_seed(5 * m + n + k)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+    scale = (torch.rand((k // group, n), generator=g, device=dev) * 0.5 + 0.75) * (k ** -0.5 / 7)
+    return x, w, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n, group", [(1, 3072, 18432, 128), (3, 256, 3072, 128), (16, 3072, 3072, 128),
+                                            (17, 768, 3072, 128), (333, 3072, 9216, 128), (3456, 3072, 64, 128),
+                                            (129, 256, 16, 128), (300, 64, 272, 64), (200, 15360, 3072, 128),
+                                            (5, 15360, 64, 128), (300, 512, 1024, 256)])
+def test_gpu_int4_matmul_matches_plain(m, k, n, group):
+    """Kernel G4 against its plain version: the modulation GEMV, M on both
+    sides of the GEMV body's threshold, final_layer.linear (N = 64), N = 16
+    and 272 (not a multiple of the 256-column tile), K = 64 in one group of
+    64, K = 15360, a group of 256. 4 bf16 ulps of the largest output (fp32
+    sums of the same bf16 products in another order); the fp32 output within
+    1e-5 of it, times K / 3072 above K = 3072."""
+    from visualcloze_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    dev = _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
+    x, w, scale = _int4_case(dev, m, k, n, group)
+    got = int4_matmul(x, w, scale)
+    got32 = int4_matmul(x, w, scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = int4_matmul_plain(x, w, scale, torch.float32)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    _close(got, want, _ulps_tol(want))
+    _close(got32, want, 1e-5 * max(1.0, k / 3072) * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (7, 3072, 3072), (333, 3072, 9216)])
+def test_gpu_int4_matmul_is_deterministic(m, k, n):
+    """Two launches of kernel G4 give the same bits, in both bodies."""
+    from visualcloze_tpu_torch.ops.int4_matmul import int4_matmul
+
+    dev = _cuda_or_skip()
+    x, w, scale = _int4_case(dev, m, k, n, 128)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        first = int4_matmul(x, w, scale, out_dtype=out_dtype)
+        second = int4_matmul(x, w, scale, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_gpu_int4_quantizer_matches_the_cpu_bit_for_bit():
+    """quantize_weight_int4 on the card gives the CPU's codes and scales (the
+    JAX package's, tests/test_torch_int4.py)."""
+    from visualcloze_tpu_torch.models.quant import quantize_weight_int4
+
+    dev = _cuda_or_skip()
+    w = torch.randn((3072, 1024), generator=torch.Generator().manual_seed(0)) * 0.02
+    cpu, card = quantize_weight_int4(w), quantize_weight_int4(w.to(dev))
+    for key in ("w_int4", "w_scale"):
+        assert torch.equal(cpu[key], card[key].cpu()), key
+
+
 def _w8a8_case(dev, m, k, n):
     """Codes uniform over [-127, 127] (act_quant_int8's and the weight
     quantizer's range), x_scale uniform, w_scale d_in^-0.5 / 127 times a

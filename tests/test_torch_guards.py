@@ -59,10 +59,12 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
     assert codes.dtype == torch.int8 and scale.shape == (3,)
     y = ops.w8a8_matmul(codes, torch.ones(16, 128, dtype=torch.int8), scale, torch.ones(16))
     assert y.shape == (3, 16) and y.dtype == torch.bfloat16
+    y = ops.int4_matmul(torch.randn(3, 64), torch.full((32, 16), 0x99, dtype=torch.uint8), torch.ones(1, 16))
+    assert y.shape == (3, 16) and y.dtype == torch.bfloat16
     assert ops.kernel_launches() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"flash_attn_rope", "flash_attn_d512", "conv3x3_gn_swish", "flash_attn_fwd",
                                 "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "int8_matmul",
-                                "w8a8_matmul", "act_quant_int8"}
+                                "w8a8_matmul", "act_quant_int8", "int4_matmul"}
 
 
 def _imports(path: Path) -> set[str]:
@@ -83,7 +85,9 @@ def test_port_imports_nothing_of_jax():
                    "data/dataset.py", "data/data_reader.py", "data/degradations.py", "data/loader.py",
                    "transport/transport.py", "models/lora.py", "models/weights.py", "utils/misc.py",
                    "models/quant.py", "ops/int8_matmul.py", "serve.py", "app.py", "sample.py", "gradio_tasks.py",
-                   "pipeline/orchestrator.py", "pipeline/server.py", "pipeline/diffusers_api.py", "utils/metrics.py"):
+                   "pipeline/orchestrator.py", "pipeline/server.py", "pipeline/diffusers_api.py", "utils/metrics.py",
+                   "ops/int4_matmul.py", "transport/sampling.py", "models/sampling.py", "models/vision_towers.py",
+                   "models/image_embedders.py", "models/postprocess.py", "models/api.py"):
         assert module in scanned, module
     for path in files:
         for mod in _imports(path):
@@ -336,6 +340,10 @@ def test_profile_step_classes_kernels_by_demangled_name():
 @pytest.mark.parametrize("name", [
     "void (anonymous namespace)::int8_matmul_wide<__nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, float const*)",
     "void (anonymous namespace)::int8_matmul_wide<float>(CUtensorMap_st, CUtensorMap_st, float const*)",
+    "void vc::wide::matmul_wide<(anonymous namespace)::Int8Convert, __nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, "
+    "float const*, __nv_bfloat16*, int, int, int, int, int, unsigned int)",
+    "void vc::wide::matmul_wide<(anonymous namespace)::Int8Convert, float>(CUtensorMap_st, CUtensorMap_st, "
+    "float const*, float*, int, int, int, int, int, unsigned int)",
     "void (anonymous namespace)::int8_gemv<__nv_bfloat16, 1>(__nv_bfloat16 const*, signed char const*)",
     "void (anonymous namespace)::int8_gemv<float, 4>(__nv_bfloat16 const*, signed char const*)",
 ])
@@ -343,6 +351,17 @@ def test_profile_step_classes_both_bodies_of_kernel_g(name):
     from visualcloze_tpu_torch.profile_step import kernel_class
 
     assert kernel_class(name) == "int8 matmul (kernel G)"
+
+
+@pytest.mark.parametrize("name", [
+    "void vc::wide::matmul_wide<(anonymous namespace)::Int4Convert, __nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, "
+    "float const*, __nv_bfloat16*, int, int, int, int, int, unsigned int)",
+    "void (anonymous namespace)::int4_gemv<float, 4>(__nv_bfloat16 const*, unsigned char const*)",
+])
+def test_profile_step_classes_both_bodies_of_kernel_g4(name):
+    from visualcloze_tpu_torch.profile_step import kernel_class
+
+    assert kernel_class(name) == "int4 matmul (kernel G4)"
 
 
 def test_profile_step_classes_vae_kernels_by_demangled_name():

@@ -306,8 +306,11 @@ def test_convert_refuses_what_it_cannot_carry():
     mixed["final_layer"]["linear"] = _np(params["final_layer"]["linear"])
     with pytest.raises(ValueError, match="together"):
         convert.flux_from_jax(mixed, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
-        convert.flux_from_jax(_np(jq.quantize_flux_int4(params)), cfg, device="cpu")
+    q4 = _np(jq.quantize_flux_int4(params))  # the int4 DiT carries across, its codes exactly
+    assert torch.equal(convert.flux_from_jax(q4, cfg, device="cpu").img_in.w_int4, _t(q4["img_in"]["w_int4"]))
+    q4["final_layer"] = _np(jq.quantize_flux_int8(params))["final_layer"]  # int4 beside int8
+    with pytest.raises(ValueError, match="together"):
+        convert.flux_from_jax(q4, cfg, device="cpu")
     q = _np(jq.quantize_flux_int8(params))
     q["img_in"]["w_int8"] = q["img_in"]["w_int8"].astype(np.int16)
     with pytest.raises(ValueError, match="codes"):

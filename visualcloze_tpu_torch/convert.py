@@ -14,6 +14,9 @@ are copied exactly, every other leaf through fp32. A w8a8 entry ({"w_int8",
 layers.W8A8Linear, its codes transposed to (out, in), the layout of kernel
 H, here and once; the "a8" marker carries no data.
 
+The auxiliary models of the BFL tools route carry over too (siglip_from_jax,
+depth_anything_from_jax, vit_classifier_from_jax, redux_from_jax): their
+towers keep the JAX layouts (models/vision_towers.py).
 flux_from_jax takes the `params` of a JAX VisualClozeModel as they stand:
 permuted by its constructor for rope_layout="half", in the reference's order
 for "interleaved"; the port's Flux is then run in the same layout.
@@ -140,15 +143,16 @@ def _linear_kinds(tree: Mapping) -> set[str]:
 
 def flux_from_jax(params: Mapping, cfg: FluxConfig, device=None, dtype=torch.float32) -> Flux:
     """A dense tree, a quantize_flux_int8 / init_flux_int8 one (every linear
-    int8: Int8Linear through kernel G; biases and norms in `dtype`), or a
-    quantize_flux_w8a8[_smooth] one (the token-dim block linears W8A8Linear
-    through kernels I and H, the rest Int8Linear)."""
+    int8: Int8Linear through kernel G; biases and norms in `dtype`), a
+    quantize_flux_int4 one (every linear Int4DiTLinear through kernel G4),
+    or a quantize_flux_w8a8[_smooth] one (the token-dim
+    block linears W8A8Linear through kernels I and H, the rest Int8Linear)."""
     cfg = config_from(cfg, FluxConfig)
     kinds = _linear_kinds(params)
-    if kinds not in ({"dense"}, {"int8"}, {"int8", "w8a8"}, {"int8", "w8a8_smooth"}):
+    if kinds not in ({"dense"}, {"int8"}, {"int4"}, {"int8", "w8a8"}, {"int8", "w8a8_smooth"}):
         raise ValueError(f"a Flux tree with these linears together is not supported: {sorted(kinds)}")
     model = build_flux(cfg, resolve_device(device), dtype, int8=kinds == {"int8"}, w8a8=len(kinds) == 2,
-                       smooth="w8a8_smooth" in kinds)
+                       smooth="w8a8_smooth" in kinds, int4=kinds == {"int4"})
     return _carry(model, params, {"double_blocks": cfg.depth, "single_blocks": cfg.depth_single_blocks})
 
 
@@ -178,6 +182,42 @@ def clip_from_jax(params: Mapping, cfg: CLIPTextConfig, device=None, dtype=torch
     else:
         model = build_clip(cfg, device, dtype)
     return _carry(model, params, {"blocks": cfg.num_layers})
+
+
+def siglip_from_jax(params: Mapping, cfg, device=None) -> nn.Module:
+    """A JAX SigLIP vision tree (convert_siglip_vision's) -> the port's tower, fp32."""
+    from .models.vision_towers import SigLIPVisionConfig, build_siglip
+
+    cfg = config_from(cfg, SigLIPVisionConfig)
+    return _carry(build_siglip(cfg, resolve_device(device)), params, {"blocks": cfg.num_layers})
+
+
+def depth_anything_from_jax(params: Mapping, cfg, device=None) -> nn.Module:
+    """A JAX DepthAnything tree (convert_depth_anything's) -> the port's tower, fp32."""
+    from .models.vision_towers import DepthAnythingTowerConfig, build_depth_anything
+
+    cfg = config_from(cfg, DepthAnythingTowerConfig)
+    params = dict(params, backbone=dict(params["backbone"], blocks=_unstack(params["backbone"]["blocks"],
+                                                                            cfg.num_layers)))
+    return _carry(build_depth_anything(cfg, resolve_device(device)), params, {})
+
+
+def vit_classifier_from_jax(params: Mapping, cfg, device=None) -> nn.Module:
+    """A JAX ViT classifier tree (convert_vit_classifier's) -> the port's classifier, fp32."""
+    from .models.vision_towers import ViTClassifierConfig, build_vit_classifier
+
+    cfg = config_from(cfg, ViTClassifierConfig)
+    return _carry(build_vit_classifier(cfg, resolve_device(device)), params, {"blocks": cfg.num_layers})
+
+
+def redux_from_jax(params: Mapping, device=None, dtype=torch.float32) -> nn.Module:
+    """A JAX Redux projector tree (init_redux_projector / convert_redux) -> the port's projector."""
+    from .models.image_embedders import ReduxProjector
+    from .models.init import materialize
+
+    redux_dim, txt3 = np.asarray(params["redux_up"]["w"]).shape
+    module = materialize(lambda: ReduxProjector(redux_dim, txt3 // 3), resolve_device(device), dtype)
+    return _carry(module, params, {})
 
 
 def _tensors(tree, device, dtype):

@@ -34,6 +34,13 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// one or two fp32 values stored to y, rounded (round-to-nearest-even) where
+// y is bf16
+__device__ __forceinline__ void store2(bf16* y, float a, float b) { *reinterpret_cast<uint32_t*>(y) = pack2(a, b); }
+__device__ __forceinline__ void store2(float* y, float a, float b) { *reinterpret_cast<float2*>(y) = make_float2(a, b); }
+__device__ __forceinline__ void store1(bf16* y, float a) { *y = __float2bfloat16_rn(a); }
+__device__ __forceinline__ void store1(float* y, float a) { *y = a; }
+
 // a bf16 pair times s in fp32, rounded back to bf16: bf16(q * scale * log2(e))
 __device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
   const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));

@@ -104,19 +104,6 @@ constexpr int TMA_REGS = 40, TRANSFORM_REGS = 64, CONSUMER_REGS = 200;
 // far below the bf16 rounding that follows
 __device__ __forceinline__ float swish(float t) { return __fdividef(t, 1.0f + __expf(-t)); }
 
-// a stage of a ring and the parity of its current phase
-template <int N>
-struct Slot {
-  int s = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next() {
-    if (++s == N) {
-      s = 0;
-      phase ^= 1;
-    }
-  }
-};
-
 // the MT m-tiles of one (chunk, tap): k16 steps of the A buffer at abuf
 // (output rows lr0 .. lr0 + MT - 1 of the tile) against the weight stage at wt
 __device__ __forceinline__ void issue_tap(float (*acc)[64], uint32_t abuf, uint32_t wt, int lr0, int tap) {

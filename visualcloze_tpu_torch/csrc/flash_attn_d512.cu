@@ -182,18 +182,6 @@ __device__ __forceinline__ void pack_p(const float* sc, uint32_t* pa) {
   }
 }
 
-// a stage of the ring and the parity of its current phase, stepped tile by tile
-struct Slot {
-  int s = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next() {
-    if (++s == ST) {
-      s = 0;
-      phase ^= 1;
-    }
-  }
-};
-
 __global__ void __launch_bounds__(NT, 1)
     flash_d512(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                const bf16* __restrict__ q, bf16* __restrict__ o, int H, int L, float qscale) {
@@ -223,7 +211,7 @@ __global__ void __launch_bounds__(NT, 1)
   if (wg == 0) {  // ------------------------------------------------ producer
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      Slot sl;
+      Slot<ST> sl;
       for (int kt = 0; kt < nk; ++kt, sl.next()) {
         const int s = sl.s;
         // from the second round on, wait for the release of the stage's last tile
@@ -250,7 +238,7 @@ __global__ void __launch_bounds__(NT, 1)
     uint32_t pa[SREGS / 2];  // P of the tile, the A operand of its P.V
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-    Slot ks;
+    Slot<ST> ks;
 
     // tile j: S_j, the exchange and softmax, then O rescaled and P_j.V_j
     for (int j = 0; j < nk; ++j, ks.next()) {

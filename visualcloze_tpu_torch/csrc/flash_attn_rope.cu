@@ -234,18 +234,6 @@ __device__ __forceinline__ void pack_p(const float* sc, uint32_t* pa) {
   }
 }
 
-// a stage of the ring and the parity of its current phase, stepped tile by tile
-struct Slot {
-  int s = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next() {
-    if (++s == ST) {
-      s = 0;
-      phase ^= 1;
-    }
-  }
-};
-
 // the ping-pong: consumer warpgroup c waits for its turn to issue products,
 // and hands the turn to the other one after issuing
 __device__ __forceinline__ void turn_begin(int c) {
@@ -303,7 +291,7 @@ __global__ void __launch_bounds__(NT, 1)
         tma_load_tile<BQ>(base + SM_Q, &tq, q0, bh, qbar);
       }
       const float* biasb = bias ? bias + (size_t)b * Lk : nullptr;
-      Slot sl;
+      Slot<ST> sl;
       for (int kt = 0; kt < nk; ++kt, sl.next()) {
         const int s = sl.s;
         // from the second round on, wait for the release of the stage's last tile
@@ -341,7 +329,7 @@ __global__ void __launch_bounds__(NT, 1)
     uint32_t pa[BK / 4];  // P of the tile before, the A operand of its P.V
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-    Slot ks, vs;  // the K tile of this step, the V tile of the step before
+    Slot<ST> ks, vs;  // the K tile of this step, the V tile of the step before
 
     // a key tile adds its bias row unless there is none and the tile lies inside Lk
     auto biased = [&](int kt) { return bias != nullptr || (kt + 1) * BK > Lk; };

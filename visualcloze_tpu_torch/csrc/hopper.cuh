@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels
 // (flash_attn_rope.cu, flash_attn_bwd.cu, flash_attn_d512.cu,
-// conv3x3_gn_swish.cu, int8_matmul.cu): mbarriers, named barriers, TMA tile
-// loads and stores and the host-side tensor maps they read, warpgroup MMA
+// conv3x3_gn_swish.cu, weight_only_wide.cuh): mbarriers and ring slots,
+// named barriers, 16-byte shared-memory loads and stores, TMA tile loads and
+// stores and the host-side tensor maps they read, warpgroup MMA
 // (wgmma) with shared-memory descriptors for the 128-byte swizzle and for
 // the unswizzled K-major layout, register reallocation.
 //
@@ -98,6 +99,30 @@ __device__ __forceinline__ int warpgroup() { return __shfl_sync(0xffffffff, (int
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// a stage of an N-stage ring and the parity of its current phase
+template <int N>
+struct Slot {
+  int s = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++s == N) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, const uint4& v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 // ---------------------------------------------------------------- TMA

@@ -106,18 +106,6 @@ __device__ __forceinline__ uint32_t out2(int acc0, int acc1, float xs, float ws0
   return pack2(v0, v1);
 }
 
-// a stage of the ring and the parity of its current phase
-struct Slot {
-  int s = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next() {
-    if (++s == STAGES) {
-      s = 0;
-      phase ^= 1;
-    }
-  }
-};
-
 // a_bytes, b_bytes: what TMA brings of a codes tile and a weight tile
 __global__ void __launch_bounds__(NT, 1)
     w8a8_matmul_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
@@ -143,7 +131,7 @@ __global__ void __launch_bounds__(NT, 1)
   if (wg == 0) {  // ------------------------------------------------ TMA
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      Slot sl;
+      Slot<STAGES> sl;
       for (int i = 0; i < nk; ++i, sl.next()) {
         if (i >= STAGES) mbar_wait(empty + 8 * sl.s, sl.phase ^ 1);
         const uint32_t f = full + 8 * sl.s;
@@ -158,7 +146,7 @@ __global__ void __launch_bounds__(NT, 1)
     int acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0;
-    Slot sl, prev;
+    Slot<STAGES> sl, prev;
     for (int i = 0; i < nk; ++i, sl.next()) {
       mbar_wait(full + 8 * sl.s, sl.phase);
       const uint32_t ta_s = base + SM_A + sl.s * A_BYTES, tb_s = base + SM_B + sl.s * B_BYTES;

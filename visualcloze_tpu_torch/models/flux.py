@@ -29,7 +29,8 @@ from ..config import FluxConfig
 from ..ops.rope import embed_nd
 from ..ops.schedule import timestep_embedding
 from .init import init_linears_, materialize, swap_modules
-from .layers import DoubleBlock, Int8Linear, LastLayer, Linear, MLPEmbedder, SingleBlock, W8A8Linear
+from .layers import (DoubleBlock, Int4DiTLinear, Int8Linear, LastLayer, Linear, MLPEmbedder, SingleBlock,
+                     W8A8Linear)
 
 REMAT_POLICIES = (None, "dots", "dots_split")
 # the token-dim linears of the blocks, which w8a8 quantizes (JAX quant._A8_KEYS):
@@ -151,16 +152,20 @@ def a8_linears(flux: Flux):
 
 
 def build_flux(cfg: FluxConfig, device, dtype, int8: bool = False, w8a8: bool = False,
-               smooth: bool = False) -> Flux:
+               smooth: bool = False, int4: bool = False) -> Flux:
     """A Flux with uninitialized weights of `dtype` allocated on `device`.
     int8: every linear an Int8Linear (the JAX package's quantize_flux_int8
     tree: int8 codes, fp32 scales, biases and norm scales in `dtype`).
     w8a8: the quantize_flux_w8a8 tree, the same with a W8A8Linear at every
     a8_linears position (with an a_sinv buffer if smooth:
-    quantize_flux_w8a8_smooth's)."""
+    quantize_flux_w8a8_smooth's). int4: every linear an Int4DiTLinear (the
+    quantize_flux_int4 tree: packed codes, fp32 scales per INT4_GROUP input
+    rows, the group shrunk to divide small input dims)."""
 
     def ctor():
         flux = Flux(cfg)
+        if int4:
+            swap_modules(flux, Linear, lambda m: Int4DiTLinear(m.in_features, m.out_features, m.bias is not None))
         if int8 or w8a8:
             swap_modules(flux, Linear, lambda m: Int8Linear(m.in_features, m.out_features, m.bias is not None))
         if w8a8:

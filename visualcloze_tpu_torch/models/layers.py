@@ -4,9 +4,9 @@ Precision policy, as in the JAX package: matmuls in the parameter dtype,
 LayerNorm / RMSNorm / RoPE / softmax in fp32, modulation arithmetic in fp32
 cast to the stream dtype at the residual add. Module and parameter names
 mirror the JAX parameter tree so that convert.py maps one onto the other.
-The dense linear, the int8 weight-only one (`Int8Linear`, through kernel G)
-and the w8a8 one (`W8A8Linear`, through kernels I and H) are ported; int4
-DiT entries wait for a later slice (convert.py refuses them).
+The dense linear, the int8 weight-only one (`Int8Linear`, through kernel G),
+the int4 weight-only one (`Int4DiTLinear`, through kernel G4) and the w8a8
+one (`W8A8Linear`, through kernels I and H) are ported.
 
 LoRA is unfolded, as in JAX: every forward takes an optional `lora` tree
 (the entries of models/lora.py keyed like the module's own children) and
@@ -30,6 +30,7 @@ from torch import nn
 from ..config import FluxConfig
 from ..ops.act_quant import act_quant_int8
 from ..ops.attention import attention, rope_qk
+from ..ops.int4_matmul import int4_matmul
 from ..ops.int8_matmul import int8_matmul
 from ..ops.w8a8_matmul import w8a8_matmul
 from .lora import Lora
@@ -53,7 +54,7 @@ def _lora_delta(lora: Lora, x: torch.Tensor, scale: float) -> torch.Tensor:
 def lora_delta_dtype(linear: nn.Module) -> torch.dtype:
     """The dtype `linear` computes its LoRA delta in, which _lora_delta casts
     the entry's factors to at every call: a dense Linear's weight dtype, bf16
-    for the int8 and w8a8 linears."""
+    for the int8, int4 and w8a8 linears."""
     return linear.weight.dtype if isinstance(linear, Linear) else torch.bfloat16
 
 
@@ -69,11 +70,10 @@ class Linear(nn.Linear):
 
 
 def linear_kind(entry) -> str:
-    """"dense", "int8" or "w8a8" (an "a8" marker, with or without "a_sinv")
-    for a JAX linear entry (a mapping of its leaves); the int4 DiT entries
-    are not ported yet."""
+    """"dense", "int8", "int4" or "w8a8" (an "a8" marker, with or without
+    "a_sinv") for a JAX linear entry (a mapping of its leaves)."""
     if "w_int4" in entry:
-        raise NotImplementedError("int4 DiT linears (quantize_flux_int4) are not ported yet: ROADMAP item 1")
+        return "int4"
     if "a8" in entry:
         return "w8a8"
     return "int8" if "w_int8" in entry else "dense"
@@ -99,6 +99,47 @@ class Int8Linear(nn.Module):
     def forward(self, x: torch.Tensor, lora: Lora | None = None, lora_scale: float = 1.0) -> torch.Tensor:
         x = x.to(torch.bfloat16)
         y = int8_matmul(x.contiguous(), self.w_int8, self.w_scale)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        if lora is not None:
+            y = y + _lora_delta(lora, x, lora_scale)
+        return y
+
+
+INT4_GROUP = 128
+
+
+def int4_group(din: int, group: int = INT4_GROUP) -> int:
+    """quantize_weight_int4's input group: halved until it divides din (and stays even)."""
+    while din % group or group % 2:
+        group //= 2
+    if group < 2:
+        raise ValueError(f"no even int4 group divides the input dim {din}")
+    return group
+
+
+class Int4DiTLinear(nn.Module):
+    """The int4 weight-only DiT linear (JAX `linear`'s "w_int4" branch, the
+    quantize_flux_int4 entry): buffers w_int4 (in/2, out) uint8, two codes a
+    byte (row 2i in the low nibble), and w_scale (in/group, out) fp32, as the
+    JAX entry stores them, and a bias in the compute dtype. y = bf16(x) @
+    bf16(q * scale) through kernel G4 (its plain version for CPU tensors),
+    + b, + the LoRA delta. The dequantized weights equal JAX's bit for bit;
+    G4 sums in fp32 and rounds once, as JAX's bf16 dot does on the CPU."""
+
+    lora_target = True  # models/lora.init_lora gives it a LoRA entry
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.group = int4_group(in_features)
+        self.register_buffer("w_int4", torch.empty((in_features // 2, out_features), dtype=torch.uint8))
+        self.register_buffer("w_scale", torch.empty((in_features // self.group, out_features), dtype=torch.float32))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor, lora: Lora | None = None, lora_scale: float = 1.0) -> torch.Tensor:
+        x = x.to(torch.bfloat16)
+        y = int4_matmul(x.contiguous(), self.w_int4, self.w_scale)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         if lora is not None:

@@ -9,6 +9,8 @@ The port's own copy of what single-card int8 serving needs:
     one fp32 scale per (128-row input group, output channel)
     (`quantize_weight_int4`), dequantized to x's dtype at each call
     (`Int4Linear`, JAX `t5._w`);
+  - the int4 DiT (`quantize_flux_int4`, JAX's): every linear a
+    layers.Int4DiTLinear of the same codes and scales, through kernel G4;
   - int8 token tables with one scale per row (`quantize_embedding_int8`),
     dequantized after the gather (`embedding_lookup`, `Int8Embedding`).
   - w8a8 DiT linears (`quantize_flux_w8a8`, JAX's quantize_flux_w8a8 and
@@ -30,7 +32,7 @@ temporaries never exceed one weight); `init_*` draw random codes straight on
 the device from a torch.Generator (uniform over the code range, like JAX's
 random bits), so peak memory equals resident memory. Their leaves are named
 as the JAX trees' entries, so convert.py carries either tree into the other's
-module. The int4 DiT is not ported (ROADMAP item 1).
+module.
 """
 
 from __future__ import annotations
@@ -43,14 +45,14 @@ from torch import nn
 
 from ..config import CLIPTextConfig, FluxConfig, T5Config
 from ..ops.act_quant import act_quant_int8 as _act_quant_kernel
+from ..ops.int4_matmul import dequant_int4_plain
 from .clip import CLIPTextEncoder, LayerNorm
 from .flux import Flux, a8_linears, build_flux
 from .init import materialize, normal_, swap_modules
-from .layers import Int8Linear, W8A8Linear
+from .layers import INT4_GROUP, Int4DiTLinear, Int8Linear, W8A8Linear
+from .layers import int4_group as _int4_group_for
 from .lora import tree_items, tree_replace
 from .t5 import T5Encoder
-
-INT4_GROUP = 128
 
 
 # ----------------------------- arithmetic -----------------------------
@@ -74,15 +76,6 @@ def dequantize_linear(p: Mapping, dtype: torch.dtype = torch.float32) -> dict:
     if "b" in p:
         out["b"] = p["b"]
     return out
-
-
-def _int4_group_for(din: int, group: int = INT4_GROUP) -> int:
-    """quantize_weight_int4's group: halved until it divides din (and stays even)."""
-    while din % group or group % 2:
-        group //= 2
-    if group < 2:
-        raise ValueError(f"no even int4 group divides the input dim {din}")
-    return group
 
 
 def act_quant_int8(x: torch.Tensor, a_sinv: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -111,7 +104,8 @@ def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP) -> dict:
         raise ValueError(f"int4 packing needs an even input dim, got weight shape {tuple(w.shape)}")
     group = _int4_group_for(din, group)
     wf = w.to(torch.float32).reshape(*lead, din // group, group, dout)
-    scale = torch.clamp_min(wf.abs().amax(dim=-2, keepdim=True), 1e-8) / 7.0
+    amax = torch.clamp_min(wf.abs().amax(dim=-2, keepdim=True), 1e-8)
+    scale = amax / torch.full_like(amax, 7.0)  # a tensor divisor: on CUDA a scalar one is a reciprocal multiply
     q = torch.clamp(torch.round(wf / scale), -8, 7).to(torch.int8).reshape(*lead, din, dout)
     lo = q[..., 0::2, :].to(torch.uint8) & 0xF
     hi = q[..., 1::2, :].to(torch.uint8) & 0xF
@@ -120,14 +114,7 @@ def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP) -> dict:
 
 def dequant_weight_int4(entry: Mapping, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """{"w_int4", "w_scale"} -> (..., in, out) in `dtype` (fp32 products, one rounding)."""
-    p8, scale = entry["w_int4"], entry["w_scale"]
-    lo = ((p8 & 0xF).to(torch.int8) ^ 8) - 8  # sign-extend the nibble
-    hi = ((p8 >> 4).to(torch.int8) ^ 8) - 8
-    q = torch.stack([lo, hi], dim=-2)  # (..., in/2, 2, out)
-    *lead, half, _, dout = q.shape
-    din, gin = 2 * half, scale.shape[-2]
-    wf = q.reshape(*lead, gin, din // gin, dout).to(torch.float32) * scale[..., :, None, :]
-    return wf.reshape(*lead, din, dout).to(dtype)
+    return dequant_int4_plain(entry["w_int4"], entry["w_scale"], dtype)
 
 
 def quantize_embedding_int8(emb: torch.Tensor) -> dict:
@@ -193,7 +180,7 @@ class DequantInt8Linear(nn.Module):
         return torch.matmul(x, w) + self.bias.to(x.dtype)
 
 
-QUANTIZED_MODULES = (Int8Linear, W8A8Linear, DequantInt8Linear, Int4Linear, Int8Embedding)
+QUANTIZED_MODULES = (Int8Linear, Int4DiTLinear, W8A8Linear, DequantInt8Linear, Int4Linear, Int8Embedding)
 
 
 def build_t5_int4(cfg: T5Config, device, dtype, int8_embed: bool, group: int = INT4_GROUP) -> T5Encoder:
@@ -239,7 +226,7 @@ def _quantized_copy(dst: nn.Module, src: nn.Module, smooth: dict | None = None, 
             continue
         if isinstance(m, Int8Embedding):
             q = quantize_embedding_int8(src_params[name])
-        elif isinstance(m, Int4Linear):
+        elif isinstance(m, (Int4Linear, Int4DiTLinear)):
             q = quantize_weight_int4(src_mods[name].weight.t(), m.group)
         elif isinstance(m, W8A8Linear):
             q = _quantize_w8a8(src_mods[name].weight, smooth[name] if m.a_sinv is not None else None, alpha)
@@ -271,6 +258,16 @@ def quantize_flux_int8(flux: Flux) -> Flux:
     biases and norm scales keep their dtype. The source is left as it is."""
     dev = next(flux.parameters()).device
     return _quantized_copy(build_flux(flux.cfg, dev, _dtype_of(flux), int8=True), flux)
+
+
+def quantize_flux_int4(flux: Flux) -> Flux:
+    """A new Flux on flux's device with every linear int4 (Int4DiTLinear,
+    JAX quantize_flux_int4: packed codes, one fp32 scale per (INT4_GROUP
+    input rows, output channel), the group shrunk to divide small input
+    dims); biases and norm scales keep their dtype. The source is left as
+    it is."""
+    dev = next(flux.parameters()).device
+    return _quantized_copy(build_flux(flux.cfg, dev, _dtype_of(flux), int4=True), flux)
 
 
 def quantize_flux_w8a8(flux: Flux) -> Flux:

@@ -10,6 +10,7 @@ from .flash_attention import (
     flash_attn_fwd_lse,
     flash_attn_rope,
 )
+from .int4_matmul import int4_matmul
 from .int8_matmul import int8_matmul
 from .w8a8_matmul import w8a8_matmul
 
@@ -22,6 +23,7 @@ KERNELS = {
     "flash_attn_bwd_dq": flash_attn_bwd_dq,
     "flash_attn_bwd_dkv": flash_attn_bwd_dkv,
     "int8_matmul": int8_matmul,
+    "int4_matmul": int4_matmul,
     "w8a8_matmul": w8a8_matmul,
     "act_quant_int8": act_quant_int8,
 }

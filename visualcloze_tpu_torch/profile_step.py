@@ -55,7 +55,9 @@ from .pipeline import random_components, synthetic_full_components
 ATTENTION_KERNEL = re.compile(r"\b(rope_rotate|flash_fwd)[<(]")
 LSE_KERNEL = re.compile(r"\bflash_fwd<true>")
 BACKWARD_KERNEL = re.compile(r"\bflash_bwd_(dq|dkv)\(")
-INT8_KERNEL = re.compile(r"\bint8_(matmul\w*|gemv)<")  # csrc/int8_matmul.cu: its wide and GEMV bodies
+# csrc/int8_matmul.cu: its GEMV body, and the shared wide body (weight_only_wide.cuh) with G's policy
+INT8_KERNEL = re.compile(r"\bint8_(matmul\w*|gemv)<|\bmatmul_wide<[^,]*\bInt8Convert\b")
+INT4_KERNEL = re.compile(r"\bint4_gemv<|\bmatmul_wide<[^,]*\bInt4Convert\b")  # csrc/int4_matmul.cu (G4)
 W8A8_KERNEL = re.compile(r"\bw8a8_matmul_kernel\(")  # csrc/w8a8_matmul.cu (H)
 ACT_QUANT_KERNEL = re.compile(r"\bact_quant_kernel<")  # csrc/act_quant_int8.cu (I)
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
@@ -71,6 +73,8 @@ def kernel_class(name: str) -> str:
         return "activation quantize (kernel I)"
     if INT8_KERNEL.search(name):
         return "int8 matmul (kernel G)"
+    if INT4_KERNEL.search(name):
+        return "int4 matmul (kernel G4)"
     if LSE_KERNEL.search(name):
         return "attention forward (kernel E)"
     if BACKWARD_KERNEL.search(name):
@@ -305,7 +309,7 @@ def main(argv=None) -> int:
     for name, (us, _) in per_kernel.items():
         classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + us
     kernel_ms = sum(classes.values()) / 1e3 / args.steps
-    gemm_ms = sum(classes.get(k, 0.0) for k in ("gemm (linears)", "int8 matmul (kernel G)",
+    gemm_ms = sum(classes.get(k, 0.0) for k in ("gemm (linears)", "int8 matmul (kernel G)", "int4 matmul (kernel G4)",
                                                 "w8a8 matmul (kernel H)")) / 1e3 / args.steps
     result = dict(
         device=smi_line(), torch=torch.__version__, mode="train" if args.train else "denoise", quantize=args.quantize,

@@ -1,22 +1,30 @@
-"""ODE samplers of the rectified flow (counterpart of
-visualcloze_tpu/transport/sampling.py: solver_arg, denoise_ode and
-denoise_ode_adaptive).
+"""Samplers of the rectified flow (counterpart of
+visualcloze_tpu/transport/sampling.py): the ODE solvers (solver_arg,
+denoise_ode, denoise_ode_adaptive), the SDE sampler (denoise_sde), the
+likelihood ODE (sample_ode_likelihood) and the reference's Sampler API.
 
 Flux time (t = 1 noise); the model predicts flux-time velocity. N grid points
 give N - 1 integrator steps. Where JAX runs one compiled lax.scan (or
 while_loop), the port runs a Python loop over the same arithmetic: the times
 and step sizes are fp32 scalars (numpy float32 here, as JAX's traced fp32
-scalars), euler and heun carry x in its own dtype, ab2, cached[:K] and dopri5
-integrate in fp32. The model sees t rounded to x's dtype and x cast to it.
+scalars), euler and heun carry x in its own dtype, ab2, cached[:K], dopri5
+and the SDE steps integrate in fp32. The model sees t rounded to x's dtype
+and x cast to it. Random draws come from an explicit torch.Generator; the
+SDE noise and the likelihood's probes can be handed in instead (the tests
+hand in the values JAX drew).
 """
 
 from __future__ import annotations
 
+import functools
+import math
 import re
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from ..ops.schedule import ode_timesteps
 
 ModelFn = Callable[..., torch.Tensor]
 F32 = np.float32
@@ -216,3 +224,187 @@ def denoise_ode_adaptive(
     if not abs(F32(t - t_end)) <= F32(1e-6):
         x32 = torch.full_like(x32, float("nan"))
     return x32.to(x.dtype)
+
+
+def _draws(given: Sequence[torch.Tensor] | None, n: int, make) -> list[torch.Tensor]:
+    """`given` (n tensors), or n tensors from make()."""
+    if given is not None:
+        if len(given) != n:
+            raise ValueError(f"{len(given)} draws handed in, {n} needed")
+        return list(given)
+    return [make() for _ in range(n)]
+
+
+def denoise_sde(
+    transport,
+    model_fn: ModelFn,
+    x: torch.Tensor,
+    timesteps: np.ndarray,
+    cond: torch.Tensor | None = None,
+    diffusion_form: str = "SBDM",
+    diffusion_norm: float = 1.0,
+    last_step: str | None = "Mean",
+    method: str = "Euler",
+    generator: torch.Generator | None = None,
+    noise: Sequence[torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Euler-Maruyama (or Heun) SDE sampler sharing its marginals with the
+    flow ODE: with flux step ds < 0, dx = [v - w(t) score] ds + sqrt(2 w(t)
+    |ds|) dW, w the path's diffusion of `diffusion_form` times
+    `diffusion_norm`. Every step but the last is stochastic, the last one
+    deterministic: "Mean" (the drift alone), "Euler" (the velocity alone),
+    "Tweedie" (x / alpha + sigma^2 / alpha * score); last_step None makes
+    every step stochastic. Heun draws its noise first, then averages the
+    drift at both ends. noise: the N(0, 1) fp32 draws of the stochastic
+    steps, one of x's shape each, instead of draws from `generator`."""
+    b, dtype = x.shape[0], x.dtype
+    plan = transport.path
+    velocity = _velocity_fn(model_fn, x, cond)
+
+    def diffusion_w(x_any, t):
+        t_vec = torch.full((b,), float(t), dtype=torch.float32, device=x.device)
+        return plan.compute_diffusion(x_any, 1.0 - t_vec, form=diffusion_form, norm=diffusion_norm)
+
+    def drift_terms(xd, t):  # xd in x's dtype
+        v = velocity(xd, t).float()
+        t_vec = torch.full((b,), float(t), dtype=torch.float32, device=x.device)
+        return v, transport.score_from_velocity(v, xd.float(), t_vec), diffusion_w(xd, t)
+
+    def sde_drift(x32, t):
+        v, score, w = drift_terms(x32.to(dtype), t)
+        return v - w * score
+
+    pairs = list(zip(np.asarray(timesteps, dtype=F32)[:-1], np.asarray(timesteps, dtype=F32)[1:]))
+    if method not in ("Euler", "Heun"):
+        raise NotImplementedError(f"SDE method {method!r}")
+    if last_step not in (None, "Mean", "Euler", "Tweedie"):
+        raise NotImplementedError(f"last_step {last_step!r}")
+    stochastic = pairs if last_step is None else pairs[:-1]
+    draws = _draws(noise, len(stochastic), lambda: torch.randn(
+        x.shape, generator=generator, dtype=torch.float32, device=x.device))
+    for (t_cur, t_next), dw in zip(stochastic, draws):
+        ds = float(F32(t_next - t_cur))  # negative
+        x32 = x.float()
+        if method == "Euler":
+            drift = sde_drift(x32, t_cur)
+            x32 = x32 + drift * ds + torch.sqrt(2 * diffusion_w(x32, t_cur) * abs(ds)) * dw
+        else:
+            xhat = x32 + torch.sqrt(2 * diffusion_w(x32, t_cur) * abs(ds)) * dw
+            k1 = sde_drift(xhat, t_cur)
+            k2 = sde_drift(xhat + ds * k1, t_next)
+            x32 = xhat + 0.5 * ds * (k1 + k2)
+        x = x32.to(dtype)
+    if last_step is None:
+        return x
+    t_cur, t_next = pairs[-1]
+    dt = float(F32(t_next - t_cur))
+    if last_step == "Mean":
+        v, score, w = drift_terms(x, t_cur)
+        return (x.float() + (v - w * score) * dt).to(dtype)
+    if last_step == "Euler":
+        return (x.float() + velocity(x, t_cur).float() * dt).to(dtype)
+    _, score, _ = drift_terms(x, t_cur)  # Tweedie: alpha and sigma at transport time 1 - t
+    t_tr = torch.full((b,), float(F32(F32(1.0) - t_cur)), dtype=torch.float32, device=x.device)
+    alpha, sigma = plan.compute_alpha_t(t_tr)[0][0], plan.compute_sigma_t(t_tr)[0][0]
+    return (x.float() / alpha + (sigma ** 2) / alpha * score).to(dtype)
+
+
+def sample_ode_likelihood(
+    model_fn: ModelFn,
+    x: torch.Tensor,
+    num_steps: int,
+    cond: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    probes: Sequence[torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The likelihood ODE with Hutchinson's divergence estimator: Euler from
+    data to noise (flux time 0 -> 1, `num_steps` grid points), dx/dt = v,
+    dlogp/dt = -div v, div v ~ eps^T J eps for a Rademacher probe eps each
+    step. JAX takes J eps by forward mode (jvp); the port's kernels have
+    backward rules only, so it takes eps^T J by one vector-Jacobian product
+    (torch.autograd.grad): eps^T (J eps) = (eps^T J) eps, the same number.
+    probes: the steps' probes (x's shape, +-1) instead of draws from
+    `generator`. Returns (logp (B,) fp32, the terminal state)."""
+    b, dtype = x.shape[0], x.dtype
+    velocity = _velocity_fn(model_fn, x, cond)
+    ts = np.linspace(0.0, 1.0, num_steps, dtype=F32)
+    pairs = list(zip(ts[:-1], ts[1:]))
+    eps_all = _draws(probes, len(pairs), lambda: (torch.randint(
+        0, 2, x.shape, generator=generator, device=x.device) * 2 - 1).to(dtype))
+    dims = tuple(range(1, x.dim()))
+    logp = torch.zeros((b,), dtype=torch.float32, device=x.device)
+    for (t_cur, t_next), eps in zip(pairs, eps_all):
+        dt = float(F32(t_next - t_cur))
+        eps = eps.to(dtype)
+        x_in = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            v = velocity(x_in, t_cur)
+            (vjp,) = torch.autograd.grad(v, x_in, eps.to(v.dtype))
+        div_est = (vjp * eps).float().sum(dim=dims)
+        x = x + dt * v.detach().to(dtype)
+        logp = logp + dt * div_est
+    n = math.prod(x.shape[1:])
+    prior = -0.5 * n * math.log(2 * math.pi) - 0.5 * x.float().square().sum(dim=dims)
+    return prior + logp, x
+
+
+class Sampler:
+    """The reference's Sampler API: sample_ode(...) and sample_sde(...)
+    return a closure sample_fn(x, model_fn, model_kwargs) that builds the
+    time grid from x's sequence length; model_kwargs' "cond" is the
+    channel-concatenated conditioning, the rest go to model_fn."""
+
+    def __init__(self, transport):
+        self.transport = transport
+
+    def sample_ode(
+        self,
+        *,
+        sampling_method: str = "euler",
+        num_steps: int = 50,
+        atol: float = 1e-6,
+        rtol: float = 1e-3,
+        reverse: bool = False,
+        do_shift: bool = True,
+        time_shifting_factor: float | None = None,
+        strength: float | None = None,
+    ):
+        if reverse:
+            raise NotImplementedError("reverse sampling is unused by the pipeline")
+
+        def sample_fn(x, model_fn, model_kwargs):
+            kwargs = dict(model_kwargs)
+            cond = kwargs.pop("cond", None)
+            fn = functools.partial(model_fn, **kwargs)
+            ts = ode_timesteps(num_steps, int(x.shape[1]), do_shift=do_shift, strength=strength,
+                               time_shifting_factor=time_shifting_factor)
+            if sampling_method == "dopri5":  # adaptive: integrate [ts[0], ts[-1]] directly
+                return denoise_ode_adaptive(fn, x, float(ts[0]), float(ts[-1]), cond=cond, atol=atol, rtol=rtol)
+            return denoise_ode(fn, x, ts, cond=cond, method=sampling_method)
+
+        return sample_fn
+
+    def sample_sde(
+        self,
+        *,
+        sampling_method: str = "Euler",
+        diffusion_form: str = "SBDM",
+        diffusion_norm: float = 1.0,
+        last_step: str | None = "Mean",
+        last_step_size: float = 0.04,
+        num_steps: int = 250,
+    ):
+        del last_step_size  # the grid's last interval is the last step, as in JAX
+
+        def sample_fn(x, model_fn, model_kwargs, generator=None, noise=None):
+            kwargs = dict(model_kwargs)
+            cond = kwargs.pop("cond", None)
+            # score-based diffusion forms diverge at the noise end (flux t = 1):
+            # start 1e-3 inside it, as the reference's sample_eps
+            eps = self.transport.sample_eps or (1e-3 if diffusion_form != "constant" else 0.0)
+            ts = np.linspace(1.0 - eps, 0.0, num_steps, dtype=F32)
+            return denoise_sde(self.transport, functools.partial(model_fn, **kwargs), x, ts, cond=cond,
+                               diffusion_form=diffusion_form, diffusion_norm=diffusion_norm,
+                               last_step=last_step, method=sampling_method, generator=generator, noise=noise)
+
+        return sample_fn

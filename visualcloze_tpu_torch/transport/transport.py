@@ -1,5 +1,6 @@
-"""Rectified-flow transport for training (counterpart of
-visualcloze_tpu/transport/transport.py).
+"""Rectified-flow transport (counterpart of
+visualcloze_tpu/transport/transport.py): training losses and the
+prediction-type conversions of the samplers.
 
 Everything the model sees is flux time (t = 1 noise, t = 0 data); only the
 path-plan calls convert (u = 1 - t). Randomness comes from an explicit
@@ -108,6 +109,25 @@ class Transport:
         else:
             task_loss = diff.square().mean(dim=tuple(range(1, diff.dim())))
         return {"loss": task_loss, "task_loss": task_loss.detach(), "t": t}
+
+
+    # ----------------------------- conversions -----------------------------
+
+    def velocity_from_model(self, model_out, x, t):
+        """The model's prediction type mapped to flux-time velocity at flux t."""
+        u = 1.0 - t
+        if self.model_type == ModelType.VELOCITY:
+            return model_out
+        if self.model_type == ModelType.SCORE:  # data-time velocity from the score, sign flipped
+            return -self.path.get_velocity_from_score(model_out, x, u)
+        if self.model_type == ModelType.NOISE:
+            sigma_t, _ = self.path.compute_sigma_t(path_mod.expand_t(u, x))
+            return -self.path.get_velocity_from_score(model_out / -sigma_t, x, u)
+        raise NotImplementedError(self.model_type)
+
+    def score_from_velocity(self, velocity_flux, x, t):
+        """The score at flux time t from a flux-time velocity prediction."""
+        return self.path.get_score_from_velocity(-velocity_flux, x, 1.0 - t)
 
 
 def create_transport(
