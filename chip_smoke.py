@@ -18,16 +18,21 @@ Phases, each followed by one flushed JSON line on stdout:
              512-token text stream's proj and linear2; G's launches timed
              as a replayed CUDA graph, as the GEMV is shorter than its
              wrapper's host-side launch; the int4 matmul G4 likewise, at
-             the same shapes, group 128, with the library calls
-             torch._weight_int4pack_mm and F.linear on a dequantized copy;
-             the w8a8 matmul H and the
+             the same shapes, group 128, and at the edges of its 2-CTA
+             clusters (M 17 and 129: a pair with an empty or nearly empty
+             peer; M 257: an odd count of tiles, also at N 64), with the
+             library calls torch._weight_int4pack_mm and F.linear on a
+             dequantized copy; the w8a8 matmul H and the
              activation quantize I bit for bit (tolerance 0): H at the w8a8
              DiT's six linear shapes at M = 3968, the 3456-token image
              stream's and the 512-token text stream's qkv, the text
-             stream's mlp.2 and a ragged M, I at K = 3072, 12288 and 15360
+             stream's mlp.2, a ragged M and its clusters' edges (M 7 at N
+             64, 129, 257 and 333), timed as a replayed CUDA graph, I at K
+             = 3072, 12288 and 15360
              in fp32 and bf16, with and without a_sinv, an all-zero row in
              each, and at 7 rows; H's library call torch._int_mm, also
-             followed by the plain rescale, int8 dense peak 1,979 TOP/s), the
+             followed by the plain rescale, both graph-timed too, int8
+             dense peak 1,979 TOP/s), the
              kernel's, the plain version's and a PyTorch library call's ms
              (CUDA events; the backward's library call is SDPA's backward,
              timed as forward + backward minus forward; G's is
@@ -724,7 +729,7 @@ def int_mm_ms(a, w, x_scale, w_scale, bias) -> tuple[float | None, float | None]
         y = (torch._int_mm(a, wt).float() * x_scale[:, None] * w_scale).to(torch.bfloat16)
         return y if bias is None else y + bias
 
-    return cuda_ms(lambda: torch._int_mm(a, wt), 10), cuda_ms(rescaled, 10)
+    return cuda_ms(lambda: torch._int_mm(a, wt), 10, graph=True), cuda_ms(rescaled, 10, graph=True)
 
 
 def check_w8a8_matmul(m: int, k: int, n: int, what: str, reps: int, with_bias: bool = True) -> dict:
@@ -734,7 +739,8 @@ def check_w8a8_matmul(m: int, k: int, n: int, what: str, reps: int, with_bias: b
     (every w8a8 linear of the DiT has one). The integer sums are exact, so
     the tolerance is 0: bit for bit; a second launch gives the same bits.
     Beside the library call (torch._int_mm), the same followed by the plain
-    rescale and bias."""
+    rescale and bias; all three timed as replayed CUDA graphs, so the
+    kernel's and the library's host-side launch work are left out alike."""
     import torch
 
     from visualcloze_tpu_torch.ops.w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
@@ -753,7 +759,7 @@ def check_w8a8_matmul(m: int, k: int, n: int, what: str, reps: int, with_bias: b
     err = (got.float() - want.float()).abs().max().item()
     rms = want.float().pow(2).mean().sqrt().item()
     del want
-    ms = cuda_ms(lambda: w8a8_matmul(a, w, x_scale, w_scale, bias), reps)
+    ms = cuda_ms(lambda: w8a8_matmul(a, w, x_scale, w_scale, bias), reps, graph=True)
     plain_ms = cuda_ms(lambda: w8a8_matmul_plain(a, w, x_scale, w_scale, bias), 2)
     library_ms, rescaled_ms = int_mm_ms(a, w, x_scale, w_scale, bias)
     bms, by = bound(2.0 * m * n * k, m * k + n * k + 4 * (m + n) + 2 * m * n + (2 * n if with_bias else 0),
@@ -2262,6 +2268,10 @@ def main() -> int:
         lambda: [check_int4_matmul(4097, 3072, 3072, "ragged M (proj)", 20)],
         lambda: [check_int4_matmul(512, 3072, 3072, "text stream proj", 50)],
         lambda: [check_int4_matmul(512, 12288, 3072, "text stream linear2", 50)],
+        lambda: [check_int4_matmul(17, 3072, 3072, "cluster edge: M 17, a pair with an empty peer", 50)],
+        lambda: [check_int4_matmul(129, 3072, 3072, "cluster edge: M 129, a pair with one row in its peer", 50)],
+        lambda: [check_int4_matmul(257, 3072, 3072, "cluster edge: M 257, an odd count of tiles", 50)],
+        lambda: [check_int4_matmul(257, 3072, 64, "cluster edge: M 257, N 64", 50)],
         lambda: [check_w8a8_matmul(3968, 3072, 21504, "linear1", 20)],
         lambda: [check_w8a8_matmul(3968, 15360, 3072, "linear2", 20)],
         lambda: [check_w8a8_matmul(3968, 3072, 9216, "qkv", 20)],
@@ -2273,6 +2283,10 @@ def main() -> int:
         lambda: [check_w8a8_matmul(512, 12288, 3072, "text stream mlp.2", 50)],
         lambda: [check_w8a8_matmul(4097, 3072, 3072, "ragged M (proj)", 20)],
         lambda: [check_w8a8_matmul(3968, 3072, 21504, "linear1 without a bias", 20, with_bias=False)],
+        lambda: [check_w8a8_matmul(7, 3072, 64, "cluster edge: M 7, N 64, an empty peer", 50, with_bias=False)],
+        lambda: [check_w8a8_matmul(129, 12288, 3072, "cluster edge: M 129, one row in the peer", 50)],
+        lambda: [check_w8a8_matmul(257, 3072, 9216, "cluster edge: M 257, an odd count of tiles", 50)],
+        lambda: [check_w8a8_matmul(333, 3072, 3072, "cluster edge: M 333 without a bias", 50, with_bias=False)],
         lambda: [check_act_quant(3456, 3072, False, False, 50)],  # a double block's qkv / mlp.0 input (fp32)
         lambda: [check_act_quant(3968, 3072, True, False, 50)],   # linear1's input
         lambda: [check_act_quant(3456, 12288, True, False, 50)],  # mlp.2's input

@@ -378,12 +378,16 @@ def _int8_case(dev, m, k, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (333, 3072, 9216), (3456, 3072, 64), (3968, 3072, 21504),
                                      (16, 3072, 3072), (17, 3072, 3072), (64, 3072, 272), (129, 256, 16),
-                                     (300, 64, 512), (200, 15360, 3072), (5, 15360, 64), (2, 64, 16)])
+                                     (300, 64, 512), (200, 15360, 3072), (5, 15360, 64), (2, 64, 16),
+                                     (17, 3072, 64), (129, 3072, 3072), (257, 3072, 3072), (257, 3072, 64)])
 def test_gpu_int8_matmul_matches_plain(m, k, n):
     """Kernel G against its plain version: the modulation GEMV (M = 1), a
     ragged M, final_layer.linear (N = 64), linear1; M on both sides of the
     GEMV body's threshold (16, 17) and at 64 and 129; N = 16 and 272 (not a
-    multiple of the 256-column tile); K = 64 (one stage) and 15360. 4 bf16
+    multiple of the 256-column tile); K = 64 (one stage) and 15360; the edges
+    of the wide body's 2-CTA clusters along M (17 and 129: a pair whose
+    second CTA has no rows or one; 257: an odd count of 128-row tiles), also
+    at N = 64. 4 bf16
     ulps of the largest output (fp32 sums of K exact products in another
     order); the fp32 output within 1e-5 of it, times K / 3072 above K = 3072
     (the rounding of a sum grows with its terms)."""
@@ -402,7 +406,8 @@ def test_gpu_int8_matmul_matches_plain(m, k, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (7, 3072, 3072), (333, 3072, 9216)])
+@pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (7, 3072, 3072), (333, 3072, 9216), (129, 3072, 64),
+                                     (257, 3072, 3072)])
 def test_gpu_int8_matmul_is_deterministic(m, k, n):
     """Two launches of kernel G give the same bits, in its GEMV body (M = 1,
     M = 7) and its wide body."""
@@ -431,12 +436,17 @@ def _int4_case(dev, m, k, n, group):
 @pytest.mark.parametrize("m, k, n, group", [(1, 3072, 18432, 128), (3, 256, 3072, 128), (16, 3072, 3072, 128),
                                             (17, 768, 3072, 128), (333, 3072, 9216, 128), (3456, 3072, 64, 128),
                                             (129, 256, 16, 128), (300, 64, 272, 64), (200, 15360, 3072, 128),
-                                            (5, 15360, 64, 128), (300, 512, 1024, 256)])
+                                            (5, 15360, 64, 128), (300, 512, 1024, 256), (17, 3072, 3072, 128),
+                                            (17, 3072, 64, 128), (129, 3072, 3072, 128), (257, 3072, 3072, 128),
+                                            (257, 3072, 64, 128), (512, 12288, 3072, 128)])
 def test_gpu_int4_matmul_matches_plain(m, k, n, group):
     """Kernel G4 against its plain version: the modulation GEMV, M on both
     sides of the GEMV body's threshold, final_layer.linear (N = 64), N = 16
     and 272 (not a multiple of the 256-column tile), K = 64 in one group of
-    64, K = 15360, a group of 256. 4 bf16 ulps of the largest output (fp32
+    64, K = 15360, a group of 256; the edges of the 2-CTA clusters along M
+    (17 and 129: a pair whose second CTA has no rows or one; 257: an odd
+    count of 128-row tiles), also at N = 64, and the text stream's linear2.
+    4 bf16 ulps of the largest output (fp32
     sums of the same bf16 products in another order); the fp32 output within
     1e-5 of it, times K / 3072 above K = 3072."""
     from visualcloze_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
@@ -454,7 +464,8 @@ def test_gpu_int4_matmul_matches_plain(m, k, n, group):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (7, 3072, 3072), (333, 3072, 9216)])
+@pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (7, 3072, 3072), (333, 3072, 9216), (129, 3072, 64),
+                                     (257, 3072, 3072)])
 def test_gpu_int4_matmul_is_deterministic(m, k, n):
     """Two launches of kernel G4 give the same bits, in both bodies."""
     from visualcloze_tpu_torch.ops.int4_matmul import int4_matmul
@@ -512,6 +523,30 @@ def test_gpu_w8a8_matmul_matches_plain_bit_for_bit(m, k, n):
         again = w8a8_matmul(a, w, xs, ws, b)
         torch.cuda.synchronize()
         assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+        assert torch.equal(got, w8a8_matmul_plain(a, w, xs, ws, b))
+        assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [3072, 12288])
+@pytest.mark.parametrize("n", [64, 3072, 9216])
+@pytest.mark.parametrize("m", [7, 129, 333, 512, 4097])
+def test_gpu_w8a8_matmul_grid_is_bit_exact_and_deterministic(m, n, k):
+    """Kernel H over a grid of shapes, with and without a bias: M 7 (a
+    cluster whose second CTA has no rows), 129 (one row in it), 333, 512
+    (the text stream, 128-column tiles) and 4097 (an odd count of 128-row
+    tiles); N 64 (less than half a tile), 3072 and 9216; K 3072 and 12288.
+    Equal to the plain version bit for bit, and a second launch gives the
+    same bits."""
+    from visualcloze_tpu_torch.ops.w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
+
+    dev = _cuda_or_skip()
+    a, w, xs, ws = _w8a8_case(dev, m, k, n)
+    bias = (torch.randn((n,), device=dev) * 0.1).to(torch.bfloat16)
+    for b in (None, bias):
+        got = w8a8_matmul(a, w, xs, ws, b)
+        again = w8a8_matmul(a, w, xs, ws, b)
+        torch.cuda.synchronize()
         assert torch.equal(got, w8a8_matmul_plain(a, w, xs, ws, b))
         assert torch.equal(got, again)
 

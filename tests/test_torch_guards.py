@@ -346,6 +346,10 @@ def test_profile_step_classes_kernels_by_demangled_name():
     "float const*, float*, int, int, int, int, int, unsigned int)",
     "void (anonymous namespace)::int8_gemv<__nv_bfloat16, 1>(__nv_bfloat16 const*, signed char const*)",
     "void (anonymous namespace)::int8_gemv<float, 4>(__nv_bfloat16 const*, signed char const*)",
+    "void vc::wide::matmul_wide<(anonymous namespace)::Int8Convert<2>, __nv_bfloat16>(CUtensorMap_st, "
+    "CUtensorMap_st, float const*, __nv_bfloat16*, int, int, int, int, int, unsigned int)",
+    "void vc::wide::matmul_wide<(anonymous namespace)::Int8Convert<1>, float>(CUtensorMap_st, CUtensorMap_st, "
+    "float const*, float*, int, int, int, int, int, unsigned int)",
 ])
 def test_profile_step_classes_both_bodies_of_kernel_g(name):
     from visualcloze_tpu_torch.profile_step import kernel_class
@@ -362,6 +366,75 @@ def test_profile_step_classes_both_bodies_of_kernel_g4(name):
     from visualcloze_tpu_torch.profile_step import kernel_class
 
     assert kernel_class(name) == "int4 matmul (kernel G4)"
+
+
+@pytest.mark.parametrize("name", [
+    "(anonymous namespace)::w8a8_matmul_kernel(CUtensorMap, CUtensorMap, float const*)",
+    "void (anonymous namespace)::w8a8_matmul_kernel<256>(CUtensorMap_st, CUtensorMap_st, float const*, "
+    "float const*, __nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int, unsigned int, unsigned int)",
+    "void (anonymous namespace)::w8a8_matmul_kernel<128>(CUtensorMap_st, CUtensorMap_st, float const*)",
+])
+def test_profile_step_classes_both_tile_widths_of_kernel_h(name):
+    from visualcloze_tpu_torch.profile_step import kernel_class
+
+    assert kernel_class(name) == "w8a8 matmul (kernel H)"
+
+
+@pytest.mark.parametrize("m, n, tile_n, paired", [
+    (512, 3072, 128, True), (512, 9216, 128, True),  # the text stream: 256-column tiles fill under half of 66 pairs
+    (3968, 3072, 256, True), (3968, 9216, 256, True), (3968, 12288, 256, True), (3456, 9216, 256, True),
+    (3968, 21504, 256, False),  # 31 tiles: 1344 pair tiles take 21 rounds, 2604 lone tiles 20
+    (4097, 3072, 256, False),  # 33 tiles: pairs take 4 rounds, lone CTAs 3
+    (7, 64, 128, True), (129, 3072, 128, True),
+])
+def test_w8a8_tile_plan_pairs_and_narrows_only_where_that_takes_fewer_rounds(m, n, tile_n, paired):
+    """Kernel H's persistent plan on the H100's 66 resident clusters of two
+    CTAs (132 lone CTAs): 128-column tiles for the text stream, 256 for the
+    image stream; pairs unless rounding the 128-row tiles up to even costs
+    a round; the grid never holds more clusters than tiles or than fit."""
+    from visualcloze_tpu_torch.ops.w8a8_matmul import tile_plan
+
+    got_n, got_paired, clusters = tile_plan(m, n, 66)
+    assert (got_n, got_paired) == (tile_n, paired)
+    groups = -(-(-(-m // 128)) // (2 if paired else 1))
+    assert clusters == min(66 if paired else 132, groups * -(-n // tile_n))
+
+
+def test_w8a8_tile_plan_counts_rounds_of_the_resident_clusters():
+    """With fewer resident clusters the same shape may take the wide tile:
+    the plan follows the card's count, not a constant."""
+    from visualcloze_tpu_torch.ops.w8a8_matmul import tile_plan
+
+    assert tile_plan(512, 3072, 66) == (128, True, 48)
+    assert tile_plan(512, 3072, 24) == (256, True, 24)  # 24 wide pair tiles fill 24 pairs in one round
+    assert tile_plan(4097, 3072, 66) == (256, False, 132)
+
+
+@pytest.mark.parametrize("m, n, paired", [
+    (3968, 3072, True), (3456, 9216, True), (512, 3072, True), (3456, 64, True),
+    (4097, 3072, False),  # 33 tiles: the pairs' rounded grid (408 CTAs) starts a 4th wave where 396 fill 3
+    (16, 3072, False), (1, 18432, False),  # the GEMV body
+])
+def test_wide_body_pairs_its_ctas_unless_that_adds_a_wave(m, n, paired):
+    """G's and G4's wide body on the H100's 132 SMs: 2-CTA clusters along M
+    wherever rounding the 128-row tiles up to even costs no more time than
+    the pair saves, lone CTAs where it starts a wave of its own."""
+    from visualcloze_tpu_torch.ops.int4_matmul import PAIR_TIME as G4_PAIR_TIME
+    from visualcloze_tpu_torch.ops.int8_matmul import PAIR_TIME, wide_pairs
+
+    assert wide_pairs(m, n, 132, PAIR_TIME) == paired
+    assert wide_pairs(m, n, 132, G4_PAIR_TIME) == paired
+
+
+def test_wide_pairs_weighs_waves_by_the_pairs_time():
+    """31 tiles x 84 (linear1): the pairs' grid takes 21 waves where lone
+    CTAs take 20, so a pair pays only if it is more than 1/21 faster a tile,
+    as G's (0.9) and G4's (0.85) are."""
+    from visualcloze_tpu_torch.ops.int4_matmul import PAIR_TIME as G4_PAIR_TIME
+    from visualcloze_tpu_torch.ops.int8_matmul import PAIR_TIME, wide_pairs
+
+    assert wide_pairs(3968, 21504, 132, G4_PAIR_TIME) and wide_pairs(3968, 21504, 132, PAIR_TIME)
+    assert wide_pairs(3968, 21504, 132, 0.95) and not wide_pairs(3968, 21504, 132, 0.96)
 
 
 def test_profile_step_classes_vae_kernels_by_demangled_name():

@@ -41,6 +41,15 @@ __device__ __forceinline__ void store2(float* y, float a, float b) { *reinterpre
 __device__ __forceinline__ void store1(bf16* y, float a) { *y = __float2bfloat16_rn(a); }
 __device__ __forceinline__ void store1(float* y, float a) { *y = a; }
 
+// a pair of fp32 values into shared memory at `addr` as OutT (the pointer
+// only picks the type): a bf16 pair rounded to nearest even, or two fp32
+__device__ __forceinline__ void stage2(uint32_t addr, float a, float b, const bf16*) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(pack2(a, b)) : "memory");
+}
+__device__ __forceinline__ void stage2(uint32_t addr, float a, float b, const float*) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
 // a bf16 pair times s in fp32, rounded back to bf16: bf16(q * scale * log2(e))
 __device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
   const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));

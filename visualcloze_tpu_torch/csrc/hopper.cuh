@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels
 // (flash_attn_rope.cu, flash_attn_bwd.cu, flash_attn_d512.cu,
-// conv3x3_gn_swish.cu, weight_only_wide.cuh): mbarriers and ring slots,
-// named barriers, 16-byte shared-memory loads and stores, TMA tile loads and
-// stores and the host-side tensor maps they read, warpgroup MMA
+// conv3x3_gn_swish.cu, weight_only_wide.cuh, w8a8_matmul.cu): mbarriers
+// and ring slots, named barriers, 16-byte shared-memory loads and stores,
+// TMA tile loads (multicast to a cluster too) and stores and the host-side
+// tensor maps they read, thread-block clusters (ranks, the peer's shared
+// memory, cluster barriers, a launch with a cluster shape), warpgroup MMA
 // (wgmma) with shared-memory descriptors for the 128-byte swizzle and for
 // the unswizzled K-major layout, register reallocation.
 //
@@ -31,6 +33,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace vc {
 
@@ -92,6 +96,12 @@ __device__ __forceinline__ void named_arrive() {
   asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
 }
 
+// the same with the barrier ID in a register (a warpgroup's own barrier)
+template <int COUNT>
+__device__ __forceinline__ void named_barrier(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(COUNT) : "memory");
+}
+
 // the warpgroup index, warp-uniform as the compiler sees it (a shuffle from
 // lane 0, as CUTLASS derives it; F-dkv measured 0.70-0.71 ms on the H100
 // with threadIdx.x / 128 instead, 0.67-0.69 with the shuffle)
@@ -120,9 +130,120 @@ __device__ __forceinline__ uint4 lds128(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ float2 lds64f(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts16(uint32_t addr, uint16_t v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
 __device__ __forceinline__ void sts128(uint32_t addr, const uint4& v) {
   asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+//
+// A CTA of a cluster reaches its peers' shared memory through shared::cluster
+// addresses (mapa). Data moves to a peer only through the async proxy (a TMA
+// multicast, a bulk copy), whose bytes complete on the peer's mbarrier as a
+// TMA load's do; a consumer frees a peer's buffer with a remote arrive of
+// the default (release, CTA) semantics, as CUTLASS's cluster barriers do:
+// what it orders are its wgmma reads, done at wgmma.wait_group. (Generic
+// stores to a peer published by cluster-scope fences and arrives cost the
+// H100 ~1-2 us a stage in this repository's matmuls.) A CTA must not exit
+// while a peer may still write to its shared memory or arrive on its
+// barriers: cluster_sync() before the end.
+
+// this CTA's rank in its cluster (blockIdx.x % 2 for a (2, 1, 1) cluster)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of this CTA's shared address `addr` in the CTA
+// of rank `rank`. The map is an offset (mapa(a + d) = mapa(a) + d), so a
+// kernel maps its base once and adds the difference to every address.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// every thread of every CTA of the cluster: writes before it are seen after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// arrive on a peer's mbarrier (a shared::cluster address)
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// `bytes` (a multiple of 16) of this CTA's shared memory at src to the
+// shared::cluster address dst of a peer, completing them on the peer's
+// mbarrier at `bar` (a shared::cluster address); the source is read by the
+// async proxy, so generic writes to it need fence_proxy_async first
+__device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, uint32_t src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   dst),
+               "r"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// host: launch `kernel` on a grid of clusters of `cluster` CTAs along x
+// (gridDim.x a multiple of it; 1: no cluster); a cudaError_t, 0 on success
+// (a launch the card refuses is reported here, never run)
+template <typename... Exp, typename... Act>
+inline int launch_cluster(void (*kernel)(Exp...), dim3 grid, int threads, size_t smem, cudaStream_t s, int cluster,
+                          Act&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// host: how many clusters of `cluster` CTAs of `kernel` the card runs at
+// once (one CTA an SM): the persistent grid's size; 0 if it cannot say
+template <typename... Exp>
+inline int max_active_clusters(void (*kernel)(Exp...), int threads, size_t smem, int cluster) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess ? n : 0;
 }
 
 // ---------------------------------------------------------------- TMA
@@ -135,6 +256,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh)
+      : "memory");
+}
+
+// tma_load_3d into the same shared address of every CTA of the cluster in
+// `mask` (bit r: rank r), completing bytes on the barrier at the same
+// address in each
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map, int col, int row, int bh,
+                                                      uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh), "h"(mask)
       : "memory");
 }
 
@@ -170,10 +303,25 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
                : "memory");
 }
 
+// one box of shared memory to a 2-D tensor map at (c0, c1); elements past
+// the tensor's end are not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 
 // the committed stores have read their shared memory (it may be rewritten)
 __device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+
+// all but the last N committed store groups have read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
 
 // the committed stores are complete
 __device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }

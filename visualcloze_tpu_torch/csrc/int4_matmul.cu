@@ -25,7 +25,7 @@
 // warpgroups, 128 x 256 tiles) with the int4 policy Int4Convert:
 //   - the stored tile is 32 packed rows x 256 N, uint8: the 64 K rows of a
 //     stage in half of G's bytes;
-//   - the transform warps (setmaxnreg 64) convert it into the bf16 B buffer.
+//   - the 8 transform warps (setmaxnreg 64) convert it into the bf16 B buffer.
 //     A quarter warp takes one packed row, its low or its high nibbles (bf16
 //     row 2kp or 2kp + 1), and 8 pieces of 16 columns (lane s8 the piece 8b
 //     + s8): one 16-byte read, 16 nibbles, each sign-extended exactly (a
@@ -35,8 +35,11 @@
 //     stores would pair up on 4 (a row's two chunks are neighbours in the
 //     swizzle), so lanes with bit 2 of s8 set store the row's second chunk
 //     first (row 2kp; the first for row 2kp + 1): every store of a quarter
-//     warp is free of bank conflicts. The 128 sets of a stage go 5 or 4 to
-//     each of the 28 quarter warps. A stage lies inside one scale group (g
+//     warp is free of bank conflicts. The 128 sets of a stage go 4 to each
+//     of the 32 quarter warps of a lone CTA; in a pair along M (where it adds
+//     no wave) each CTA converts the 64 sets of its half of the stage, 2 a
+//     quarter warp, for both CTAs' products, so the convert per MMA halves.
+//     A stage lies inside one scale group (g
 //     is a multiple of 64), so a thread keeps the 16 scales of its columns
 //     in registers and reloads them when the group changes;
 //   - the consumers run at setmaxnreg 192, and the epilogue only rounds.
@@ -110,25 +113,32 @@ __device__ __forceinline__ void load16(const float* p, float* sc) {
 // ---------------------------------------------------------------- wide M
 
 // a set: (packed row, its low or high nibbles, half of the 256 columns), 8
-// pieces of 16 columns of one bf16 row
-constexpr int SETS = BK / 2 * 4;
-constexpr int PIECES = (SETS + QUARTERS - 1) / QUARTERS;  // sets a quarter warp converts a stage
+// pieces of 16 columns of one bf16 row; a stage has 128, a CTA of a pair
+// converts the 64 of its 16 packed rows (its rank's half of the 32)
 static_assert(QUARTERS % 2 == 0, "a quarter warp keeps one column half, so its scales, across its sets");
 
-// the int4 policy of the wide body: quarter warp qw converts the sets qw,
-// qw + 28, ... (< 128): set = 4 * packed row kp + 2 * nibble r + column
-// half b, bf16 row 2kp + r; lane s8 the 16 columns 16 h, h = 8b + s8 (b is
-// the same for all of a quarter warp's sets). The transform keeps 16 scales
-// in registers, 8 more than G's at 56: 256 * (128 - 64) >= 256 * (192 - 128)
+// the int4 policy of the wide body: quarter warp qw (of 32) converts the
+// sets qw, qw + 32, ... (< SETS: 4 alone, 2 paired): set = 4 * packed row
+// kp + 2 * nibble r + column half b, kp counted in the CTA's share, bf16
+// row 2 (row0 + kp) + r; lane s8 the 16 columns 16 h, h = 8b + s8 (b is the
+// same for all of a quarter warp's sets), into this CTA's B buffer (the
+// body copies a pair's half to the peer). The transform keeps 16 scales in
+// registers, 8 more than G's at 56: 256 * (128 - 64) >= 256 * (192 - 128).
+// A thread's sets are unrolled (5-9% faster on the H100 than rolled,
+// PERF.md; with 28 quarter warps, 5 sets unrolled spilled). The B ring is 4
+// deep paired, 3 alone (shared memory).
+template <int CL>
 struct Int4Convert {
-  static constexpr int W_ROWS = BK / 2, PACK = 2, TRANSFORM_REGS = 64, CONSUMER_REGS = 192;
+  static constexpr int W_ROWS = BK / 2, PACK = 2, CLUSTER = CL, BST = CL == 2 ? 4 : 3;
+  static constexpr int TRANSFORM_REGS = 64, CONSUMER_REGS = 192;
   static constexpr bool EPILOGUE_SCALE = false;
-  int qw, h, per_group;
+  static constexpr int SETS = W_ROWS / CL * 4, PIECES = (SETS + QUARTERS - 1) / QUARTERS;
+  int qw, h, per_group, row0;
   bool live, swap;
   float sc[16];  // the scales of the thread's 16 columns in the current group
 
-  __device__ __forceinline__ Int4Convert(int tt, int wpitch, int n0, int N, int group)
-      : qw(tt / 8), h(8 * ((tt / 8) & 1) + tt % 8), per_group(group / BK) {
+  __device__ __forceinline__ Int4Convert(int tt, int wpitch, int n0, int N, int group, int rank)
+      : qw(tt / 8), h(8 * ((tt / 8) & 1) + tt % 8), per_group(group / BK), row0(rank * (W_ROWS / CL)) {
     live = 16 * h < wpitch && n0 + 16 * h < N;  // N % 16 == 0: a live piece is whole
     swap = ((tt % 8) >> 2) & 1;                 // store a row's second chunk first
   }
@@ -137,26 +147,29 @@ struct Int4Convert {
     if (live && i % per_group == 0) load16(scale + (size_t)(i / per_group) * N + n0 + 16 * h, sc);
   }
 
-  __device__ __forceinline__ void convert(uint32_t w4, uint32_t bt, int wpitch) {
-#pragma unroll 1  // unrolled, ptxas hoists every set's addresses past the transform's registers
-    for (int j = 0; j < PIECES; ++j) {
-      const int set = qw + QUARTERS * j;
-      if (set >= SETS) break;
-      const int kp = set >> 2, r = (set >> 1) & 1;
-      uint4 c0 = make_uint4(0, 0, 0, 0), c1 = c0;
-      if (live) {
-        const uint4 raw = lds128(w4 + kp * wpitch + 16 * h);
-        const uint32_t u[4] = {nibbles(raw.x, r), nibbles(raw.y, r), nibbles(raw.z, r), nibbles(raw.w, r)};
-        dequant16(u, sc, c0, c1);
-      }
-      // row 2kp stores chunk `swap` first, row 2kp + 1 chunk !swap: the
-      // chunk index's low bit is then s8 >> 2 for the first and second
-      // store alike, its upper bits (s8 % 4) ^ (kp % 4)
-      const bool second_first = r == 0 ? swap : !swap;
-      const int wr = b_offset(2 * kp + r, h);
-      sts128(bt + (wr ^ (second_first ? 16 : 0)), sel(second_first, c1, c0));
-      sts128(bt + (wr ^ (second_first ? 0 : 16)), sel(second_first, c0, c1));
+  // set qw + QUARTERS * j of the stored share at w4 into the B buffer at bt
+  __device__ __forceinline__ void convert_set(int j, uint32_t w4, uint32_t bt, int wpitch) {
+    const int set = qw + QUARTERS * j;
+    if (set >= SETS) return;
+    const int kp = set >> 2, r = (set >> 1) & 1;
+    uint4 c0 = make_uint4(0, 0, 0, 0), c1 = c0;
+    if (live) {
+      const uint4 raw = lds128(w4 + kp * wpitch + 16 * h);
+      const uint32_t u[4] = {nibbles(raw.x, r), nibbles(raw.y, r), nibbles(raw.z, r), nibbles(raw.w, r)};
+      dequant16(u, sc, c0, c1);
     }
+    // row 2kp stores chunk `swap` first, row 2kp + 1 chunk !swap: the
+    // chunk index's low bit is then s8 >> 2 for the first and second store
+    // alike, its upper bits (s8 % 4) ^ (kp % 4) (row0 is a multiple of 4)
+    const bool second_first = r == 0 ? swap : !swap;
+    const int wr = b_offset(2 * (row0 + kp) + r, h);
+    sts128(bt + (wr ^ (second_first ? 16 : 0)), sel(second_first, c1, c0));
+    sts128(bt + (wr ^ (second_first ? 0 : 16)), sel(second_first, c0, c1));
+  }
+
+  __device__ __forceinline__ void convert(uint32_t w4, uint32_t bt, int wpitch) {
+#pragma unroll
+    for (int j = 0; j < PIECES; ++j) convert_set(j, w4, bt, wpitch);
   }
 };
 
@@ -264,11 +277,11 @@ int launch_gemv(const bf16* x, const uint8_t* w, const float* scale, OutT* y, in
 }
 
 template <typename OutT>
-int launch(const void* x, const void* w, const float* scale, OutT* y, int M, int N, int K, int group,
+int launch(const void* x, const void* w, const float* scale, OutT* y, int M, int N, int K, int group, int pair,
            cudaStream_t s) {
   if (M <= SMALL_M)
     return launch_gemv(static_cast<const bf16*>(x), static_cast<const uint8_t*>(w), scale, y, M, N, K, group, s);
-  return launch_wide<Int4Convert>(x, w, scale, y, M, N, K, group, s);
+  return launch_wide<Int4Convert>(x, w, scale, y, M, N, K, group, pair, s);
 }
 
 }  // namespace
@@ -276,14 +289,15 @@ int launch(const void* x, const void* w, const float* scale, OutT* y, int M, int
 // Kernel G4. x (M, K) bf16, w (K/2, N) uint8 (two codes a byte, the low
 // nibble the even row), scale (K/group, N) fp32, y (M, N) bf16 (out_f32 = 0)
 // or fp32 (out_f32 = 1), all contiguous and 16-byte aligned; K and group
-// multiples of 64, K of group, N a multiple of 16. Launches on `stream`;
-// returns a cudaError_t (0 on success).
+// multiples of 64, K of group, N a multiple of 16; pair: the wide body's
+// CTAs in clusters of two (ops/int8_matmul.py:wide_pairs decides). Launches
+// on `stream`; returns a cudaError_t (0 on success).
 extern "C" int int4_matmul(const void* x, const void* w, const void* scale, void* y, int M, int N, int K,
-                           int group, int out_f32, void* stream) {
+                           int group, int out_f32, int pair, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || group <= 0 || K % BK || group % BK || K % group || N % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(scale);
-  if (out_f32) return launch<float>(x, w, sp, static_cast<float*>(y), M, N, K, group, s);
-  return launch<bf16>(x, w, sp, static_cast<bf16*>(y), M, N, K, group, s);
+  if (out_f32) return launch<float>(x, w, sp, static_cast<float*>(y), M, N, K, group, pair, s);
+  return launch<bf16>(x, w, sp, static_cast<bf16*>(y), M, N, K, group, pair, s);
 }

@@ -20,7 +20,7 @@
 // (weight_only_wide.cuh: a TMA warp, seven transform warps, two consumer
 // warpgroups, 128 x 256 tiles) with the int8 policy Int8Convert:
 //   - the stored tile is 64 int8 rows x 256 N, half the bytes of bf16;
-//   - the transform warps (setmaxnreg 56) convert it exactly (a byte permute
+//   - the 8 transform warps (setmaxnreg 56) convert it exactly (a byte permute
 //     into the mantissa of 2^23, one fp32 subtraction, the upper half of the
 //     fp32 bits) into the bf16 B buffer. Their 16-byte shared-memory reads
 //     and writes are free of bank conflicts (piece_offsets);
@@ -28,8 +28,9 @@
 //     by scale[n] in fp32 (each scale loaded once per column a thread holds)
 //     before the one rounding.
 // On the H100 the convert, not the tensor cores, sets the pace (PERF.md):
-// hence seven transform warps, three bf16 buffers and piece offsets
-// computed once.
+// hence eight transform warps and piece offsets computed once, and the
+// CTAs in pairs along M where that adds no wave (each CTA converts half of
+// each w tile for both, with a 4-deep B ring; alone, 3 deep).
 //
 // Small M (M <= SMALL_M; in the query only M = 1), int8_gemv: no tensor
 // cores. A CTA of 8 warps owns 64 columns; each thread streams 16 int8
@@ -74,20 +75,24 @@ __device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_
 
 // ---------------------------------------------------------------- wide M
 
-constexpr int PIECES = (128 + QUARTERS - 1) / QUARTERS;  // sets of 8 pieces a quarter warp converts a stage
-
+// CTAs that share each stored w tile in the wide body: 2 (the pair of
+// weight_only_wide.cuh) or 1 (each CTA converts its whole tile)
 // A w tile is 64 rows x 16 groups of 16 columns: 1024 pieces in 128 sets
-// of 8, set g = (a, b, c) = bits (0-2, 3, 4-6) holding the pieces (row 8a +
-// (s ^ c), group 8b + s), s = 0..7. A quarter warp converts a set, its lane
-// s8 the piece s = s8, so its reads (row pitch 256) and its swizzled writes
-// hit 8 distinct 16-byte chunks. Piece (g, s8) as byte offsets into a w
-// tile (rd; -1: columns past the box, zeros) and into a B buffer (wr: the
-// first of its two 8-column chunks; the second is the neighbouring chunk,
-// wr ^ 16)
-__device__ __forceinline__ void piece_offsets(int g, int s8, int wpitch, int& rd, int& wr) {
-  const int k = 8 * (g & 7) + (s8 ^ (g >> 4)), h = 8 * ((g >> 3) & 1) + s8;
+// of 8; a CTA of a pair converts the 64 sets of its 32 rows. Set g = (a, b,
+// c), a = g % A (A = 8 / CL row groups of 8 in the CTA's share), b = (g / A)
+// % 2, c = g / (2A), holds the pieces (row 8a + (s ^ c), group 8b + s), s =
+// 0..7. A quarter warp converts a set, its lane s8 the piece s = s8, so its
+// reads (row pitch 256) and its swizzled writes hit 8 distinct 16-byte
+// chunks. Piece (g, s8) as byte offsets into the CTA's w share (rd; -1:
+// columns past the box, zeros) and into a B buffer (wr: the first of its two
+// 8-column chunks; the second is the neighbouring chunk, wr ^ 16), row0 the
+// share's first row
+template <int CL>
+__device__ __forceinline__ void piece_offsets(int g, int s8, int wpitch, int row0, int& rd, int& wr) {
+  constexpr int A = 8 / CL;
+  const int k = 8 * (g % A) + (s8 ^ (g / (2 * A))), h = 8 * ((g / A) & 1) + s8;
   rd = 16 * h < wpitch ? k * wpitch + 16 * h : -1;
-  wr = b_offset(k, h);
+  wr = b_offset(row0 + k, h);
 }
 
 // 16 raw int8 -> 16 bf16 at offset wr of the B buffer at bt
@@ -101,19 +106,23 @@ __device__ __forceinline__ void store_piece(uint32_t bt, int wr, const uint4& ra
   sts128(bt + (wr ^ 16), hi);
 }
 
-// the int8 policy of the wide body: quarter warp qw converts the sets qw,
-// qw + 28, ... (< 128), its offsets computed once
+// the int8 policy of the wide body: quarter warp qw (of 32) converts the
+// sets qw, qw + 32, ... (< 128 / CL: 4 alone, 2 paired), its offsets
+// computed once; the B ring is 4 deep paired, 3 alone (shared memory)
+template <int CL>
 struct Int8Convert {
-  static constexpr int W_ROWS = BK, PACK = 1, TRANSFORM_REGS = 56, CONSUMER_REGS = 200;
+  static constexpr int W_ROWS = BK, PACK = 1, CLUSTER = CL, BST = CL == 2 ? 4 : 3;
+  static constexpr int TRANSFORM_REGS = 56, CONSUMER_REGS = 200;
   static constexpr bool EPILOGUE_SCALE = true;
+  static constexpr int SETS = 128 / CL, PIECES = (SETS + QUARTERS - 1) / QUARTERS;
   int rd[PIECES], wr[PIECES];
 
-  __device__ __forceinline__ Int8Convert(int tt, int wpitch, int, int, int) {
+  __device__ __forceinline__ Int8Convert(int tt, int wpitch, int, int, int, int rank) {
     const int s8 = tt % 8, qw = tt / 8;
 #pragma unroll
     for (int j = 0; j < PIECES; ++j) {
-      piece_offsets(qw + QUARTERS * j, s8, wpitch, rd[j], wr[j]);
-      if (qw + QUARTERS * j >= 128) rd[j] = wr[j] = -1;
+      piece_offsets<CL>(qw + QUARTERS * j, s8, wpitch, rank * (BK / CL), rd[j], wr[j]);
+      if (qw + QUARTERS * j >= SETS) rd[j] = wr[j] = -1;
     }
   }
 
@@ -229,23 +238,25 @@ int launch_gemv(const bf16* x, const int8_t* w, const float* scale, OutT* y, int
 }
 
 template <typename OutT>
-int launch(const void* x, const void* w, const float* scale, OutT* y, int M, int N, int K, cudaStream_t s) {
+int launch(const void* x, const void* w, const float* scale, OutT* y, int M, int N, int K, int pair,
+           cudaStream_t s) {
   if (M <= SMALL_M)
     return launch_gemv(static_cast<const bf16*>(x), static_cast<const int8_t*>(w), scale, y, M, N, K, s);
-  return launch_wide<Int8Convert>(x, w, scale, y, M, N, K, 0, s);
+  return launch_wide<Int8Convert>(x, w, scale, y, M, N, K, 0, pair, s);
 }
 
 }  // namespace
 
 // Kernel G. x (M, K) bf16, w (K, N) int8, scale (N,) fp32, y (M, N) bf16
 // (out_f32 = 0) or fp32 (out_f32 = 1), all contiguous and 16-byte aligned;
-// K a multiple of 64, N a multiple of 16. Launches on `stream`; returns a
-// cudaError_t (0 on success).
+// K a multiple of 64, N a multiple of 16; pair: the wide body's CTAs in
+// clusters of two (ops/int8_matmul.py:wide_pairs decides). Launches on
+// `stream`; returns a cudaError_t (0 on success).
 extern "C" int int8_matmul(const void* x, const void* w, const void* scale, void* y, int M, int N, int K,
-                           int out_f32, void* stream) {
+                           int out_f32, int pair, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % BK || N % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(scale);
-  if (out_f32) return launch<float>(x, w, sp, static_cast<float*>(y), M, N, K, s);
-  return launch<bf16>(x, w, sp, static_cast<bf16*>(y), M, N, K, s);
+  if (out_f32) return launch<float>(x, w, sp, static_cast<float*>(y), M, N, K, pair, s);
+  return launch<bf16>(x, w, sp, static_cast<bf16*>(y), M, N, K, pair, s);
 }

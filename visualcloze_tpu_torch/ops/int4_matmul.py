@@ -25,8 +25,12 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .int8_matmul import sm_count, wide_pairs
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# a paired CTA's time for one tile over a lone CTA's, at the same K (0.84-0.87
+# on the H100, PERF.md): the pair halves G4's convert, which sets its pace
+PAIR_TIME = 0.85
 BLOCK_K = 64  # the kernel's K step: K and the group must be multiples of it
 N_ALIGN = 16  # 16-byte packed column chunks: N must be a multiple of it
 
@@ -94,6 +98,7 @@ def int4_matmul(x: torch.Tensor, w_int4: torch.Tensor, scale: torch.Tensor,
     status = kernel(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w_int4.data_ptr()), ctypes.c_void_p(scale.data_ptr()),
         ctypes.c_void_p(y.data_ptr()), m, n, k, group, int(out_dtype == torch.float32),
+        int(wide_pairs(m, n, sm_count(x.device), PAIR_TIME)),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     cuda_build.check("int4_matmul", status)

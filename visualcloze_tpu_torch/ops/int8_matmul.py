@@ -25,9 +25,35 @@ import torch
 
 from . import cuda_build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 BLOCK_K = 64  # the kernel's K step: K must be a multiple of it
 N_ALIGN = 16  # 16-byte int8 column chunks: N must be a multiple of it
+SMALL_M = 16  # M at or below it takes the GEMV body
+TILE_M, TILE_N = 128, 256  # the wide body's output tile
+# a paired CTA's time for one tile over a lone CTA's, at the same K (0.87-0.92
+# on the H100, PERF.md)
+PAIR_TIME = 0.9
+_SMS: dict[int, int] = {}  # SMs of each card, asked once
+
+
+def wide_pairs(m: int, n: int, sms: int, pair_time: float = PAIR_TIME) -> bool:
+    """Whether the wide body of G (and G4, with its own pair_time) runs its
+    CTAs in clusters of two along M on a card of `sms` SMs: pairs round the
+    128-row tiles up to even, so they pay where that adds a wave. Paired when
+    the waves of the rounded grid, each pair_time of a lone wave, take less
+    than the lone grid's waves; never for the GEMV body (m <= 16)."""
+    if m <= SMALL_M:
+        return False
+    mt, nt = -(-m // TILE_M), -(-n // TILE_N)
+    return -(-2 * -(-mt // 2) * nt // sms) * pair_time < -(-mt * nt // sms)
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (asked once a device)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
 
 
 def int8_matmul_plain(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
@@ -73,7 +99,7 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
     status = kernel(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w_int8.data_ptr()), ctypes.c_void_p(scale.data_ptr()),
         ctypes.c_void_p(y.data_ptr()), m, n, k, int(out_dtype == torch.float32),
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        int(wide_pairs(m, n, sm_count(x.device))), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     cuda_build.check("int8_matmul", status)
     cuda_build.count_launch(int8_matmul)

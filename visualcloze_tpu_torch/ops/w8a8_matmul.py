@@ -26,9 +26,47 @@ import torch
 
 from . import cuda_build
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 BLOCK_K = 128  # the kernel's K step: K must be a multiple of it
 N_ALIGN = 16
+TILE_M = 128  # the kernel's tile rows
+_RESIDENT: list[int] = []  # the card's resident 2-CTA clusters, asked once
+
+
+def tile_plan(m: int, n: int, resident_pairs: int) -> tuple[int, bool, int]:
+    """(tile_n, paired, clusters) of kernel H for an (M, N) output on a card
+    that keeps `resident_pairs` clusters of two CTAs at once (66 on the
+    H100's 132 SMs), or twice as many lone CTAs. Each option's time is
+    counted in rounds of the resident clusters over its tiles, in units of
+    a 128-column tile: pairs round the 128-row tiles up to even, so they
+    are taken only where that costs no round (the multicast they share
+    measured no faster than lone CTAs' own loads on the H100); 128-column
+    tiles only where they take 10% less than 256-column ones (the 512-row
+    text stream). clusters: the persistent grid, in clusters."""
+    mt = -(-m // TILE_M)
+
+    def rounds(bn, cl):
+        tiles = -(-mt // cl) * -(-n // bn)
+        return -(-tiles // (resident_pairs * 2 // cl)), tiles
+
+    plans = {}
+    for bn in (256, 128):
+        (r2, t2), (r1, t1) = rounds(bn, 2), rounds(bn, 1)
+        if r2 <= r1:
+            plans[bn] = r2 * bn, True, min(t2, resident_pairs)
+        else:
+            plans[bn] = r1 * bn, False, min(t1, 2 * resident_pairs)
+    bn = 128 if plans[128][0] < 0.9 * plans[256][0] else 256
+    return bn, plans[bn][1], plans[bn][2]
+
+
+def _resident_clusters() -> int:
+    if not _RESIDENT:
+        n = cuda_build.load("w8a8_resident_clusters", [], source="w8a8_matmul")()
+        if n <= 0:
+            raise RuntimeError("w8a8_matmul: the card reports no resident 2-CTA clusters of kernel H")
+        _RESIDENT.append(n)
+    return _RESIDENT[0]
 
 
 def w8a8_matmul_plain(codes: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
@@ -73,10 +111,11 @@ def w8a8_matmul(codes: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor, w_s
         _require(bias.is_cuda and tuple(bias.shape) == (n,), f"bias must be a CUDA ({n},) tensor")
     y = torch.empty((m, n), dtype=torch.bfloat16, device=codes.device)
     kernel = cuda_build.load("w8a8_matmul", _ARGTYPES)
+    tile_n, paired, _ = tile_plan(m, n, _resident_clusters())
     status = kernel(
         ctypes.c_void_p(codes.data_ptr()), ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(x_scale.data_ptr()),
         ctypes.c_void_p(w_scale.data_ptr()), ctypes.c_void_p(bias.data_ptr() if bias is not None else None),
-        ctypes.c_void_p(y.data_ptr()), m, n, k,
+        ctypes.c_void_p(y.data_ptr()), m, n, k, tile_n, int(paired),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     cuda_build.check("w8a8_matmul", status)

@@ -1,7 +1,7 @@
 """Where a denoise step of the default query (or a LoRA train step, or the
 query's VAE work) spends its device time.
 
-    python -m visualcloze_tpu_torch.profile_step [--steps 3] [--out profile_step.json] [--train | --quantize int8|w8a8 | --vae]
+    python -m visualcloze_tpu_torch.profile_step [--steps 3] [--out profile_step.json] [--train | --quantize int8|w8a8|int4 | --vae]
 
 Builds the full-width random-weight model in bf16 on the GPU, prepares the
 default query (a 2x3 grid at 384: 3456 image + 512 text tokens), times
@@ -18,7 +18,9 @@ Exits 1 if the trace holds no device events.
 (synthetic_full_components: int8 DiT, int4 T5, int8 CLIP), whose linears are
 kernel G instead of cuBLAS GEMMs. --quantize w8a8 profiles it on the
 random bf16 model with its DiT quantized to w8a8 (quantize_flux_w8a8): the
-token-dim block linears are kernels I and H, the others G.
+token-dim block linears are kernels I and H, the others G. --quantize int4
+profiles it with the DiT quantized to int4 (quantize_flux_int4, the bf16 DiT
+freed): every linear is kernel G4.
 
 --train profiles the trainer's step instead: the same model in the
 interleaved layout with a rank-128 LoRA, per-block remat "full", one
@@ -47,8 +49,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .models.layers import Int8Linear, Linear, W8A8Linear
-from .models.quant import quantize_flux_w8a8
+from .models.layers import Int4DiTLinear, Int8Linear, Linear, W8A8Linear
+from .models.quant import quantize_flux_int4, quantize_flux_w8a8
 from .pipeline import random_components, synthetic_full_components
 
 # demangled names of csrc/flash_attn_rope.cu (A, D, E) and flash_attn_bwd.cu (F)
@@ -58,7 +60,7 @@ BACKWARD_KERNEL = re.compile(r"\bflash_bwd_(dq|dkv)\(")
 # csrc/int8_matmul.cu: its GEMV body, and the shared wide body (weight_only_wide.cuh) with G's policy
 INT8_KERNEL = re.compile(r"\bint8_(matmul\w*|gemv)<|\bmatmul_wide<[^,]*\bInt8Convert\b")
 INT4_KERNEL = re.compile(r"\bint4_gemv<|\bmatmul_wide<[^,]*\bInt4Convert\b")  # csrc/int4_matmul.cu (G4)
-W8A8_KERNEL = re.compile(r"\bw8a8_matmul_kernel\(")  # csrc/w8a8_matmul.cu (H)
+W8A8_KERNEL = re.compile(r"\bw8a8_matmul_kernel[<(]")  # csrc/w8a8_matmul.cu (H)
 ACT_QUANT_KERNEL = re.compile(r"\bact_quant_kernel<")  # csrc/act_quant_int8.cu (I)
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 CONV_KERNEL = re.compile(r"\bconv3x3_kernel<")  # csrc/conv3x3_gn_swish.cu (B)
@@ -246,9 +248,9 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--out", default="profile_step.json")
     p.add_argument("--train", action="store_true", help="profile a LoRA train step, not a denoise step")
-    p.add_argument("--quantize", default=None, choices=[None, "int8", "w8a8"],
+    p.add_argument("--quantize", default=None, choices=[None, "int8", "w8a8", "int4"],
                    help="int8: the denoise step of the single-card int8 stack (kernel G); w8a8: of the "
-                        "bf16 model with a w8a8 DiT (kernels I, H and G)")
+                        "bf16 model with a w8a8 DiT (kernels I, H and G); int4: with an int4 DiT (kernel G4)")
     p.add_argument("--vae", action="store_true", help="profile the default query's VAE work (kernels B and C)")
     args = p.parse_args(argv)
     if args.train and args.quantize:
@@ -267,6 +269,9 @@ def main(argv=None) -> int:
             model = random_components(tiny=False, dtype=torch.bfloat16, device="cuda", resolution=384)
             if args.quantize == "w8a8":
                 model.flux = quantize_flux_w8a8(model.flux)
+            elif args.quantize == "int4":
+                model.flux = quantize_flux_int4(model.flux)
+                torch.cuda.empty_cache()  # the bf16 DiT is gone
         q = default_query(model)
         tokens = q["x"].shape[1] + q["txt"].shape[1]
 
@@ -280,7 +285,7 @@ def main(argv=None) -> int:
         flops[0] += 2.0 * rows * mod.in_features * mod.out_features
 
     hooks = [m.register_forward_hook(count) for m in model.flux.modules()
-             if isinstance(m, (Linear, Int8Linear, W8A8Linear))]
+             if isinstance(m, (Linear, Int8Linear, W8A8Linear, Int4DiTLinear))]
     run(1)  # warm-up, and the linears' FLOPs of one step
     for h in hooks:
         h.remove()
