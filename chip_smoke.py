@@ -49,6 +49,21 @@ Phases, each followed by one flushed JSON line on stdout:
              D/E also with 300 queries against 1000 keys; A and D/E also
              with keys masked inside a sequence 32 key tiles long (a block
              of a third of the keys in the middle, every third key);
+  ring_chunks  the ring attention's own schedule (ops/ring_attention.py) in
+             one process over P = 2 and 4 chunks of the full-width (1, 24,
+             L, 128) bf16 sequence at L = 3968 (the default query) and 5760
+             (the 3x3 grid), keys padded, rotated by indexing: o, dq, dk, dv
+             against whole-sequence E and F within their 4 bf16 ulps, E,
+             F-dq and F-dkv P^2 launches each and no other kernel; one
+             chunk pair at cp = 4 (992 and 1440 tokens) timed beside the
+             plain versions, SDPA and the bound;
+  tp_shards  the port's tensor-parallel int8, int4 and SmoothQuant w8a8
+             linears (G, G4, H) at the tp = 2 shard shapes of linear1 and
+             qkv (column halves: whole heads of q, k and v, the mlp's
+             slice) and linear2 (row halves), 3968 tokens: each rank's copy
+             cut by parallel.sharding._shard_linear and run in turn, the
+             collectives done by indexing, against the unsharded module
+             (column scattered back within 4 bf16 ulps, row summed within 8);
   grad_reference  one full-width double block and one single block with a
              rank-128 LoRA: the LoRA gradients through kernels E and F against
              the same blocks through their plain versions (relative RMS);
@@ -114,6 +129,18 @@ Phases, each followed by one flushed JSON line on stdout:
              seconds, peak memory), then the checkpoint's files;
   query_interleaved  the trainer's base components (optimizer state freed)
              serving a 2x2 grid at 384 in the interleaved layout (kernel D);
+  moe_train  the trainer's main at full width and depth with MoE-LoRA (4
+             experts of rank 32 and the shared pair on every linear, the
+             top-2 gate), 2 steps: finite losses, every expert and gate leaf
+             moved, E and F launches, seconds per step, peak memory;
+  dist_one_rank  the trainer as torchrun starts it on one card (RANK 0 of
+             WORLD_SIZE 1): an NCCL group, the mesh over it, the DiT under
+             FSDP2 (shard_params mode "fsdp"), 2 steps, then the same 2
+             steps with no process group: the first loss equal bit for
+             bit; the grad norms, the second loss and each LoRA leaf's
+             change per step (those upstream of vec apart) within
+             DIST_BOUNDS; the DiT's depth cut to 4 + 8 blocks (printed),
+             its width kept;
   checkpoint_write  the seed-0 bf16 stack (the `init` phase's) written as the
              reference checkpoint files under build/ckpt_roundtrip/: the DiT
              put back in the reference channel order as one BFL safetensors
@@ -149,7 +176,8 @@ Phases, each followed by one flushed JSON line on stdout:
              adapter's image is closer to the folded one than half its
              distance to the base image (mean |Δ|, 0-255).
 The checkpoint files are removed after the last of them, also on failure.
-Launch counters are zeroed just before each main-path phase (request,
+Launch counters are zeroed just before each main-path phase (ring_chunks'
+two ring schedules at each length, moe_train, dist_one_rank's NCCL run, request,
 serve, samplers_sde, likelihood, request_w8a8, request_int4, each query of
 bfl_route, request_int8, train, query_interleaved, request_loaded,
 solvers, load_checkpoint_int8, the calibrating load and the query of
@@ -1745,6 +1773,418 @@ def run_training(tmp, remat_policy: str):
     return out, result
 
 
+# ----------------------------- multi-card slice on one card -----------------------------
+
+E_KERNEL, F_KERNELS = "flash_attn_fwd_lse", ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+RING_CASES = ((3968, "the default query's 3968 tokens, its last 64 keys padded"),
+              (5760, "the 3x3 grid's 5760 tokens, the last 64 keys padded"))
+
+
+def ring_chunks() -> dict:
+    """The ring's own schedule (ops/ring_attention.py: _ring_fwd_lse, _merge,
+    _ring_bwd_pass) in one process over P = 2 and 4 chunks of the full-width
+    (1, 24, L, 128) bf16 sequence with a key-padding bias, the rotation done
+    by indexing (LocalRing), against whole-sequence E and F: o within E's
+    4 bf16 ulps, dq, dk, dv within F's; E, F-dq and F-dkv launch P^2 times
+    each and nothing else launches. Then one chunk pair at cp = 4 (L / 4
+    tokens against L / 4 keys): E and F timed as replayed CUDA graphs (a
+    chunk's kernel is about as short as its wrapper's host-side launch)
+    beside their plain versions, SDPA (its forward graph-timed too; its
+    backward fwd+bwd - fwd, eager) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.ops import flash_attention as fa
+    from visualcloze_tpu_torch.ops.ring_attention import LocalRing, _ring_bwd_pass, _ring_fwd_lse
+
+    cases, chunks, counted = [], [], {n: 0 for n in ops.KERNELS}
+    ok = True
+    for L, what in RING_CASES:
+        q, k, v, do, bias, valid = attention_case(1, L, True, L + 3)
+        o_ref, lse_ref = fa.flash_attn_fwd_lse(q, k, v, bias)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        ref = {"o": o_ref, "dq": fa.flash_attn_bwd_dq(q, k, v, bias, do, lse_ref, delta)}
+        ref["dk"], ref["dv"] = fa.flash_attn_bwd_dkv(q, k, v, bias, do, lse_ref, delta)
+        tols = {n: bf16_ulps_tol(t) for n, t in ref.items()}
+        for P in (2, 4):
+            def split(t, dim=2):
+                return [c.contiguous() for c in t.chunk(P, dim=dim)]
+
+            qs, ks, vs, dos, bs = split(q), split(k), split(v), split(do), split(bias, 1)
+            torch.cuda.synchronize()
+            ops.reset_kernel_launches()
+            os_, lses = _ring_fwd_lse(qs, ks, vs, bs, LocalRing(P))
+            dqs, dks, dvs = _ring_bwd_pass(qs, ks, vs, bs, os_, lses, dos, LocalRing(P))
+            torch.cuda.synchronize()
+            launches = ops.kernel_launches()
+            got = {"o": torch.cat(os_, 2), "dq": torch.cat(dqs, 2), "dk": torch.cat(dks, 2), "dv": torch.cat(dvs, 2)}
+            errs = {n: (got[n].float() - ref[n].float()).abs().max().item() for n in ref}
+            others = {n: c for n, c in launches.items() if c and n not in (E_KERNEL, *F_KERNELS)}
+            case_ok = (all(errs[n] <= tols[n] for n in errs) and not others
+                       and all(launches[n] == P * P for n in (E_KERNEL, *F_KERNELS)))
+            for n, c in launches.items():
+                counted[n] += c
+            cases.append(dict(tokens=L, chunks=P, chunk_tokens=L // P, what=what, errs=errs, tols=tols,
+                              launches={n: launches[n] for n in (E_KERNEL, *F_KERNELS)}, other_launches=others,
+                              ok=case_ok))
+            ok = ok and case_ok
+            del os_, lses, dqs, dks, dvs, got
+        c = L // 4  # one (query block, key chunk) pair of the cp = 4 ring: block 0 against the padded last chunk
+        qc, doc = q[:, :, :c].contiguous(), do[:, :, :c].contiguous()
+        kc, vc, bc = k[:, :, L - c:].contiguous(), v[:, :, L - c:].contiguous(), bias[:, L - c:].contiguous()
+        lse_c, delta_c = lse_ref[:, :, :c].contiguous(), delta[:, :, :c].contiguous()
+        n_keys = c - (L - valid[0])
+        # a chunk's kernel is about as short as its wrapper's host-side launch: time replayed CUDA graphs
+        e_ms = cuda_ms(lambda: fa.flash_attn_fwd_lse(qc, kc, vc, bc), 20, graph=True)
+        e_plain = cuda_ms(lambda: fa.flash_fwd_lse_plain(qc, kc, vc, bc), 2)
+        amask = sdpa_mask(bc)
+        e_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=amask), 20, graph=True)
+        e_bound, e_by = bound(4.0 * 24 * c * n_keys * 128, 2 * 24 * 2 * c * 128 * 2 + 24 * c * 4 + c * 4)
+        fargs = (qc, kc, vc, bc, doc, lse_c, delta_c)
+        dq_ms = cuda_ms(lambda: fa.flash_attn_bwd_dq(*fargs), 20, graph=True)
+        dkv_ms = cuda_ms(lambda: fa.flash_attn_bwd_dkv(*fargs), 20, graph=True)
+        dq_plain = cuda_ms(lambda: fa.flash_bwd_dq_plain(*fargs), 2)
+        dkv_plain = cuda_ms(lambda: fa.flash_bwd_dkv_plain(*fargs), 2)
+        leaves = [t.detach().clone().requires_grad_() for t in (qc, kc, vc)]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*leaves, attn_mask=amask)
+
+        f_lib = cuda_ms(lambda: torch.autograd.grad(sdpa_fwd(), leaves, doc), 10) - cuda_ms(sdpa_fwd, 10)
+        io = 24 * c * (128 * 2 * 4 + 4 * 2) + c * 4
+        dq_bound, dq_by = bound(6.0 * 24 * c * n_keys * 128, io + 24 * c * 128 * 2)
+        dkv_bound, dkv_by = bound(8.0 * 24 * c * n_keys * 128, io + 2 * 24 * c * 128 * 2)
+        chunks.append(dict(
+            tokens=L, chunk=[1, 24, c, 128], keys=c, real_keys=n_keys,
+            flash_attn_fwd_lse=dict(ms=e_ms, plain_ms=e_plain, library_ms=e_lib, bound_ms=e_bound, bound_by=e_by,
+                                    share_of_bound=e_bound / e_ms),
+            flash_attn_bwd_dq=dict(ms=dq_ms, plain_ms=dq_plain, bound_ms=dq_bound, bound_by=dq_by,
+                                   share_of_bound=dq_bound / dq_ms),
+            flash_attn_bwd_dkv=dict(ms=dkv_ms, plain_ms=dkv_plain, bound_ms=dkv_bound, bound_by=dkv_by,
+                                    share_of_bound=dkv_bound / dkv_ms),
+            f_library_ms=f_lib, library="F.scaled_dot_product_attention (backward: fwd+bwd - fwd, dq dk dv)"))
+        del q, k, v, do, ref, leaves
+        torch.cuda.empty_cache()
+    return dict(phase="ring_chunks", cases=cases, chunk_timing=chunks, launches=counted, ok=ok)
+
+
+def _leaf_max(tree, key: str) -> float:
+    from visualcloze_tpu_torch.models.lora import tree_items
+
+    return max(t.detach().abs().max().item() for p, t in tree_items(tree) if p.endswith("." + key))
+
+
+def moe_train(tmp) -> dict:
+    """The trainer's main at full width and depth with MoE-LoRA: 4 experts of
+    rank 32 (and the shared pair, the gate) on every linear, 2 steps of 2
+    micro-batches, per-block remat; finite losses, every expert and gate
+    leaf moved (expert_b and shared_b off zero, gate_w off its init, drawn
+    again from the trainer's seed); E and F launches, seconds per step, peak
+    memory."""
+    import torch
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.models.lora import init_moe_lora, lora_param_count, tree_items
+    from visualcloze_tpu_torch.training.train import main as train_main
+
+    config = write_dataset(tmp / "data_moe")
+    argv = ["--data_path", config, "--results_dir", str(tmp / "results_moe"), "--init_random",
+            "--grid_resolution", "384", "--lora_rank", "32", "--moe_experts", "4", "--max_steps", "2",
+            "--global_bsz", "2", "--micro_bsz", "1", "--checkpointing", "--remat_policy", REMAT_POLICY,
+            "--ckpt_every", "1000", "--log_every", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    result = train_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    state = result["state"]
+    hist = result["history"]
+    trained = dict(tree_items(state.lora))
+    init = dict(tree_items(init_moe_lora(state.params, 32, 4, generator=torch.Generator(device="cuda").manual_seed(1))))
+    gate_moved = min((trained[p] - init[p]).abs().max().item() for p in trained if p.endswith(".gate_w"))
+    expert_a_moved = min((trained[p] - init[p]).abs().max().item() for p in trained if p.endswith(".expert_a"))
+    del init
+    out = dict(phase="moe_train", argv=argv, seconds=seconds, steps=len(hist), losses=[r["loss"] for r in hist],
+               grad_norms=[r["grad_norm"] for r in hist], step_seconds=[r["seconds"] for r in hist],
+               trainable_values=lora_param_count(state.lora), expert_b_absmax=_leaf_max(state.lora, "expert_b"),
+               shared_b_absmax=_leaf_max(state.lora, "shared_b"), min_gate_w_moved=gate_moved,
+               min_expert_a_moved=expert_a_moved, launches=launches,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    out["ok"] = (len(hist) == 2 and all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in hist)
+                 and out["expert_b_absmax"] > 0 and out["shared_b_absmax"] > 0 and gate_moved > 0
+                 and expert_a_moved > 0 and all(launches[n] > 0 for n in (E_KERNEL, *F_KERNELS)))
+    del state, result, trained
+    return out
+
+
+DIST_DEPTH = (4, 8)  # (double, single) blocks of dist_one_rank's DiT: its depth cut, its width full
+
+
+@contextlib.contextmanager
+def cut_depth(depth: int, depth_single: int):
+    """The loader's published configs with the DiT's depth cut (widths kept)."""
+    import dataclasses
+
+    from visualcloze_tpu_torch.pipeline import loader
+
+    configs = loader._configs
+
+    def cut(tiny: bool):
+        flux, *rest = configs(tiny)
+        return (flux if tiny else dataclasses.replace(flux, depth=depth, depth_single_blocks=depth_single), *rest)
+
+    loader._configs = cut
+    try:
+        yield
+    finally:
+        loader._configs = configs
+
+
+@contextlib.contextmanager
+def lora_steps():
+    """Record the trainer's LoRA leaves (fp32 copies on the host, by name)
+    before its first step and after each step: yields the list the
+    snapshots go into. It wraps the step that train.main makes; the
+    trainer's own code runs unchanged."""
+    import torch
+
+    from visualcloze_tpu_torch.models.lora import tree_items
+    from visualcloze_tpu_torch.training import train
+
+    snaps, make = [], train.make_train_step
+
+    def snap(state):
+        return {p: t.detach().to("cpu", torch.float32).clone() for p, t in tree_items(state.lora)}
+
+    def recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(state, *a, **k):
+            if not snaps:
+                snaps.append(snap(state))
+            out = step(state, *a, **k)
+            snaps.append(snap(state))
+            return out
+
+        return run
+
+    train.make_train_step = recording
+    try:
+        yield snaps
+    finally:
+        train.make_train_step = make
+
+
+def lora_step_diffs(a: list, b: list) -> list[dict]:
+    """Per step after the first snapshot: {leaf: |a - b| / |b's change since
+    the first snapshot|} (Frobenius norms; 0 where neither moved)."""
+    out = []
+    for sa, sb in zip(a[1:], b[1:]):
+        row = {}
+        for p, tb in sb.items():
+            moved = (tb - b[0][p]).norm().item()
+            diff = (sa[p] - tb).norm().item()
+            row[p] = diff / moved if moved > 0 else (0.0 if diff == 0 else math.inf)
+        out.append(row)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+UPSTREAM_OF_VEC = ("time_in.", "vector_in.", "guidance_in.")  # the LoRA leaves whose gradients reach vec only
+# dist_one_rank's bounds (relative), about twice the readings of a sound run on an H100 80GB HBM3 at
+# 700 W (PERF.md): 2.10e-5, 1.283e-4, 1.442e-4; leaves 7.0e-7 and 0.070 after step 1, 0.050 and 0.118
+# after step 2. A skipped or wrong update of a leaf moves its figure to about 0.5 or more.
+DIST_BOUNDS = dict(first_grad_norm=5e-5, second_loss=2.5e-4, second_grad_norm=2.5e-4,
+                   step1_leaves=1.5e-6, step1_upstream=0.15, step2_leaves=0.1, step2_upstream=0.25)
+
+
+def dist_one_rank(tmp) -> dict:
+    """The trainer's main as torchrun runs it, on one card: RANK 0 of
+    WORLD_SIZE 1, so initialize_distributed starts an NCCL group, create_mesh
+    builds the mesh over it and shard_params(mode="fsdp") puts the DiT under
+    FSDP2; 2 steps, then the same 2 steps with no process group (the same
+    seed). The LoRA leaves are recorded before and after each step
+    (lora_steps). The first step's loss is equal bit for bit (the forward is
+    the same arithmetic); the gradients of the UPSTREAM_OF_VEC leaves are
+    not: vec's bf16 gradient is the sum of every block's contribution, and
+    FSDP2's per-block hooks change the order autograd adds them in
+    (tests/test_torch_parallel.py shows it on the CPU). Through the global
+    norm's clip that reaches every leaf's first update by Adam's eps only,
+    and every leaf's second update through the first. So the first step's
+    grad norm, the second step's loss and grad norm, and each leaf's change
+    after each step (|a - b| / |b - b_init|) are held within DIST_BOUNDS,
+    the upstream leaves apart from the rest.
+    The DiT's depth is cut to DIST_DEPTH, its width kept."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.parallel.sharding import is_fsdp
+    from visualcloze_tpu_torch.training.train import main as train_main
+
+    config = write_dataset(tmp / "data_dist", n=4)
+    argv = ["--data_path", config, "--init_random", "--grid_resolution", "384", "--lora_rank", "64",
+            "--max_steps", "2", "--global_bsz", "2", "--micro_bsz", "1", "--checkpointing", "--remat_policy",
+            REMAT_POLICY, "--ckpt_every", "1000", "--log_every", "1"]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    runs, snaps = {}, {}
+    with cut_depth(*DIST_DEPTH):
+        for name in ("nccl", "single"):
+            if name == "nccl":
+                os.environ.update(env)
+            ops.reset_kernel_launches()
+            t0 = time.perf_counter()
+            try:
+                with lora_steps() as snaps[name]:
+                    res = train_main(argv + ["--results_dir", str(tmp / f"results_{name}")])
+                backend = dist.get_backend() if dist.is_initialized() else None
+                fsdp = is_fsdp(res["state"].params)
+                mesh = repr(res["state"].mesh)
+            finally:
+                if name == "nccl":
+                    for key in env:
+                        os.environ.pop(key, None)
+                    if dist.is_initialized():
+                        dist.destroy_process_group()
+            torch.cuda.synchronize()
+            runs[name] = dict(seconds=time.perf_counter() - t0, losses=[r["loss"] for r in res["history"]],
+                              grad_norms=[r["grad_norm"] for r in res["history"]], backend=backend,
+                              fsdp=fsdp, mesh=mesh, launches=ops.kernel_launches())
+            del res
+            free()
+    a, b = runs["nccl"], runs["single"]
+    rel = lambda x, y: abs(x - y) / max(abs(y), 1e-12)  # noqa: E731
+    loss_diff = [rel(x, y) for x, y in zip(a["losses"], b["losses"])]
+    norm_diff = [rel(x, y) for x, y in zip(a["grad_norms"], b["grad_norms"])]
+    init_equal = all(torch.equal(snaps["nccl"][0][p], t) for p, t in snaps["single"][0].items())
+    leaves = []
+    for step, row in enumerate(lora_step_diffs(snaps["nccl"], snaps["single"]), 1):
+        up = {p: d for p, d in row.items() if p.startswith(UPSTREAM_OF_VEC)}
+        rest = {p: d for p, d in row.items() if p not in up}
+        worst = max(rest, key=rest.get)
+        leaves.append(dict(step=step, n_leaves=len(row), n_upstream=len(up), upstream_max=max(up.values()),
+                           upstream_moved=sum(d > 0 for d in up.values()), rest_max=rest[worst], rest_worst=worst,
+                           rest_moved=sum(d > 0 for d in rest.values())))
+    bnd = DIST_BOUNDS
+    leaves_ok = (len(leaves) == 2 and leaves[0]["upstream_max"] <= bnd["step1_upstream"]
+                 and leaves[0]["rest_max"] <= bnd["step1_leaves"] and leaves[1]["upstream_max"] <= bnd["step2_upstream"]
+                 and leaves[1]["rest_max"] <= bnd["step2_leaves"])
+    return dict(phase="dist_one_rank", depth=list(DIST_DEPTH), runs=runs, rel_loss_diff=loss_diff,
+                rel_grad_norm_diff=norm_diff, first_loss_equal=a["losses"][:1] == b["losses"][:1],
+                init_leaves_equal=init_equal, leaves=leaves, bounds=bnd, launches=a["launches"],
+                ok=(a["backend"] == "nccl" and a["fsdp"] and b["backend"] is None and len(a["losses"]) == 2
+                    and a["losses"][0] == b["losses"][0] and norm_diff[0] <= bnd["first_grad_norm"]
+                    and loss_diff[1] <= bnd["second_loss"] and norm_diff[1] <= bnd["second_grad_norm"]
+                    and init_equal and leaves_ok and all(math.isfinite(x) for x in a["losses"])))
+
+
+TP_SHAPES = ((("single_blocks", "0", "linear1"), 3072, 21504, "column"),
+             (("single_blocks", "0", "linear2"), 15360, 3072, "row"),
+             (("double_blocks", "0", "img_attn", "qkv"), 3072, 9216, "column"))
+
+
+def _random_linear(kind: str, k: int, n: int, g):
+    """A full-width Int8Linear / Int4DiTLinear / SmoothQuant W8A8Linear on the
+    card with random codes, scales (a_sinv in [0.5, 2]) and a bf16 bias."""
+    import torch
+    from torch import nn
+
+    from visualcloze_tpu_torch.models.layers import Int4DiTLinear, Int8Linear, W8A8Linear
+
+    dev = torch.device("cuda")
+    lin = {"int8_matmul": Int8Linear, "int4_matmul": Int4DiTLinear,
+           "w8a8_matmul": lambda k, n: W8A8Linear(k, n, smooth=True)}[kind](k, n).to(dev)
+    if kind == "int4_matmul":
+        lin.w_int4 = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+        lin.w_scale = (torch.rand((k // lin.group, n), generator=g, device=dev) * 0.5 + 0.75) * (k ** -0.5 / 7)
+    else:
+        shape = (k, n) if kind == "int8_matmul" else (n, k)
+        lin.w_int8 = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        lin.w_scale = torch.full((n,), k ** -0.5 / 127, device=dev)
+    if kind == "w8a8_matmul":
+        lin.a_sinv = torch.rand((k,), generator=g, device=dev) * 1.5 + 0.5
+    lin.bias = nn.Parameter((torch.randn((n,), generator=g, device=dev) * 0.1).to(torch.bfloat16),
+                            requires_grad=False)
+    return lin
+
+
+def tp_shards() -> dict:
+    """The port's tensor-parallel linears (parallel.sharding._shard_linear
+    and the linears' own tp paths in models/layers.py) at the tp = 2 shard
+    shapes of linear1 and qkv (column halves: whole heads of q, k, v, the
+    mlp's slice) and linear2 (row halves), at 3968 tokens, through G, G4 and
+    H. Each linear is built at full width (int8, int4, SmoothQuant w8a8);
+    each rank's copy is cut by _shard_linear and run on the card in turn,
+    the group's collectives done by indexing: a column shard's forward,
+    scattered back by its columns (4 bf16 ulps of the unsharded module's
+    output); a row shard's product (w8a8: of the group's gathered inputs,
+    quantized whole with a_sinv in gather order, its own codes taken),
+    summed in fp32 with the bias (8 bf16 ulps: each half is rounded to bf16
+    before the sum)."""
+    import copy
+
+    import torch
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.config import FluxConfig
+    from visualcloze_tpu_torch.parallel.sharding import _shard_linear, tp_index
+
+    cfg, m, dev = FluxConfig(), 3968, torch.device("cuda")
+    rows, ok = [], True
+    with torch.no_grad():
+        for path, k, n, kind in TP_SHAPES:
+            g = torch.Generator(device=dev).manual_seed(k + n)
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            idx = [tp_index(path, cfg, r, 2) for r in range(2)]
+            perm = torch.cat(idx)
+            for name in ("int8_matmul", "int4_matmul", "w8a8_matmul"):
+                lin = _random_linear(name, k, n, g)
+                want = lin(x).float()
+                ops.reset_kernel_launches()
+                shards = []
+                for r in range(2):
+                    shard = copy.deepcopy(lin)
+                    _shard_linear(shard, kind, idx[r], perm, None, r)
+                    if kind == "column":
+                        shards.append(shard(x))
+                    else:
+                        xr = x[:, perm.to(dev)] if name == "w8a8_matmul" else x[:, idx[r].to(dev)]
+                        shards.append(shard._product(xr.contiguous(), None))
+                    del shard
+                launches = ops.kernel_launches()
+                if kind == "column":
+                    got = torch.empty_like(want)
+                    for r, y in enumerate(shards):
+                        got[:, idx[r].to(dev)] = y.float()
+                    ulps = 4
+                else:
+                    got, ulps = sum(y.float() for y in shards) + lin.bias.float(), 8
+                err = (got - want).abs().max().item()
+                tol = bf16_ulps_tol(want, ulps)
+                row_ok = err <= tol and launches[name] == 2
+                rows.append(dict(kernel=name, linear=".".join(path), kind=kind, shape=[m, k, n],
+                                 shard=list(shards[0].shape), launches=launches[name], max_abs_err=err, tol=tol,
+                                 ok=row_ok))
+                ok = ok and row_ok
+                del lin, want, shards, got
+            del x
+            torch.cuda.empty_cache()
+    return dict(phase="tp_shards", checks=rows, ok=ok)
+
+
 # ----------------------------- checkpoint files -----------------------------
 
 CKPT_DIR = "build/ckpt_roundtrip"  # under the checkout, git-ignored, removed at the end
@@ -2309,6 +2749,16 @@ def main() -> int:
             first.setdefault(r["name"], r)
         torch.cuda.empty_cache()
 
+    rring = ring_chunks()
+    emit(rring)
+    if not rring["ok"]:
+        raise RuntimeError("the ring's chunk schedule failed")
+    rtp = tp_shards()
+    emit(rtp)
+    if not rtp["ok"]:
+        raise RuntimeError("a tensor-parallel shard failed")
+    torch.cuda.empty_cache()
+
     gref = grad_reference()
     emit(gref)
     if not gref["ok"]:
@@ -2462,6 +2912,18 @@ def main() -> int:
     del model
     free()
 
+    with tempfile.TemporaryDirectory() as tmp:
+        rmoe = moe_train(Path(tmp))
+        emit(rmoe)
+        if not rmoe["ok"]:
+            raise RuntimeError("MoE-LoRA training failed")
+        free()
+        rdist = dist_one_rank(Path(tmp))
+        emit(rdist)
+        if not rdist["ok"]:
+            raise RuntimeError("the one-rank distributed trainer failed")
+    free()
+
     loaded = checkpoint_phases(r1, serving, bf16_unused, training)
 
     kernels = []
@@ -2469,8 +2931,8 @@ def main() -> int:
         r = first[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=sum(run["launches"][name] for run in (r1, r2, rserve, rsde, rlik, rw, r4, rbfl, rq, train, r3,
-                                                           *loaded)),
+            launches=sum(run["launches"][name] for run in (rring, r1, r2, rserve, rsde, rlik, rw, r4, rbfl, rq, train,
+                                                           r3, rmoe, rdist, *loaded)),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
         ))

@@ -548,8 +548,29 @@ def test_build_visualcloze_query_matches_jax(tiny_jax_loader, stack_files, sourc
     assert pix.max() <= 2, pix.max()
 
 
-def test_build_visualcloze_refuses_unported_modes(stack_files):
+def test_build_visualcloze_refuses_unported_modes(tiny_jax_loader, stack_files):
+    """quantize="int4" stays refused, as JAX's build_visualcloze refuses it.
+    mesh= and attn_impl= are served: on a one-rank mesh the DiT is placed
+    as it is, and a RingSpec over it (one chunk) attends as the kernels'
+    plain versions do (1e-5)."""
+    from visualcloze_tpu_torch.ops.attention import RingSpec
+    from visualcloze_tpu_torch.parallel import create_mesh
+
     with pytest.raises(ValueError, match="unknown quantize mode"):
         tloader.build_visualcloze(model_path=str(stack_files["lora"]), quantize="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        tloader.build_visualcloze(model_path=str(stack_files["lora"]), mesh=object(), device="cpu")
+    mesh = create_mesh(device="cpu")
+    model = tloader.build_visualcloze(model_path=str(stack_files["lora"]), mesh=mesh, attn_impl=RingSpec(mesh),
+                                      dtype=torch.float32, device="cpu")
+    assert isinstance(model.attn_impl, RingSpec) and model.attn_impl.mesh is mesh
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    ids = np.zeros((1, 16, 3), np.float32)
+    ids[..., 1], ids[..., 2] = np.arange(16) // 4, np.arange(16) % 4
+    inp = dict(img=rng.standard_normal((1, 16, cfg.in_channels)), img_ids=ids,
+               txt=rng.standard_normal((1, 8, cfg.context_in_dim)), txt_ids=np.zeros((1, 8, 3)),
+               timesteps=np.full((1,), 0.5), y=rng.standard_normal((1, cfg.vec_in_dim)), guidance=np.full((1,), 3.5))
+    inp = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in inp.items()}
+    with torch.no_grad():
+        ring = model.flux(**inp, rope_layout=model.rope_layout, attn_impl=model.attn_impl)
+        plain = model.flux(**inp, rope_layout=model.rope_layout)
+    np.testing.assert_allclose(ring.numpy(), plain.numpy(), rtol=0, atol=1e-5)

@@ -78,7 +78,10 @@ def _imports(path: Path) -> set[str]:
 
 
 def test_port_imports_nothing_of_jax():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """Every module of the port, chip_smoke.py and the multi-rank tests'
+    worker (tests/torch_parallel_jobs.py, which must not load JAX on its
+    ranks)."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_jobs.py"]
     assert len(files) > 20
     scanned = {str(f.relative_to(PKG)) for f in files if PKG in f.parents}
     for module in ("training/train.py", "training/step.py", "training/batch.py", "training/checkpoint.py",
@@ -87,7 +90,9 @@ def test_port_imports_nothing_of_jax():
                    "models/quant.py", "ops/int8_matmul.py", "serve.py", "app.py", "sample.py", "gradio_tasks.py",
                    "pipeline/orchestrator.py", "pipeline/server.py", "pipeline/diffusers_api.py", "utils/metrics.py",
                    "ops/int4_matmul.py", "transport/sampling.py", "models/sampling.py", "models/vision_towers.py",
-                   "models/image_embedders.py", "models/postprocess.py", "models/api.py"):
+                   "models/image_embedders.py", "models/postprocess.py", "models/api.py", "ops/ring_attention.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py", "parallel/pipeline.py",
+                   "parallel/collectives.py"):
         assert module in scanned, module
     for path in files:
         for mod in _imports(path):
@@ -208,11 +213,17 @@ def test_inference_cli_serves_checkpoint_files_on_the_cpu(tmp_path, monkeypatch)
     assert check["ok"] and check["folded_tensors"] == 0, check
 
 
-@pytest.mark.parametrize("flags, item", [(["--tp", "2"], 4), (["--fsdp", "2"], 4), (["--cp", "2"], 4)])
-def test_inference_cli_refuses_unported_flags_by_roadmap_item(flags, item):
+@pytest.mark.parametrize("flags", [pytest.param(["--tp", "2"], id="flags0-4"),
+                                   pytest.param(["--fsdp", "2"], id="flags1-4"),
+                                   pytest.param(["--cp", "2"], id="flags2-4")])
+def test_inference_cli_refuses_unported_flags_by_roadmap_item(flags):
+    """The multi-card flags are served (tests/test_torch_parallel.py runs
+    them on two gloo ranks); in one process, which no launcher started, the
+    CLI asks for torchrun with as many ranks as the mesh needs, before it
+    loads anything."""
     from visualcloze_tpu_torch import inference
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+    with pytest.raises(SystemExit, match="needs 2 ranks, found 1 .*torchrun --nproc_per_node 2"):
         inference.main(["--model_path", "lora.pth", "--device", "cpu", "--rows", "a.png,MASK", *flags])
 
 

@@ -89,10 +89,25 @@ def test_pipelined_server_keeps_each_querys_records(model):
 
 @pytest.mark.parametrize("kw", [{"encoder_device": "meta"}, {"dit_device": "meta"},
                                 {"encoder_device": "cpu", "dit_device": "meta"}])
-def test_pipelined_server_refuses_another_device_by_roadmap_item(model, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        PipelinedServer(model, **kw)
-    PipelinedServer(model, encoder_device="cpu", dit_device="cpu").close()
+def test_pipelined_server_refuses_another_device_by_roadmap_item(kw):
+    """The disaggregated placement (JAX's two chips): PipelinedServer moves
+    the VAE, T5 and CLIP to encoder_device (the model's device follows) and
+    the DiT with its runtime adapters to dit_device. The meta device stands
+    in for a second card; the model is a fresh tiny one."""
+    from visualcloze_tpu_torch.models.lora import init_lora, tree_leaves
+
+    m = random_components(tiny=True, device="cpu", resolution=64)
+    m.add_adapter("a", init_lora(m.flux, 2, generator=torch.Generator().manual_seed(0)))
+    with PipelinedServer(m, **kw) as ps:
+        enc, dit = kw.get("encoder_device"), kw.get("dit_device")
+        enc_type = "meta" if enc == "meta" else "cpu"
+        assert m.device.type == enc_type
+        for mod in (m.ae, m.t5.model, m.clip.model):
+            assert all(p.device.type == enc_type for p in mod.parameters())
+        dit_type = "meta" if dit == "meta" else "cpu"
+        assert all(p.device.type == dit_type for p in m.flux.parameters())
+        assert all(t.device.type == dit_type for t in tree_leaves(m.adapters["a"]))
+        assert (ps.dit_device is not None) == (dit == "meta") and m.dit_device == ps.dit_device
 
 
 # ----------------------------- ReplicaPool -----------------------------
@@ -408,13 +423,16 @@ def test_serve_cli_serves_a_demo_with_an_adapter_on_the_cpu(tmp_path):
     assert not (tmp_path / "kernels").exists()  # nothing is built on the CPU
 
 
-@pytest.mark.parametrize("flags, match", [
-    (["--tp", "2"], "ROADMAP item 4"), (["--fsdp", "2"], "ROADMAP item 4"), (["--cp", "2"], "ROADMAP item 4"),
-])
-def test_serve_cli_refuses_multi_card_flags_by_roadmap_item(flags, match):
+@pytest.mark.parametrize("flags", [pytest.param(["--tp", "2"], id="flags0-ROADMAP item 4"),
+                                   pytest.param(["--fsdp", "2"], id="flags1-ROADMAP item 4"),
+                                   pytest.param(["--cp", "2"], id="flags2-ROADMAP item 4")])
+def test_serve_cli_refuses_multi_card_flags_by_roadmap_item(flags):
+    """--tp / --fsdp / --cp shard the served DiT over torchrun's ranks (run on
+    two gloo ranks in tests/test_torch_parallel.py); one process that no
+    launcher started is told to launch two."""
     from visualcloze_tpu_torch import serve
 
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(SystemExit, match="needs 2 ranks, found 1"):
         serve.main(["--demo", "--device", "cpu", *flags])
 
 

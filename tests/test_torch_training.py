@@ -465,10 +465,21 @@ def test_trainer_cli_runs_and_resumes_on_the_cpu(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """The mesh flags and MoE-LoRA train (tests/test_torch_parallel.py,
+    test_torch_moe.py); what the trainer still refuses is JAX's own list:
+    --cp with --pp, --pp with remat dots_split, --init_from with
+    --moe_experts, and a mesh larger than the ranks (JAX's device check),
+    here --fsdp 2 in one process no launcher started."""
     from visualcloze_tpu_torch.training.train import main
 
     base = ["--data_path", "unused.yaml", "--device", "cpu", "--tiny", "--init_random"]
-    for extra, match in ((["--fsdp", "2"], "ROADMAP item 4"), (["--cp", "2"], "ROADMAP item 4"),
-                         (["--sdp"], "ROADMAP item 4"), (["--moe_experts", "4"], "ROADMAP item 5")):
+    for extra, match in ((["--cp", "2", "--pp", "2"], "--cp and --pp cannot be combined"),
+                         (["--pp", "2", "--checkpointing", "--remat_policy", "dots_split"], "dots_split"),
+                         (["--moe_experts", "4", "--init_from", "x.pth"], "--init_from"),
+                         ):
         with pytest.raises(SystemExit, match=match):
             main(base + extra)
+    with pytest.raises(ValueError, match="exceeds 1 devices"):
+        main(base + ["--fsdp", "2"])
+    with pytest.raises(SystemExit, match="--init_random"):
+        main(["--data_path", "unused.yaml", "--device", "cpu"])

@@ -43,9 +43,15 @@ diffusers/peft safetensors LoRA, or `random` with --demo) registers an
 unfolded adapter, --adapter NAME applies it to the query, --lora_scale
 weighs its delta. The kernels' shared libraries live under --aot_dir
 (default $VISUALCLOZE_AOT_DIR, else build/torch_kernels/), where the next
-process finds them built; --no_aot rebuilds them. Multi-card serving (--tp,
---fsdp, --cp) is not ported: it raises NotImplementedError naming ROADMAP
-item 4.
+process finds them built; --no_aot rebuilds them.
+
+Across cards (one process per card, launched by torchrun):
+
+  torchrun --nproc_per_node 2 -m visualcloze_tpu_torch.inference --demo --tp 2 -o out.jpg
+      --tp N shards the DiT's blocks over N cards (tensor parallelism),
+      --fsdp N its weights (FSDP2), --cp N splits the DiT's tokens over N
+      cards (ring attention through kernels E and F); the product is
+      the number of processes. Every rank runs the query; rank 0 saves it.
 --rows takes image paths per grid row (comma-separated, MASK for the target).
 """
 
@@ -62,7 +68,7 @@ from .models.lora import init_lora, randomize_lora_b
 from .models.quant import quantize_flux_int8, quantize_flux_w8a8, quantize_t5_int4
 from .ops import cuda_build
 from .pipeline import build_visualcloze, random_components, synthetic_full_components
-from .pipeline.loader import convert_lora_any, load_torch_checkpoint
+from .pipeline.loader import convert_lora_any, load_torch_checkpoint, place_model
 from .transport.sampling import solver_arg
 
 
@@ -94,9 +100,7 @@ def parse_args(argv=None):
                         "too in the token-dim block linears (kernels I and H); w8a8_smooth: the same after "
                         "a SmoothQuant calibration")
     p.add_argument("--t5_int4", action="store_true", help="int4 weight-only T5-XXL")
-    p.add_argument("--tp", type=int, default=1, help="not ported (ROADMAP item 4)")
-    p.add_argument("--fsdp", type=int, default=1, help="not ported (ROADMAP item 4)")
-    p.add_argument("--cp", type=int, default=1, help="not ported (ROADMAP item 4)")
+    add_mesh_args(p)
     add_adapter_args(p)
     p.add_argument("--adapter", default=None, help="the runtime adapter (a --lora NAME) this query uses")
     add_aot_args(p)
@@ -118,10 +122,45 @@ def add_aot_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no_aot", action="store_true", help="rebuild the kernels (nvcc) instead of loading them")
 
 
-def refuse_unported(args) -> None:
-    """The reference CLI's flags the port does not serve yet, by ROADMAP item."""
-    if max(args.tp, args.fsdp, args.cp) > 1:
-        raise NotImplementedError("multi-card serving (--tp, --fsdp, --cp) is not ported yet: ROADMAP item 4")
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel cards for the DiT (torchrun)")
+    p.add_argument("--fsdp", type=int, default=1, help="FSDP cards for the DiT's weights (torchrun)")
+    p.add_argument("--cp", type=int, default=1, help="ring-attention (sequence-parallel) cards (torchrun)")
+
+
+def serving_mesh(args, device: torch.device):
+    """The (fsdp, tp, cp) serving mesh over the launcher's ranks, or None for
+    one card (JAX inference.serving_mesh). It needs tp x fsdp x cp ranks."""
+    from .parallel import create_mesh, initialize_distributed
+
+    need = args.tp * args.fsdp * args.cp
+    if need <= 1:
+        return None
+    _, world, _ = initialize_distributed(device)
+    if world != need:
+        raise SystemExit(f"--tp {args.tp} --fsdp {args.fsdp} --cp {args.cp} needs {need} ranks, found {world} "
+                         f"(launch with torchrun --nproc_per_node {need})")
+    return create_mesh(fsdp=args.fsdp, tp=args.tp, cp=args.cp, device=device)
+
+
+def serving_attn_impl(args, mesh):
+    """A RingSpec over cp when --cp > 1 (JAX inference.serving_attn_impl), else None."""
+    if args.cp <= 1 or mesh is None:
+        return None
+    from .ops.attention import RingSpec
+
+    return RingSpec(mesh, "cp")
+
+
+def serving_device(args) -> torch.device:
+    """--device, or under torchrun this rank's card."""
+    from .parallel.mesh import launch_env
+
+    device = resolve_device(args.device)
+    env = launch_env()
+    if device.type == "cuda" and env is not None:
+        device = torch.device("cuda", env[2])
+    return device
 
 
 def parse_adapters(specs: list[str]) -> dict[str, str]:
@@ -192,9 +231,9 @@ def build_model(args, device: torch.device):
     return model
 
 
-def load_model(args, device: torch.device):
+def load_model(args, device: torch.device, mesh=None):
     """The model from checkpoint files (build_visualcloze): bf16 on the card,
-    fp32 on the CPU."""
+    fp32 on the CPU; its DiT on `mesh`."""
     model = build_visualcloze(
         model_path=args.model_path,
         model_name=args.model_name,
@@ -203,6 +242,8 @@ def load_model(args, device: torch.device):
         dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
         quantize=args.quantize,
         device=device,
+        mesh=mesh,
+        attn_impl=serving_attn_impl(args, mesh),
     )
     if args.t5_int4:
         model.t5.model = quantize_t5_int4(model.t5.model)
@@ -211,13 +252,16 @@ def load_model(args, device: torch.device):
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported(args)
     if not args.demo and not args.rows:
         raise SystemExit("--rows is required (repeat once per grid row, comma-separated cells, MASK for "
                          "the target), e.g. --rows a.png,b.png --rows query.png,MASK")
-    device = resolve_device(args.device)
+    device = serving_device(args)
     kernel_cache(args, device)
-    model = build_model(args, device) if args.demo else load_model(args, device)
+    mesh = serving_mesh(args, device)
+    if args.demo:
+        model = place_model(build_model(args, device), mesh, serving_attn_impl(args, mesh))
+    else:
+        model = load_model(args, device, mesh)
     add_adapters(model, args)
     resolution = model.resolution
     if args.rows:
@@ -242,8 +286,10 @@ def main(argv=None):
         is_upsampling=not args.no_upsampling,
         adapter=args.adapter,
     )
-    images[0].save(args.output)
-    print(f"saved {args.output} ({images[0].size})")
+    if mesh is None or mesh.device_mesh is None or torch.distributed.get_rank() == 0:
+        images[0].save(args.output)
+        print(f"saved {args.output} ({images[0].size})")
+    return images
 
 
 if __name__ == "__main__":

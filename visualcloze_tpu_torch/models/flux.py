@@ -12,6 +12,17 @@ around the scanned block body:
   - "dots_split": two checkpointed segments per block with the attention
     call between them, so the attention's own saved tensors (rotated q, k,
     v, o, lse) are kept and its forward is not rerun.
+`attn_impl` (None: the kernels; or an ops.attention.RingSpec: ring
+attention over the cp axis) reaches every block. Under a RingSpec each cp
+rank keeps its block of the txt tokens and of the img tokens (with their
+ids and masks) from the input embedding to the final layer, so every
+linear, norm and modulation runs on L / cp tokens; the velocity is gathered
+whole at the end (its gradient: this rank's block), and the parameters'
+gradients are this rank's tokens' share, which the trainer sums over cp
+(training/step.py). `pipeline` (a
+parallel.pipeline.PipelineSpec) runs the single-block trunk as a GPipe
+pipeline over the pp axis (JAX flux_apply_pp); the embedders, the double
+blocks and the final layer then run on this rank's share of the batch.
 `collect_a8_stats` (no remat) also returns the SmoothQuant calibration
 statistics: the per-input-channel absmax of every w8a8 linear's input, one
 tree per block (layers.py). No activation capture.
@@ -26,9 +37,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..config import FluxConfig
+from ..ops.attention import RingSpec
 from ..ops.rope import embed_nd
 from ..ops.schedule import timestep_embedding
+from ..parallel.collectives import all_reduce_, gather_cat, group_size, own_block
 from .init import init_linears_, materialize, swap_modules
+from .lora import tree_map
 from .layers import (DoubleBlock, Int4DiTLinear, Int8Linear, LastLayer, Linear, MLPEmbedder, SingleBlock,
                      W8A8Linear)
 
@@ -99,7 +113,8 @@ class Flux(nn.Module):
 
     def forward(self, *, img, img_ids, txt, txt_ids, timesteps, y, txt_mask=None, img_mask=None,
                 guidance=None, lora=None, lora_scale: float = 1.0, remat: bool = False,
-                remat_policy: str | None = None, rope_layout: str = "half", collect_a8_stats: bool = False):
+                remat_policy: str | None = None, rope_layout: str = "half", collect_a8_stats: bool = False,
+                attn_impl=None, pipeline=None):
         """(B, L_img, in_channels) tokens -> (B, L_img, out_channels) velocity.
         txt/img masks are (B, L) int {1 real, 0 pad}; timesteps (B,) flux time;
         rope_layout "half" (the serving layout, kernel A) or "interleaved"
@@ -109,7 +124,17 @@ class Flux(nn.Module):
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {remat_policy!r}")
         if collect_a8_stats and remat:
             raise ValueError("collect_a8_stats is a calibration (no-remat) mode")
+        if pipeline is not None and collect_a8_stats:
+            raise ValueError("collect_a8_stats does not run through the pipelined trunk")
         l = lora or {}
+        seq = attn_impl.mesh.group(attn_impl.axis) if isinstance(attn_impl, RingSpec) else None
+        if group_size(seq) > 1:
+            n = group_size(seq)
+            if img.shape[1] % n or txt.shape[1] % n:
+                raise ValueError(f"{img.shape[1]} img and {txt.shape[1]} txt tokens do not split over cp={n}")
+            img, img_ids, img_mask, txt, txt_ids, txt_mask = (
+                None if t is None else own_block(t, seq, 1)
+                for t in (img, img_ids, img_mask, txt, txt_ids, txt_mask))
         img, txt, vec, pe, attn_mask = self.embed_inputs(
             img, img_ids, txt, txt_ids, timesteps, y, txt_mask, img_mask, guidance, l, lora_scale
         )
@@ -121,7 +146,8 @@ class Flux(nn.Module):
         stats = {"double_blocks": [], "single_blocks": []}
 
         def run(block, stack, *args):
-            fn = functools.partial(block, lora_scale=lora_scale, rope_layout=rope_layout, seg=seg)
+            fn = functools.partial(block, lora_scale=lora_scale, rope_layout=rope_layout, seg=seg,
+                                   attn_impl=attn_impl)
             if collect_a8_stats:
                 out, st = fn(*args, collect_stats=True)
                 stats[stack].append(st)
@@ -135,9 +161,19 @@ class Flux(nn.Module):
         for block, bl in zip(self.double_blocks, d_lora):
             img, txt = run(block, "double_blocks", img, txt, vec, pe, attn_mask, bl)
         x = torch.cat([txt, img], dim=1)
-        for block, bl in zip(self.single_blocks, s_lora):
-            x = run(block, "single_blocks", x, vec, pe, attn_mask, bl)
-        out = self.final_layer(x[:, txt_len:], vec, l.get("final_layer"), lora_scale)
+        if pipeline is not None:
+            from ..parallel.pipeline import pipeline_single_trunk
+
+            x = pipeline_single_trunk(self, pipeline, x, vec, pe, attn_mask, l.get("single_blocks"),
+                                      lora_scale=lora_scale, attn_impl=attn_impl, remat=remat,
+                                      remat_policy=remat_policy, rope_layout=rope_layout)
+        else:
+            for block, bl in zip(self.single_blocks, s_lora):
+                x = run(block, "single_blocks", x, vec, pe, attn_mask, bl)
+        out = gather_cat(self.final_layer(x[:, txt_len:], vec, l.get("final_layer"), lora_scale), seq, 1,
+                         backward="slice")
+        if collect_a8_stats and group_size(seq) > 1:  # the absmax over every rank's tokens
+            tree_map(lambda t: all_reduce_(t, seq, torch.distributed.ReduceOp.MAX), stats)
         return (out, stats) if collect_a8_stats else out
 
 

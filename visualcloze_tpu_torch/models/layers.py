@@ -10,7 +10,21 @@ one (`W8A8Linear`, through kernels I and H) are ported.
 
 LoRA is unfolded, as in JAX: every forward takes an optional `lora` tree
 (the entries of models/lora.py keyed like the module's own children) and
-adds x @ A @ B (+ B's bias) times `lora_scale` to each linear. Blocks take
+adds x @ A @ B (+ B's bias) times `lora_scale` to each linear; a MoE-LoRA
+entry (models/lora.init_moe_lora) adds a shared pair plus every expert's
+pair, computed densely and combined with the top-2 renormalised gate.
+
+Parallelism (parallel/sharding.py sets it up): a linear with a `tp` shard
+(`TPShard`) holds only its rank's output columns (column-parallel: qkv,
+linear1, mlp "0") or input rows (row-parallel: proj, linear2, mlp "2"),
+with Megatron's explicit collectives: its input is `copy_to` the tp group
+(gradient summed), a row-parallel product is summed over the group before
+the bias. Its LoRA factors stay whole and replicated: a column-parallel
+linear adds only its columns of the delta, a row-parallel one sums the
+rank-partial x @ A products first. A linear with an `ep_group` takes MoE
+entries whose expert leaves hold only its rank's experts; one sum over the
+ep group finishes the combine. Blocks take `attn_impl` (None: the kernels;
+an ops.attention.RingSpec: ring attention over cp) and
 `seg`, a wrapper applied to their pre- and post-attention halves (the
 two-segment remat of models/flux.py); RoPE then runs inside the first half.
 With collect_stats, a block also returns the per-input-channel absmax of
@@ -23,32 +37,151 @@ from __future__ import annotations
 
 from typing import Callable
 
+import dataclasses
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import FluxConfig
 from ..ops.act_quant import act_quant_int8
 from ..ops.attention import attention, rope_qk
+from ..parallel.collectives import all_gather_cat, copy_to, reduce_from
 from ..ops.int4_matmul import int4_matmul
 from ..ops.int8_matmul import int8_matmul
 from ..ops.w8a8_matmul import w8a8_matmul
 from .lora import Lora
 
 
-def _lora_delta(lora: Lora, x: torch.Tensor, scale: float) -> torch.Tensor:
+MOE_TOP_K = 2  # the reference MixtureOfLoRAExperts' default
+
+
+@dataclasses.dataclass(eq=False)
+class TPShard:
+    """This rank's part of a tensor-parallel linear: kind "column" (it holds
+    the output features `idx` of the whole linear's `full`) or "row" (the
+    input features `idx`); `rank`, its place in the group, where the
+    group's all-gather puts its input features."""
+
+    kind: str
+    group: object
+    idx: torch.Tensor
+    full: int
+    rank: int = 0
+
+
+_OUT_LEAVES = ("b", "b_bias", "shared_b", "expert_b")  # their last dim is the linear's output
+
+
+def _project(x, w, eq: str, lin) -> torch.Tensor:
+    """einsum(eq, x, w) of an input-side LoRA leaf: under a row-parallel
+    shard, w's rows that this rank's x holds, summed over the tp group."""
+    tp = getattr(lin, "tp", None)
+    row = tp is not None and tp.kind == "row"
+    if row:
+        w = copy_to(w, tp.group).index_select(-2, tp.idx.to(w.device))
+    y = torch.matmul(x, w.to(x.dtype)) if w.dim() == 2 else torch.einsum(eq, x, w.to(x.dtype))
+    return reduce_from(y, tp.group) if row else y
+
+
+def _column_entry(lora: Lora, lin) -> Lora:
+    """A column-parallel linear's view of a replicated LoRA entry: every leaf
+    copy_to the tp group (its gradient summed there), the output leaves cut
+    to this rank's columns."""
+    tp = getattr(lin, "tp", None)
+    if tp is None or tp.kind != "column":
+        return lora
+    out = {}
+    for key, t in lora.items():
+        t = copy_to(t, tp.group)
+        out[key] = t.index_select(-1, tp.idx.to(t.device)) if key in _OUT_LEAVES else t
+    return out
+
+
+def _lora_delta(lora: Lora, x: torch.Tensor, scale: float, lin=None) -> torch.Tensor:
     """x @ A @ B (+ B bias) * scale in x's dtype; B carries a bias in the
-    reference (lora_bias=True)."""
+    reference (lora_bias=True). `lin`: the linear, for its tp / ep shards."""
+    lora = _column_entry(lora, lin)
     if "expert_a" in lora:
-        raise NotImplementedError(
-            "MoE-LoRA (mixture of LoRA experts) is not ported yet: ROADMAP item 5")
-    y = torch.matmul(x, lora["a"].to(x.dtype))
+        return _moe_lora_delta(lora, x, scale, lin)
+    y = _project(x, lora["a"], "...i,ir->...r", lin)
     y = torch.matmul(y, lora["b"].to(x.dtype))
     if "b_bias" in lora:
         y = y + lora["b_bias"].to(y.dtype)
     if scale != 1.0:  # JAX rounds the scale to y's dtype first
         y = y * torch.tensor(scale, dtype=y.dtype, device=y.device)
     return y
+
+
+def _moe_lora_delta(lora: Lora, x: torch.Tensor, scale: float, lin=None) -> torch.Tensor:
+    """Mixture-of-LoRA-experts delta (JAX `_moe_lora_delta`): the shared pair
+    plus every expert's pair, computed densely, combined with the top-k gate.
+
+    The gate is an fp32 softmax over the experts of x @ gate_w + gate_b; the
+    top MOE_TOP_K probabilities, renormalised to sum to 1, weight their
+    experts (the others 0). Everything else in x's dtype. When the expert
+    leaves hold fewer experts than the gate (sharded over ep), this rank's
+    experts are combined with their gate weights and one sum over the ep
+    group finishes the combine."""
+    shared = _project(x, lora["shared_a"], "...i,ir->...r", lin)
+    shared = torch.matmul(shared, lora["shared_b"].to(x.dtype))
+    logits = _project(x.to(torch.float32), lora["gate_w"].to(torch.float32), "...i,ie->...e", lin)
+    probs = torch.softmax(logits + lora["gate_b"].to(torch.float32), dim=-1)
+    n_exp = probs.shape[-1]
+    top_v, top_i = torch.topk(probs, min(MOE_TOP_K, n_exp), dim=-1)
+    top_v = top_v / top_v.sum(dim=-1, keepdim=True)
+    weights = torch.zeros_like(probs).scatter(-1, top_i, top_v)  # (..., E), zero off the top k
+    e_local = lora["expert_a"].shape[-3]
+    group = None
+    if e_local != n_exp:
+        group = getattr(lin, "ep_group", None)
+        if group is None or e_local * dist.get_world_size(group) != n_exp:
+            raise ValueError(f"MoE entry holds {e_local} of {n_exp} experts without a matching ep group")
+        first = dist.get_rank(group) * e_local
+        weights = copy_to(weights, group)[..., first:first + e_local]
+        x = copy_to(x, group)
+    h = _project(x, lora["expert_a"], "...i,eir->...er", lin)
+    d = torch.einsum("...er,ero->...eo", h, lora["expert_b"].to(x.dtype))
+    expert_out = reduce_from(torch.einsum("...eo,...e->...o", d, weights.to(d.dtype)), group)
+    return (shared + expert_out) * torch.tensor(scale, dtype=x.dtype, device=x.device)
+
+
+class _LinearForward:
+    """The forward the four linears share: x cast to `_x_dtype` (None keeps
+    it), y = `_product(x, bias)` on the linear's weights, + the LoRA delta of
+    x in `_lora_dtype` (None: x's). Under a tp shard (`tp`, set by
+    parallel.sharding): column -- x copy_to the group, the local bias in the
+    product, this rank's columns of the delta; row -- x holds this rank's
+    input features, the products (and the LoRA's x @ A) are summed over the
+    group, then the bias and the delta are added whole. `ep_group`: the
+    group a MoE entry's experts are split over."""
+
+    tp: TPShard | None = None
+    ep_group = None
+    _x_dtype: torch.dtype | None = torch.bfloat16
+    _lora_dtype: torch.dtype | None = None
+
+    def forward(self, x: torch.Tensor, lora: Lora | None = None, lora_scale: float = 1.0) -> torch.Tensor:
+        if self._x_dtype is not None:
+            x = x.to(self._x_dtype)
+        tp = self.tp
+        if tp is None:
+            y = self._product(x, self.bias)
+        elif tp.kind == "column":
+            x = copy_to(x, tp.group)
+            y = self._product(x, self.bias)
+        else:
+            y = reduce_from(self._product(x, None), tp.group)
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype)
+        if lora is not None:
+            y = y + _lora_delta(lora, x if self._lora_dtype is None else x.to(self._lora_dtype), lora_scale, self)
+        return y
+
+
+def _with_bias(y: torch.Tensor, bias) -> torch.Tensor:
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 def lora_delta_dtype(linear: nn.Module) -> torch.dtype:
@@ -58,15 +191,16 @@ def lora_delta_dtype(linear: nn.Module) -> torch.dtype:
     return linear.weight.dtype if isinstance(linear, Linear) else torch.bfloat16
 
 
-class Linear(nn.Linear):
+class Linear(_LinearForward, nn.Linear):
     """y = x W^T + b (+ LoRA delta) with x cast to the weight dtype first (JAX `linear`)."""
 
+    _x_dtype = None
+
     def forward(self, x: torch.Tensor, lora: Lora | None = None, lora_scale: float = 1.0) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
-        y = F.linear(x, self.weight, self.bias)
-        if lora is not None:
-            y = y + _lora_delta(lora, x, lora_scale)
-        return y
+        return super().forward(x.to(self.weight.dtype), lora, lora_scale)
+
+    def _product(self, x, bias):
+        return F.linear(x, self.weight, bias)
 
 
 def linear_kind(entry) -> str:
@@ -79,7 +213,7 @@ def linear_kind(entry) -> str:
     return "int8" if "w_int8" in entry else "dense"
 
 
-class Int8Linear(nn.Module):
+class Int8Linear(_LinearForward, nn.Module):
     """The int8 weight-only linear (JAX `linear`'s "w_int8" branch): buffers
     w_int8 (in, out) int8 and w_scale (out,) fp32, as the JAX entry stores
     them, and a bias in the compute dtype. y = bf16(x) @ (w_int8 * w_scale)
@@ -96,14 +230,8 @@ class Int8Linear(nn.Module):
         self.register_buffer("w_scale", torch.empty((out_features,), dtype=torch.float32))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
-    def forward(self, x: torch.Tensor, lora: Lora | None = None, lora_scale: float = 1.0) -> torch.Tensor:
-        x = x.to(torch.bfloat16)
-        y = int8_matmul(x.contiguous(), self.w_int8, self.w_scale)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        if lora is not None:
-            y = y + _lora_delta(lora, x, lora_scale)
-        return y
+    def _product(self, x, bias):
+        return _with_bias(int8_matmul(x.contiguous(), self.w_int8, self.w_scale), bias)
 
 
 INT4_GROUP = 128
@@ -118,7 +246,7 @@ def int4_group(din: int, group: int = INT4_GROUP) -> int:
     return group
 
 
-class Int4DiTLinear(nn.Module):
+class Int4DiTLinear(_LinearForward, nn.Module):
     """The int4 weight-only DiT linear (JAX `linear`'s "w_int4" branch, the
     quantize_flux_int4 entry): buffers w_int4 (in/2, out) uint8, two codes a
     byte (row 2i in the low nibble), and w_scale (in/group, out) fp32, as the
@@ -137,17 +265,11 @@ class Int4DiTLinear(nn.Module):
         self.register_buffer("w_scale", torch.empty((in_features // self.group, out_features), dtype=torch.float32))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
-    def forward(self, x: torch.Tensor, lora: Lora | None = None, lora_scale: float = 1.0) -> torch.Tensor:
-        x = x.to(torch.bfloat16)
-        y = int4_matmul(x.contiguous(), self.w_int4, self.w_scale)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        if lora is not None:
-            y = y + _lora_delta(lora, x, lora_scale)
-        return y
+    def _product(self, x, bias):
+        return _with_bias(int4_matmul(x.contiguous(), self.w_int4, self.w_scale), bias)
 
 
-class W8A8Linear(nn.Module):
+class W8A8Linear(_LinearForward, nn.Module):
     """The w8a8 linear (JAX `linear`'s "a8" branch): int8 weights, int8
     activations quantized per token at each call. Buffers w_int8 (out, in)
     int8 -- K-major, the JAX entry's (in, out) codes transposed once where
@@ -173,13 +295,21 @@ class W8A8Linear(nn.Module):
         self.register_buffer("a_sinv", torch.empty((in_features,), dtype=torch.float32) if smooth else None)
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
-    def forward(self, x: torch.Tensor, lora: Lora | None = None, lora_scale: float = 1.0) -> torch.Tensor:
-        codes, x_scale = act_quant_int8(x.contiguous(), self.a_sinv)
-        y = w8a8_matmul(codes, self.w_int8, x_scale, self.w_scale, self.bias)
-        y = y.reshape(*x.shape[:-1], self.out_features)
-        if lora is not None:
-            y = y + _lora_delta(lora, x.to(torch.bfloat16), lora_scale)
-        return y
+    _x_dtype, _lora_dtype = None, torch.bfloat16
+
+    def _product(self, x, bias):
+        """Kernel I then H. A row-parallel shard quantizes the tp group's
+        gathered inputs whole (the per-token scale is the absmax over every
+        input feature, as unsharded) and gives H this rank's codes."""
+        k = self.in_features
+        if self.tp is not None and self.tp.kind == "row":
+            codes, x_scale = act_quant_int8(all_gather_cat(x.contiguous(), self.tp.group, -1), self.a_sinv)
+            start = self.tp.rank * k
+            codes = codes.reshape(-1, codes.shape[-1])[:, start:start + k].contiguous()
+        else:
+            codes, x_scale = act_quant_int8(x.contiguous(), self.a_sinv)
+        y = w8a8_matmul(codes, self.w_int8, x_scale.reshape(-1), self.w_scale, bias)
+        return y.reshape(*x.shape[:-1], self.out_features)
 
 
 def _absmax_in(t: torch.Tensor) -> torch.Tensor:
@@ -204,13 +334,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 
 class QKNorm(nn.Module):
+    tp_group = None  # under tensor parallelism the scales meet only this rank's heads
+
     def __init__(self, dim: int):
         super().__init__()
         self.q_scale = nn.Parameter(torch.ones(dim))
         self.k_scale = nn.Parameter(torch.ones(dim))
 
     def forward(self, q, k, v):
-        return rms_norm(q, self.q_scale).to(v.dtype), rms_norm(k, self.k_scale).to(v.dtype)
+        qs, ks = copy_to(self.q_scale, self.tp_group), copy_to(self.k_scale, self.tp_group)
+        return rms_norm(q, qs).to(v.dtype), rms_norm(k, ks).to(v.dtype)
 
 
 class MLPEmbedder(nn.Module):
@@ -300,7 +433,8 @@ class DoubleBlock(nn.Module):
         return mlp["2"](h, lora.get("2"), lora_scale)
 
     def forward(self, img, txt, vec, pe, attn_mask, lora: Lora | None = None, lora_scale: float = 1.0,
-                rope_layout: str = "half", seg: Callable | None = None, collect_stats: bool = False):
+                rope_layout: str = "half", seg: Callable | None = None, collect_stats: bool = False,
+                attn_impl=None):
         l = lora or {}
         txt_len = txt.shape[1]
         if collect_stats and seg is not None:
@@ -344,7 +478,8 @@ class DoubleBlock(nn.Module):
         if seg is not None:
             pre, post = seg(pre), seg(post)
         q, k, v, mods = pre(img, txt)
-        attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout)
+        attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout,
+                         impl=attn_impl)
         out = post(img, txt, attn, mods)
         return (out, stats) if collect_stats else out
 
@@ -363,7 +498,8 @@ class SingleBlock(nn.Module):
         self.modulation = Modulation(h, False)
 
     def forward(self, x, vec, pe, attn_mask, lora: Lora | None = None, lora_scale: float = 1.0,
-                rope_layout: str = "half", seg: Callable | None = None, collect_stats: bool = False):
+                rope_layout: str = "half", seg: Callable | None = None, collect_stats: bool = False,
+                attn_impl=None):
         l = lora or {}
         if collect_stats and seg is not None:
             raise ValueError("collect_stats is a calibration (no-remat) mode")
@@ -392,7 +528,8 @@ class SingleBlock(nn.Module):
         if seg is not None:
             pre, post = seg(pre), seg(post)
         q, k, v, h, mod = pre(x)
-        attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout)
+        attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout,
+                         impl=attn_impl)
         out = post(x, attn, h, mod)
         return (out, stats) if collect_stats else out
 

@@ -46,6 +46,16 @@ def _walk(module: nn.Module, make: Callable[[nn.Module], Lora]) -> Lora:
     return out
 
 
+def full_features(lin: nn.Module) -> tuple[int, int]:
+    """(in, out) of the whole linear, also where this rank holds a tensor-
+    parallel shard of it (layers.TPShard): a LoRA entry is made for the
+    whole linear and replicated."""
+    tp = getattr(lin, "tp", None)
+    if tp is None:
+        return lin.in_features, lin.out_features
+    return (lin.in_features, tp.full) if tp.kind == "column" else (tp.full, lin.out_features)
+
+
 def init_lora(
     flux: nn.Module,
     rank: int,
@@ -56,7 +66,7 @@ def init_lora(
     device = next(flux.parameters()).device
 
     def make(lin: nn.Module) -> Lora:
-        d_in, d_out = lin.in_features, lin.out_features
+        d_in, d_out = full_features(lin)
         r = min(rank, d_in, d_out)
         bound = d_in ** -0.5
         a = torch.empty((d_in, r), dtype=torch.float32, device=device)
@@ -68,6 +78,48 @@ def init_lora(
         }
 
     return _walk(flux, make)
+
+
+def init_moe_lora(
+    flux: nn.Module,
+    rank: int,
+    num_experts: int,
+    generator: torch.Generator | None = None,
+    dtype: torch.dtype = torch.float32,
+) -> Lora:
+    """A Mixture-of-LoRA-Experts tree for every linear of `flux` (JAX
+    init_moe_lora, the same shapes and initialisation): shared_a (in, r) and
+    expert_a (E, in, r) uniform in +-in^-0.5, shared_b (r, out) and expert_b
+    (E, r, out) zero, gate_w (in, E) normal with std 0.01, gate_b (E,) zero;
+    r = min(rank, in, out), the expert axis leading. Drawn from `generator`
+    linear by linear, in that order. models/layers.py applies it unfolded
+    (`_moe_lora_delta`); it cannot be folded."""
+    device = next(flux.parameters()).device
+
+    def make(lin: nn.Module) -> Lora:
+        d_in, d_out = full_features(lin)
+        r = min(rank, d_in, d_out)
+        bound = d_in ** -0.5
+        shared_a = torch.empty((d_in, r), dtype=torch.float32, device=device).uniform_(
+            -bound, bound, generator=generator)
+        expert_a = torch.empty((num_experts, d_in, r), dtype=torch.float32, device=device).uniform_(
+            -bound, bound, generator=generator)
+        gate_w = torch.randn((d_in, num_experts), generator=generator, dtype=torch.float32, device=device) * 0.01
+        return {
+            "shared_a": shared_a.to(dtype),
+            "shared_b": torch.zeros((r, d_out), dtype=dtype, device=device),
+            "expert_a": expert_a.to(dtype),
+            "expert_b": torch.zeros((num_experts, r, d_out), dtype=dtype, device=device),
+            "gate_w": gate_w.to(dtype),
+            "gate_b": torch.zeros((num_experts,), dtype=dtype, device=device),
+        }
+
+    return _walk(flux, make)
+
+
+def is_moe_lora(lora: Lora) -> bool:
+    """True if any entry of the tree is a MoE-LoRA entry."""
+    return any("expert_a" in entry for entry in lora_entries(lora).values())
 
 
 def randomize_lora_b(lora: Lora, generator: torch.Generator, scale: float = 0.02) -> Lora:

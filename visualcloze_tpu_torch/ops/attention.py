@@ -9,9 +9,17 @@ the kernel (or, under autograd, to its E/F gradient); the interleaved layout,
 the reference's and the trainer's, rotates q and k here and goes to
 `flash_mha` (kernel D, or E and F under autograd). `mha_xla` is the fp32
 oracle the kernels are held against.
+
+Under a `RingSpec` (JAX's sequence-parallel dispatch) q, k, v, the mask
+and the RoPE tables are this rank's block of the sequence; q and k are
+rotated first, in either layout, and ring attention runs kernel E per chunk
+(F in its backward) over the spec's mesh axis; kernel A's fused rotation
+does not apply there.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -19,6 +27,32 @@ from .flash_attention import flash_mha, flash_mha_rope
 from .rope import apply_rope, apply_rope_half
 
 NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class RingSpec:
+    """Sequence-parallel attention: pass as `attn_impl` wherever the blocks
+    take one (Flux.forward, the blocks, attention). Flux.forward then keeps
+    each rank's block of the txt and img tokens over `axis` of `mesh`
+    (parallel/mesh.Mesh), and the joint sequence is attended exactly by ring
+    attention (ops/ring_attention.py): kernels E and F on CUDA tensors,
+    their plain versions on CPU tensors (the rule of every wrapper)."""
+
+    mesh: object
+    axis: str = "cp"
+
+
+def mha(q, k, v, bias=None, impl=None) -> torch.Tensor:
+    """Attention on rotated q, k (B, H, L, D): ring attention under a
+    RingSpec (q, k, v, bias this rank's sequence block), else flash_mha
+    (kernel D, or E and F under autograd)."""
+    if isinstance(impl, RingSpec):
+        from .ring_attention import ring_attention
+
+        return ring_attention(q, k, v, bias, impl.mesh, axis=impl.axis)
+    if impl is not None:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return flash_mha(q, k, v, bias)
 
 
 def mask_to_bias(mask: torch.Tensor | None) -> torch.Tensor | None:
@@ -72,18 +106,20 @@ def attention(
     pe: tuple[torch.Tensor, torch.Tensor] | None,
     mask: torch.Tensor | None = None,
     rope_layout: str = "half",
+    impl: RingSpec | None = None,
 ) -> torch.Tensor:
     """RoPE + masked MHA + head merge.
 
     q, k, v: (B, H, L, D), unrotated (pe = (cos, sin), each (B, L, D/2)) or
-    already rotated (pe None); mask: (B, L) int {1 real, 0 pad}. Returns
-    (B, L, H * D) with padded query rows zeroed."""
+    already rotated (pe None); mask: (B, L) int {1 real, 0 pad}; impl None
+    (the kernels) or a RingSpec. Returns (B, L, H * D) with padded query rows
+    zeroed."""
     bias = mask_to_bias(mask)
-    if pe is not None and rope_layout == "half" and q.shape[2] == k.shape[2]:
+    if impl is None and pe is not None and rope_layout == "half" and q.shape[2] == k.shape[2]:
         x = flash_mha_rope(q, k, v, bias, pe[0].contiguous(), pe[1].contiguous())
     else:
         q, k = rope_qk(q, k, pe, rope_layout)
-        x = flash_mha(q, k, v, bias)
+        x = mha(q, k, v, bias, impl)
     b, h, l, d = x.shape
     x = x.transpose(1, 2).reshape(b, l, h * d)
     if mask is not None:

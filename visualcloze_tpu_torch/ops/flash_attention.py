@@ -316,6 +316,20 @@ def _flash_bwd(q, k, v, bias, o, lse, do):
     return dq, dk, dv
 
 
+def chunk_bwd(q, k, v, bias, do, lse, delta):
+    """The ring's chunk backward (JAX `chunk_bwd_pallas`): partial (dq, dk,
+    dv) of one (query shard, key chunk) pair through F-dq and F-dkv, in the
+    inputs' dtype. Unpadded q, do (B, H, Lq, D), k, v (B, H, Lk, D); bias
+    (B, Lk) fp32 or None; lse (B, H, Lq) the GLOBAL log-sum-exp in log2
+    units, delta (B, H, Lq) fp32 rowsum(dO * O_final). On CPU tensors the
+    plain versions."""
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    lse, delta = lse.to(torch.float32).contiguous(), delta.to(torch.float32).contiguous()
+    dq = flash_attn_bwd_dq(q, k, v, bias, do, lse, delta)
+    dk, dv = flash_attn_bwd_dkv(q, k, v, bias, do, lse, delta)
+    return dq, dk, dv
+
+
 class FlashMHA(torch.autograd.Function):
     """flash_mha's custom VJP: kernel E forward saving (q, k, v, bias, o,
     lse), kernel F backward."""

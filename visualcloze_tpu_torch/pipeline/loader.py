@@ -62,12 +62,16 @@ def random_components(
     generator: torch.Generator | None = None,
     resolution: int = 384,
     rope_layout: str = "half",
+    mesh=None,
+    attn_impl=None,
 ) -> VisualClozeModel:
     """A randomly initialized pipeline. Random weights are valid in either
     RoPE layout as they stand, so no permutation is applied: rope_layout
     "half" serves through kernel A, "interleaved" (the reference's channel
     order, which the trainer keeps) through kernel D. The tokenizers are
-    FallbackTokenizers (tiny vocabularies, or the full T5/CLIP ones)."""
+    FallbackTokenizers (tiny vocabularies, or the full T5/CLIP ones). mesh,
+    attn_impl: as build_visualcloze (every rank draws the same weights from
+    the same generator seed)."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -82,8 +86,9 @@ def random_components(
         t5_tok, clip_tok = default_tokenizer("t5"), default_tokenizer("clip")
     t5 = TextEncoder("t5", t5_model, t5_tok, t5_cfg.max_length)
     clip = TextEncoder("clip", clip_model, clip_tok, clip_cfg.max_length)
-    return VisualClozeModel(flux_cfg, flux, ae, t5, clip, resolution=resolution, device=device,
-                            rope_layout=rope_layout, permute_params=False)
+    model = VisualClozeModel(flux_cfg, flux, ae, t5, clip, resolution=resolution, device=device,
+                             rope_layout=rope_layout, permute_params=False)
+    return place_model(model, mesh, attn_impl)
 
 
 def synthetic_full_components(
@@ -247,6 +252,7 @@ def build_visualcloze(
     quantize: str | None = None,
     device: str | torch.device | None = None,
     calib_queries=None,
+    attn_impl=None,
 ) -> VisualClozeModel:
     """The serving pipeline from checkpoint files (the JAX build_visualcloze).
 
@@ -262,13 +268,13 @@ def build_visualcloze(
     (process_images' (images, prompts) pairs; None: a blank 2x2 grid) with
     VisualClozeModel.calibrate_w8a8_smooth's defaults, then quantized with
     SmoothQuant equalization. Each frees the dense DiT once its quantized
-    copy exists. Mesh sharding is not ported (ROADMAP item 4). lora_rank is
+    copy exists. mesh (parallel.Mesh): the DiT is sharded over it once built
+    (parallel.shard_params: tp shards, FSDP2 over fsdp), after the
+    calibration of w8a8_smooth; attn_impl: a RingSpec for cp. lora_rank is
     read from the checkpoint's shapes."""
     del lora_rank
     if quantize not in (None, "int8", "w8a8", "w8a8_smooth"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding of the DiT is not ported yet: ROADMAP item 4")
     device = resolve_device(device)
     snapshot = model_path if is_diffusers_snapshot(model_path) else None
     if snapshot:
@@ -297,4 +303,15 @@ def build_visualcloze(
     if quantize == "w8a8_smooth":  # the calibration runs the dense DiT in the model's (half) layout
         del flux
         model.calibrate_w8a8_smooth(queries=calib_queries)
+    return place_model(model, mesh, attn_impl)
+
+
+def place_model(model: VisualClozeModel, mesh, attn_impl) -> VisualClozeModel:
+    """Shard the model's DiT over `mesh` (after its constructor's RoPE
+    permutation, as JAX does) and set its attention dispatch."""
+    if mesh is not None:
+        from ..parallel import shard_params
+
+        shard_params(model.flux, mesh)
+    model.mesh, model.attn_impl = mesh, attn_impl
     return model

@@ -10,15 +10,22 @@ DiT. Each query draws its noise from its own source in the order
 process_images does, so the images equal sequential process_images' bit for
 bit.
 
-One card: the encoders and the DiT live on the model's device. JAX's
-two-chip disaggregated placement (encoders on one chip, the DiT on another)
-is ROADMAP item 4. Every stage runs on its worker thread's default CUDA
-stream; no side stream is used, since a tensor that crosses streams would
-need record_stream before the caching allocator could reuse its memory.
-So on one card a second worker overlaps no device work: it interleaves two
-queries' stages, which delays the first answer and adds no throughput. The
-default max_inflight is therefore 1 (queries in arrival order); 2 is what
-overlap through side streams would need.
+Placement: by default the encoders and the DiT live on the model's device.
+With encoder_device and dit_device (JAX's two-chip disaggregated placement)
+the VAE, T5 and CLIP move to one card and the DiT with its adapters to the
+other; each query's tensors cross to the DiT's card for the denoise and its
+samples come back (`_to`), so the two cards work on two queries at once
+with max_inflight 2. On one card every stage runs on its worker thread's
+default CUDA stream; no side stream is used, since a tensor that crosses
+streams would need record_stream before the caching allocator could reuse
+its memory. So on one card a second worker overlaps no device work: it
+interleaves two queries' stages, which delays the first answer and adds no
+throughput. The default max_inflight is therefore 1 (queries in arrival
+order).
+
+MeshLeader / follow_mesh: a model whose DiT spans a mesh (torchrun, --tp,
+--fsdp, --cp) needs every rank to run the same queries in the same order;
+rank 0's server broadcasts each query to the others before running it.
 
 ReplicaPool is host logic over any objects with submit/close: least-loaded
 dispatch, failover once per remaining replica, and health accounting.
@@ -26,14 +33,27 @@ dispatch, failover once per remaining replica, and health accounting.
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Sequence
+from typing import Any, Sequence
 
+import torch
 from PIL import Image
 
 from ..device import same_device
+from ..models.lora import tree_map
 from .visualcloze import VisualClozeModel
+
+logger = logging.getLogger(__name__)
+
+
+def _on(device):
+    """The card's context for a stage: the hand-written kernels launch on the
+    current device, which a worker thread does not inherit."""
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 class ReplicaPool:
@@ -145,16 +165,23 @@ class ReplicaPool:
 class PipelinedServer:
     """Pipelined serving of a VisualClozeModel from `max_inflight` threads.
 
-    encoder_device, dit_device: None or the model's own device. Placing the
-    encoders and the DiT on two cards raises NotImplementedError: ROADMAP
-    item 4."""
+    encoder_device: the card for the VAE, T5 and CLIP weights (None: where
+    they are); dit_device: the card for the DiT and its runtime adapters.
+    The model's weights are moved there."""
 
     def __init__(self, model: VisualClozeModel, encoder_device=None, dit_device=None, max_inflight: int = 1):
-        for what, dev in (("encoder_device", encoder_device), ("dit_device", dit_device)):
-            if dev is not None and not same_device(dev, model.device):
-                raise NotImplementedError(
-                    f"{what}={dev} is not the model's device {model.device}: placing the encoders and the DiT "
-                    "on separate cards is not ported yet: ROADMAP item 4")
+        if encoder_device is not None and not same_device(encoder_device, model.device):
+            dev = torch.device(encoder_device)
+            model.ae.to(dev)
+            for enc in (model.t5, model.clip):
+                enc.model.to(dev)
+            model.device = dev
+        self.dit_device = None
+        if dit_device is not None and not same_device(dit_device, model.device):
+            dev = torch.device(dit_device)
+            model.flux.to(dev)
+            model.adapters = {name: tree_map(lambda t: t.to(dev), tree) for name, tree in model.adapters.items()}
+            model.dit_device = self.dit_device = dev
         self.model = model
         self._enc_lock = threading.Lock()
         self._dit_lock = threading.Lock()
@@ -189,25 +216,38 @@ class PipelinedServer:
     def __exit__(self, *exc):
         self.close()
 
+    @staticmethod
+    def _to(q: dict[str, Any], device) -> dict[str, Any]:
+        """The query with its tensors on `device` (its records stay shared)."""
+        if device is None:
+            return q
+        return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in q.items()}
+
     def _denoise(self, q, stage: str = "denoise"):
-        with self._dit_lock:
-            return self.model.denoise_query(q, stage)
+        with self._dit_lock, _on(self.dit_device or self.model.device):
+            samples = self.model.denoise_query(self._to(q, self.dit_device), stage)
+        return samples if self.dit_device is None else samples.to(self.model.device)
+
+    @contextlib.contextmanager
+    def _encoders(self):
+        with self._enc_lock, _on(self.model.device):
+            yield
 
     def _run(self, images, prompts, grid_size, seed, cfg, steps, upsampling_steps, upsampling_noise,
              is_upsampling, adapter=None) -> list[Image.Image]:
         m = self.model
-        with self._enc_lock:
+        with self._encoders():
             q = m.prepare_query(images, prompts, seed=seed, cfg=cfg, steps=steps, grid_size=grid_size,
                                 adapter=adapter)
         samples = self._denoise(q)
-        with self._enc_lock:
+        with self._encoders():
             crops = m.finalize_query(q, samples, is_upsampling=False)
         if not is_upsampling:
             return crops
         # SDEdit per masked cell, drawing from the query's noise in process_images' order
         out: list[Image.Image] = []
         for img in crops:
-            with self._enc_lock:
+            with self._encoders():
                 uq = m.prepare_upsampling(img, q["upsampling_size"], cfg, upsampling_steps=upsampling_steps,
                                           upsampling_noise=upsampling_noise, noise=q["noise"],
                                           content_prompt=q["content_prompt"], adapter=adapter, parent=q)
@@ -215,6 +255,58 @@ class PipelinedServer:
                 out.append(uq)
                 continue
             us = self._denoise(uq, "sdedit_denoise")
-            with self._enc_lock:
+            with self._encoders():
                 out.append(m.finalize_upsampling(uq, us))
         return out
+
+
+class MeshLeader:
+    """Rank 0's face of a server whose model spans a mesh: each submitted
+    query is broadcast to the other ranks (follow_mesh) and then run, one at
+    a time, so that every rank issues the same collectives in order."""
+
+    def __init__(self, server):
+        self.server = server
+        self._pool = ThreadPoolExecutor(max_workers=1)
+
+    def submit(self, *args, **kwargs) -> Future:
+        return self._pool.submit(self._run, args, kwargs)
+
+    def _run(self, args, kwargs):
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([(args, kwargs)], src=0)
+        return self.server.submit(*args, **kwargs).result()
+
+    def __getattr__(self, name):  # the frontend reads the inner server's health where it has one
+        return getattr(self.server, name)
+
+    def close(self) -> None:
+        import torch.distributed as dist
+
+        self._pool.shutdown(wait=True)
+        dist.broadcast_object_list([None], src=0)
+        self.server.close()
+
+
+def follow_mesh(server) -> tuple[int, int]:
+    """The loop of a rank other than 0: run each query rank 0 broadcasts,
+    until it broadcasts None; returns (queries run, queries that raised). A
+    query that raises (an unknown adapter, a bad grid) raises on rank 0
+    too, whose server answers it with the error and goes on; so does this
+    loop, to stay in step."""
+    import torch.distributed as dist
+
+    n = failed = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is None:
+            return n, failed
+        args, kwargs = box[0]
+        n += 1
+        try:
+            server.submit(*args, **kwargs).result()
+        except Exception:  # rank 0 reports it to the client; this rank only keeps in step
+            failed += 1
+            logger.exception("query %d raised on this rank (as on rank 0)", n)

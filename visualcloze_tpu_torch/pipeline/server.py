@@ -311,7 +311,8 @@ def run_server(
     result_timeout_s: float | None = 900.0,
 ):
     """A VisualClozeModel behind a PipelinedServer and the HTTP frontend.
-    encoder_device, dit_device: None or the model's device (ROADMAP item 4)."""
+    encoder_device, dit_device: PipelinedServer's placement (the encoders and
+    the DiT on two cards), None to keep the model's."""
     ps = PipelinedServer(
         model, encoder_device=encoder_device, dit_device=dit_device,
         max_inflight=max_inflight,

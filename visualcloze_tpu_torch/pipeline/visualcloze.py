@@ -110,7 +110,12 @@ class VisualClozeModel:
     time_shifting_factor warps the stage-1 grid. adapters: named runtime
     LoRA trees (add_adapter), applied unfolded when a query names one, with
     their delta times lora_scale. The text length is the TextEncoders' own
-    (the loader's max_length)."""
+    (the loader's max_length). attn_impl: None (the kernels) or an
+    ops.attention.RingSpec, under which every DiT evaluation splits its
+    tokens over the spec's cp axis and attends with ring attention (with a
+    DiT sharded over the same mesh, loader.build_visualcloze(mesh=...)).
+    Across ranks every rank runs the same query on the same noise: the
+    outputs agree."""
 
     def __init__(
         self,
@@ -128,6 +133,7 @@ class VisualClozeModel:
         lora_scale: float = 1.0,
         permute_params: bool = True,
         device: str | torch.device | None = None,
+        attn_impl=None,
     ):
         if rope_layout not in ("half", "interleaved"):
             raise ValueError(f"rope_layout must be 'half' or 'interleaved', got {rope_layout!r}")
@@ -149,6 +155,9 @@ class VisualClozeModel:
         self.solver_stats: dict[str, dict] = {}
         self.adapters: dict[str, Lora] = {}
         self.lora_scale = lora_scale
+        self.attn_impl = attn_impl
+        self.mesh = None  # the parallel.Mesh the DiT is sharded over (loader.place_model)
+        self.dit_device: torch.device | None = None  # the DiT's card when it is not self.device (PipelinedServer)
         for name, tree in (adapters or {}).items():
             self.add_adapter(name, tree)
 
@@ -168,7 +177,7 @@ class VisualClozeModel:
             if path not in modules:
                 raise ValueError(f"adapter {name!r}: LoRA entry {path!r} has no linear in the model")
             dtype = None if "expert_a" in entry else lora_delta_dtype(modules[path])
-            placed.update({f"{path}.{k}": v.to(self.device, dtype) for k, v in entry.items()})
+            placed.update({f"{path}.{k}": v.to(self.dit_device or self.device, dtype) for k, v in entry.items()})
         self.adapters[name] = tree_replace(lora, placed)
 
     def _resolve_adapter(self, name: str | None) -> Lora | None:
@@ -231,9 +240,21 @@ class VisualClozeModel:
         """Adds the stage's wall time (device work included) to seconds[name]."""
         t0 = time.perf_counter()
         yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in {self.device, self.dit_device or self.device}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    def _shared_seed(self, seed: int) -> int:
+        """Rank 0's seed on every rank of the model's mesh (its ranks run each
+        query together and must draw the same noise); `seed` without one."""
+        if self.mesh is None or self.mesh.device_mesh is None:
+            return seed
+        import torch.distributed as dist
+
+        box = torch.tensor([seed], dtype=torch.int64, device=self.device if self.device.type == "cuda" else "cpu")
+        dist.broadcast(box, src=0)
+        return int(box.item())
 
     def set_grid_size(self, h: int, w: int) -> None:
         self.grid_h = h
@@ -299,7 +320,7 @@ class VisualClozeModel:
         work."""
         self._resolve_adapter(adapter)
         if seed == 0:
-            seed = int(np.random.randint(0, 2 ** 31 - 1))
+            seed = self._shared_seed(int(np.random.randint(0, 2 ** 31 - 1)))
         src = NoiseSource(self.device, seed, noise)
         grid_h, grid_w = grid_size if grid_size is not None else (self.grid_h, self.grid_w)
         assert grid_h is not None and grid_w is not None, "call set_grid_size first"
@@ -372,7 +393,7 @@ class VisualClozeModel:
                 self.flux, q["x"], q["ts"], q["img_cond"], q["txt"], q["txt_ids"],
                 q["txt_mask"], q["vec"], q["img_ids"], q["img_mask"], q["guidance"], self.rope_layout,
                 method=self.solver, stats=stats, lora=lora,
-                lora_scale=self.lora_scale if lora is not None else 1.0,
+                lora_scale=self.lora_scale if lora is not None else 1.0, attn_impl=self.attn_impl,
             )
         if stats:
             q.setdefault("solver_stats", {})[stage] = stats
@@ -440,7 +461,7 @@ class VisualClozeModel:
                 return self.flux(
                     img=img, img_ids=q["img_ids"], txt=q["txt"], txt_ids=q["txt_ids"], timesteps=timesteps,
                     y=q["vec"], txt_mask=q["txt_mask"], img_mask=q["img_mask"], guidance=q["guidance"],
-                    rope_layout=self.rope_layout, collect_a8_stats=collect,
+                    rope_layout=self.rope_layout, collect_a8_stats=collect, attn_impl=self.attn_impl,
                 )
 
             plain = _velocity_fn(functools.partial(model_fn, collect=False), x, q["img_cond"])
@@ -616,7 +637,8 @@ class VisualClozeModel:
 
 
 def _denoise(flux: Flux, x, ts, cond, txt, txt_ids, txt_mask, vec, img_ids, img_mask, guidance, rope_layout,
-             method: str = "euler", stats: dict | None = None, lora: Lora | None = None, lora_scale: float = 1.0):
+             method: str = "euler", stats: dict | None = None, lora: Lora | None = None, lora_scale: float = 1.0,
+             attn_impl=None):
     """The hot loop: the solver's steps over the full DiT (dopri5 from the
     grid's first to its last time, adaptively), with an unfolded LoRA."""
 
@@ -624,7 +646,7 @@ def _denoise(flux: Flux, x, ts, cond, txt, txt_ids, txt_mask, vec, img_ids, img_
         return flux(
             img=img, img_ids=img_ids, txt=txt, txt_ids=txt_ids, timesteps=timesteps, y=vec,
             txt_mask=txt_mask, img_mask=img_mask, guidance=guidance, rope_layout=rope_layout,
-            lora=lora, lora_scale=lora_scale,
+            lora=lora, lora_scale=lora_scale, attn_impl=attn_impl,
         )
 
     if method == "dopri5":

@@ -14,9 +14,15 @@ JSON "adapter" field. --replicas N builds N models behind a ReplicaPool, all
 on the one card. Requests beyond --max_inflight + --max_queue get 429. Before
 it listens, the server runs one blank query per --warmup_grids grid and
 adapter signature (and per --warmup_upsampling cell size) through the same
-submit path the requests take. The encoders and the DiT share the card:
---no_disaggregate is accepted and changes nothing; --tp, --fsdp and --cp
-raise NotImplementedError (ROADMAP item 4).
+submit path the requests take.
+
+Placement (JAX's serve.py): with two or more cards and no mesh, replica r
+puts its encoders on card 2r and its DiT on card 2r + 1 (PipelinedServer's
+disaggregated placement) where the cards suffice; --no_disaggregate keeps
+everything on one card. Under torchrun, --tp / --fsdp / --cp shard the DiT
+over the ranks (inference.serving_mesh): rank 0 serves HTTP and broadcasts
+each query to the other ranks, which run it in step (MeshLeader,
+follow_mesh).
 """
 
 from __future__ import annotations
@@ -25,10 +31,13 @@ import argparse
 
 import torch
 
-from .device import resolve_device
-from .inference import (add_adapter_args, add_adapters, add_aot_args, build_model, kernel_cache, load_model,
-                        refuse_unported)
+import torch.distributed as dist
+
+from .inference import (add_adapter_args, add_adapters, add_aot_args, add_mesh_args, build_model, kernel_cache,
+                        load_model, serving_attn_impl, serving_device, serving_mesh)
 from .pipeline import PipelinedServer, ReplicaPool, synthetic_full_components
+from .pipeline.loader import place_model
+from .pipeline.orchestrator import MeshLeader, follow_mesh
 from .pipeline.server import run_frontend
 from .transport.sampling import solver_arg
 
@@ -42,9 +51,7 @@ def parse_args(argv=None):
     p.add_argument("--solver", default="euler", type=solver_arg, help="euler, heun, ab2, dopri5 or cached[:K]")
     p.add_argument("--quantize", default=None, choices=[None, "int8", "w8a8", "w8a8_smooth"])
     p.add_argument("--t5_int4", action="store_true", help="int4 weight-only T5-XXL")
-    p.add_argument("--tp", type=int, default=1, help="not ported (ROADMAP item 4)")
-    p.add_argument("--fsdp", type=int, default=1, help="not ported (ROADMAP item 4)")
-    p.add_argument("--cp", type=int, default=1, help="not ported (ROADMAP item 4)")
+    add_mesh_args(p)
     add_adapter_args(p)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
@@ -57,7 +64,7 @@ def parse_args(argv=None):
     p.add_argument("--result_timeout", type=float, default=900.0,
                    help="seconds a request may wait before a 504; 0 disables")
     p.add_argument("--no_disaggregate", action="store_true",
-                   help="accepted for the reference CLI's sake: one card holds the encoders and the DiT")
+                   help="keep the encoders and the DiT on one card even when two or more are present")
     add_aot_args(p)
     p.add_argument("--warmup_grids", default="2x3", help="comma list of HxW grids to warm up ('' skips)")
     p.add_argument("--warmup_upsampling", default="",
@@ -74,34 +81,54 @@ def _sizes(spec: str) -> list[tuple[int, int]]:
     return [tuple(int(v) for v in s.split("x")) for s in spec.split(",") if s] if spec else []
 
 
-def build_serving_model(args, device: torch.device):
-    """The model one replica serves, with the --lora adapters registered."""
+def build_serving_model(args, device: torch.device, mesh=None):
+    """The model one replica serves, its DiT on `mesh`, with the --lora
+    adapters registered."""
     if args.synthetic_full:
         tiny = device.type == "cpu"
         model = synthetic_full_components(tiny=tiny, device=device, resolution=64 if tiny else args.resolution)
         model.solver = args.solver
+        model = place_model(model, mesh, serving_attn_impl(args, mesh))
     elif args.demo:
-        model = build_model(args, device)
+        model = place_model(build_model(args, device), mesh, serving_attn_impl(args, mesh))
     else:
-        model = load_model(args, device)
+        model = load_model(args, device, mesh)
     add_adapters(model, args)
     return model
 
 
+def placement(args, device: torch.device, mesh, replica: int):
+    """(encoder_device, dit_device) of a replica: cards 2r and 2r + 1 when
+    there are two or more cards, no mesh and enough cards (JAX's rule)."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 0
+    if mesh is not None or args.no_disaggregate or n < 2 or 2 * args.replicas > n:
+        return None, None
+    return torch.device("cuda", 2 * replica), torch.device("cuda", 2 * replica + 1)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported(args)
-    device = resolve_device(args.device)
+    device = serving_device(args)
     print(f"kernel directory: {kernel_cache(args, device)}")
+    mesh = serving_mesh(args, device)
+    leader = mesh is None or mesh.device_mesh is None or dist.get_rank() == 0
     replicas = []
-    for _ in range(args.replicas):
-        model = build_serving_model(args, device)
-        ps = PipelinedServer(model, max_inflight=args.max_inflight)
+    for r in range(args.replicas):
+        enc_dev, dit_dev = placement(args, device, mesh, r)
+        model = build_serving_model(args, enc_dev or device, mesh)
+        ps = PipelinedServer(model, encoder_device=enc_dev, dit_device=dit_dev, max_inflight=args.max_inflight)
         model.warmup(_sizes(args.warmup_grids), steps=4 if args.demo else 30,
                      upsampling_sizes=_sizes(args.warmup_upsampling),
                      submit=lambda *a, **k: ps.submit(*a, **k).result())
         replicas.append(ps)
     server = replicas[0] if args.replicas == 1 else ReplicaPool(replicas)
+    if not leader:  # the other ranks of a mesh run rank 0's queries in step
+        print(f"rank {dist.get_rank()}: following rank 0's queries", flush=True)
+        follow_mesh(server)
+        server.close()
+        return
+    if mesh is not None and mesh.device_mesh is not None:
+        server = MeshLeader(server)
     print(f"serving on {args.host}:{args.port} (replicas={args.replicas}, device={device})", flush=True)
     run_frontend(server, host=args.host, port=args.port, max_inflight=args.max_inflight * args.replicas,
                  max_queue=args.max_queue, block=True, result_timeout_s=args.result_timeout or None)

@@ -10,13 +10,25 @@
       --device cpu --tiny --init_random --precision fp32 ...
       the tiny model on the CPU (the kernels' plain versions).
 
-One process, one device: gradients are accumulated over global_bsz /
-micro_bsz micro-batches. The mesh flags (--dp --fsdp --tp --cp --pp --ep
-above 1), --sdp and --moe_experts are refused: multi-device training and
-MoE-LoRA are not ported yet (ROADMAP items 4 and 5). The model keeps the
-reference's interleaved RoPE channel order, so its LoRA exports drop into the
-reference. Per-step randomness is a function of (seed, step): a resumed run
-draws at step k what an uninterrupted one draws.
+Across cards it is launched by torchrun, one process per card:
+
+  torchrun --nproc_per_node 8 -m visualcloze_tpu_torch.training.train \
+      --data_path data.yaml --init_random --fsdp 8 ...
+
+with JAX's mesh flags: --dp, --fsdp (0: every rank the other axes leave),
+--tp, --cp (the DiT's tokens split over cp ranks, ring attention), --pp (GPipe over the single trunk,
+--pp_microbatches), --ep (MoE-LoRA experts, with --moe_experts) and --sdp
+(ZeRO-2: weights replicated, gradients and AdamW state sharded). Every rank
+loads and encodes the same global batch and trains on its share of it
+(micro_bsz per data rank and micro-batch); the LoRA is replicated and its
+gradients averaged (parallel/, training/step.py). --device cpu runs the
+ranks as a gloo group. JAX's refusals stand: --cp with --pp, --pp with
+remat dots_split, --init_from with --moe_experts.
+
+The model keeps the reference's interleaved RoPE channel order, so its LoRA
+exports drop into the reference. Per-step randomness is a function of
+(seed, step, data rank): a resumed run draws at step k what an
+uninterrupted one draws.
 """
 
 from __future__ import annotations
@@ -30,9 +42,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
-from ..models.lora import init_lora, lora_param_count, tree_items, tree_map
+from ..models.lora import init_lora, init_moe_lora, lora_param_count, tree_items, tree_map
+from ..ops.attention import RingSpec
+from ..parallel import (create_mesh, initialize_distributed, replicate_tree, shard_large_params, shard_lora,
+                        shard_micro_batches, shard_params)
 from ..transport import create_transport
 from ..utils.misc import PhaseTimer, SmoothedValue
 from . import checkpoint as ckpt
@@ -65,19 +81,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--training_type", default="lora",
                    choices=["lora", "full_model", "double_block", "bias", "norm"])
     p.add_argument("--lora_rank", type=int, default=128)
-    p.add_argument("--moe_experts", type=int, default=0, help="MoE-LoRA: not ported (ROADMAP item 5)")
-    p.add_argument("--ep", type=int, default=1, help="expert-parallel axis: not ported (ROADMAP item 5)")
+    p.add_argument("--moe_experts", type=int, default=0,
+                   help="MoE-LoRA: number of expert LoRA pairs (0 = plain LoRA); experts split over --ep")
+    p.add_argument("--ep", type=int, default=1, help="expert-parallel mesh axis size (MoE-LoRA)")
     p.add_argument("--use_model_ema", action="store_true")
     p.add_argument("--ema_decay", type=float, default=0.95)
     p.add_argument("--checkpointing", action="store_true", help="activation remat per block")
     p.add_argument("--remat_policy", default="dots", choices=["dots", "dots_split", "full"],
                    help="dots keeps matmul outputs, dots_split also the attention's saved tensors, "
                         "full recomputes everything (least memory)")
-    for axis in ("dp", "tp", "cp", "pp"):
-        p.add_argument(f"--{axis}", type=int, default=1, help="mesh axis: not ported (ROADMAP item 4)")
-    p.add_argument("--fsdp", type=int, default=0, help="0 or 1: one device (ROADMAP item 4)")
-    p.add_argument("--sdp", action="store_true", help="ZeRO-2: not ported (ROADMAP item 4)")
-    p.add_argument("--pp_microbatches", type=int, default=0)
+    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis")
+    p.add_argument("--fsdp", type=int, default=0, help="FSDP mesh axis (0 = all remaining ranks)")
+    p.add_argument("--sdp", action="store_true",
+                   help="ZeRO-2: weights replicated over the data axes, gradients and AdamW state sharded")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis")
+    p.add_argument("--cp", type=int, default=1,
+                   help="sequence parallelism: the DiT's tokens split over a cp axis, ring attention between "
+                        "them (the txt length and the seq bucket divisible by cp)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline parallelism: GPipe over the single-block trunk (38 %% pp == 0)")
+    p.add_argument("--pp_microbatches", type=int, default=0,
+                   help="pipeline microbatches per micro-batch (0 = pp)")
     p.add_argument("--ckpt_every", type=int, default=1000)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--auto_resume", action="store_true")
@@ -101,17 +125,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    for axis in ("dp", "tp", "cp", "pp", "ep"):
-        if getattr(args, axis) > 1:
-            raise SystemExit(f"--{axis} {getattr(args, axis)}: multi-device training is not "
-                             "ported yet (ROADMAP item 4); the port trains on one device")
-    if args.fsdp > 1 or args.sdp:
-        raise SystemExit("--fsdp > 1 / --sdp: sharded training is not ported yet (ROADMAP item 4)")
-    if args.moe_experts > 0:
-        raise SystemExit("--moe_experts: MoE-LoRA is not ported yet (ROADMAP item 5)")
+def _check_args(args) -> None:
+    """JAX's refusals, and the port's: no FLUX weights are in the repository."""
+    if args.cp > 1 and args.pp > 1:
+        raise SystemExit("--cp and --pp cannot be combined: ring attention cannot nest inside the "
+                         "pipelined trunk (pick one; fsdp/tp/dp compose with either)")
+    if args.pp > 1 and args.remat_policy == "dots_split":
+        raise SystemExit("--remat_policy dots_split is not implemented for the pipelined trunk; use dots or "
+                         "full with --pp")
+    if args.init_from and args.moe_experts > 0:
+        raise SystemExit("--init_from loads a plain-LoRA .pth, which has no MoE-expert format; it cannot be "
+                         "combined with --moe_experts (the MoE tree would be silently replaced)")
     if not (args.init_random or args.tiny):
         raise SystemExit("no FLUX/T5/CLIP/VAE weights are in the repository: pass --init_random")
+
+
+def build_mesh(args, device: torch.device):
+    """The (pp, dp, fsdp, tp, cp, ep) mesh over the launcher's ranks (JAX's
+    arithmetic: --fsdp 0 takes every rank the other axes leave), or None
+    for one process."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    fixed = args.dp * args.tp * args.cp * args.ep * args.pp
+    fsdp = args.fsdp or max(1, world // fixed)
+    if world == 1 and fixed * fsdp == 1 and not dist.is_initialized():
+        return None
+    return create_mesh(dp=args.dp, fsdp=fsdp, tp=args.tp, cp=args.cp, ep=args.ep, pp=args.pp, device=device)
 
 
 def _step_generator(device: torch.device, seed: int, step: int, stream: int) -> torch.Generator:
@@ -123,8 +161,8 @@ def _b_absmax(lora) -> float | None:
     """max |B| over the LoRA's B factors (zero at init; moves once trained)."""
     if lora is None:
         return None
-    maxes = [t.detach().abs().max() for path, t in tree_items(lora) if path.endswith(".b")]
-    return float(torch.stack(maxes).max())
+    maxes = [t.detach().abs().max() for path, t in tree_items(lora) if path.endswith((".b", "_b"))]
+    return float(torch.stack(maxes).max()) if maxes else None
 
 
 def main(argv=None) -> dict:
@@ -132,7 +170,7 @@ def main(argv=None) -> dict:
     pipeline holding the frozen base components, "state": the TrainState,
     "ckpt_root": ...}."""
     args = parse_args(argv)
-    _refuse_unported(args)
+    _check_args(args)
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s %(name)s] %(message)s")
     from ..data import DataLoader, Graph200KItemProcessor, GridDataset, dataloader_collate_fn, get_train_sampler
     from ..data.prefix_instruction import graph200k_task_dicts, set_prompt_bank
@@ -140,6 +178,13 @@ def main(argv=None) -> dict:
 
     set_prompt_bank(args.prompt_bank)
     device = resolve_device(args.device)
+    _, _, local_rank = initialize_distributed(device)
+    if device.type == "cuda" and dist.is_initialized():
+        device = torch.device("cuda", local_rank)
+    mesh = build_mesh(args, device)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    if mesh is not None:
+        logger.info("mesh: %s over %d ranks", mesh, dist.get_world_size() if dist.is_initialized() else 1)
     compute_dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     is_lora = args.training_type == "lora"
 
@@ -152,17 +197,27 @@ def main(argv=None) -> dict:
     flux_cfg, flux = bundle.cfg, bundle.flux
     lora = None
     if is_lora:
+        lora_gen = torch.Generator(device=device).manual_seed(args.global_seed + 1)
         if args.init_from:
             lora = tree_map(lambda t: t.to(device), ckpt.load_torch_lora(args.init_from, flux_cfg))
+        elif args.moe_experts > 0:
+            lora = init_moe_lora(flux, args.lora_rank, args.moe_experts, generator=lora_gen)
         else:
-            lora = init_lora(flux, args.lora_rank,
-                             generator=torch.Generator(device=device).manual_seed(args.global_seed + 1))
+            lora = init_lora(flux, args.lora_rank, generator=lora_gen)
         logger.info("LoRA params: %.1fM", lora_param_count(lora) / 1e6)
     logger.info("base params: %.2fB", sum(p.numel() for p in flux.parameters()) / 1e9)
 
     mask = trainable_mask(flux, args.training_type) if args.training_type not in ("lora", "full_model") else None
+    if mesh is not None:
+        mp = compute_dtype if not is_lora and compute_dtype != torch.float32 else None
+        shard_params(flux, mesh, mode="sdp" if args.sdp else "fsdp", param_dtype=mp)
+        for frozen in (bundle.t5.model, bundle.clip.model, bundle.ae.encoder, bundle.ae.decoder):
+            shard_large_params(frozen, mesh)  # the frozen encoders' large tensors over fsdp, as JAX's
+        if lora is not None:
+            lora = shard_lora(replicate_tree(lora, mesh), mesh)
     optimizer = make_optimizer(args.lr, args.wd, args.grad_clip)
-    state = init_train_state(flux, lora, optimizer, args.training_type, args.use_model_ema, mask=mask)
+    state = init_train_state(flux, lora, optimizer, args.training_type, args.use_model_ema, mask=mask,
+                             mesh=mesh, sdp=args.sdp)
     transport = create_transport("Linear", "velocity", snr_type=args.snr_type, do_shift=not args.no_shift)
     train_step = make_train_step(
         transport, optimizer, args.training_type,
@@ -170,6 +225,8 @@ def main(argv=None) -> dict:
         remat=args.checkpointing,
         remat_policy=None if args.remat_policy == "full" else args.remat_policy,
         compute_dtype=compute_dtype, rope_layout="interleaved",
+        attn_impl=RingSpec(mesh, "cp") if args.cp > 1 else None,
+        mesh=mesh, pp_microbatches=args.pp_microbatches or None,
     )
 
     # ----- resume -----
@@ -189,20 +246,26 @@ def main(argv=None) -> dict:
         cache_on_disk=args.cache_data_on_disk,
         task_dicts={"image_grid_graph200k": graph200k_task_dicts}, process_index=0, seed=args.global_seed,
     )
-    if args.global_bsz % args.micro_bsz != 0:
-        raise SystemExit(f"--global_bsz {args.global_bsz} must be a multiple of --micro_bsz {args.micro_bsz}")
+    n_data = mesh.size(("dp", "fsdp")) if mesh is not None else 1
+    global_micro = args.micro_bsz * n_data  # micro_bsz is per data rank, as in JAX
+    if args.global_bsz % global_micro != 0:
+        raise SystemExit(f"--global_bsz {args.global_bsz} must be a multiple of micro_bsz x dp x fsdp = "
+                         f"{args.micro_bsz} x {n_data} = {global_micro}")
+    if args.pp > 1 and args.micro_bsz % args.pp:
+        raise SystemExit(f"--micro_bsz {args.micro_bsz} must split over --pp {args.pp}")
+    data_rank = mesh.rank(("pp", "dp", "fsdp")) if mesh is not None else 0
     sampler = get_train_sampler(len(dataset), 0, 1, args.global_bsz, args.max_steps, resume_step,
                                 args.global_seed)
     loader_iter = iter(DataLoader(dataset, sampler, args.global_bsz, dataloader_collate_fn,
                                   num_workers=args.num_workers))
 
     tb_writer = None
-    if args.use_tensorboard:
+    if args.use_tensorboard and rank0:
         from tensorboardX import SummaryWriter
 
         tb_writer = SummaryWriter(os.path.join(args.results_dir, "tb"))
     wandb_run = None
-    if args.use_wandb:
+    if args.use_wandb and rank0:
         try:
             import wandb
 
@@ -241,10 +304,12 @@ def main(argv=None) -> dict:
                 caption_dropout=args.caption_dropout_prob, bucket=args.max_seq_bucket,
                 compute_dtype=compute_dtype, generator=_step_generator(device, args.global_seed, step, 0),
             )
-            batch = to_micro_batches(batch, args.micro_bsz)
+            batch = to_micro_batches(batch, global_micro)
+            if mesh is not None:
+                batch = shard_micro_batches(batch, mesh)
             timer.mark("EncodeSecs")
 
-            metrics = train_step(state, batch, _step_generator(device, args.global_seed, step, 1))
+            metrics = train_step(state, batch, _step_generator(device, args.global_seed + 7919 * data_rank, step, 1))
             if step % args.log_every == 0:
                 loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
                 timer.mark("TrainSecs")
@@ -268,6 +333,10 @@ def main(argv=None) -> dict:
                     wandb_run.log({"loss": loss, "grad_norm": gn, "lr": args.lr}, step=step)
 
             stop = preempted["flag"]
+            if dist.is_initialized():  # SIGTERM lands per rank; the save below is collective
+                flag = torch.tensor(float(stop), device=device)
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                stop = bool(flag.item())
             if (step + 1) % args.ckpt_every == 0 or step + 1 == args.max_steps or stop:
                 t0 = time.perf_counter()
                 path = ckpt.save_checkpoint(ckpt_root, step + 1, state, model_args=vars(args),
