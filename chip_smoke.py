@@ -48,7 +48,21 @@ Phases, each followed by one flushed JSON line on stdout:
              padded and 7680 (the trainer's longest sequence) with a bias,
              D/E also with 300 queries against 1000 keys; A and D/E also
              with keys masked inside a sequence 32 key tiles long (a block
-             of a third of the keys in the middle, every third key);
+             of a third of the keys in the middle, every third key); the
+             DiT blocks' fused passes, each timed as a replayed CUDA graph
+             with no library call: J (LayerNorm + modulate) with bf16 and
+             fp32 output at 3968, 3456, 512 and 4608 tokens, the final
+             layer's image rows of a batch of 2 and 7 rows (2 bf16 ulps of
+             the largest output; fp32: 2^-16 of it), K (gated residual) bit
+             for bit, L (head split + q/k RMSNorm) from linear1's 21504-
+             column rows, the double block's streams into a joint 3968-token
+             buffer at offsets 512 and 0, 4608 tokens, a tp = 2 shard's 12
+             heads and 7 rows at an offset (q, k within 2 ulps, v bit for
+             bit, the rest of the buffer untouched), M (head merge, padded
+             rows zeroed, + gelu of linear1's last 12288 columns) at 3968
+             with 64 padded rows, the merge alone, 4608, 5760 with 512
+             padded rows and 7 rows (the merge bit for bit, the gelu within
+             one bf16 ulp of each element);
   ring_chunks  the ring attention's own schedule (ops/ring_attention.py) in
              one process over P = 2 and 4 chunks of the full-width (1, 24,
              L, 128) bf16 sequence at L = 3968 (the default query) and 5760
@@ -183,7 +197,13 @@ bfl_route, request_int8, train, query_interleaved, request_loaded,
 solvers, load_checkpoint_int8, the calibrating load and the query of
 load_checkpoint_w8a8_smooth, load_snapshot, diffusers_api) and read just after; G runs in
 the int8 and w8a8 phases only, H and I in the w8a8 ones only, G4 in
-request_int4 only. Then the kernels line, the nvidia-smi
+request_int4 only; J, K, L and M in every serving phase, 115, 114, 76 and
+57 times per DiT evaluation (A's or D's launches / 57), and never under
+autograd (grad_reference, likelihood, train, moe_train, dist_one_rank) nor
+in the calibration evaluations that collect statistics (counted apart by
+wrapping Flux.forward in load_checkpoint_w8a8_smooth). reference swaps A,
+B, C and J-M for their plain versions for its plain run. Then the kernels
+line, the nvidia-smi
 line, and {"ok": true, "device": ...} last. Exits non-zero, with no result
 line, without a CUDA device, outside a checkout of the repository, or when
 any phase fails.
@@ -220,6 +240,11 @@ REPLACES = {
     "w8a8_matmul": "visualcloze_tpu/models/layers.py:85",  # linear's w8a8 branch: an XLA fusion, no Pallas kernel
     "act_quant_int8": "visualcloze_tpu/models/quant.py:181",  # likewise
     "int4_matmul": "visualcloze_tpu/models/layers.py:124",  # linear's w_int4 branch (dequant_weight_int4 :358), XLA
+    # none: XLA fusions inside double_block :207 and single_block :302, no Pallas kernel
+    "layernorm_modulate": "visualcloze_tpu/models/layers.py:145",  # layer_norm + the modulate :247, :273, :330
+    "gated_residual": "visualcloze_tpu/models/layers.py:280",  # the gated residuals :280-288, :346
+    "qk_norm_split": "visualcloze_tpu/models/layers.py:195",  # _split_heads + qk_norm :161 / rms_norm :153
+    "merge_heads": "visualcloze_tpu/ops/attention.py:176",  # the head merge + concatenate with gelu, layers.py:342
 }
 SOURCES = {
     "flash_attn_rope": "visualcloze_tpu_torch/csrc/flash_attn_rope.cu",
@@ -233,6 +258,10 @@ SOURCES = {
     "w8a8_matmul": "visualcloze_tpu_torch/csrc/w8a8_matmul.cu",
     "act_quant_int8": "visualcloze_tpu_torch/csrc/act_quant_int8.cu",
     "int4_matmul": "visualcloze_tpu_torch/csrc/int4_matmul.cu",
+    "layernorm_modulate": "visualcloze_tpu_torch/csrc/layernorm_modulate.cu",
+    "gated_residual": "visualcloze_tpu_torch/csrc/gated_residual.cu",
+    "qk_norm_split": "visualcloze_tpu_torch/csrc/qk_norm_split.cu",
+    "merge_heads": "visualcloze_tpu_torch/csrc/merge_heads.cu",
 }
 # kernel G per DiT evaluation: every linear of the int8 DiT once (19 double
 # blocks x 10, 38 single blocks x 3, 8 embedder and 2 final-layer linears);
@@ -241,6 +270,23 @@ SOURCES = {
 INT8_LINEARS, ATTENTION_CALLS = 314, 57
 W8A8_LINEARS = 19 * 8 + 38 * 2
 W8A8_KERNELS = ("w8a8_matmul", "act_quant_int8")
+# kernels J, K, L and M per DiT evaluation on the no-grad forward (models/layers.py): J before a double
+# block's qkv and mlp.0 of each stream, a single block's linear1 and the final layer's linear; K at a double
+# block's four gated residuals and a single block's one; L twice a double block (txt, then img into the joint
+# buffer) and once a single block; M once a block. Under autograd and in calibration (the evaluations
+# that collect statistics) the blocks run their plain versions: 0.
+FUSIONS = ("layernorm_modulate", "gated_residual", "qk_norm_split", "merge_heads")
+FUSION_CALLS = {"layernorm_modulate": 19 * 4 + 38 + 1, "gated_residual": 19 * 4 + 38, "qk_norm_split": 19 * 2 + 38,
+                "merge_heads": 19 + 38}
+
+
+def fusions_expected(evals: int) -> dict:
+    """J-M's launches for `evals` no-grad DiT evaluations."""
+    return {n: FUSION_CALLS[n] * evals for n in FUSIONS}
+
+
+def fusion_launches(launches: dict) -> dict:
+    return {n: launches[n] for n in FUSIONS}
 
 
 def emit(obj) -> None:
@@ -833,6 +879,165 @@ def check_act_quant(m: int, k: int, bf16: bool, smooth: bool, reps: int) -> dict
                 library="none (no single PyTorch call)", bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
 
 
+def bf16_ulps_each(want):
+    """One bf16 ulp at each element's magnitude (8 significant bits; the
+    smallest normal's below it)."""
+    import torch
+
+    mag = want.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _fusion_line(name, what, shape, err, tol, deterministic, ms, plain_ms, nbytes, **extra) -> dict:
+    """A kernel line of J-M: memory-bound passes, no single PyTorch call
+    computes any of them (no library time)."""
+    bms, by = bound(0.0, nbytes)
+    return dict(name=name, what=what, shape=shape, max_abs_err=err, tol=tol, ok=err <= tol and deterministic,
+                deterministic=deterministic, ms=ms, plain_ms=plain_ms, library_ms=None,
+                library="none (no single PyTorch call)", bound_ms=bms, bound_by=by, share_of_bound=bms / ms, **extra)
+
+
+def _modulation_vectors(g, b: int, c: int, chunks: int = 6):
+    """(shift, scale, gate), each a (B, 1, C) fp32 view of a (B, 1, chunks * C)
+    modulation output, as Modulation.forward chunks it (N(0, 0.25))."""
+    import torch
+
+    out = torch.randn((b, 1, chunks * c), generator=g, device="cuda") * 0.5
+    return out.chunk(chunks, dim=-1)[:3]
+
+
+def check_layernorm_modulate(tokens: int, out_bf16: bool, what: str, reps: int, b: int = 1, skip: int = 0,
+                             c: int = 3072) -> dict:
+    """Kernel J against its plain version: x N(0.5, 4) bf16, rows
+    [skip, skip + tokens) of a (B, skip + tokens, C) tensor (the final
+    layer's image tokens after the text ones), the modulation's shift and
+    scale as strided chunks. bf16 out: 2 bf16 ulps of the largest output;
+    fp32 out: 2^-16 of it (the row sums run in another order); a second
+    launch gives the same bits. Timed as a replayed CUDA graph."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.block_fusions import layernorm_modulate, layernorm_modulate_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17 * tokens + skip + out_bf16)
+    x = (torch.randn((b, skip + tokens, c), generator=g, device=dev) * 2.0 + 0.5).to(torch.bfloat16)[:, skip:]
+    shift, scale, _ = _modulation_vectors(g, b, c)
+    dt = torch.bfloat16 if out_bf16 else torch.float32
+    got = layernorm_modulate(x, shift, scale, dt)
+    deterministic = torch.equal(got, layernorm_modulate(x, shift, scale, dt))
+    want = layernorm_modulate_plain(x, shift, scale, dt)
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    tol = bf16_ulps_tol(want.float(), 2) if out_bf16 else top * 2.0 ** -16
+    ms = cuda_ms(lambda: layernorm_modulate(x, shift, scale, dt), reps, graph=True)
+    plain_ms = cuda_ms(lambda: layernorm_modulate_plain(x, shift, scale, dt), 5)
+    nbytes = b * tokens * c * (2 + got.element_size()) + 2 * b * c * 4
+    return _fusion_line("layernorm_modulate", what, [b, tokens, c], err, tol, deterministic, ms, plain_ms, nbytes,
+                        out_dtype="bf16" if out_bf16 else "fp32")
+
+
+def check_gated_residual(tokens: int, what: str, reps: int, b: int = 1, c: int = 3072) -> dict:
+    """Kernel K against its plain version: x N(0, 4), y N(0, 1) bf16, the
+    gate a strided chunk; bit for bit (tolerance 0), deterministic."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.block_fusions import gated_residual, gated_residual_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19 * tokens + b)
+    x = (torch.randn((b, tokens, c), generator=g, device=dev) * 2.0).to(torch.bfloat16)
+    y = torch.randn((b, tokens, c), generator=g, device=dev).to(torch.bfloat16)
+    _, _, gate = _modulation_vectors(g, b, c)
+    got = gated_residual(x, gate, y)
+    deterministic = torch.equal(got, gated_residual(x, gate, y))
+    err = (got.float() - gated_residual_plain(x, gate, y).float()).abs().max().item()
+    ms = cuda_ms(lambda: gated_residual(x, gate, y), reps, graph=True)
+    plain_ms = cuda_ms(lambda: gated_residual_plain(x, gate, y), 5)
+    return _fusion_line("gated_residual", what, [b, tokens, c], err, 0.0, deterministic, ms, plain_ms,
+                        3 * b * tokens * c * 2 + b * c * 4)
+
+
+def check_qk_norm_split(tokens: int, what: str, reps: int, cols: int = 9216, heads: int = 24, total: int = 0,
+                        offset: int = 0) -> dict:
+    """Kernel L against its plain version: the first 3 * heads * 128 of
+    `cols` columns of an N(0, 4) bf16 projection (linear1's 21504 in the
+    single block, the stream's qkv in the double block), written at token
+    `offset` of (1, heads, total, 128) buffers, scales uniform over [0.5,
+    1.5]; q and k within 2 bf16 ulps of the largest output, v bit for bit,
+    the tokens outside [offset, offset + tokens) untouched; deterministic."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.block_fusions import qk_norm_split, qk_norm_split_plain, qkv_buffers
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23 * tokens + cols + offset)
+    h = (torch.randn((1, tokens, cols), generator=g, device=dev) * 2.0).to(torch.bfloat16)
+    qkv = h[..., : 3 * heads * 128]
+    qs, ks = ((torch.rand((128,), generator=g, device=dev) + 0.5).to(torch.bfloat16) for _ in range(2))
+    total = total or tokens
+    got, again, want = (qkv_buffers(qkv, heads, total) for _ in range(3))
+    for bufs in (got, again, want):
+        for t in bufs:
+            t.fill_(3.0)
+    qk_norm_split(qkv, qs, ks, heads, got, offset)
+    qk_norm_split(qkv, qs, ks, heads, again, offset)
+    qk_norm_split_plain(qkv, qs, ks, heads, want, offset)
+    deterministic = all(torch.equal(a, c) for a, c in zip(got, again))
+    span = slice(offset, offset + tokens)
+    err = max((a[:, :, span].float() - w[:, :, span].float()).abs().max().item() for a, w in zip(got[:2], want[:2]))
+    tol = max(bf16_ulps_tol(w[:, :, span].float(), 2) for w in want[:2])
+    v_equal = torch.equal(got[2], want[2])
+    untouched = all(bool((torch.cat([a[:, :, :offset], a[:, :, offset + tokens:]], 2) == 3.0).all()) for a in got)
+    ms = cuda_ms(lambda: qk_norm_split(qkv, qs, ks, heads, got, offset), reps, graph=True)
+    plain_ms = cuda_ms(lambda: qk_norm_split_plain(qkv, qs, ks, heads, want, offset), 5)
+    line = _fusion_line("qk_norm_split", what, [1, tokens, cols, heads], err, tol, deterministic, ms, plain_ms,
+                        2 * tokens * 3 * heads * 128 * 2 + 2 * 128 * 2, joint_tokens=total, offset=offset,
+                        v_bit_equal=v_equal, outside_untouched=untouched)
+    line["ok"] = line["ok"] and v_equal and untouched
+    return line
+
+
+def check_merge_heads(tokens: int, what: str, reps: int, gelu_cols: int = 0, cols: int = 0, padded: int = 0,
+                      heads: int = 24) -> dict:
+    """Kernel M against its plain version: attention's output (1, heads,
+    tokens, 128) N(0, 1) bf16, the last `padded` query rows masked; with
+    gelu_cols, gelu(tanh) of the last gelu_cols of `cols` N(0, 9) columns
+    (linear1's 12288 of 21504). The merge bit for bit, padded rows zero; the
+    gelu within one bf16 ulp of each element; deterministic."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.block_fusions import merge_heads, merge_heads_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29 * tokens + gelu_cols + padded)
+    x = torch.randn((1, heads, tokens, 128), generator=g, device=dev).to(torch.bfloat16)
+    mask = None
+    if padded:
+        mask = torch.ones((1, tokens), dtype=torch.int32, device=dev)
+        mask[:, tokens - padded:] = 0
+    gelu = None
+    if gelu_cols:
+        gelu = (torch.randn((1, tokens, cols), generator=g, device=dev) * 3.0).to(torch.bfloat16)[..., -gelu_cols:]
+    got = merge_heads(x, mask, gelu)
+    deterministic = torch.equal(got, merge_heads(x, mask, gelu))
+    want = merge_heads_plain(x, mask, gelu)
+    hd = heads * 128
+    merge_err = (got[..., :hd].float() - want[..., :hd].float()).abs().max().item()
+    gelu_ulps = 0.0
+    if gelu_cols:
+        d = (got[..., hd:].float() - want[..., hd:].float()).abs()
+        gelu_ulps = (d / bf16_ulps_each(want[..., hd:])).max().item()
+    padded_zero = not padded or bool((got[:, tokens - padded:, :hd] == 0).all())
+    ms = cuda_ms(lambda: merge_heads(x, mask, gelu), reps, graph=True)
+    plain_ms = cuda_ms(lambda: merge_heads_plain(x, mask, gelu), 5)
+    nbytes = 2 * tokens * (hd + gelu_cols) * 2 + (tokens * 4 if padded else 0)
+    line = _fusion_line("merge_heads", what, [1, heads, tokens, 128, gelu_cols], merge_err, 0.0, deterministic,
+                        ms, plain_ms, nbytes, padded_rows=padded, gelu_max_ulps=gelu_ulps, gelu_tol_ulps=1.0,
+                        padded_rows_zero=padded_zero)
+    line["ok"] = line["ok"] and gelu_ulps <= 1.0 and padded_zero
+    return line
+
+
 # ----------------------------- gradients at full width -----------------------------
 
 
@@ -904,8 +1109,9 @@ def grad_reference() -> dict:
                worst_leaf_rel_rms_err=max(per_leaf), finite=all(bool(torch.isfinite(a).all()) for a in got),
                launches={k: launches[k] for k in ("flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")},
                tol=5e-2)
+    out["fusion_launches"] = fusion_launches(launches)  # the blocks' plain versions under autograd
     out["ok"] = (out["finite"] and out["rel_rms_err"] <= out["tol"]
-                 and all(n > 0 for n in out["launches"].values()))
+                 and all(n > 0 for n in out["launches"].values()) and not any(out["fusion_launches"].values()))
     return out
 
 
@@ -943,11 +1149,16 @@ def reference_inputs(model):
 
 def reference_checks(model) -> dict:
     """The full-width DiT and VAE through the kernels vs through the plain
-    versions (same weights, same small input); relative RMS error."""
+    versions (same weights, same small input; A, B, C and J-M swapped for
+    their plain versions where their callers reach them, and no kernel
+    launched in that run); relative RMS error."""
     import torch
 
     import visualcloze_tpu_torch.models.autoencoder as ae_mod
+    import visualcloze_tpu_torch.models.layers as layers_mod
     import visualcloze_tpu_torch.ops.attention as att_mod
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.ops import block_fusions as bf
     from visualcloze_tpu_torch.ops import conv2d as cv
     from visualcloze_tpu_torch.ops import flash_attention as fa
 
@@ -958,21 +1169,33 @@ def reference_checks(model) -> dict:
         return model.flux(**inp).float(), model.ae.decode(z).float()
 
     dit_k, vae_k = run()
-    saved = (att_mod.flash_mha_rope, ae_mod.conv3x3_gn_swish, ae_mod.flash_attn_d512)
-    att_mod.flash_mha_rope = fa.flash_attention_plain
-    ae_mod.conv3x3_gn_swish = lambda x, w, b, pre_affine=None, act="swish": cv.conv3x3_plain(
-        x, w, b, pre_affine, act)
-    ae_mod.flash_attn_d512 = fa.flash_attention_plain
+    plain = {(att_mod, "flash_mha_rope"): fa.flash_attention_plain,
+             (ae_mod, "conv3x3_gn_swish"): lambda x, w, b, pre_affine=None, act="swish": cv.conv3x3_plain(
+                 x, w, b, pre_affine, act),
+             (ae_mod, "flash_attn_d512"): fa.flash_attention_plain,
+             # kernels J, K, L (called by the blocks) and M (by attention())
+             (layers_mod, "layernorm_modulate"): bf.layernorm_modulate_plain,
+             (layers_mod, "gated_residual"): bf.gated_residual_plain,
+             (layers_mod, "qk_norm_split"): bf.qk_norm_split_plain,
+             (att_mod, "merge_heads"): bf.merge_heads_plain}
+    saved = {key: getattr(*key) for key in plain}
+    for (mod, name), fn in plain.items():
+        setattr(mod, name, fn)
+    ops.reset_kernel_launches()
     try:
         dit_p, vae_p = run()
     finally:
-        att_mod.flash_mha_rope, ae_mod.conv3x3_gn_swish, ae_mod.flash_attn_d512 = saved
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    plain_launches = {n: c for n, c in ops.kernel_launches().items() if c}
 
     out = dict(dit_rel_rms_err=rel_rms(dit_k, dit_p), vae_rel_rms_err=rel_rms(vae_k, vae_p),
-               finite=bool(torch.isfinite(dit_k).all() and torch.isfinite(vae_k).all()))
+               finite=bool(torch.isfinite(dit_k).all() and torch.isfinite(vae_k).all()),
+               plain_run_launches=plain_launches)
     # bf16 roundings of 57 blocks (resp. ~30 VAE layers) in another order
     out["tol"] = 5e-2
-    out["ok"] = out["finite"] and out["dit_rel_rms_err"] <= out["tol"] and out["vae_rel_rms_err"] <= out["tol"]
+    out["ok"] = (out["finite"] and out["dit_rel_rms_err"] <= out["tol"] and out["vae_rel_rms_err"] <= out["tol"]
+                 and not plain_launches)
     return out
 
 
@@ -1186,6 +1409,10 @@ def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(
     out["ok"] = (finite and len(images) == 1 and images[0].size == want_size
                  and all(s > 0 for s in out["image_std"]) and all(launches[n] > 0 for n in used)
                  and all(launches[n] == 0 for n in unused))
+    if set(FUSIONS) <= set(used):  # J-M once per DiT evaluation's count (A's or D's launches / 57)
+        evals = (launches["flash_attn_rope"] + launches["flash_attn_fwd"]) // ATTENTION_CALLS
+        out["fusion_launches_expected"] = fusions_expected(evals)
+        out["ok"] = out["ok"] and fusion_launches(launches) == out["fusion_launches_expected"]
     return out
 
 
@@ -1212,7 +1439,7 @@ def serve_phase(model, r1, base_images) -> dict:
     through process_images. ok: every answer 200; the adapter-free answers
     are request 1's images bit for bit, the HTTP r64 answer the sequential
     r64 images bit for bit, the depth-1 answers the depth-2 ones, each
-    adapter's images differ from the base images; A, B and C launch 9 x
+    adapter's images differ from the base images; A, B, C and J-M launch 9 x
     their count in request 1 and no other kernel launches."""
     import json as _json
     import threading
@@ -1299,7 +1526,7 @@ def serve_phase(model, r1, base_images) -> dict:
     model.adapters.clear()
     free()
 
-    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
+    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS
     queries = 2 * len(SERVE_REQUESTS) + 1
     expected = {n: (queries * r1["launches"][n] if n in serving else 0) for n in launches}
     statuses = [a["status"] for a in answers + fifo_answers]
@@ -1352,7 +1579,8 @@ def diffusers_phase(model, lora_path: str) -> dict:
     same file folded into the DiT and the call again. ok: the mean |Δ|
     (0-255) of the adapter's image against the folded one is below half of
     its |Δ| against the base image (JAX's criterion), A runs 57 x 9 x 3
-    times, B and C run, no other kernel."""
+    times and J-M their counts for 9 x 3 evaluations, B and C run, no other
+    kernel."""
     import numpy as np
     import torch
 
@@ -1388,11 +1616,13 @@ def diffusers_phase(model, lora_path: str) -> dict:
     launches = ops.kernel_launches()
     vs_folded = float(np.abs(adapted - folded).mean())
     vs_base = float(np.abs(adapted - base).mean())
-    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
+    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS
     line = dict(phase="diffusers_api", grid=[2, 2], steps=10, image=list(adapted.shape), seconds=seconds,
                 mean_abs_diff_adapter_vs_folded=vs_folded, mean_abs_diff_adapter_vs_base=vs_base,
-                launches=launches, attention_launches_expected=ATTENTION_CALLS * 9 * 3)
+                launches=launches, attention_launches_expected=ATTENTION_CALLS * 9 * 3,
+                fusion_launches_expected=fusions_expected(9 * 3))
     line["ok"] = (vs_folded < 0.5 * vs_base and launches["flash_attn_rope"] == ATTENTION_CALLS * 9 * 3
+                  and fusion_launches(launches) == line["fusion_launches_expected"]
                   and all(launches[n] > 0 for n in serving)
                   and all(v == 0 for n, v in launches.items() if n not in serving))
     return line
@@ -1458,7 +1688,8 @@ def samplers_sde(model) -> dict:
     10 grid points (SBDM diffusion from 1 - 1e-3, the deterministic Mean step
     last): Euler-Maruyama (9 DiT evaluations) and Heun (17), each twice from
     the same generator seed. ok: finite latents, evaluations = A's launches /
-    57 as the method says, the two runs bit-equal."""
+    57 as the method says (J-M their counts per evaluation), the two runs
+    bit-equal."""
     import torch
 
     from visualcloze_tpu_torch import ops
@@ -1486,7 +1717,9 @@ def samplers_sde(model) -> dict:
         r = dict(seconds=seconds, dit_evaluations=[n // ATTENTION_CALLS for n in a],
                  evaluations_expected=evals, finite=bool(torch.isfinite(outs[0]).all()),
                  bit_equal_twice=torch.equal(outs[0], outs[1]), tokens_img=int(q["x"].shape[1]))
-        r["ok"] = (r["finite"] and r["bit_equal_twice"] and all(n == ATTENTION_CALLS * evals for n in a))
+        r["fusion_launches_expected"] = fusions_expected(evals)
+        r["ok"] = (r["finite"] and r["bit_equal_twice"] and all(n == ATTENTION_CALLS * evals for n in a)
+                   and all(fusion_launches(c) == r["fusion_launches_expected"] for c in counts))
         runs[method] = r
         ok = ok and r["ok"]
         for c in counts:
@@ -1498,8 +1731,9 @@ def likelihood(model) -> dict:
     """sample_ode_likelihood on the bf16 DiT: a 2x2 grid at 256 (1024 image +
     512 text tokens), 4 grid points (3 steps), one Rademacher probe a step,
     the divergence by one vector-Jacobian product: the attention under
-    autograd is kernel E forward and F backward (57 x 3 each), kernel A not
-    at all. ok: a finite logp."""
+    autograd is kernel E forward and F backward (57 x 3 each), kernel A and
+    J-M (the blocks' plain versions under autograd) not at all. ok: a finite
+    logp."""
     import torch
 
     from visualcloze_tpu_torch import ops
@@ -1528,7 +1762,8 @@ def likelihood(model) -> dict:
     want = ATTENTION_CALLS * 3
     out["ok"] = (out["finite"] and launches["flash_attn_rope"] == 0
                  and all(launches[n] == want for n in ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
-                                                        "flash_attn_bwd_dkv")))
+                                                        "flash_attn_bwd_dkv"))
+                 and not any(fusion_launches(launches).values()))
     return out
 
 
@@ -1695,11 +1930,13 @@ def bfl_route(model, fill: dict, root) -> dict:
     del flux, siglip, redux
     free()
 
-    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
+    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS
     names = ("fill", "canny", "depth", "redux")
     out["launches"] = {k: sum(out[n]["launches"][k] for n in names) for k in out["fill"]["launches"]}
     out["ok"] = all(out[n]["finite"] and out[n]["image_std"] > 0 and all(out[n]["launches"][k] > 0 for k in serving)
-                    and all(v == 0 for k, v in out[n]["launches"].items() if k not in serving) for n in names)
+                    and all(v == 0 for k, v in out[n]["launches"].items() if k not in serving)
+                    and fusion_launches(out[n]["launches"]) == fusions_expected(
+                        out[n]["launches"]["flash_attn_rope"] // ATTENTION_CALLS) for n in names)
     out["ok"] = out["ok"] and out["redux_tokens"] == 729 and out["redux"]["tokens_txt"] == 512 + 729
     return out
 
@@ -1769,7 +2006,8 @@ def run_training(tmp, remat_policy: str):
                  and hist[0]["lora_b_absmax"] > 0
                  and {"state.pt", "consolidated.00-of-01.pth", "model_args.json", "resume_step.txt"} <= set(files)
                  and (ckpt / "resume_step.txt").read_text() == "3"
-                 and all(launches[n] > 0 for n in TRAIN_KERNELS) and launches["int8_matmul"] == 0)
+                 and all(launches[n] > 0 for n in TRAIN_KERNELS) and launches["int8_matmul"] == 0
+                 and not any(fusion_launches(launches).values()))
     return out, result
 
 
@@ -1916,7 +2154,8 @@ def moe_train(tmp) -> dict:
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     out["ok"] = (len(hist) == 2 and all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in hist)
                  and out["expert_b_absmax"] > 0 and out["shared_b_absmax"] > 0 and gate_moved > 0
-                 and expert_a_moved > 0 and all(launches[n] > 0 for n in (E_KERNEL, *F_KERNELS)))
+                 and expert_a_moved > 0 and all(launches[n] > 0 for n in (E_KERNEL, *F_KERNELS))
+                 and not any(fusion_launches(launches).values()))
     del state, result, trained
     return out
 
@@ -2088,7 +2327,8 @@ def dist_one_rank(tmp) -> dict:
                 ok=(a["backend"] == "nccl" and a["fsdp"] and b["backend"] is None and len(a["losses"]) == 2
                     and a["losses"][0] == b["losses"][0] and norm_diff[0] <= bnd["first_grad_norm"]
                     and loss_diff[1] <= bnd["second_loss"] and norm_diff[1] <= bnd["second_grad_norm"]
-                    and init_equal and leaves_ok and all(math.isfinite(x) for x in a["losses"])))
+                    and init_equal and leaves_ok and all(math.isfinite(x) for x in a["losses"])
+                    and not any(fusion_launches(a["launches"]).values())))
 
 
 TP_SHAPES = ((("single_blocks", "0", "linear1"), 3072, 21504, "column"),
@@ -2483,6 +2723,35 @@ def free() -> None:
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def fusions_by_collect():
+    """J-M's launches in the DiT evaluations that collect calibration
+    statistics (collect_a8_stats) and in the others, counted by wrapping
+    Flux.forward until the block exits: {"collecting" | "plain_steps":
+    {"evaluations", "launches"}}."""
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.models.flux import Flux
+
+    split = {k: {"evaluations": 0, "launches": dict.fromkeys(FUSIONS, 0)} for k in ("collecting", "plain_steps")}
+    orig = Flux.forward
+
+    def forward(self, *args, **kw):
+        before = ops.kernel_launches()
+        out = orig(self, *args, **kw)
+        after = ops.kernel_launches()
+        rec = split["collecting" if kw.get("collect_a8_stats") else "plain_steps"]
+        rec["evaluations"] += 1
+        for n in FUSIONS:
+            rec["launches"][n] += after[n] - before[n]
+        return out
+
+    Flux.forward = forward
+    try:
+        yield split
+    finally:
+        Flux.forward = orig
+
+
 def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
     """Write the seed-0 stack as checkpoint files, serve from them through
     build_visualcloze (bf16 with the LoRA folded, every solver, int8 with an
@@ -2580,17 +2849,22 @@ def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
 
         # the SmoothQuant w8a8 route on the same files: calibrated at load (blank 2x2 grid, 30 steps)
         ops.reset_kernel_launches()
-        model, load = load_timed(model_path=paths["lora"], quantize="w8a8_smooth")
+        with fusions_by_collect() as calib_split:
+            model, load = load_timed(model_path=paths["lora"], quantize="w8a8_smooth")
         calib_launches = ops.kernel_launches()
         calib = dict(model.stage_seconds)
         rw = run_request(model, "2x3 default query with SDEdit, SmoothQuant w8a8 DiT from checkpoint files",
                          2, 3, 30, True, seed=1, used=serving + W8A8_USED_WITH, unused=training)
         rw.update(phase="load_checkpoint_w8a8_smooth", **load, calibration_stage_seconds=calib,
                   calibration_seconds=sum(calib.values()), calibration_launches=calib_launches,
-                  **w8a8_launches_ok(rw))
-        # the calibration: 29 evaluations of the bf16 DiT (kernel A), no quantized kernel
+                  calibration_fusions=calib_split, **w8a8_launches_ok(rw))
+        # the calibration: 29 evaluations of the bf16 DiT (kernel A), no quantized kernel; the 7 that
+        # collect statistics (every 5th step and the last) run J-M's plain versions, the 22 others the kernels
         rw["ok"] = (rw["ok"] and calib_launches["flash_attn_rope"] == 29 * ATTENTION_CALLS
-                    and all(calib_launches[k] == 0 for k in W8A8_USED_WITH))
+                    and all(calib_launches[k] == 0 for k in W8A8_USED_WITH)
+                    and calib_split["collecting"]["evaluations"] == 7
+                    and not any(calib_split["collecting"]["launches"].values())
+                    and calib_split["plain_steps"]["launches"] == fusions_expected(22))
         emit(rw)
         if not rw["ok"]:
             raise RuntimeError("the SmoothQuant w8a8 query from checkpoint files failed")
@@ -2739,6 +3013,39 @@ def main() -> int:
         lambda: [check_act_quant(3968, 15360, False, True, 50)],
         lambda: [check_act_quant(512, 3072, False, True, 50)],    # the text stream
         lambda: [check_act_quant(7, 15360, False, False, 50)],    # a few rows
+        # J: bf16 out (single block; dense, int8, int4 linears), fp32 out (a w8a8 linear in a double block)
+        lambda: [check_layernorm_modulate(3968, True, "single block, the default query's 3968 tokens", 50)],
+        lambda: [check_layernorm_modulate(3968, False, "single block's tokens, fp32 out", 50)],
+        lambda: [check_layernorm_modulate(3456, False, "double block img stream before a w8a8 qkv (fp32)", 50)],
+        lambda: [check_layernorm_modulate(3456, True, "double block img stream before a bf16 qkv", 50)],
+        lambda: [check_layernorm_modulate(512, True, "double block txt stream", 50)],
+        lambda: [check_layernorm_modulate(4608, True, "single block, SDEdit's 4608 tokens", 50)],
+        lambda: [check_layernorm_modulate(3456, True, "final layer: img rows after 512 txt rows, batch 2", 50,
+                                          b=2, skip=512)],
+        lambda: [check_layernorm_modulate(7, False, "a ragged 7 rows, fp32 out", 50)],
+        # K
+        lambda: [check_gated_residual(3968, "single block, 3968 tokens", 50)],
+        lambda: [check_gated_residual(3456, "double block img stream", 50)],
+        lambda: [check_gated_residual(512, "double block txt stream", 50)],
+        lambda: [check_gated_residual(4608, "single block, SDEdit's 4608 tokens", 50)],
+        lambda: [check_gated_residual(7, "a ragged 7 rows, batch 2", 50, b=2)],
+        # L: linear1's 21504-column rows; the double block's streams into one joint 3968-token buffer
+        lambda: [check_qk_norm_split(3968, "single block: linear1's first 9216 of 21504 columns", 50, cols=21504)],
+        lambda: [check_qk_norm_split(3456, "double block img stream at token 512 of the joint 3968", 50,
+                                     total=3968, offset=512)],
+        lambda: [check_qk_norm_split(512, "double block txt stream at token 0 of the joint 3968", 50, total=3968)],
+        lambda: [check_qk_norm_split(4608, "single block, SDEdit's 4608 tokens", 50, cols=21504)],
+        lambda: [check_qk_norm_split(3968, "tp = 2: 12 heads of linear1's 10752 local columns", 50, cols=10752,
+                                     heads=12)],
+        lambda: [check_qk_norm_split(7, "a ragged 7 rows at token 5 of 16", 50, total=16, offset=5)],
+        # M: the single block writes linear2's whole input (the merge, then gelu of linear1's last 12288)
+        lambda: [check_merge_heads(3968, "single block, 64 padded query rows", 50, gelu_cols=12288, cols=21504,
+                                   padded=64)],
+        lambda: [check_merge_heads(3968, "double block: the merge alone", 50)],
+        lambda: [check_merge_heads(4608, "single block, SDEdit's 4608 tokens", 50, gelu_cols=12288, cols=21504)],
+        lambda: [check_merge_heads(5760, "the 3x3 grid: 5760 tokens, 512 padded rows", 50, padded=512)],
+        lambda: [check_merge_heads(7, "a ragged 7 rows, 2 padded, with gelu", 50, gelu_cols=12288, cols=21504,
+                                   padded=2)],
     ]
     first = {}
     for fn in checks:
@@ -2778,7 +3085,7 @@ def main() -> int:
     if not ref["ok"]:
         raise RuntimeError(f"reference check failed: {ref}")
 
-    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512")
+    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS
     training = ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
     bf16_unused = training + ("int8_matmul", "int4_matmul") + W8A8_KERNELS
     r1_images = []
@@ -2903,7 +3210,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # the LoRA, its gradients and AdamW's state are gone
     emit(dict(phase="freed", allocated_gib=torch.cuda.memory_allocated() / 2 ** 30))
     r3 = run_request(model, "2x2 query, interleaved layout", 2, 2, 9, False, seed=3,
-                     used=("flash_attn_fwd", "conv3x3_gn_swish", "flash_attn_d512"),
+                     used=("flash_attn_fwd", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS,
                      unused=("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
                              "int8_matmul", "int4_matmul") + W8A8_KERNELS)
     emit(dict(r3, phase="query_interleaved", rope_layout=model.rope_layout))

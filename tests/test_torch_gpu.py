@@ -692,3 +692,80 @@ def test_gpu_fold_of_a_full_width_linear_is_a_true_fp32_product(monkeypatch):
     top = want_w.abs().max().item()
     assert (lin.weight.double() - want_w).abs().max().item() <= 1e-5 * top
     assert (lin.bias.double() - want_b).abs().max().item() <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, L, c, out_dtype", [(1, 300, 3072, torch.bfloat16), (2, 37, 3072, torch.float32),
+                                                 (1, 5, 64, torch.bfloat16)])
+def test_gpu_layernorm_modulate_matches_plain(b, L, c, out_dtype):
+    """Kernel J: 2 bf16 ulps of the largest output (fp32 out: 2^-16 of it);
+    x strided (rows after 3 others), the vectors chunks of one tensor."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(b * L + c)
+    x = (torch.randn((b, L + 3, c), generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)[:, 3:]
+    shift, scale = (torch.randn((b, 1, 6 * c), generator=g, device=dev) * 0.5).chunk(6, dim=-1)[:2]
+    got = bfu.layernorm_modulate(x, shift, scale, out_dtype)
+    want = bfu.layernorm_modulate_plain(x, shift, scale, out_dtype).float()
+    top = want.abs().max().item()
+    _close(got, want, _ulps_tol(want, 2) if out_dtype == torch.bfloat16 else top * 2.0 ** -16)
+    assert torch.equal(got, bfu.layernorm_modulate(x, shift, scale, out_dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, L, c", [(1, 300, 3072), (2, 7, 64), (1, 3, 9216)])
+def test_gpu_gated_residual_is_bit_exact(b, L, c):
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(L + c)
+    x, y = (torch.randn((b, L, c), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    gate = torch.randn((b, 1, 3 * c), generator=g, device=dev)[..., c:2 * c]
+    assert torch.equal(bfu.gated_residual(x, gate, y), bfu.gated_residual_plain(x, gate, y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L, heads, cols, total, offset", [(300, 24, 21504, 300, 0), (100, 24, 9216, 164, 64),
+                                                           (7, 3, 2000, 9, 2)])
+def test_gpu_qk_norm_split_matches_plain(L, heads, cols, total, offset):
+    """Kernel L: q, k within 2 bf16 ulps, v bit for bit, the rest of the
+    joint buffer untouched; an odd head count rounds the CTA up to a warp."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(L + cols)
+    qkv = (torch.randn((1, L, cols), generator=g, device=dev) * 2).to(torch.bfloat16)[..., : 3 * heads * 128]
+    qs, ks = ((torch.rand((128,), generator=g, device=dev) + 0.5).to(torch.bfloat16) for _ in range(2))
+    got, want = bfu.qkv_buffers(qkv, heads, total), bfu.qkv_buffers(qkv, heads, total)
+    for t in (*got, *want):
+        t.fill_(3.0)
+    bfu.qk_norm_split(qkv, qs, ks, heads, got, offset)
+    bfu.qk_norm_split_plain(qkv, qs, ks, heads, want, offset)
+    for a, w in zip(got[:2], want[:2]):
+        _close(a, w, _ulps_tol(w.float(), 2))
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L, gelu_cols, padded", [(300, 12288, 10), (300, 0, 0), (5, 64, 5)])
+def test_gpu_merge_heads_matches_plain(L, gelu_cols, padded):
+    """Kernel M: the merge bit for bit with padded rows zero, the gelu within
+    one bf16 ulp of each element."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(L + gelu_cols)
+    x = torch.randn((1, 24, L, 128), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.ones((1, L), dtype=torch.int32, device=dev)
+    mask[:, L - padded:] = 0
+    gelu = None
+    if gelu_cols:
+        gelu = (torch.randn((1, L, gelu_cols + 40), generator=g, device=dev) * 3).to(torch.bfloat16)[..., 40:]
+    got, want = bfu.merge_heads(x, mask, gelu), bfu.merge_heads_plain(x, mask, gelu)
+    hd = 24 * 128
+    assert torch.equal(got[..., :hd], want[..., :hd])
+    if gelu_cols:
+        d = (got[..., hd:].float() - want[..., hd:].float()).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(want[..., hd:].float().abs().clamp_min(2.0 ** -126))) - 7)
+        assert bool((d <= ulp).all())

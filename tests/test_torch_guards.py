@@ -61,10 +61,18 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
     assert y.shape == (3, 16) and y.dtype == torch.bfloat16
     y = ops.int4_matmul(torch.randn(3, 64), torch.full((32, 16), 0x99, dtype=torch.uint8), torch.ones(1, 16))
     assert y.shape == (3, 16) and y.dtype == torch.bfloat16
+    x = torch.randn(2, 5, 64)
+    vec = torch.randn(2, 1, 64)
+    assert ops.layernorm_modulate(x, vec, vec, torch.bfloat16).dtype == torch.bfloat16
+    assert ops.gated_residual(x, vec, x).shape == x.shape
+    q, k, v = ops.qk_norm_split(torch.randn(2, 5, 3 * 2 * 16), torch.ones(16), torch.ones(16), 2)
+    assert q.shape == k.shape == v.shape == (2, 2, 5, 16)
+    assert ops.merge_heads(q, torch.ones(2, 5, dtype=torch.int32), x).shape == (2, 5, 2 * 16 + 64)
     assert ops.kernel_launches() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"flash_attn_rope", "flash_attn_d512", "conv3x3_gn_swish", "flash_attn_fwd",
                                 "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "int8_matmul",
-                                "w8a8_matmul", "act_quant_int8", "int4_matmul"}
+                                "w8a8_matmul", "act_quant_int8", "int4_matmul", "layernorm_modulate",
+                                "gated_residual", "qk_norm_split", "merge_heads"}
 
 
 def _imports(path: Path) -> set[str]:
@@ -348,6 +356,25 @@ def test_profile_step_classes_kernels_by_demangled_name():
     assert kernel_class("void at::native::reduce_kernel<512, 1>(at::native::ReduceOp)") == "other"
 
 
+@pytest.mark.parametrize("name, cls", [
+    ("void (anonymous namespace)::ln_modulate_kernel<__nv_bfloat16>(__nv_bfloat16 const*, long long, long long, "
+     "float const*, long long, float const*, long long, __nv_bfloat16*, int, int)", "layernorm modulate (kernel J)"),
+    ("void (anonymous namespace)::ln_modulate_kernel<float>(__nv_bfloat16 const*, long long, long long, "
+     "float const*, long long, float const*, long long, float*, int, int)", "layernorm modulate (kernel J)"),
+    ("(anonymous namespace)::gated_residual_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
+     "long long, __nv_bfloat16*, int, int)", "gated residual (kernel K)"),
+    ("(anonymous namespace)::qk_norm_split_kernel(__nv_bfloat16 const*, long long, long long, __nv_bfloat16 const*)",
+     "head split + q/k norm (kernel L)"),
+    ("(anonymous namespace)::merge_heads_kernel(__nv_bfloat16 const*, int const*, __nv_bfloat16 const*)",
+     "head merge + gelu (kernel M)"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::GeluCUDAKernelImpl>(int)", "other"),
+])
+def test_profile_step_classes_the_block_fusions_by_demangled_name(name, cls):
+    from visualcloze_tpu_torch.profile_step import kernel_class
+
+    assert kernel_class(name) == cls
+
+
 @pytest.mark.parametrize("name", [
     "void (anonymous namespace)::int8_matmul_wide<__nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, float const*)",
     "void (anonymous namespace)::int8_matmul_wide<float>(CUtensorMap_st, CUtensorMap_st, float const*)",
@@ -478,12 +505,23 @@ def test_trainer_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq",
                                   "flash_attn_bwd_dkv", "flash_mha", "int8_matmul", "flash_attn_d512",
-                                  "conv3x3_gn_swish"])
+                                  "conv3x3_gn_swish", "layernorm_modulate", "gated_residual", "qk_norm_split",
+                                  "merge_heads"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(name):
     """A tensor that is not on the CPU goes to the kernel path, which refuses
     what it does not take: here a meta tensor, never the plain version."""
     from visualcloze_tpu_torch.ops import flash_attention as fa
 
+    x = torch.empty((1, 8, 3 * 2 * 128), device="meta", dtype=torch.bfloat16)
+    vec = torch.empty((1, 1, x.shape[-1]), device="meta")
+    fusion_args = {"layernorm_modulate": (x, vec, vec), "gated_residual": (x, vec, x),
+                   "qk_norm_split": (x, vec[0, 0, :128], vec[0, 0, :128], 2),
+                   "merge_heads": (torch.empty((1, 2, 8, 128), device="meta", dtype=torch.bfloat16),)}
+    if name in fusion_args:
+        assert name in ops.KERNELS
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.KERNELS[name](*fusion_args[name])
+        return
     if name == "int8_matmul":
         x = torch.empty((4, 128), device="meta", dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="CUDA"):

@@ -56,6 +56,11 @@ _dots_context = functools.partial(
 )
 
 
+def _cp_group(attn_impl):
+    """The process group a RingSpec splits the sequence over, else None."""
+    return attn_impl.mesh.group(attn_impl.axis) if isinstance(attn_impl, RingSpec) else None
+
+
 def _checkpointed(fn, policy: str | None):
     """fn run under a non-reentrant checkpoint; "dots" keeps matmul outputs."""
     kwargs = {"context_fn": _dots_context} if policy is not None else {}
@@ -85,10 +90,20 @@ class Flux(nn.Module):
                 p.fill_(1.0)
         return self
 
+    def rope_tables(self, img_ids, txt_ids, attn_impl=None):
+        """The RoPE tables (cos, sin) of the joint sequence's ids: fixed over
+        a query's denoise loop, so the serving loop builds them once and
+        passes them to forward as `pe`. Under a RingSpec, this rank's block
+        of the txt and of the img tokens, as forward keeps them."""
+        seq = _cp_group(attn_impl)
+        if group_size(seq) > 1:
+            img_ids, txt_ids = own_block(img_ids, seq, 1), own_block(txt_ids, seq, 1)
+        return embed_nd(torch.cat([txt_ids, img_ids], dim=1), self.cfg.axes_dim, self.cfg.theta)
+
     def embed_inputs(self, img, img_ids, txt, txt_ids, timesteps, y, txt_mask, img_mask, guidance,
-                     lora=None, lora_scale: float = 1.0):
-        """Token embeddings, the modulation vector, RoPE tables and the joint
-        attention mask (None when nothing is padded)."""
+                     lora=None, lora_scale: float = 1.0, pe=None):
+        """Token embeddings, the modulation vector, RoPE tables (`pe` when
+        given) and the joint attention mask (None when nothing is padded)."""
         cfg = self.cfg
         l = lora or {}
         img = self.img_in(img, l.get("img_in"), lora_scale)
@@ -99,7 +114,8 @@ class Flux(nn.Module):
             vec = vec + self.guidance_in(timestep_embedding(guidance, 256), l.get("guidance_in"), lora_scale)
         vec = vec + self.vector_in(y, l.get("vector_in"), lora_scale)
         txt = self.txt_in(txt, l.get("txt_in"), lora_scale)
-        pe = embed_nd(torch.cat([txt_ids, img_ids], dim=1), cfg.axes_dim, cfg.theta)
+        if pe is None:
+            pe = embed_nd(torch.cat([txt_ids, img_ids], dim=1), cfg.axes_dim, cfg.theta)
         b, txt_len = txt.shape[:2]
         if txt_mask is None and img_mask is None:
             attn_mask = None
@@ -114,12 +130,14 @@ class Flux(nn.Module):
     def forward(self, *, img, img_ids, txt, txt_ids, timesteps, y, txt_mask=None, img_mask=None,
                 guidance=None, lora=None, lora_scale: float = 1.0, remat: bool = False,
                 remat_policy: str | None = None, rope_layout: str = "half", collect_a8_stats: bool = False,
-                attn_impl=None, pipeline=None):
+                attn_impl=None, pipeline=None, pe=None):
         """(B, L_img, in_channels) tokens -> (B, L_img, out_channels) velocity.
         txt/img masks are (B, L) int {1 real, 0 pad}; timesteps (B,) flux time;
         rope_layout "half" (the serving layout, kernel A) or "interleaved"
         (the reference's, which the trainer keeps). collect_a8_stats: returns
-        (velocity, {"double_blocks": [per-block stats], "single_blocks": [...]})."""
+        (velocity, {"double_blocks": [per-block stats], "single_blocks": [...]}).
+        pe: the RoPE tables from rope_tables(img_ids, txt_ids, attn_impl),
+        built here from the ids when None."""
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {remat_policy!r}")
         if collect_a8_stats and remat:
@@ -127,7 +145,7 @@ class Flux(nn.Module):
         if pipeline is not None and collect_a8_stats:
             raise ValueError("collect_a8_stats does not run through the pipelined trunk")
         l = lora or {}
-        seq = attn_impl.mesh.group(attn_impl.axis) if isinstance(attn_impl, RingSpec) else None
+        seq = _cp_group(attn_impl)
         if group_size(seq) > 1:
             n = group_size(seq)
             if img.shape[1] % n or txt.shape[1] % n:
@@ -136,7 +154,7 @@ class Flux(nn.Module):
                 None if t is None else own_block(t, seq, 1)
                 for t in (img, img_ids, img_mask, txt, txt_ids, txt_mask))
         img, txt, vec, pe, attn_mask = self.embed_inputs(
-            img, img_ids, txt, txt_ids, timesteps, y, txt_mask, img_mask, guidance, l, lora_scale
+            img, img_ids, txt, txt_ids, timesteps, y, txt_mask, img_mask, guidance, l, lora_scale, pe
         )
         txt_len = txt.shape[1]
         seg = None
@@ -170,8 +188,8 @@ class Flux(nn.Module):
         else:
             for block, bl in zip(self.single_blocks, s_lora):
                 x = run(block, "single_blocks", x, vec, pe, attn_mask, bl)
-        out = gather_cat(self.final_layer(x[:, txt_len:], vec, l.get("final_layer"), lora_scale), seq, 1,
-                         backward="slice")
+        out = gather_cat(self.final_layer(x[:, txt_len:], vec, l.get("final_layer"), lora_scale,
+                                          collect_stats=collect_a8_stats), seq, 1, backward="slice")
         if collect_a8_stats and group_size(seq) > 1:  # the absmax over every rank's tokens
             tree_map(lambda t: all_reduce_(t, seq, torch.distributed.ReduceOp.MAX), stats)
         return (out, stats) if collect_a8_stats else out

@@ -8,6 +8,12 @@ The dense linear, the int8 weight-only one (`Int8Linear`, through kernel G),
 the int4 weight-only one (`Int4DiTLinear`, through kernel G4) and the w8a8
 one (`W8A8Linear`, through kernels I and H) are ported.
 
+What XLA fuses inside JAX's blocks runs, on the no-grad forward, as
+kernels J (LayerNorm + modulate), K (gated residual), L (head split + q/k
+RMSNorm into attention's buffers) and M (head merge, + gelu in the single
+block) of ops/block_fusions.py; under autograd and in calibration
+(`_fused`) the blocks run their plain versions, the former PyTorch code.
+
 LoRA is unfolded, as in JAX: every forward takes an optional `lora` tree
 (the entries of models/lora.py keyed like the module's own children) and
 adds x @ A @ B (+ B's bias) times `lora_scale` to each linear; a MoE-LoRA
@@ -47,11 +53,14 @@ from torch import nn
 from ..config import FluxConfig
 from ..ops.act_quant import act_quant_int8
 from ..ops.attention import attention, rope_qk
+from ..ops.block_fusions import (gated_residual, gated_residual_plain, layernorm_modulate,
+                                 layernorm_modulate_plain, qk_norm_split, qk_norm_split_plain, qkv_buffers)
+from ..ops.flash_attention import _wants_grad
 from ..parallel.collectives import all_gather_cat, copy_to, reduce_from
 from ..ops.int4_matmul import int4_matmul
 from ..ops.int8_matmul import int8_matmul
 from ..ops.w8a8_matmul import w8a8_matmul
-from .lora import Lora
+from .lora import Lora, tree_leaves
 
 
 MOE_TOP_K = 2  # the reference MixtureOfLoRAExperts' default
@@ -318,21 +327,6 @@ def _absmax_in(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).abs().reshape(-1, t.shape[-1]).amax(dim=0)
 
 
-def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Affine-free LayerNorm in fp32 (returns fp32)."""
-    x32 = x.to(torch.float32)
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
-    return (x32 - mu) * torch.rsqrt(var + eps)
-
-
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """fp32 RMS norm, cast back before the learned scale."""
-    x32 = x.to(torch.float32)
-    rrms = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
-    return (x32 * rrms).to(x.dtype) * scale.to(x.dtype)
-
-
 class QKNorm(nn.Module):
     tp_group = None  # under tensor parallelism the scales meet only this rank's heads
 
@@ -341,9 +335,9 @@ class QKNorm(nn.Module):
         self.q_scale = nn.Parameter(torch.ones(dim))
         self.k_scale = nn.Parameter(torch.ones(dim))
 
-    def forward(self, q, k, v):
-        qs, ks = copy_to(self.q_scale, self.tp_group), copy_to(self.k_scale, self.tp_group)
-        return rms_norm(q, qs).to(v.dtype), rms_norm(k, ks).to(v.dtype)
+    def scales(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(q_scale, k_scale), copied to the tp group (their gradients summed there)."""
+        return copy_to(self.q_scale, self.tp_group), copy_to(self.k_scale, self.tp_group)
 
 
 class MLPEmbedder(nn.Module):
@@ -378,16 +372,30 @@ class Modulation(nn.Module):
         return m1, m2
 
 
-def _split_heads(qkv: torch.Tensor, num_heads: int):
-    """(B, L, 3*H*D) -> three (B, H, L, D); feature order (k, h, d)."""
-    b, l, f = qkv.shape
-    d = f // (3 * num_heads)
-    x = qkv.reshape(b, l, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-    return x[0], x[1], x[2]
+def _fused(module: nn.Module, collect_stats: bool, tensors, lora: Lora) -> bool:
+    """Whether a forward takes kernels J, K, L and M (the no-grad serving
+    forward) or their plain versions: under autograd -- flash_attention's
+    _wants_grad over the inputs, the LoRA leaves and the module's
+    parameters -- since J-M have no backward, and in calibration, which
+    reads the plain fp32 values (collect_stats)."""
+    if collect_stats:
+        return False
+    return not (torch.is_grad_enabled() and _wants_grad(*tensors, *tree_leaves(lora), *module.parameters()))
 
 
-def _modulate(x, mod):
-    return (1.0 + mod["scale"]) * layer_norm(x) + mod["shift"]
+def _input_dtype(linear: nn.Module) -> torch.dtype:
+    """The dtype `linear` takes its input in, so that kernel J stores that:
+    a dense linear's weight dtype, fp32 for a w8a8 one (kernel I quantizes
+    the fp32 value, as JAX), bf16 for the int8 and int4 ones."""
+    if isinstance(linear, Linear):
+        return linear.weight.dtype
+    return linear._x_dtype or torch.float32
+
+
+def _modulate(x, mod, out_dtype: torch.dtype, fused: bool):
+    """(1 + scale) * layer_norm(x) + shift as out_dtype: kernel J, or its plain version."""
+    fn = layernorm_modulate if fused else layernorm_modulate_plain
+    return fn(x, mod["shift"], mod["scale"], out_dtype)
 
 
 class SelfAttention(nn.Module):
@@ -400,7 +408,10 @@ class SelfAttention(nn.Module):
 
 class DoubleBlock(nn.Module):
     """DoubleStreamBlock: separate img/txt streams, joint attention over
-    concat(txt, img)."""
+    concat(txt, img). On the no-grad forward (`_fused`) kernel J modulates
+    each linear's input, kernel L writes both streams' q, k, v into one
+    joint buffer (txt first), kernel M merges the heads and kernel K adds
+    each gated residual; otherwise their plain versions run."""
 
     def __init__(self, cfg: FluxConfig):
         super().__init__()
@@ -413,18 +424,17 @@ class DoubleBlock(nn.Module):
         self.img_mlp = nn.ModuleDict({"0": Linear(h, mh), "2": Linear(mh, h)})
         self.txt_mlp = nn.ModuleDict({"0": Linear(h, mh), "2": Linear(mh, h)})
 
-    def _qkv(self, attn: SelfAttention, x, mod, lora: Lora, lora_scale, stats: dict | None):
-        x_mod = _modulate(x, mod)
+    @staticmethod
+    def _qkv(attn: SelfAttention, x, mod, lora: Lora, lora_scale, stats: dict | None, fused: bool):
+        """The stream's qkv projection of its modulated input."""
+        x_mod = _modulate(x, mod, _input_dtype(attn.qkv) if fused else torch.float32, fused)
         if stats is not None:
             stats["qkv"] = _absmax_in(x_mod)
-        qkv = attn.qkv(x_mod, lora.get("qkv"), lora_scale)
-        q, k, v = _split_heads(qkv, self.num_heads)
-        q, k = attn.norm(q, k, v)
-        return q, k, v
+        return attn.qkv(x_mod, lora.get("qkv"), lora_scale)
 
     @staticmethod
-    def _mlp(mlp: nn.ModuleDict, x, mod, lora: Lora, lora_scale, stats: dict | None):
-        x_mod = _modulate(x, mod)
+    def _mlp(mlp: nn.ModuleDict, x, mod, lora: Lora, lora_scale, stats: dict | None, fused: bool):
+        x_mod = _modulate(x, mod, _input_dtype(mlp["0"]) if fused else torch.float32, fused)
         if stats is not None:
             stats["0"] = _absmax_in(x_mod)
         h = F.gelu(mlp["0"](x_mod, lora.get("0"), lora_scale), approximate="tanh")
@@ -440,6 +450,8 @@ class DoubleBlock(nn.Module):
         if collect_stats and seg is not None:
             raise ValueError("collect_stats is a calibration (no-remat) mode")
         stats = {k: {} for k in ("img_attn", "txt_attn", "img_mlp", "txt_mlp")} if collect_stats else None
+        fused = _fused(self, collect_stats, (img, txt, vec), l)
+        residual = gated_residual if fused else gated_residual_plain
 
         def st(key: str) -> dict | None:
             return None if stats is None else stats[key]
@@ -447,13 +459,18 @@ class DoubleBlock(nn.Module):
         def pre(img, txt):
             img_mod1, img_mod2 = self.img_mod(vec, l.get("img_mod", {}).get("lin"), lora_scale)
             txt_mod1, txt_mod2 = self.txt_mod(vec, l.get("txt_mod", {}).get("lin"), lora_scale)
-            img_q, img_k, img_v = self._qkv(self.img_attn, img, img_mod1, l.get("img_attn", {}), lora_scale,
-                                            st("img_attn"))
-            txt_q, txt_k, txt_v = self._qkv(self.txt_attn, txt, txt_mod1, l.get("txt_attn", {}), lora_scale,
-                                            st("txt_attn"))
-            q = torch.cat([txt_q, img_q], dim=2)
-            k = torch.cat([txt_k, img_k], dim=2)
-            v = torch.cat([txt_v, img_v], dim=2)
+            img_qkv = self._qkv(self.img_attn, img, img_mod1, l.get("img_attn", {}), lora_scale, st("img_attn"),
+                                fused)
+            txt_qkv = self._qkv(self.txt_attn, txt, txt_mod1, l.get("txt_attn", {}), lora_scale, st("txt_attn"),
+                                fused)
+            streams = ((self.txt_attn, txt_qkv, 0), (self.img_attn, img_qkv, txt_len))
+            if fused:  # both streams into one joint buffer, txt first
+                q, k, v = qkv_buffers(img_qkv, self.num_heads, txt_len + img.shape[1])
+                for attn, qkv, offset in streams:
+                    qk_norm_split(qkv, *attn.norm.scales(), self.num_heads, (q, k, v), offset)
+            else:
+                parts = [qk_norm_split_plain(qkv, *attn.norm.scales(), self.num_heads) for attn, qkv, _ in streams]
+                q, k, v = (torch.cat(ts, dim=2) for ts in zip(*parts))
             if seg is not None:  # rotated q, k are the attention's saved inputs
                 q, k = rope_qk(q, k, pe, rope_layout)
             return q, k, v, (img_mod1, img_mod2, txt_mod1, txt_mod2)
@@ -465,27 +482,29 @@ class DoubleBlock(nn.Module):
                 stats["img_attn"]["proj"] = _absmax_in(img_attn)
                 stats["txt_attn"]["proj"] = _absmax_in(txt_attn)
             li, lt = l.get("img_attn", {}), l.get("txt_attn", {})
-            img = img + (img_mod1["gate"] * self.img_attn.proj(img_attn, li.get("proj"), lora_scale).to(
-                torch.float32)).to(img.dtype)
-            img = img + (img_mod2["gate"] * self._mlp(self.img_mlp, img, img_mod2, l.get("img_mlp", {}),
-                                                      lora_scale, st("img_mlp")).to(torch.float32)).to(img.dtype)
-            txt = txt + (txt_mod1["gate"] * self.txt_attn.proj(txt_attn, lt.get("proj"), lora_scale).to(
-                torch.float32)).to(txt.dtype)
-            txt = txt + (txt_mod2["gate"] * self._mlp(self.txt_mlp, txt, txt_mod2, l.get("txt_mlp", {}),
-                                                      lora_scale, st("txt_mlp")).to(torch.float32)).to(txt.dtype)
+            img = residual(img, img_mod1["gate"], self.img_attn.proj(img_attn, li.get("proj"), lora_scale))
+            img = residual(img, img_mod2["gate"], self._mlp(self.img_mlp, img, img_mod2, l.get("img_mlp", {}),
+                                                            lora_scale, st("img_mlp"), fused))
+            txt = residual(txt, txt_mod1["gate"], self.txt_attn.proj(txt_attn, lt.get("proj"), lora_scale))
+            txt = residual(txt, txt_mod2["gate"], self._mlp(self.txt_mlp, txt, txt_mod2, l.get("txt_mlp", {}),
+                                                            lora_scale, st("txt_mlp"), fused))
             return img, txt
 
         if seg is not None:
             pre, post = seg(pre), seg(post)
         q, k, v, mods = pre(img, txt)
         attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout,
-                         impl=attn_impl)
+                         impl=attn_impl, fused=fused)
         out = post(img, txt, attn, mods)
         return (out, stats) if collect_stats else out
 
 
 class SingleBlock(nn.Module):
-    """SingleStreamBlock: fused parallel attention + MLP."""
+    """SingleStreamBlock: fused parallel attention + MLP. On the no-grad
+    forward (`_fused`) kernel J modulates linear1's input, kernel L splits
+    and normalizes q, k, v from linear1's first 3 * hidden columns, kernel
+    M writes linear2's whole input (the merged heads, then gelu of the rest
+    of linear1's output) and kernel K adds the gated residual."""
 
     def __init__(self, cfg: FluxConfig):
         super().__init__()
@@ -504,38 +523,46 @@ class SingleBlock(nn.Module):
         if collect_stats and seg is not None:
             raise ValueError("collect_stats is a calibration (no-remat) mode")
         stats: dict | None = {} if collect_stats else None
+        fused = _fused(self, collect_stats, (x, vec), l)
+        residual = gated_residual if fused else gated_residual_plain
 
         def pre(x):
             mod, _ = self.modulation(vec, l.get("modulation", {}).get("lin"), lora_scale)
-            x_mod = _modulate(x, mod).to(x.dtype)
+            x_mod = _modulate(x, mod, x.dtype, fused)
             if stats is not None:
                 stats["linear1"] = _absmax_in(x_mod)
             h = self.linear1(x_mod, l.get("linear1"), lora_scale)
-            q, k, v = _split_heads(h[..., : 3 * self.hidden_size], self.num_heads)
-            q, k = self.norm(q, k, v)
+            split = qk_norm_split if fused else qk_norm_split_plain
+            q, k, v = split(h[..., : 3 * self.hidden_size], *self.norm.scales(), self.num_heads)
             if seg is not None:
                 q, k = rope_qk(q, k, pe, rope_layout)
             return q, k, v, h, mod
 
         def post(x, attn, h, mod):
-            mlp_h = h[..., 3 * self.hidden_size :]
-            cat = torch.cat([attn, F.gelu(mlp_h, approximate="tanh")], dim=-1)
+            """attn: the merged heads; on the fused route linear2's whole
+            input, which kernel M wrote with the gelu half."""
+            if fused:
+                cat = attn
+            else:
+                mlp_h = h[..., 3 * self.hidden_size :]
+                cat = torch.cat([attn, F.gelu(mlp_h, approximate="tanh")], dim=-1)
             if stats is not None:
                 stats["linear2"] = _absmax_in(cat)
             out = self.linear2(cat, l.get("linear2"), lora_scale)
-            return x + (mod["gate"] * out.to(torch.float32)).to(x.dtype)
+            return residual(x, mod["gate"], out)
 
         if seg is not None:
             pre, post = seg(pre), seg(post)
         q, k, v, h, mod = pre(x)
         attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout,
-                         impl=attn_impl)
+                         impl=attn_impl, gelu=h[..., 3 * self.hidden_size :] if fused else None, fused=fused)
         out = post(x, attn, h, mod)
         return (out, stats) if collect_stats else out
 
 
 class LastLayer(nn.Module):
-    """adaLN (shift, scale) + linear."""
+    """adaLN (shift, scale) + linear; kernel J on the no-grad forward outside
+    calibration (collect_stats), as in the blocks."""
 
     def __init__(self, cfg: FluxConfig):
         super().__init__()
@@ -543,10 +570,11 @@ class LastLayer(nn.Module):
         self.linear = Linear(h, cfg.out_channels)
         self.adaLN = Linear(h, 2 * h)
 
-    def forward(self, x, vec, lora: Lora | None = None, lora_scale: float = 1.0):
+    def forward(self, x, vec, lora: Lora | None = None, lora_scale: float = 1.0, collect_stats: bool = False):
         l = lora or {}
         mod = self.adaLN(F.silu(vec), l.get("adaLN"), lora_scale).to(torch.float32)
         shift, scale = mod.chunk(2, dim=-1)
-        x = (1.0 + scale[:, None]) * layer_norm(x) + shift[:, None]
+        fused = _fused(self, collect_stats, (x, vec), l)
+        x = _modulate(x, {"shift": shift[:, None], "scale": scale[:, None]},
+                      _input_dtype(self.linear) if fused else torch.float32, fused)
         return self.linear(x, l.get("linear"), lora_scale)
-

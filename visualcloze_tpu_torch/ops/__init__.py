@@ -1,6 +1,7 @@
 """Tensor ops of the port and the wrappers of its hand-written CUDA kernels."""
 
 from .act_quant import act_quant_int8
+from .block_fusions import gated_residual, layernorm_modulate, merge_heads, qk_norm_split
 from .conv2d import conv3x3_gn_swish
 from .flash_attention import (
     flash_attn_bwd_dkv,
@@ -26,6 +27,10 @@ KERNELS = {
     "int4_matmul": int4_matmul,
     "w8a8_matmul": w8a8_matmul,
     "act_quant_int8": act_quant_int8,
+    "layernorm_modulate": layernorm_modulate,
+    "gated_residual": gated_residual,
+    "qk_norm_split": qk_norm_split,
+    "merge_heads": merge_heads,
 }
 
 

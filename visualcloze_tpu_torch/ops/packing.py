@@ -50,6 +50,36 @@ def make_img_ids(h_tok: int, w_tok: int, row_index: int) -> np.ndarray:
     return ids.reshape(h_tok * w_tok, 3)
 
 
+def pack_sequences(tokens, ids, pad_to: int | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pad a batch of (tokens (L_i, D), ids (L_i, 3)) sequences, tensors or
+    arrays, to one length: `pad_to` (a bucket, at least the longest) or the
+    longest. Returns (img (B, L, D) in the tokens' dtype, img_ids (B, L, 3)
+    fp32, img_mask (B, L) int32 {1 real, 0 pad}) on the first tokens'
+    device, zero past each sequence's end."""
+    tokens = [torch.as_tensor(t) for t in tokens]
+    ids = [torch.as_tensor(x) for x in ids]
+    if len(tokens) != len(ids):
+        raise ValueError(f"{len(tokens)} token sequences but {len(ids)} id sequences")
+    max_len = max(t.shape[0] for t in tokens)
+    if pad_to is not None:
+        if pad_to < max_len:
+            raise ValueError(f"pad_to {pad_to} is shorter than the longest sequence, {max_len}")
+        max_len = pad_to
+    dev = tokens[0].device
+    b, d = len(tokens), tokens[0].shape[-1]
+    img = torch.zeros((b, max_len, d), dtype=tokens[0].dtype, device=dev)
+    img_ids = torch.zeros((b, max_len, 3), dtype=torch.float32, device=dev)
+    img_mask = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
+    for i, (t, x) in enumerate(zip(tokens, ids)):
+        n = t.shape[0]
+        if x.shape[0] != n:
+            raise ValueError(f"sequence {i}: {n} tokens but {x.shape[0]} ids")
+        img[i, :n] = t.to(dev)
+        img_ids[i, :n] = x.to(dev, torch.float32)
+        img_mask[i, :n] = 1
+    return img, img_ids, img_mask
+
+
 def bucket_length(n: int, bucket: int = 256, minimum: int | None = None) -> int:
     """Round a sequence length up to a bucket boundary (at least `minimum`,
     which defaults to the bucket)."""

@@ -640,13 +640,15 @@ def _denoise(flux: Flux, x, ts, cond, txt, txt_ids, txt_mask, vec, img_ids, img_
              method: str = "euler", stats: dict | None = None, lora: Lora | None = None, lora_scale: float = 1.0,
              attn_impl=None):
     """The hot loop: the solver's steps over the full DiT (dopri5 from the
-    grid's first to its last time, adaptively), with an unfolded LoRA."""
+    grid's first to its last time, adaptively), with an unfolded LoRA. The
+    RoPE tables are built once, the ids being fixed for the query."""
+    pe = flux.rope_tables(img_ids, txt_ids, attn_impl)
 
     def model_fn(img, timesteps):
         return flux(
             img=img, img_ids=img_ids, txt=txt, txt_ids=txt_ids, timesteps=timesteps, y=vec,
             txt_mask=txt_mask, img_mask=img_mask, guidance=guidance, rope_layout=rope_layout,
-            lora=lora, lora_scale=lora_scale, attn_impl=attn_impl,
+            lora=lora, lora_scale=lora_scale, attn_impl=attn_impl, pe=pe,
         )
 
     if method == "dopri5":

@@ -8,8 +8,10 @@ default query (a 2x3 grid at 384: 3456 image + 512 text tokens), times
 `--steps` Euler steps with CUDA events, then traces the same steps with
 torch.profiler and sums the device time of every CUDA kernel by class:
 the DiT's GEMMs (cuBLAS through F.linear), kernel A (the rotation pass and
-the attention kernel), and the rest (norms, modulation, RoPE tables,
-elementwise and copies). The linears' FLOPs are counted with forward hooks
+the attention kernel), kernels J-M (the blocks' LayerNorm-modulate, gated
+residual, head split with q/k norm, head merge with gelu), and the rest
+(the modulation and embedders' small ops, RoPE tables, the LoRA-free glue,
+casts and copies). The linears' FLOPs are counted with forward hooks
 on one untraced step, so their rate is their FLOPs over their own kernel
 time. Prints one JSON object; writes the 30 costliest kernels to --out.
 Exits 1 if the trace holds no device events.
@@ -62,6 +64,12 @@ INT8_KERNEL = re.compile(r"\bint8_(matmul\w*|gemv)<|\bmatmul_wide<[^,]*\bInt8Con
 INT4_KERNEL = re.compile(r"\bint4_gemv<|\bmatmul_wide<[^,]*\bInt4Convert\b")  # csrc/int4_matmul.cu (G4)
 W8A8_KERNEL = re.compile(r"\bw8a8_matmul_kernel[<(]")  # csrc/w8a8_matmul.cu (H)
 ACT_QUANT_KERNEL = re.compile(r"\bact_quant_kernel<")  # csrc/act_quant_int8.cu (I)
+# the DiT blocks' fused passes: csrc/layernorm_modulate.cu (J), gated_residual.cu (K), qk_norm_split.cu (L),
+# merge_heads.cu (M)
+FUSION_KERNELS = ((re.compile(r"\bln_modulate_kernel<"), "layernorm modulate (kernel J)"),
+                  (re.compile(r"\bgated_residual_kernel\("), "gated residual (kernel K)"),
+                  (re.compile(r"\bqk_norm_split_kernel\("), "head split + q/k norm (kernel L)"),
+                  (re.compile(r"\bmerge_heads_kernel\("), "head merge + gelu (kernel M)"))
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 CONV_KERNEL = re.compile(r"\bconv3x3_kernel<")  # csrc/conv3x3_gn_swish.cu (B)
 D512_KERNEL = re.compile(r"\bflash_d512")  # csrc/flash_attn_d512.cu (C)
@@ -83,6 +91,9 @@ def kernel_class(name: str) -> str:
         return "attention backward (kernel F)"
     if ATTENTION_KERNEL.search(name):
         return "attention (kernel A)"
+    for pattern, cls in FUSION_KERNELS:
+        if pattern.search(name):
+            return cls
     if any(m in name.lower() for m in GEMM_MARKS):
         return "gemm (linears)"
     return "other"
