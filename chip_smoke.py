@@ -62,7 +62,23 @@ Phases, each followed by one flushed JSON line on stdout:
              rows zeroed, + gelu of linear1's last 12288 columns) at 3968
              with 64 padded rows, the merge alone, 4608, 5760 with 512
              padded rows and 7 rows (the merge bit for bit, the gelu within
-             one bf16 ulp of each element);
+             one bf16 ulp of each element); their backward kernels, graph-
+             timed, each against its plain backward and against
+             torch.autograd.grad of the plain forward, deterministic: J'
+             at 3968, 3456, 512 tokens, 3968 at batch 2 (the column sums
+             per batch element), the final layer's strided image rows at
+             batch 2, an fp32 dy and 7 rows (dx within 2 bf16 ulps, dshift
+             and dscale within 2^-16 of the largest sum of |terms|), K' at
+             3968, 3456, 512, 3968 batch 2 and 7 rows batch 2 (dy bit for
+             bit, dgate as J''s sums), L' into linear1's 21504-column
+             gradient buffer (its other columns untouched), from the joint
+             3968-token dq, dk, dv at offsets 512 and 0, at batch 2, a tp =
+             2 shard and 7 rows (q and k's columns within 2 ulps, v's bit
+             for bit, the q/k scales' sums as J''s), M' with gelu and 64
+             padded rows, the merge alone, batch 2, 5760 with 512 padded
+             rows and 7 rows (dx bit for bit, dg within one ulp of each
+             element, floored at 2^-16 of the largest, written into
+             linear1's gradient buffer);
   ring_chunks  the ring attention's own schedule (ops/ring_attention.py) in
              one process over P = 2 and 4 chunks of the full-width (1, 24,
              L, 128) bf16 sequence at L = 3968 (the default query) and 5760
@@ -79,10 +95,16 @@ Phases, each followed by one flushed JSON line on stdout:
              collectives done by indexing, against the unsharded module
              (column scattered back within 4 bf16 ulps, row summed within 8);
   grad_reference  one full-width double block and one single block with a
-             rank-128 LoRA: the LoRA gradients through kernels E and F against
-             the same blocks through their plain versions (relative RMS);
+             rank-128 LoRA: the LoRA gradients through kernels E, J-M forward
+             and F, J'-M' backward (J-M and J'-M' 5, 5, 3, 2 each) against
+             the all-plain route (E and F's plain versions, the blocks'
+             plain code under autograd: no launch) (relative RMS);
   reference  the full-width DiT and VAE through the kernels against the same
              modules through the plain versions, on a small input;
+  cfg_forward  Flux.forward_cfg at batch 2 ([cond | uncond], 3456 image +
+             512 text tokens, full width and depth, no grad: A 57, J-M 115 /
+             114 / 76 / 57 launches) against the plain route and against two
+             batch-1 forwards combined (relative RMS);
   request    full-width random weights (FLUX.1-Fill 19+38 blocks at hidden
              3072, T5-XXL, CLIP-L, VAE) in bf16; two queries through
              VisualClozeModel.process_images: a 2x3 grid at 384 with SDEdit
@@ -111,7 +133,10 @@ Phases, each followed by one flushed JSON line on stdout:
              and Heun, 10 points), each twice from one generator seed: DiT
              evaluations 9 and 17 (A's launches / 57), bit-equal runs;
   likelihood sample_ode_likelihood on a 2x2 grid at 256, 3 steps: the
-             divergence by one vjp, so E and F (57 x 3 each), no A;
+             divergence by one vjp, so E and F (57 x 3 each), no A, J-M
+             115 / 114 / 76 / 57 x 3 and J'-M' 114 / 114 / 75 / 57 x 3 (the
+             vjp is over the latent: the first double block's text stream
+             carries no gradient);
   quant_reference_int4  the bf16 DiT quantized beside itself to int4
              (quantize_flux_int4): G4 vs its plain version (5% RMS),
              correlation with the bf16 DiT > 0.5; the copy parked in host
@@ -151,10 +176,12 @@ Phases, each followed by one flushed JSON line on stdout:
              WORLD_SIZE 1): an NCCL group, the mesh over it, the DiT under
              FSDP2 (shard_params mode "fsdp"), 2 steps, then the same 2
              steps with no process group: the first loss equal bit for
-             bit; the grad norms, the second loss and each LoRA leaf's
-             change per step (those upstream of vec apart) within
-             DIST_BOUNDS; the DiT's depth cut to 4 + 8 blocks (printed),
-             its width kept;
+             bit, every LoRA leaf's first gradient but those upstream of
+             vec equal bit for bit (its norm); the grad norms, the second
+             loss and each LoRA leaf's change per step (those upstream of
+             vec apart) within DIST_BOUNDS; J-M and J'-M' at their
+             counts; the DiT's depth cut to 4 + 8 blocks (printed), its
+             width kept;
   checkpoint_write  the seed-0 bf16 stack (the `init` phase's) written as the
              reference checkpoint files under build/ckpt_roundtrip/: the DiT
              put back in the reference channel order as one BFL safetensors
@@ -198,11 +225,14 @@ solvers, load_checkpoint_int8, the calibrating load and the query of
 load_checkpoint_w8a8_smooth, load_snapshot, diffusers_api) and read just after; G runs in
 the int8 and w8a8 phases only, H and I in the w8a8 ones only, G4 in
 request_int4 only; J, K, L and M in every serving phase, 115, 114, 76 and
-57 times per DiT evaluation (A's or D's launches / 57), and never under
-autograd (grad_reference, likelihood, train, moe_train, dist_one_rank) nor
-in the calibration evaluations that collect statistics (counted apart by
-wrapping Flux.forward in load_checkpoint_w8a8_smooth). reference swaps A,
-B, C and J-M for their plain versions for its plain run. Then the kernels
+57 times per DiT evaluation (A's or D's launches / 57); under autograd
+(grad_reference, likelihood, train, moe_train, dist_one_rank) J-M as often
+per pass over the blocks (twice an evaluation under the trainer's remat
+"full", the final layer's J once) and J'-M' as often per backward
+(autograd_expected: exactly); never in the calibration evaluations that
+collect statistics (counted apart by wrapping Flux.forward in
+load_checkpoint_w8a8_smooth). reference and cfg_forward swap A, B, C and
+J-M for their plain versions for their plain runs. Then the kernels
 line, the nvidia-smi
 line, and {"ok": true, "device": ...} last. Exits non-zero, with no result
 line, without a CUDA device, outside a checkout of the repository, or when
@@ -245,6 +275,11 @@ REPLACES = {
     "gated_residual": "visualcloze_tpu/models/layers.py:280",  # the gated residuals :280-288, :346
     "qk_norm_split": "visualcloze_tpu/models/layers.py:195",  # _split_heads + qk_norm :161 / rms_norm :153
     "merge_heads": "visualcloze_tpu/ops/attention.py:176",  # the head merge + concatenate with gelu, layers.py:342
+    # their transposes under jax.grad: XLA fusions of the same chains
+    "layernorm_modulate_bwd": "visualcloze_tpu/models/layers.py:145",
+    "gated_residual_bwd": "visualcloze_tpu/models/layers.py:280",
+    "qk_norm_split_bwd": "visualcloze_tpu/models/layers.py:195",
+    "merge_heads_bwd": "visualcloze_tpu/ops/attention.py:176",
 }
 SOURCES = {
     "flash_attn_rope": "visualcloze_tpu_torch/csrc/flash_attn_rope.cu",
@@ -262,6 +297,10 @@ SOURCES = {
     "gated_residual": "visualcloze_tpu_torch/csrc/gated_residual.cu",
     "qk_norm_split": "visualcloze_tpu_torch/csrc/qk_norm_split.cu",
     "merge_heads": "visualcloze_tpu_torch/csrc/merge_heads.cu",
+    "layernorm_modulate_bwd": "visualcloze_tpu_torch/csrc/layernorm_modulate_bwd.cu",
+    "gated_residual_bwd": "visualcloze_tpu_torch/csrc/gated_residual_bwd.cu",
+    "qk_norm_split_bwd": "visualcloze_tpu_torch/csrc/qk_norm_split_bwd.cu",
+    "merge_heads_bwd": "visualcloze_tpu_torch/csrc/merge_heads_bwd.cu",
 }
 # kernel G per DiT evaluation: every linear of the int8 DiT once (19 double
 # blocks x 10, 38 single blocks x 3, 8 embedder and 2 final-layer linears);
@@ -270,14 +309,48 @@ SOURCES = {
 INT8_LINEARS, ATTENTION_CALLS = 314, 57
 W8A8_LINEARS = 19 * 8 + 38 * 2
 W8A8_KERNELS = ("w8a8_matmul", "act_quant_int8")
-# kernels J, K, L and M per DiT evaluation on the no-grad forward (models/layers.py): J before a double
-# block's qkv and mlp.0 of each stream, a single block's linear1 and the final layer's linear; K at a double
-# block's four gated residuals and a single block's one; L twice a double block (txt, then img into the joint
-# buffer) and once a single block; M once a block. Under autograd and in calibration (the evaluations
-# that collect statistics) the blocks run their plain versions: 0.
+# kernels J, K, L and M per DiT evaluation (models/layers.py): J before a double block's qkv and mlp.0 of
+# each stream, a single block's linear1 and the final layer's linear; K at a double block's four gated
+# residuals and a single block's one; L twice a double block (txt, then img into the joint buffer) and once a
+# single block; M once a block. Under autograd the same launches forward and, in the backward, J', K', L' and
+# M' as often (autograd_expected). In calibration (the evaluations that collect statistics) the blocks run
+# their plain versions: 0.
 FUSIONS = ("layernorm_modulate", "gated_residual", "qk_norm_split", "merge_heads")
-FUSION_CALLS = {"layernorm_modulate": 19 * 4 + 38 + 1, "gated_residual": 19 * 4 + 38, "qk_norm_split": 19 * 2 + 38,
-                "merge_heads": 19 + 38}
+BACKWARDS = tuple(f"{n}_bwd" for n in FUSIONS)
+
+
+def fusion_calls(depth: int = 19, depth_single: int = 38) -> dict:
+    """J-M's launches in one pass over the blocks (the final layer's J apart)."""
+    return {"layernorm_modulate": 4 * depth + depth_single, "gated_residual": 4 * depth + depth_single,
+            "qk_norm_split": 2 * depth + depth_single, "merge_heads": depth + depth_single}
+
+
+FUSION_CALLS = dict(fusion_calls(), layernorm_modulate=fusion_calls()["layernorm_modulate"] + 1)
+# the blocks run twice a training evaluation under remat "full" (the forward and its recomputation)
+REMAT_PASSES = 2
+
+
+def autograd_expected(passes: int, evals: int, depth: int = 19, depth_single: int = 38,
+                      txt_grad: bool = True) -> dict:
+    """J-M's and J'-M''s launches of `evals` DiT evaluations under autograd,
+    each differentiated once, whose blocks ran `passes` times in all (the
+    final layer runs once an evaluation: its J forward, its J' backward).
+    txt_grad False: the text tokens carry no gradient (a vjp over the image
+    latent alone), so the first double block's txt stream has none before
+    its attention: its qkv's J has no J' and its L' is skipped."""
+    per = fusion_calls(depth, depth_single)
+    out = {n: per[n] * passes for n in FUSIONS}
+    out.update({f"{n}_bwd": per[n] * evals for n in FUSIONS})
+    out["layernorm_modulate"] += evals
+    out["layernorm_modulate_bwd"] += evals
+    if not txt_grad:
+        out["layernorm_modulate_bwd"] -= evals
+        out["qk_norm_split_bwd"] -= evals
+    return out
+
+
+def autograd_launches(launches: dict) -> dict:
+    return {n: launches[n] for n in FUSIONS + BACKWARDS}
 
 
 def fusions_expected(evals: int) -> dict:
@@ -287,6 +360,36 @@ def fusions_expected(evals: int) -> dict:
 
 def fusion_launches(launches: dict) -> dict:
     return {n: launches[n] for n in FUSIONS}
+
+
+@contextlib.contextmanager
+def plain_block_route():
+    """The blocks' fused passes as their plain versions, on the no-grad
+    forward and under autograd alike (the calibration route without the
+    statistics): the entry points the blocks and attention() call swapped,
+    so no J-M or J'-M' launches and autograd differentiates the plain code."""
+    import torch
+
+    from visualcloze_tpu_torch.models import layers
+    from visualcloze_tpu_torch.ops import attention as att
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    def split(streams, heads, cols):
+        parts = [bfu.qk_norm_split_plain(x[..., :cols], qs, ks, heads) for x, qs, ks in streams]
+        rest = streams[0][0][..., cols:] if len(streams) == 1 and streams[0][0].shape[-1] > cols else None
+        return (*(torch.cat(ts, dim=2) for ts in zip(*parts)), rest)
+
+    swaps = [(layers, "apply_layernorm_modulate", bfu.layernorm_modulate_plain),
+             (layers, "apply_gated_residual", bfu.gated_residual_plain), (layers, "apply_qk_norm_split", split),
+             (att, "apply_merge_heads", bfu.merge_heads_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def emit(obj) -> None:
@@ -1038,13 +1141,202 @@ def check_merge_heads(tokens: int, what: str, reps: int, gelu_cols: int = 0, col
     return line
 
 
+def _colsum_tol(terms, dims) -> float:
+    """2^-16 of the largest sum of |terms| over `dims`: an fp32 column sum
+    over thousands of tokens taken in another order (measured well under it)."""
+    return terms.float().abs().sum(dim=dims).max().item() * 2.0 ** -16
+
+
+def _max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _backward_line(name, what, shape, checks, deterministic, ms, plain_ms, nbytes, **extra) -> dict:
+    """A kernel line of J'-M': `checks` {output: (err vs plain backward, err
+    vs autograd of the plain forward, tol)}; max_abs_err and tol are the
+    first output's, every output must hold both."""
+    first = next(iter(checks.values()))
+    line = _fusion_line(name, what, shape, max(first[:2]), first[2], deterministic, ms, plain_ms, nbytes,
+                        checks={k: dict(vs_plain=a, vs_autograd=b, tol=t) for k, (a, b, t) in checks.items()},
+                        **extra)
+    line["ok"] = line["ok"] and all(a <= t and b <= t for a, b, t in checks.values())
+    return line
+
+
+def check_layernorm_modulate_bwd(tokens: int, dy_bf16: bool, what: str, reps: int, b: int = 1, skip: int = 0,
+                                 c: int = 3072) -> dict:
+    """Kernel J' against its plain backward and against torch.autograd.grad
+    of J's plain version: x N(0.5, 4) bf16, rows [skip, skip + tokens) of a
+    (B, skip + tokens, C) tensor, scale a strided chunk, dy N(0, 1) in J's
+    output dtype; dx within 2 bf16 ulps of the largest, dshift and dscale
+    (per batch element) within _colsum_tol; two launches give the same bits.
+    Timed as a replayed CUDA graph."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.block_fusions import (layer_norm, layernorm_modulate_bwd,
+                                                         layernorm_modulate_bwd_plain, layernorm_modulate_plain)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31 * tokens + skip + dy_bf16 + b)
+    x = (torch.randn((b, skip + tokens, c), generator=g, device=dev) * 2.0 + 0.5).to(torch.bfloat16)[:, skip:]
+    shift, scale, _ = _modulation_vectors(g, b, c)
+    dt = torch.bfloat16 if dy_bf16 else torch.float32
+    dy = torch.randn((b, tokens, c), generator=g, device=dev).to(dt)
+    got = layernorm_modulate_bwd(x, scale, dy)
+    deterministic = all(torch.equal(a, w) for a, w in zip(got, layernorm_modulate_bwd(x, scale, dy)))
+    want = layernorm_modulate_bwd_plain(x, scale, dy)
+    ins = [t.detach().requires_grad_() for t in (x, shift, scale)]
+    auto = torch.autograd.grad(layernorm_modulate_plain(*ins, dt), ins, dy)
+    n = layer_norm(x)
+    tols = (bf16_ulps_tol(want[0].float(), 2), _colsum_tol(dy, 1), _colsum_tol(dy.float() * n, 1))
+    checks = {k: (_max_err(a, w), _max_err(a, u), t)
+              for k, a, w, u, t in zip(("dx", "dshift", "dscale"), got, want, auto, tols)}
+    ms = cuda_ms(lambda: layernorm_modulate_bwd(x, scale, dy), reps, graph=True)
+    plain_ms = cuda_ms(lambda: layernorm_modulate_bwd_plain(x, scale, dy), 5)
+    nbytes = b * tokens * c * (2 + dy.element_size() + 2) + 3 * b * c * 4
+    return _backward_line("layernorm_modulate_bwd", what, [b, tokens, c], checks, deterministic, ms, plain_ms,
+                          nbytes, dy_dtype="bf16" if dy_bf16 else "fp32")
+
+
+def check_gated_residual_bwd(tokens: int, what: str, reps: int, b: int = 1, c: int = 3072) -> dict:
+    """Kernel K' against its plain backward and autograd of K's plain
+    version: y, dout N(0, 1) bf16, the gate a strided chunk; dy bit for bit,
+    dgate (per batch element) within _colsum_tol; deterministic."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.block_fusions import (gated_residual_bwd, gated_residual_bwd_plain,
+                                                         gated_residual_plain)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(37 * tokens + b)
+    x, y, dout = (torch.randn((b, tokens, c), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    _, _, gate = _modulation_vectors(g, b, c)
+    got = gated_residual_bwd(gate, y, dout)
+    deterministic = all(torch.equal(a, w) for a, w in zip(got, gated_residual_bwd(gate, y, dout)))
+    want = gated_residual_bwd_plain(gate, y, dout)
+    ins = [t.detach().requires_grad_() for t in (gate, y)]
+    auto = torch.autograd.grad(gated_residual_plain(x, *ins), ins, dout)[::-1]
+    checks = {"dy": (_max_err(got[0], want[0]), _max_err(got[0], auto[0]), 0.0),
+              "dgate": (_max_err(got[1], want[1]), _max_err(got[1], auto[1]), _colsum_tol(dout.float() * y, 1))}
+    ms = cuda_ms(lambda: gated_residual_bwd(gate, y, dout), reps, graph=True)
+    plain_ms = cuda_ms(lambda: gated_residual_bwd_plain(gate, y, dout), 5)
+    return _backward_line("gated_residual_bwd", what, [b, tokens, c], checks, deterministic, ms, plain_ms,
+                          3 * b * tokens * c * 2 + 2 * b * c * 4)
+
+
+def check_qk_norm_split_bwd(tokens: int, what: str, reps: int, cols: int = 9216, heads: int = 24, total: int = 0,
+                            offset: int = 0, b: int = 1) -> dict:
+    """Kernel L' against its plain backward and autograd of L's plain
+    version: the raw q, k from the first 3 * heads * 128 of `cols` columns of
+    an N(0, 4) bf16 projection, dq, dk, dv N(0, 1) (B, heads, total, 128)
+    read at token `offset`; dqkv written into the first 3 * heads * 128 of a
+    (B, tokens, cols) gradient buffer (linear1's 21504 columns in the single
+    block): q and k's columns within 2 bf16 ulps of the largest, v's bit for
+    bit, the buffer's other columns untouched; the scales' gradients within
+    _colsum_tol (against autograd's bf16 value: plus one ulp of it);
+    deterministic."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.block_fusions import qk_norm_split_bwd, qk_norm_split_bwd_plain, qk_norm_split_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(41 * tokens + cols + offset + b)
+    hd = heads * 128
+    qkv = (torch.randn((b, tokens, cols), generator=g, device=dev) * 2.0).to(torch.bfloat16)[..., : 3 * hd]
+    qs, ks = ((torch.rand((128,), generator=g, device=dev) + 0.5).to(torch.bfloat16) for _ in range(2))
+    total = total or tokens
+    grads = [torch.randn((b, heads, total, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3)]
+    outs = [torch.full((b, tokens, cols), 3.0, dtype=torch.bfloat16, device=dev) for _ in range(3)]
+    got = qk_norm_split_bwd(qkv, qs, ks, heads, *grads, offset, outs[0], True)
+    again = qk_norm_split_bwd(qkv, qs, ks, heads, *grads, offset, outs[1], True)
+    want = qk_norm_split_bwd_plain(qkv, qs, ks, heads, *grads, offset, outs[2], True)
+    deterministic = all(torch.equal(a, w) for a, w in zip(got, again))
+    span = slice(offset, offset + tokens)
+    ins = [t.detach().requires_grad_() for t in (qkv, qs, ks)]
+    auto = torch.autograd.grad(qk_norm_split_plain(*ins, heads), ins, [t[:, :, span] for t in grads])
+    qn, kn, _ = qk_norm_split_plain(qkv, torch.ones_like(qs), torch.ones_like(ks), heads)
+    qk = slice(0, 2 * hd)
+    checks = {"dqkv_qk": (_max_err(got[0][..., qk], want[0][..., qk]), _max_err(got[0][..., qk], auto[0][..., qk]),
+                          bf16_ulps_tol(want[0][..., qk].float(), 2)),
+              "dqkv_v": (_max_err(got[0][..., 2 * hd:3 * hd], want[0][..., 2 * hd:3 * hd]),
+                         _max_err(got[0][..., 2 * hd:3 * hd], auto[0][..., 2 * hd:]), 0.0)}
+    for k, i, d, nrm in (("dq_scale", 1, grads[0], qn), ("dk_scale", 2, grads[1], kn)):
+        tol = _colsum_tol(d[:, :, span].float() * nrm, (0, 1, 2))
+        checks[k] = (_max_err(got[i], want[i]), max(0.0, _max_err(got[i], auto[i]) - bf16_ulps_tol(auto[i], 1)), tol)
+    untouched = cols == 3 * hd or bool((outs[0][..., 3 * hd:] == 3.0).all())
+    ms = cuda_ms(lambda: qk_norm_split_bwd(qkv, qs, ks, heads, *grads, offset, outs[0], True), reps, graph=True)
+    plain_ms = cuda_ms(lambda: qk_norm_split_bwd_plain(qkv, qs, ks, heads, *grads, offset, outs[2], True), 5)
+    line = _backward_line("qk_norm_split_bwd", what, [b, tokens, cols, heads], checks, deterministic, ms, plain_ms,
+                          8 * b * tokens * hd * 2 + 2 * 128 * (2 + 4), joint_tokens=total, offset=offset,
+                          other_columns_untouched=untouched)
+    line["ok"] = line["ok"] and untouched
+    return line
+
+
+def check_merge_heads_bwd(tokens: int, what: str, reps: int, gelu_cols: int = 0, cols: int = 0, padded: int = 0,
+                          b: int = 1, heads: int = 24) -> dict:
+    """Kernel M' against its plain backward and autograd of M's plain
+    version: dout N(0, 1) bf16 (B, tokens, heads * 128 [+ gelu_cols]), the
+    last `padded` rows of each batch element masked; with gelu_cols, the
+    forward's gelu input the last gelu_cols of `cols` N(0, 9) columns
+    (linear1's 12288 of 21504). dx bit for bit with the padded rows zero,
+    dg within one bf16 ulp of each element (floored at 2^-16 of the
+    largest) and laid out in linear1's gradient buffer (the gelu input's
+    strides); deterministic."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.block_fusions import merge_heads_bwd, merge_heads_bwd_plain, merge_heads_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(43 * tokens + gelu_cols + padded + b)
+    hd = heads * 128
+    mask = None
+    if padded:
+        mask = torch.ones((b, tokens), dtype=torch.int32, device=dev)
+        mask[:, tokens - padded:] = 0
+    gelu = None
+    if gelu_cols:
+        gelu = (torch.randn((b, tokens, cols), generator=g, device=dev) * 3.0).to(torch.bfloat16)[..., -gelu_cols:]
+    dout = torch.randn((b, tokens, hd + gelu_cols), generator=g, device=dev).to(torch.bfloat16)
+    got = merge_heads_bwd(dout, heads, mask, gelu)
+    again = merge_heads_bwd(dout, heads, mask, gelu)
+    deterministic = all(torch.equal(a, w) for a, w in zip(got, again) if a is not None)
+    want = merge_heads_bwd_plain(dout, heads, mask, gelu)
+    ins = [torch.zeros((b, heads, tokens, 128), dtype=torch.bfloat16, device=dev).requires_grad_()]
+    if gelu_cols:
+        ins.append(gelu.detach().requires_grad_())
+    auto = torch.autograd.grad(merge_heads_plain(ins[0], mask, ins[1] if gelu_cols else None), ins, dout)
+    checks = {"dx": (_max_err(got[0], want[0]), _max_err(got[0], auto[0]), 0.0)}
+    padded_zero = not padded or not bool(got[0][:, :, tokens - padded:].any())
+    in_buffer = True
+    if gelu_cols:
+        # one bf16 ulp of each element, floored at 2^-16 of the largest: where gelu' nearly vanishes (x < -3),
+        # 1 + tanh cancels and two tanhf give different tiny values
+        ulps = [((got[1].float() - w.float()).abs()
+                 / torch.maximum(bf16_ulps_each(w), w.float().abs().max() * 2.0 ** -16)).max().item()
+                for w in (want[1], auto[1])]
+        checks["dg_over_tol"] = (*ulps, 1.0)
+        in_buffer = got[1].stride() == gelu.stride()
+    ms = cuda_ms(lambda: merge_heads_bwd(dout, heads, mask, gelu), reps, graph=True)
+    plain_ms = cuda_ms(lambda: merge_heads_bwd_plain(dout, heads, mask, gelu), 5)
+    nbytes = b * tokens * ((hd + gelu_cols) * 2 + hd * 2 + 2 * gelu_cols * 2) + (b * tokens * 4 if padded else 0)
+    line = _backward_line("merge_heads_bwd", what, [b, heads, tokens, 128, gelu_cols], checks, deterministic, ms,
+                          plain_ms, nbytes, padded_rows=padded, padded_rows_zero=padded_zero,
+                          dg_in_linear1_buffer=in_buffer)
+    line["ok"] = line["ok"] and padded_zero and in_buffer
+    return line
+
+
 # ----------------------------- gradients at full width -----------------------------
 
 
 def grad_reference() -> dict:
     """One full-width double block and one single block (interleaved RoPE,
     64 padded image tokens) with a rank-128 LoRA whose B is random: the LoRA
-    gradients through kernels E and F vs through their plain versions."""
+    gradients through kernels E, J, K, L and M forward and F, J', K', L' and
+    M' backward (J 5, K 5, L 3, M 2 launches each way) vs the all-plain
+    route: E and F's plain versions and the blocks' plain code under autograd
+    (plain_block_route), which launches no kernel."""
     import torch
 
     from visualcloze_tpu_torch import ops
@@ -1097,7 +1389,10 @@ def grad_reference() -> dict:
     fa.flash_attn_fwd_lse, fa.flash_attn_bwd_dq, fa.flash_attn_bwd_dkv = (
         fa.flash_fwd_lse_plain, fa.flash_bwd_dq_plain, fa.flash_bwd_dkv_plain)
     try:
-        want = grads()
+        with plain_block_route():
+            ops.reset_kernel_launches()
+            want = grads()
+            plain_launches = {n: c for n, c in ops.kernel_launches().items() if c}
     finally:
         fa.flash_attn_fwd_lse, fa.flash_attn_bwd_dq, fa.flash_attn_bwd_dkv = saved
     num = sum((a - b).pow(2).sum() for a, b in zip(got, want))
@@ -1109,9 +1404,12 @@ def grad_reference() -> dict:
                worst_leaf_rel_rms_err=max(per_leaf), finite=all(bool(torch.isfinite(a).all()) for a in got),
                launches={k: launches[k] for k in ("flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")},
                tol=5e-2)
-    out["fusion_launches"] = fusion_launches(launches)  # the blocks' plain versions under autograd
-    out["ok"] = (out["finite"] and out["rel_rms_err"] <= out["tol"]
-                 and all(n > 0 for n in out["launches"].values()) and not any(out["fusion_launches"].values()))
+    out["fusion_launches"] = autograd_launches(launches)
+    per = fusion_calls(1, 1)  # one double and one single block, no final layer: as many each way
+    out["fusion_launches_expected"] = {**per, **{f"{n}_bwd": c for n, c in per.items()}}
+    out["plain_run_launches"] = plain_launches
+    out["ok"] = (out["finite"] and out["rel_rms_err"] <= out["tol"] and all(n > 0 for n in out["launches"].values())
+                 and out["fusion_launches"] == out["fusion_launches_expected"] and not plain_launches)
     return out
 
 
@@ -1147,6 +1445,31 @@ def reference_inputs(model):
     return inp, z
 
 
+@contextlib.contextmanager
+def plain_dit():
+    """Kernels A, B, C and J-M swapped for their plain versions where their
+    callers reach them (A by attention(), B and C by the VAE, J-M through
+    plain_block_route)."""
+    import visualcloze_tpu_torch.models.autoencoder as ae_mod
+    import visualcloze_tpu_torch.ops.attention as att_mod
+    from visualcloze_tpu_torch.ops import conv2d as cv
+    from visualcloze_tpu_torch.ops import flash_attention as fa
+
+    plain = {(att_mod, "flash_mha_rope"): fa.flash_attention_plain,
+             (ae_mod, "conv3x3_gn_swish"): lambda x, w, b, pre_affine=None, act="swish": cv.conv3x3_plain(
+                 x, w, b, pre_affine, act),
+             (ae_mod, "flash_attn_d512"): fa.flash_attention_plain}
+    saved = {key: getattr(*key) for key in plain}
+    for (mod, name), fn in plain.items():
+        setattr(mod, name, fn)
+    try:
+        with plain_block_route():
+            yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
 def reference_checks(model) -> dict:
     """The full-width DiT and VAE through the kernels vs through the plain
     versions (same weights, same small input; A, B, C and J-M swapped for
@@ -1154,13 +1477,7 @@ def reference_checks(model) -> dict:
     launched in that run); relative RMS error."""
     import torch
 
-    import visualcloze_tpu_torch.models.autoencoder as ae_mod
-    import visualcloze_tpu_torch.models.layers as layers_mod
-    import visualcloze_tpu_torch.ops.attention as att_mod
     from visualcloze_tpu_torch import ops
-    from visualcloze_tpu_torch.ops import block_fusions as bf
-    from visualcloze_tpu_torch.ops import conv2d as cv
-    from visualcloze_tpu_torch.ops import flash_attention as fa
 
     inp, z = reference_inputs(model)
 
@@ -1169,24 +1486,9 @@ def reference_checks(model) -> dict:
         return model.flux(**inp).float(), model.ae.decode(z).float()
 
     dit_k, vae_k = run()
-    plain = {(att_mod, "flash_mha_rope"): fa.flash_attention_plain,
-             (ae_mod, "conv3x3_gn_swish"): lambda x, w, b, pre_affine=None, act="swish": cv.conv3x3_plain(
-                 x, w, b, pre_affine, act),
-             (ae_mod, "flash_attn_d512"): fa.flash_attention_plain,
-             # kernels J, K, L (called by the blocks) and M (by attention())
-             (layers_mod, "layernorm_modulate"): bf.layernorm_modulate_plain,
-             (layers_mod, "gated_residual"): bf.gated_residual_plain,
-             (layers_mod, "qk_norm_split"): bf.qk_norm_split_plain,
-             (att_mod, "merge_heads"): bf.merge_heads_plain}
-    saved = {key: getattr(*key) for key in plain}
-    for (mod, name), fn in plain.items():
-        setattr(mod, name, fn)
     ops.reset_kernel_launches()
-    try:
+    with plain_dit():
         dit_p, vae_p = run()
-    finally:
-        for (mod, name), fn in saved.items():
-            setattr(mod, name, fn)
     plain_launches = {n: c for n, c in ops.kernel_launches().items() if c}
 
     out = dict(dit_rel_rms_err=rel_rms(dit_k, dit_p), vae_rel_rms_err=rel_rms(vae_k, vae_p),
@@ -1195,6 +1497,64 @@ def reference_checks(model) -> dict:
     # bf16 roundings of 57 blocks (resp. ~30 VAE layers) in another order
     out["tol"] = 5e-2
     out["ok"] = (out["finite"] and out["dit_rel_rms_err"] <= out["tol"] and out["vae_rel_rms_err"] <= out["tol"]
+                 and not plain_launches)
+    return out
+
+
+CFG_SCALE = 2.0
+
+
+def cfg_forward(model) -> dict:
+    """Flux.forward_cfg on the full-width bf16 DiT at B = 2 ([cond | uncond]:
+    the default query's 3456 image + 512 text tokens, random bf16 inputs,
+    the uncond half's text its own draw), no grad: kernel A 57 times and J-M
+    115 / 114 / 76 / 57 (one evaluation at batch 2), held against the same
+    forward through their plain versions (plain_dit: no kernel launched;
+    reference_checks' 5% relative RMS) and against two B = 1 forwards
+    combined as forward_cfg combines them (each row of the batch through the
+    kernels alone: 5% relative RMS, and whether the bits agree)."""
+    import torch
+
+    from visualcloze_tpu_torch import ops
+
+    dev, cfg = model.device, model.cfg
+    g = torch.Generator(device=dev).manual_seed(6)
+    l_img, l_txt, side = 3456, 512, 48
+    ids = torch.zeros((2, l_img, 3), device=dev)
+    ids[..., 0] = 1
+    ids[..., 1] = (torch.arange(l_img, device=dev) // (l_img // side)).float()
+    ids[..., 2] = (torch.arange(l_img, device=dev) % (l_img // side)).float()
+    img = torch.randn((1, l_img, cfg.in_channels), generator=g, device=dev).to(torch.bfloat16).expand(2, -1, -1)
+    inp = dict(img=img.contiguous(), img_ids=ids,
+               txt=torch.randn((2, l_txt, cfg.context_in_dim), generator=g, device=dev).to(torch.bfloat16),
+               txt_ids=torch.zeros((2, l_txt, 3), device=dev),
+               timesteps=torch.full((2,), 0.5, device=dev).to(torch.bfloat16),
+               y=torch.randn((2, cfg.vec_in_dim), generator=g, device=dev).to(torch.bfloat16),
+               guidance=torch.full((2,), 30.0, device=dev).to(torch.bfloat16))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        t = time.perf_counter()
+        got = model.flux.forward_cfg(cfg_scale=CFG_SCALE, **inp)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = ops.kernel_launches()
+        halves = [model.flux(**{k: v[i:i + 1] for k, v in inp.items()}) for i in range(2)]
+        split = torch.cat([halves[1] + CFG_SCALE * (halves[0] - halves[1]), halves[1]], dim=0)
+        ops.reset_kernel_launches()
+        with plain_dit():
+            want = model.flux.forward_cfg(cfg_scale=CFG_SCALE, **inp)
+        plain_launches = {n: c for n, c in ops.kernel_launches().items() if c}
+    used = {n: launches[n] for n in ("flash_attn_rope", *FUSIONS)}
+    out = dict(phase="cfg_forward", batch=2, tokens=l_img + l_txt, cfg_scale=CFG_SCALE, seconds=seconds,
+               shape=list(got.shape), finite=bool(torch.isfinite(got).all()),
+               rel_rms_err_vs_plain=rel_rms(got.float(), want.float()),
+               rel_rms_err_vs_two_b1=rel_rms(got.float(), split.float()), bit_equal_two_b1=torch.equal(got, split),
+               launches=used, launches_expected=dict(FUSION_CALLS, flash_attn_rope=ATTENTION_CALLS),
+               plain_run_launches=plain_launches, tol=5e-2)
+    out["ok"] = (out["finite"] and out["shape"] == [2, l_img, cfg.out_channels]
+                 and out["rel_rms_err_vs_plain"] <= out["tol"] and out["rel_rms_err_vs_two_b1"] <= out["tol"]
+                 and used == out["launches_expected"] and not any(launches[n] for n in BACKWARDS)
                  and not plain_launches)
     return out
 
@@ -1731,9 +2091,10 @@ def likelihood(model) -> dict:
     """sample_ode_likelihood on the bf16 DiT: a 2x2 grid at 256 (1024 image +
     512 text tokens), 4 grid points (3 steps), one Rademacher probe a step,
     the divergence by one vector-Jacobian product: the attention under
-    autograd is kernel E forward and F backward (57 x 3 each), kernel A and
-    J-M (the blocks' plain versions under autograd) not at all. ok: a finite
-    logp."""
+    autograd is kernel E forward and F backward (57 x 3 each), no kernel A;
+    J-M launch 115 / 114 / 76 / 57 times an evaluation forward and J'-M'
+    114 / 114 / 75 / 57 in its backward (the vjp is over x alone: the first
+    double block's txt stream carries no gradient). ok: a finite logp."""
     import torch
 
     from visualcloze_tpu_torch import ops
@@ -1758,12 +2119,12 @@ def likelihood(model) -> dict:
                tokens_txt=int(q["txt"].shape[1]), steps=3, seconds=time.perf_counter() - t,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, logp=logp.tolist(),
                logp_per_dim=(logp / x_t[0].numel()).tolist(), finite=bool(torch.isfinite(logp).all()),
-               launches=launches)
+               launches=launches, fusion_launches_expected=autograd_expected(3, 3, txt_grad=False))
     want = ATTENTION_CALLS * 3
     out["ok"] = (out["finite"] and launches["flash_attn_rope"] == 0
                  and all(launches[n] == want for n in ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
                                                         "flash_attn_bwd_dkv"))
-                 and not any(fusion_launches(launches).values()))
+                 and autograd_launches(launches) == out["fusion_launches_expected"])
     return out
 
 
@@ -1996,10 +2357,11 @@ def run_training(tmp, remat_policy: str):
     ckpt = results / "checkpoints" / "0000003"
     files = sorted(p.name for p in ckpt.iterdir()) if ckpt.is_dir() else []
     hist = result["history"]
+    micro = len(hist) * 2  # global_bsz 2 of micro_bsz 1: each micro-batch one evaluation, differentiated once
     out = dict(phase="train", argv=argv, seconds=seconds, steps=len(hist), launches=launches,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, checkpoint_files=files,
                checkpoint_gib=sum(p.stat().st_size for p in ckpt.iterdir()) / 2 ** 30 if files else 0.0,
-               remat_policy=remat_policy)
+               remat_policy=remat_policy, fusion_launches_expected=autograd_expected(REMAT_PASSES * micro, micro))
     out["ok"] = (len(hist) == 3
                  and all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
                          for r in hist)
@@ -2007,7 +2369,7 @@ def run_training(tmp, remat_policy: str):
                  and {"state.pt", "consolidated.00-of-01.pth", "model_args.json", "resume_step.txt"} <= set(files)
                  and (ckpt / "resume_step.txt").read_text() == "3"
                  and all(launches[n] > 0 for n in TRAIN_KERNELS) and launches["int8_matmul"] == 0
-                 and not any(fusion_launches(launches).values()))
+                 and autograd_launches(launches) == out["fusion_launches_expected"])
     return out, result
 
 
@@ -2146,16 +2508,18 @@ def moe_train(tmp) -> dict:
     gate_moved = min((trained[p] - init[p]).abs().max().item() for p in trained if p.endswith(".gate_w"))
     expert_a_moved = min((trained[p] - init[p]).abs().max().item() for p in trained if p.endswith(".expert_a"))
     del init
+    micro = len(hist) * 2
     out = dict(phase="moe_train", argv=argv, seconds=seconds, steps=len(hist), losses=[r["loss"] for r in hist],
                grad_norms=[r["grad_norm"] for r in hist], step_seconds=[r["seconds"] for r in hist],
                trainable_values=lora_param_count(state.lora), expert_b_absmax=_leaf_max(state.lora, "expert_b"),
                shared_b_absmax=_leaf_max(state.lora, "shared_b"), min_gate_w_moved=gate_moved,
                min_expert_a_moved=expert_a_moved, launches=launches,
+               fusion_launches_expected=autograd_expected(REMAT_PASSES * micro, micro),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     out["ok"] = (len(hist) == 2 and all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in hist)
                  and out["expert_b_absmax"] > 0 and out["shared_b_absmax"] > 0 and gate_moved > 0
                  and expert_a_moved > 0 and all(launches[n] > 0 for n in (E_KERNEL, *F_KERNELS))
-                 and not any(fusion_launches(launches).values()))
+                 and autograd_launches(launches) == out["fusion_launches_expected"])
     del state, result, trained
     return out
 
@@ -2242,10 +2606,35 @@ def _free_port() -> int:
 
 UPSTREAM_OF_VEC = ("time_in.", "vector_in.", "guidance_in.")  # the LoRA leaves whose gradients reach vec only
 # dist_one_rank's bounds (relative), about twice the readings of a sound run on an H100 80GB HBM3 at
-# 700 W (PERF.md): 2.10e-5, 1.283e-4, 1.442e-4; leaves 7.0e-7 and 0.070 after step 1, 0.050 and 0.118
-# after step 2. A skipped or wrong update of a leaf moves its figure to about 0.5 or more.
+# 700 W (PERF.md) while FSDP2's per-block input hooks still regrouped vec's gradient: 2.10e-5, 1.283e-4,
+# 1.442e-4; leaves 7.0e-7 and 0.070 after step 1, 0.050 and 0.118 after step 2. A double block's two
+# modulations now share one silu(vec) (models/layers.py), so each block adds one contribution to vec's
+# gradient in both runs, in the same order: every figure reads 0, and every leaf's first gradient but
+# the UPSTREAM_OF_VEC ones is held equal bit for bit (rest_first_grads_equal). A skipped or wrong update
+# of a leaf moves its figure to about 0.5 or more.
 DIST_BOUNDS = dict(first_grad_norm=5e-5, second_loss=2.5e-4, second_grad_norm=2.5e-4,
                    step1_leaves=1.5e-6, step1_upstream=0.15, step2_leaves=0.1, step2_upstream=0.25)
+
+
+@contextlib.contextmanager
+def grad_norm_records():
+    """Each leaf's gradient norm every time the train step takes its global
+    norm (training.step._global_norm, whose first call in a step sees every
+    differentiated leaf); yields the list of {leaf: norm} records. The
+    trainer's own arithmetic runs unchanged."""
+    from visualcloze_tpu_torch.training import step as step_mod
+
+    records, take = [], step_mod._global_norm
+
+    def recording(grads, state=None):
+        records.append({n: g.detach().float().norm().item() for n, g in grads.items()})
+        return take(grads, state)
+
+    step_mod._global_norm = recording
+    try:
+        yield records
+    finally:
+        step_mod._global_norm = take
 
 
 def dist_one_rank(tmp) -> dict:
@@ -2255,16 +2644,19 @@ def dist_one_rank(tmp) -> dict:
     FSDP2; 2 steps, then the same 2 steps with no process group (the same
     seed). The LoRA leaves are recorded before and after each step
     (lora_steps). The first step's loss is equal bit for bit (the forward is
-    the same arithmetic); the gradients of the UPSTREAM_OF_VEC leaves are
-    not: vec's bf16 gradient is the sum of every block's contribution, and
-    FSDP2's per-block hooks change the order autograd adds them in
-    (tests/test_torch_parallel.py shows it on the CPU). Through the global
-    norm's clip that reaches every leaf's first update by Adam's eps only,
-    and every leaf's second update through the first. So the first step's
-    grad norm, the second step's loss and grad norm, and each leaf's change
-    after each step (|a - b| / |b - b_init|) are held within DIST_BOUNDS,
-    the upstream leaves apart from the rest.
-    The DiT's depth is cut to DIST_DEPTH, its width kept."""
+    the same arithmetic). vec's bf16 gradient is the sum of every block's
+    contribution (it reaches the UPSTREAM_OF_VEC leaves only); FSDP2's
+    per-block hooks sum each block's own contributions first, so each block
+    takes vec through one silu (a double block's two modulations share it)
+    and both runs add the same contributions in the same order. The first
+    step's grad norm, the second step's loss and grad norm, and each leaf's
+    change after each step (|a - b| / |b - b_init|) are held within
+    DIST_BOUNDS, the upstream leaves apart from the rest (a difference in
+    vec's gradient would reach every leaf's first update through the
+    global norm's clip and Adam's eps, and every second update through the
+    first); every other leaf's first-step gradient (its norm, per leaf) is
+    equal bit for bit. The DiT's depth is cut to DIST_DEPTH, its width
+    kept."""
     import os
 
     import torch
@@ -2279,7 +2671,7 @@ def dist_one_rank(tmp) -> dict:
             "--max_steps", "2", "--global_bsz", "2", "--micro_bsz", "1", "--checkpointing", "--remat_policy",
             REMAT_POLICY, "--ckpt_every", "1000", "--log_every", "1"]
     env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
-    runs, snaps = {}, {}
+    runs, snaps, norms = {}, {}, {}
     with cut_depth(*DIST_DEPTH):
         for name in ("nccl", "single"):
             if name == "nccl":
@@ -2287,7 +2679,7 @@ def dist_one_rank(tmp) -> dict:
             ops.reset_kernel_launches()
             t0 = time.perf_counter()
             try:
-                with lora_steps() as snaps[name]:
+                with lora_steps() as snaps[name], grad_norm_records() as norms[name]:
                     res = train_main(argv + ["--results_dir", str(tmp / f"results_{name}")])
                 backend = dist.get_backend() if dist.is_initialized() else None
                 fsdp = is_fsdp(res["state"].params)
@@ -2309,6 +2701,12 @@ def dist_one_rank(tmp) -> dict:
     loss_diff = [rel(x, y) for x, y in zip(a["losses"], b["losses"])]
     norm_diff = [rel(x, y) for x, y in zip(a["grad_norms"], b["grad_norms"])]
     init_equal = all(torch.equal(snaps["nccl"][0][p], t) for p, t in snaps["single"][0].items())
+    first = [norms[name][0] for name in ("nccl", "single")]
+    rest_names = [n for n in first[1] if not n.startswith(UPSTREAM_OF_VEC)]
+    rest_equal = len(rest_names) > 0 and all(first[0][n] == first[1][n] for n in rest_names)
+
+    def upstream_norm(rec):
+        return math.sqrt(sum(v * v for n, v in rec.items() if n.startswith(UPSTREAM_OF_VEC)))
     leaves = []
     for step, row in enumerate(lora_step_diffs(snaps["nccl"], snaps["single"]), 1):
         up = {p: d for p, d in row.items() if p.startswith(UPSTREAM_OF_VEC)}
@@ -2318,17 +2716,22 @@ def dist_one_rank(tmp) -> dict:
                            upstream_moved=sum(d > 0 for d in up.values()), rest_max=rest[worst], rest_worst=worst,
                            rest_moved=sum(d > 0 for d in rest.values())))
     bnd = DIST_BOUNDS
+    micro = len(a["losses"]) * 2
+    expected = autograd_expected(REMAT_PASSES * micro, micro, *DIST_DEPTH)
     leaves_ok = (len(leaves) == 2 and leaves[0]["upstream_max"] <= bnd["step1_upstream"]
                  and leaves[0]["rest_max"] <= bnd["step1_leaves"] and leaves[1]["upstream_max"] <= bnd["step2_upstream"]
                  and leaves[1]["rest_max"] <= bnd["step2_leaves"])
     return dict(phase="dist_one_rank", depth=list(DIST_DEPTH), runs=runs, rel_loss_diff=loss_diff,
                 rel_grad_norm_diff=norm_diff, first_loss_equal=a["losses"][:1] == b["losses"][:1],
                 init_leaves_equal=init_equal, leaves=leaves, bounds=bnd, launches=a["launches"],
+                fusion_launches_expected=expected, rest_first_grads_equal=rest_equal,
+                upstream_first_grad_norm_rel_diff=abs(upstream_norm(first[0]) - upstream_norm(first[1]))
+                / upstream_norm(first[1]),
                 ok=(a["backend"] == "nccl" and a["fsdp"] and b["backend"] is None and len(a["losses"]) == 2
                     and a["losses"][0] == b["losses"][0] and norm_diff[0] <= bnd["first_grad_norm"]
                     and loss_diff[1] <= bnd["second_loss"] and norm_diff[1] <= bnd["second_grad_norm"]
-                    and init_equal and leaves_ok and all(math.isfinite(x) for x in a["losses"])
-                    and not any(fusion_launches(a["launches"]).values())))
+                    and init_equal and rest_equal and leaves_ok and all(math.isfinite(x) for x in a["losses"])
+                    and all(autograd_launches(r["launches"]) == expected for r in (a, b))))
 
 
 TP_SHAPES = ((("single_blocks", "0", "linear1"), 3072, 21504, "column"),
@@ -3046,6 +3449,38 @@ def main() -> int:
         lambda: [check_merge_heads(5760, "the 3x3 grid: 5760 tokens, 512 padded rows", 50, padded=512)],
         lambda: [check_merge_heads(7, "a ragged 7 rows, 2 padded, with gelu", 50, gelu_cols=12288, cols=21504,
                                    padded=2)],
+        # J'-M', the trainer's and the likelihood's backward (B = 2: the column sums per batch element)
+        lambda: [check_layernorm_modulate_bwd(3968, True, "single block, 3968 tokens", 50)],
+        lambda: [check_layernorm_modulate_bwd(3456, True, "double block img stream", 50)],
+        lambda: [check_layernorm_modulate_bwd(512, True, "double block txt stream", 50)],
+        lambda: [check_layernorm_modulate_bwd(3968, True, "single block, batch 2", 50, b=2)],
+        lambda: [check_layernorm_modulate_bwd(3456, True, "final layer: img rows after 512 txt rows, batch 2", 50,
+                                              b=2, skip=512)],
+        lambda: [check_layernorm_modulate_bwd(3968, False, "fp32 dy (a J stored in fp32)", 50)],
+        lambda: [check_layernorm_modulate_bwd(7, True, "a ragged 7 rows", 50)],
+        lambda: [check_gated_residual_bwd(3968, "single block, 3968 tokens", 50)],
+        lambda: [check_gated_residual_bwd(3456, "double block img stream", 50)],
+        lambda: [check_gated_residual_bwd(512, "double block txt stream", 50)],
+        lambda: [check_gated_residual_bwd(3968, "single block, batch 2", 50, b=2)],
+        lambda: [check_gated_residual_bwd(7, "a ragged 7 rows, batch 2", 50, b=2)],
+        lambda: [check_qk_norm_split_bwd(3968, "single block: into linear1's 21504-column gradient buffer", 50,
+                                         cols=21504)],
+        lambda: [check_qk_norm_split_bwd(3456, "double block img stream from token 512 of the joint 3968", 50,
+                                         total=3968, offset=512)],
+        lambda: [check_qk_norm_split_bwd(512, "double block txt stream from token 0 of the joint 3968", 50,
+                                         total=3968)],
+        lambda: [check_qk_norm_split_bwd(3968, "single block, batch 2", 50, cols=21504, b=2)],
+        lambda: [check_qk_norm_split_bwd(3968, "tp = 2: 12 heads of linear1's 10752 local columns", 50,
+                                         cols=10752, heads=12)],
+        lambda: [check_qk_norm_split_bwd(7, "a ragged 7 rows from token 5 of 16", 50, total=16, offset=5)],
+        lambda: [check_merge_heads_bwd(3968, "single block, 64 padded query rows", 50, gelu_cols=12288, cols=21504,
+                                       padded=64)],
+        lambda: [check_merge_heads_bwd(3968, "double block: the merge alone", 50)],
+        lambda: [check_merge_heads_bwd(3968, "single block, batch 2, 64 padded rows each", 50, gelu_cols=12288,
+                                       cols=21504, padded=64, b=2)],
+        lambda: [check_merge_heads_bwd(5760, "the 3x3 grid: the merge alone, 512 padded rows", 50, padded=512)],
+        lambda: [check_merge_heads_bwd(7, "a ragged 7 rows, 2 padded, with gelu", 50, gelu_cols=12288, cols=21504,
+                                       padded=2)],
     ]
     first = {}
     for fn in checks:
@@ -3084,6 +3519,11 @@ def main() -> int:
     emit(dict(phase="reference", **ref))
     if not ref["ok"]:
         raise RuntimeError(f"reference check failed: {ref}")
+    rcfg = cfg_forward(model)
+    emit(rcfg)
+    if not rcfg["ok"]:
+        raise RuntimeError(f"the classifier-free-guidance forward failed: {rcfg}")
+    free()
 
     serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS
     training = ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")

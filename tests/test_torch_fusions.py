@@ -3,8 +3,10 @@ block_fusions.py) against the JAX package's XLA-fused code: each plain
 version against its JAX counterpart, then the tiny double and single blocks
 and the whole tiny DiT against JAX's, on both routes -- the no-grad forward
 through the four wrappers (their plain versions on the CPU; recorded here),
-and under autograd, which must not call them. Also the port's
-pack_sequences against JAX's.
+and under autograd through their Functions, whose forward is the same
+wrapper and whose backward is the backward wrapper of J', K', L' or M'
+(recorded too; tests/test_torch_fusions_bwd.py holds the gradients against
+JAX's). Also the port's pack_sequences against JAX's.
 
 Bounds: in fp32, max |Δ| <= 1e-5 of the largest output (the blocks and the
 DiT: 1e-4 of the output RMS, as tests/test_torch_models.py holds the DiT).
@@ -32,8 +34,6 @@ from visualcloze_tpu.models.flux import init_flux
 from visualcloze_tpu.ops.packing import pack_sequences as jax_pack_sequences
 from visualcloze_tpu.ops.rope import embed_nd as jax_embed_nd
 from visualcloze_tpu_torch import convert
-from visualcloze_tpu_torch.models import layers as tl
-from visualcloze_tpu_torch.ops import attention as tatt
 from visualcloze_tpu_torch.ops import block_fusions as bf
 from visualcloze_tpu_torch.ops.packing import pack_sequences
 from visualcloze_tpu_torch.ops.rope import embed_nd
@@ -41,6 +41,7 @@ from visualcloze_tpu_torch.ops.rope import embed_nd
 F32, BF16 = torch.float32, torch.bfloat16
 JAX_DTYPE = {F32: jnp.float32, BF16: jnp.bfloat16}
 FUSIONS = ("layernorm_modulate", "gated_residual", "qk_norm_split", "merge_heads")
+BACKWARDS = tuple(f"{name}_bwd" for name in FUSIONS)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -162,23 +163,32 @@ def test_merge_heads_plain_matches_jax(dtype, with_gelu):
 
 @pytest.fixture
 def calls(monkeypatch):
-    """Records every call of the four wrappers where the blocks and
-    attention() reach them, then calls through (the plain versions here)."""
-    seen = {name: 0 for name in FUSIONS}
+    """Records every call of the four forward wrappers and the four backward
+    wrappers (block_fusions' module globals, which the entry points and the
+    Functions call), then calls through (the plain versions here)."""
+    seen = {name: 0 for name in FUSIONS + BACKWARDS}
 
-    def recording(module, name):
-        fn = getattr(module, name)
+    def recording(name):
+        fn = getattr(bf, name)
 
         def wrapper(*args, **kwargs):
             seen[name] += 1
             return fn(*args, **kwargs)
 
-        monkeypatch.setattr(module, name, wrapper)
+        monkeypatch.setattr(bf, name, wrapper)
 
-    for name in FUSIONS[:3]:
-        recording(tl, name)
-    recording(tatt, "merge_heads")
+    for name in FUSIONS + BACKWARDS:
+        recording(name)
     return seen
+
+
+def _forwards(calls) -> dict:
+    return {name: calls[name] for name in FUSIONS}
+
+
+def _backwards(calls) -> dict:
+    """The backward wrappers' calls, keyed by their forward's name."""
+    return {name: calls[f"{name}_bwd"] for name in FUSIONS}
 
 
 # the JAX blocks jitted: one compile instead of eager dispatch's per-op compiles
@@ -223,18 +233,20 @@ def _route(grad: bool, *ts):
 
 
 def _check_route(calls, grad: bool, per_call: dict, out):
+    """Both routes run the forward wrappers per_call times and no backward
+    one; under autograd the backward then runs each backward wrapper as often
+    as its forward ran."""
+    assert _forwards(calls) == per_call and not any(_backwards(calls).values()), calls
     if grad:
-        assert calls == {name: 0 for name in FUSIONS}, calls
         sum(o.float().sum() for o in out).backward()
-    else:
-        assert calls == per_call, calls
+        assert _backwards(calls) == per_call and _forwards(calls) == per_call, calls
 
 
 @pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "autograd"])
 @pytest.mark.parametrize("padded", [False, True])
 def test_double_block_matches_jax_on_both_routes(calls, grad, padded):
-    """One tiny double block: no-grad J 4, K 4, L 2 (txt, img into one joint
-    buffer), M 1; under autograd none of them."""
+    """One tiny double block: J 4, K 4, L 2 (txt, img into one joint
+    buffer), M 1 on both routes; under autograd J'-M' as often."""
     cfg, params, model = _tiny()
     inp = _block_inputs(cfg, padded)
     bp = jax.tree.map(lambda a: a[0], params["double_blocks"])
@@ -257,8 +269,8 @@ def test_double_block_matches_jax_on_both_routes(calls, grad, padded):
 @pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "autograd"])
 @pytest.mark.parametrize("padded", [False, True])
 def test_single_block_matches_jax_on_both_routes(calls, grad, padded):
-    """One tiny single block: no-grad J, K, L and M once each (M writes the
-    gelu half of linear2's input too); under autograd none of them."""
+    """One tiny single block: J, K, L and M once each (M writes the gelu half
+    of linear2's input too) on both routes; under autograd J'-M' once each."""
     cfg, params, model = _tiny()
     inp = _block_inputs(cfg, padded)
     bp = jax.tree.map(lambda a: a[0], params["single_blocks"])
@@ -296,7 +308,7 @@ def test_single_block_in_bf16_matches_jax_through_the_wrappers(calls):
         got = model.single_blocks[0](_t(x, BF16), _t(inp["vec"], BF16),
                                      embed_nd(_t(inp["ids"]), cfg.axes_dim, cfg.theta),
                                      torch.from_numpy(inp["mask"]), rope_layout="half")
-    assert got.dtype == BF16 and calls == {name: 1 for name in FUSIONS}
+    assert got.dtype == BF16 and _forwards(calls) == {name: 1 for name in FUSIONS}
     d, rms = np.abs(_f32(got) - want), float(np.sqrt(np.mean(want ** 2)))
     assert d.max() <= 6e-2 * rms and d.mean() <= 1.3e-2 * rms, (d.max() / rms, d.mean() / rms)
 
@@ -317,23 +329,30 @@ def test_dit_no_grad_forward_goes_through_j_k_l_m_and_matches_jax(calls, padded)
     args = {k: torch.from_numpy(np.array(v)) for k, v in inp.items()}
     with torch.no_grad():
         got = model(**args)
-        assert calls == {"layernorm_modulate": 4 * cfg.depth + cfg.depth_single_blocks + 1,
-                         "gated_residual": 4 * cfg.depth + cfg.depth_single_blocks,
-                         "qk_norm_split": 2 * cfg.depth + cfg.depth_single_blocks,
-                         "merge_heads": cfg.depth + cfg.depth_single_blocks}, calls
+        assert calls == dict(_dit_calls(cfg), **dict.fromkeys(BACKWARDS, 0)), calls
         again = model(**args, pe=model.rope_tables(args["img_ids"], args["txt_ids"]))
         for name in FUSIONS:
             calls[name] = 0
         model(**args, collect_a8_stats=True)
-        assert calls == {name: 0 for name in FUSIONS}, calls
+        assert not any(calls.values()), calls
     assert torch.equal(got, again)
     rms = float(np.sqrt(np.mean(want ** 2)))
     assert float(np.abs(got.numpy() - want).max()) <= 1e-4 * rms
 
 
+def _dit_calls(cfg) -> dict:
+    """J-M's calls in one DiT evaluation (each of J'-M' as often in its backward)."""
+    return {"layernorm_modulate": 4 * cfg.depth + cfg.depth_single_blocks + 1,
+            "gated_residual": 4 * cfg.depth + cfg.depth_single_blocks,
+            "qk_norm_split": 2 * cfg.depth + cfg.depth_single_blocks,
+            "merge_heads": cfg.depth + cfg.depth_single_blocks}
+
+
 def test_dit_routes_by_its_lora_leaves_under_autograd(calls):
-    """A LoRA whose leaves want gradients puts every block on the plain route,
-    though the DiT's inputs and weights want none (the trainer's case)."""
+    """A LoRA whose leaves want gradients puts every block on the autograd
+    route, though the DiT's inputs and weights want none (the trainer's
+    case): J-M through their Functions, then J'-M' as often in the
+    backward."""
     from test_torch_models import _flux_inputs
 
     from visualcloze_tpu_torch.models.lora import init_lora, tree_leaves
@@ -345,8 +364,9 @@ def test_dit_routes_by_its_lora_leaves_under_autograd(calls):
         leaf.requires_grad_()
     inp = _flux_inputs(cfg, 1, 64, 16, 0, False)
     out = model(**{k: torch.from_numpy(np.array(v)) for k, v in inp.items()}, lora=lora)
-    assert calls == {name: 0 for name in FUSIONS}, calls
+    assert _forwards(calls) == _dit_calls(cfg) and not any(_backwards(calls).values()), calls
     out.sum().backward()
+    assert _backwards(calls) == _dit_calls(cfg), calls
     assert any(leaf.grad is not None and bool(leaf.grad.abs().sum() > 0) for leaf in tree_leaves(lora))
 
 

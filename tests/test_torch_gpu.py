@@ -769,3 +769,173 @@ def test_gpu_merge_heads_matches_plain(L, gelu_cols, padded):
         d = (got[..., hd:].float() - want[..., hd:].float()).abs()
         ulp = torch.exp2(torch.floor(torch.log2(want[..., hd:].float().abs().clamp_min(2.0 ** -126))) - 7)
         assert bool((d <= ulp).all())
+
+
+def _colsum_tol(terms, dims):
+    """2^-16 of the largest sum of |terms| over `dims`: an fp32 column sum
+    over thousands of tokens taken in another order."""
+    return terms.float().abs().sum(dim=dims).max().item() * 2.0 ** -16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, L, c, dy_dtype", [(1, 300, 3072, torch.bfloat16), (2, 37, 3072, torch.float32),
+                                                (1, 5, 64, torch.bfloat16)])
+def test_gpu_layernorm_modulate_bwd_matches_plain(b, L, c, dy_dtype):
+    """Kernel J': dx within 2 bf16 ulps of the largest, dshift and dscale
+    (per batch element) within _colsum_tol; x strided; the same bits twice;
+    without the vectors' gradients nothing but dx."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(7 * b * L + c)
+    x = (torch.randn((b, L + 3, c), generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)[:, 3:]
+    scale = (torch.randn((b, 1, 6 * c), generator=g, device=dev) * 0.5).chunk(6, dim=-1)[1]
+    dy = torch.randn((b, L, c), generator=g, device=dev).to(dy_dtype)
+    got = bfu.layernorm_modulate_bwd(x, scale, dy)
+    want = bfu.layernorm_modulate_bwd_plain(x, scale, dy)
+    _close(got[0], want[0], _ulps_tol(want[0].float(), 2))
+    n = bfu.layer_norm(x)
+    _close(got[1], want[1], _colsum_tol(dy, 1))
+    _close(got[2], want[2], _colsum_tol(dy.float() * n, 1))
+    again = bfu.layernorm_modulate_bwd(x, scale, dy)
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
+    dx, dshift, dscale = bfu.layernorm_modulate_bwd(x, scale, dy, need_vectors=False)
+    assert torch.equal(dx, got[0]) and dshift is None and dscale is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, L, c", [(1, 300, 3072), (2, 7, 64), (2, 1000, 3072)])
+def test_gpu_gated_residual_bwd_matches_plain(b, L, c):
+    """Kernel K': dy bit for bit, dgate within _colsum_tol, the same bits twice."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(11 * L + c)
+    y, dout = (torch.randn((b, L, c), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    gate = torch.randn((b, 1, 3 * c), generator=g, device=dev)[..., c:2 * c]
+    got = bfu.gated_residual_bwd(gate, y, dout)
+    want = bfu.gated_residual_bwd_plain(gate, y, dout)
+    assert torch.equal(got[0], want[0])
+    _close(got[1], want[1], _colsum_tol(dout.float() * y.float(), 1))
+    assert all(torch.equal(a, w) for a, w in zip(got, bfu.gated_residual_bwd(gate, y, dout)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L, heads, cols, total, offset", [(300, 24, 21504, 300, 0), (100, 24, 9216, 164, 64),
+                                                           (7, 3, 2000, 9, 2)])
+def test_gpu_qk_norm_split_bwd_matches_plain(L, heads, cols, total, offset):
+    """Kernel L': dq and dk's columns within 2 bf16 ulps, dv's bit for bit,
+    written into the first 3 H D columns of a (1, L, cols) buffer whose
+    other columns stay as they were; the scales' gradients within
+    _colsum_tol; the same bits twice."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(13 * L + cols)
+    f = 3 * heads * 128
+    qkv = (torch.randn((1, L, cols), generator=g, device=dev) * 2).to(torch.bfloat16)[..., :f]
+    qs, ks = ((torch.rand((128,), generator=g, device=dev) + 0.5).to(torch.bfloat16) for _ in range(2))
+    dq, dk, dv = (torch.randn((1, heads, total, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    outs = [torch.full((1, L, cols), 3.0, device=dev, dtype=torch.bfloat16) for _ in range(3)]
+    got = bfu.qk_norm_split_bwd(qkv, qs, ks, heads, dq, dk, dv, offset, outs[0], True)
+    again = bfu.qk_norm_split_bwd(qkv, qs, ks, heads, dq, dk, dv, offset, outs[1], True)
+    want = bfu.qk_norm_split_bwd_plain(qkv, qs, ks, heads, dq, dk, dv, offset, outs[2], True)
+    assert got[0] is outs[0] and all(torch.equal(a, w) for a, w in zip(got, again))
+    hd = heads * 128
+    _close(got[0][..., :2 * hd], want[0][..., :2 * hd], _ulps_tol(want[0][..., :2 * hd].float(), 2))
+    assert torch.equal(got[0][..., 2 * hd:], want[0][..., 2 * hd:])
+    for i, d in ((1, dq), (2, dk)):
+        _close(got[i], want[i], _colsum_tol(d[:, :, offset:offset + L], (0, 1, 2)) * 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, L, gelu_cols, padded", [(1, 300, 12288, 10), (1, 300, 0, 0), (2, 5, 64, 5)])
+def test_gpu_merge_heads_bwd_matches_plain(b, L, gelu_cols, padded):
+    """Kernel M': dx bit for bit with padded rows zero; dg within one bf16
+    ulp of each element, in linear1's gradient buffer laid out as the gelu
+    input's rows (_grad_rows); the same bits twice."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(17 * L + gelu_cols)
+    mask = torch.ones((b, L), dtype=torch.int32, device=dev)
+    mask[:, L - padded:] = 0
+    gelu = None
+    if gelu_cols:
+        gelu = (torch.randn((b, L, gelu_cols + 40), generator=g, device=dev) * 3).to(torch.bfloat16)[..., 40:]
+    dout = torch.randn((b, L, 24 * 128 + gelu_cols), generator=g, device=dev).to(torch.bfloat16)
+    got = bfu.merge_heads_bwd(dout, 24, mask, gelu)
+    want = bfu.merge_heads_bwd_plain(dout, 24, mask, gelu)
+    assert torch.equal(got[0], want[0]) and not bool(got[0][:, :, L - padded:].any())
+    assert all(torch.equal(a, w) for a, w in zip(got, bfu.merge_heads_bwd(dout, 24, mask, gelu)) if a is not None)
+    if gelu_cols:
+        assert got[1].stride() == gelu.stride() and got[1].storage_offset() == 40
+        d = (got[1].float() - want[1].float()).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(want[1].float().abs().clamp_min(2.0 ** -126))) - 7)
+        assert bool((d <= ulp).all())
+
+
+@pytest.mark.gpu
+def test_gpu_backward_kernels_refuse_what_they_cannot_take():
+    """A CUDA tensor a backward kernel does not take raises; no plain fallback."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    x = torch.randn((1, 4, 64), device=dev)
+    scale = torch.zeros((1, 1, 64), device=dev)
+    with pytest.raises(ValueError, match="layernorm_modulate_bwd"):
+        bfu.layernorm_modulate_bwd(x, scale, x)  # fp32 x
+    wide = torch.randn((1, 4, 8192), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 4096"):
+        bfu.gated_residual_bwd(torch.zeros((1, 1, 8192), device=dev), wide, wide)
+    with pytest.raises(ValueError, match="merge_heads_bwd"):
+        bfu.merge_heads_bwd(torch.randn((1, 4, 3 * 128), device=dev), 3)  # fp32 dout
+
+
+@pytest.mark.gpu
+def test_gpu_single_block_gradients_run_through_the_backward_kernels():
+    """A full-width single block (24 heads of 128, linear1 21504 columns) on
+    32 tokens under autograd with a LoRA: J, K, L, M once each forward and
+    J', K', L', M' once each backward; the LoRA gradients within 5% RMS of
+    the all-plain route (the blocks' plain versions under autograd)."""
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.config import FluxConfig
+    from visualcloze_tpu_torch.models import layers
+    from visualcloze_tpu_torch.models.init import init_linears_, materialize
+    from visualcloze_tpu_torch.models.lora import init_lora, tree_items
+
+    dev = _cuda_or_skip()
+    cfg = FluxConfig()
+    g = torch.Generator(device=dev).manual_seed(5)
+    block = materialize(lambda: layers.SingleBlock(cfg), dev, torch.bfloat16)
+    init_linears_(block, g)
+    block.norm.q_scale.data.fill_(1.0)
+    block.norm.k_scale.data.fill_(1.0)
+    lora = init_lora(block, 16, generator=g)
+    leaves = []
+    for path, t in tree_items(lora):
+        if path.endswith(".b"):
+            t.normal_(0.0, 0.02, generator=g)
+        leaves.append(t.requires_grad_())
+    x = torch.randn((1, 32, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    vec = torch.randn((1, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.ones((1, 32), dtype=torch.int32, device=dev)
+    mask[0, -4:] = 0
+    cot = torch.randn((1, 32, cfg.hidden_size), generator=g, device=dev)
+
+    def grads():
+        return [t.float() for t in torch.autograd.grad((block(x, vec, None, mask, lora).float() * cot).sum(), leaves)]
+
+    from chip_smoke import plain_block_route
+
+    ops.reset_kernel_launches()
+    got = grads()
+    launches = ops.kernel_launches()
+    with plain_block_route():
+        want = grads()
+    names = ("layernorm_modulate", "gated_residual", "qk_norm_split", "merge_heads")
+    assert {n: launches[n] for n in names} == dict.fromkeys(names, 1), launches
+    assert {n: launches[f"{n}_bwd"] for n in names} == dict.fromkeys(names, 1), launches
+    num = sum((a - b).pow(2).sum() for a, b in zip(got, want))
+    den = sum(b.pow(2).sum() for b in want)
+    assert (num / den).sqrt().item() <= 5e-2

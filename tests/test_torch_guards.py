@@ -68,11 +68,17 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
     q, k, v = ops.qk_norm_split(torch.randn(2, 5, 3 * 2 * 16), torch.ones(16), torch.ones(16), 2)
     assert q.shape == k.shape == v.shape == (2, 2, 5, 16)
     assert ops.merge_heads(q, torch.ones(2, 5, dtype=torch.int32), x).shape == (2, 5, 2 * 16 + 64)
+    assert ops.layernorm_modulate_bwd(x, vec, x)[0].shape == x.shape
+    assert ops.gated_residual_bwd(vec, x, x)[1].shape == vec.shape
+    qkv = torch.randn(2, 5, 3 * 2 * 16)
+    assert ops.qk_norm_split_bwd(qkv, torch.ones(16), torch.ones(16), 2, q, k, v)[0].shape == qkv.shape
+    assert ops.merge_heads_bwd(torch.randn(2, 5, 2 * 16 + 64), 2, None, x)[1].shape == x.shape
     assert ops.kernel_launches() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"flash_attn_rope", "flash_attn_d512", "conv3x3_gn_swish", "flash_attn_fwd",
                                 "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "int8_matmul",
                                 "w8a8_matmul", "act_quant_int8", "int4_matmul", "layernorm_modulate",
-                                "gated_residual", "qk_norm_split", "merge_heads"}
+                                "gated_residual", "qk_norm_split", "merge_heads", "layernorm_modulate_bwd",
+                                "gated_residual_bwd", "qk_norm_split_bwd", "merge_heads_bwd"}
 
 
 def _imports(path: Path) -> set[str]:

@@ -518,10 +518,12 @@ def test_trainer_one_rank_group_matches_the_single_process_trainer(tmp_path, mon
     DiT) against the trainer with no process group, same seed: the first
     loss equal bit for bit, the first grad norm within 1e-4, the second
     step's loss and grad norm within 1e-3 (relative). Only the LoRA leaves upstream of the modulation
-    vector see another gradient: vec's gradient sums every block's, in an
-    order FSDP2's per-block hooks change. So after each step every other
-    leaf is equal bit for bit, and each upstream leaf's change is within
-    1e-5 of the one-process change (relative, fp32)."""
+    vector could see another gradient: vec's gradient sums every block's,
+    and FSDP2's per-block hooks sum each block's own contributions first
+    (each block takes vec through one silu, so the grouping is the same
+    without them). So after each step every other leaf is equal bit for
+    bit, and each upstream leaf's change is within 1e-5 of the one-process
+    change (relative, fp32)."""
     from visualcloze_tpu_torch.training.train import main as train_main
 
     config = chip_smoke.write_dataset(tmp_path / "data", n=4, size=64)

@@ -194,6 +194,13 @@ class Flux(nn.Module):
             tree_map(lambda t: all_reduce_(t, seq, torch.distributed.ReduceOp.MAX), stats)
         return (out, stats) if collect_a8_stats else out
 
+    def forward_cfg(self, *, cfg_scale: float, **kwargs) -> torch.Tensor:
+        """Classifier-free-guidance forward (JAX flux_apply_cfg): the batch is
+        [cond | uncond] halves, run as one forward(**kwargs); returns
+        [uncond + cfg_scale * (cond - uncond) | uncond]."""
+        cond, uncond = self(**kwargs).chunk(2, dim=0)
+        return torch.cat([uncond + cfg_scale * (cond - uncond), uncond], dim=0)
+
 
 def a8_linears(flux: Flux):
     """(parent module, child name, linear) of every w8a8 linear position:

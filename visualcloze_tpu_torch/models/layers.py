@@ -8,11 +8,14 @@ The dense linear, the int8 weight-only one (`Int8Linear`, through kernel G),
 the int4 weight-only one (`Int4DiTLinear`, through kernel G4) and the w8a8
 one (`W8A8Linear`, through kernels I and H) are ported.
 
-What XLA fuses inside JAX's blocks runs, on the no-grad forward, as
-kernels J (LayerNorm + modulate), K (gated residual), L (head split + q/k
-RMSNorm into attention's buffers) and M (head merge, + gelu in the single
-block) of ops/block_fusions.py; under autograd and in calibration
-(`_fused`) the blocks run their plain versions, the former PyTorch code.
+What XLA fuses inside JAX's blocks runs as kernels J (LayerNorm +
+modulate), K (gated residual), L (head split + q/k RMSNorm into attention's
+buffers) and M (head merge, + gelu in the single block) of
+ops/block_fusions.py, through its `apply_*` entry points: the kernels alone
+on the no-grad forward, and under autograd their Functions, whose backward
+is kernels J', K', L' and M'. In calibration (collect_stats) the blocks run
+the plain versions, the former PyTorch code, whose fp32 values the
+statistics read.
 
 LoRA is unfolded, as in JAX: every forward takes an optional `lora` tree
 (the entries of models/lora.py keyed like the module's own children) and
@@ -53,14 +56,13 @@ from torch import nn
 from ..config import FluxConfig
 from ..ops.act_quant import act_quant_int8
 from ..ops.attention import attention, rope_qk
-from ..ops.block_fusions import (gated_residual, gated_residual_plain, layernorm_modulate,
-                                 layernorm_modulate_plain, qk_norm_split, qk_norm_split_plain, qkv_buffers)
-from ..ops.flash_attention import _wants_grad
+from ..ops.block_fusions import (apply_gated_residual, apply_layernorm_modulate, apply_qk_norm_split,
+                                 gated_residual_plain, layernorm_modulate_plain, qk_norm_split_plain)
 from ..parallel.collectives import all_gather_cat, copy_to, reduce_from
 from ..ops.int4_matmul import int4_matmul
 from ..ops.int8_matmul import int8_matmul
 from ..ops.w8a8_matmul import w8a8_matmul
-from .lora import Lora, tree_leaves
+from .lora import Lora
 
 
 MOE_TOP_K = 2  # the reference MixtureOfLoRAExperts' default
@@ -355,36 +357,29 @@ class MLPEmbedder(nn.Module):
 
 
 class Modulation(nn.Module):
-    """adaLN modulation: silu -> linear -> (shift, scale, gate) chunks in fp32
-    with a length-1 sequence axis."""
+    """adaLN modulation: linear of silu(vec) -> (shift, scale, gate) chunks in
+    fp32 with a length-1 sequence axis. The caller applies the silu, once per
+    block: a double block's two modulations share one silu(vec), so vec's
+    gradient gets one contribution per block, summed in the block's own
+    order whether or not a hook wraps the block's inputs (FSDP2)."""
 
     def __init__(self, dim: int, double: bool):
         super().__init__()
         self.mult = 6 if double else 3
         self.lin = Linear(dim, self.mult * dim)
 
-    def forward(self, vec, lora: Lora | None = None, lora_scale: float = 1.0):
-        """lora: the entry of `lin`."""
-        out = self.lin(F.silu(vec), lora, lora_scale).to(torch.float32)[:, None, :]
+    def forward(self, silu_vec, lora: Lora | None = None, lora_scale: float = 1.0):
+        """silu_vec: F.silu(vec); lora: the entry of `lin`."""
+        out = self.lin(silu_vec, lora, lora_scale).to(torch.float32)[:, None, :]
         chunks = out.chunk(self.mult, dim=-1)
         m1 = {"shift": chunks[0], "scale": chunks[1], "gate": chunks[2]}
         m2 = {"shift": chunks[3], "scale": chunks[4], "gate": chunks[5]} if self.mult == 6 else None
         return m1, m2
 
 
-def _fused(module: nn.Module, collect_stats: bool, tensors, lora: Lora) -> bool:
-    """Whether a forward takes kernels J, K, L and M (the no-grad serving
-    forward) or their plain versions: under autograd -- flash_attention's
-    _wants_grad over the inputs, the LoRA leaves and the module's
-    parameters -- since J-M have no backward, and in calibration, which
-    reads the plain fp32 values (collect_stats)."""
-    if collect_stats:
-        return False
-    return not (torch.is_grad_enabled() and _wants_grad(*tensors, *tree_leaves(lora), *module.parameters()))
-
-
 def _input_dtype(linear: nn.Module) -> torch.dtype:
-    """The dtype `linear` takes its input in, so that kernel J stores that:
+    """The dtype `linear` takes its input in, so that kernel J stores that (on
+    the no-grad forward and under autograd alike):
     a dense linear's weight dtype, fp32 for a w8a8 one (kernel I quantizes
     the fp32 value, as JAX), bf16 for the int8 and int4 ones."""
     if isinstance(linear, Linear):
@@ -393,8 +388,9 @@ def _input_dtype(linear: nn.Module) -> torch.dtype:
 
 
 def _modulate(x, mod, out_dtype: torch.dtype, fused: bool):
-    """(1 + scale) * layer_norm(x) + shift as out_dtype: kernel J, or its plain version."""
-    fn = layernorm_modulate if fused else layernorm_modulate_plain
+    """(1 + scale) * layer_norm(x) + shift as out_dtype: kernel J (J' its
+    backward), or its plain version (calibration)."""
+    fn = apply_layernorm_modulate if fused else layernorm_modulate_plain
     return fn(x, mod["shift"], mod["scale"], out_dtype)
 
 
@@ -408,10 +404,10 @@ class SelfAttention(nn.Module):
 
 class DoubleBlock(nn.Module):
     """DoubleStreamBlock: separate img/txt streams, joint attention over
-    concat(txt, img). On the no-grad forward (`_fused`) kernel J modulates
-    each linear's input, kernel L writes both streams' q, k, v into one
-    joint buffer (txt first), kernel M merges the heads and kernel K adds
-    each gated residual; otherwise their plain versions run."""
+    concat(txt, img). Kernel J modulates each linear's input, kernel L
+    writes both streams' q, k, v into one joint buffer (txt first), kernel M
+    merges the heads and kernel K adds each gated residual (under autograd
+    with J'-M' as their backward); in calibration their plain versions run."""
 
     def __init__(self, cfg: FluxConfig):
         super().__init__()
@@ -450,26 +446,25 @@ class DoubleBlock(nn.Module):
         if collect_stats and seg is not None:
             raise ValueError("collect_stats is a calibration (no-remat) mode")
         stats = {k: {} for k in ("img_attn", "txt_attn", "img_mlp", "txt_mlp")} if collect_stats else None
-        fused = _fused(self, collect_stats, (img, txt, vec), l)
-        residual = gated_residual if fused else gated_residual_plain
+        fused = not collect_stats
+        residual = apply_gated_residual if fused else gated_residual_plain
 
         def st(key: str) -> dict | None:
             return None if stats is None else stats[key]
 
         def pre(img, txt):
-            img_mod1, img_mod2 = self.img_mod(vec, l.get("img_mod", {}).get("lin"), lora_scale)
-            txt_mod1, txt_mod2 = self.txt_mod(vec, l.get("txt_mod", {}).get("lin"), lora_scale)
+            silu_vec = F.silu(vec)
+            img_mod1, img_mod2 = self.img_mod(silu_vec, l.get("img_mod", {}).get("lin"), lora_scale)
+            txt_mod1, txt_mod2 = self.txt_mod(silu_vec, l.get("txt_mod", {}).get("lin"), lora_scale)
             img_qkv = self._qkv(self.img_attn, img, img_mod1, l.get("img_attn", {}), lora_scale, st("img_attn"),
                                 fused)
             txt_qkv = self._qkv(self.txt_attn, txt, txt_mod1, l.get("txt_attn", {}), lora_scale, st("txt_attn"),
                                 fused)
-            streams = ((self.txt_attn, txt_qkv, 0), (self.img_attn, img_qkv, txt_len))
+            streams = [(qkv, *attn.norm.scales()) for attn, qkv in ((self.txt_attn, txt_qkv), (self.img_attn, img_qkv))]
             if fused:  # both streams into one joint buffer, txt first
-                q, k, v = qkv_buffers(img_qkv, self.num_heads, txt_len + img.shape[1])
-                for attn, qkv, offset in streams:
-                    qk_norm_split(qkv, *attn.norm.scales(), self.num_heads, (q, k, v), offset)
+                q, k, v, _ = apply_qk_norm_split(streams, self.num_heads, img_qkv.shape[-1])
             else:
-                parts = [qk_norm_split_plain(qkv, *attn.norm.scales(), self.num_heads) for attn, qkv, _ in streams]
+                parts = [qk_norm_split_plain(*stream, self.num_heads) for stream in streams]
                 q, k, v = (torch.cat(ts, dim=2) for ts in zip(*parts))
             if seg is not None:  # rotated q, k are the attention's saved inputs
                 q, k = rope_qk(q, k, pe, rope_layout)
@@ -500,11 +495,13 @@ class DoubleBlock(nn.Module):
 
 
 class SingleBlock(nn.Module):
-    """SingleStreamBlock: fused parallel attention + MLP. On the no-grad
-    forward (`_fused`) kernel J modulates linear1's input, kernel L splits
-    and normalizes q, k, v from linear1's first 3 * hidden columns, kernel
-    M writes linear2's whole input (the merged heads, then gelu of the rest
-    of linear1's output) and kernel K adds the gated residual."""
+    """SingleStreamBlock: fused parallel attention + MLP. Kernel J modulates
+    linear1's input, kernel L splits and normalizes q, k, v from linear1's
+    first 3 * hidden columns, kernel M writes linear2's whole input (the
+    merged heads, then gelu of the rest of linear1's output) and kernel K
+    adds the gated residual; under autograd J'-M' are their backward, and
+    L' and M' write linear1's one gradient buffer (QKNormSplit); in
+    calibration their plain versions run."""
 
     def __init__(self, cfg: FluxConfig):
         super().__init__()
@@ -523,29 +520,28 @@ class SingleBlock(nn.Module):
         if collect_stats and seg is not None:
             raise ValueError("collect_stats is a calibration (no-remat) mode")
         stats: dict | None = {} if collect_stats else None
-        fused = _fused(self, collect_stats, (x, vec), l)
-        residual = gated_residual if fused else gated_residual_plain
+        fused = not collect_stats
+        residual = apply_gated_residual if fused else gated_residual_plain
 
         def pre(x):
-            mod, _ = self.modulation(vec, l.get("modulation", {}).get("lin"), lora_scale)
+            mod, _ = self.modulation(F.silu(vec), l.get("modulation", {}).get("lin"), lora_scale)
             x_mod = _modulate(x, mod, x.dtype, fused)
             if stats is not None:
                 stats["linear1"] = _absmax_in(x_mod)
             h = self.linear1(x_mod, l.get("linear1"), lora_scale)
-            split = qk_norm_split if fused else qk_norm_split_plain
-            q, k, v = split(h[..., : 3 * self.hidden_size], *self.norm.scales(), self.num_heads)
+            cols = 3 * self.hidden_size
+            if fused:  # the gelu half comes back through QKNormSplit, which owns h's gradient
+                q, k, v, mlp_h = apply_qk_norm_split([(h, *self.norm.scales())], self.num_heads, cols)
+            else:
+                q, k, v = qk_norm_split_plain(h[..., :cols], *self.norm.scales(), self.num_heads)
+                mlp_h = h[..., cols:]
             if seg is not None:
                 q, k = rope_qk(q, k, pe, rope_layout)
-            return q, k, v, h, mod
+            return q, k, v, mlp_h, mod
 
-        def post(x, attn, h, mod):
-            """attn: the merged heads; on the fused route linear2's whole
-            input, which kernel M wrote with the gelu half."""
-            if fused:
-                cat = attn
-            else:
-                mlp_h = h[..., 3 * self.hidden_size :]
-                cat = torch.cat([attn, F.gelu(mlp_h, approximate="tanh")], dim=-1)
+        def post(x, cat, mod):
+            """cat: linear2's whole input, the merged heads and gelu of the
+            MLP half (kernel M or its plain version)."""
             if stats is not None:
                 stats["linear2"] = _absmax_in(cat)
             out = self.linear2(cat, l.get("linear2"), lora_scale)
@@ -553,15 +549,15 @@ class SingleBlock(nn.Module):
 
         if seg is not None:
             pre, post = seg(pre), seg(post)
-        q, k, v, h, mod = pre(x)
-        attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout,
-                         impl=attn_impl, gelu=h[..., 3 * self.hidden_size :] if fused else None, fused=fused)
-        out = post(x, attn, h, mod)
+        q, k, v, mlp_h, mod = pre(x)
+        cat = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout,
+                        impl=attn_impl, gelu=mlp_h, fused=fused)
+        out = post(x, cat, mod)
         return (out, stats) if collect_stats else out
 
 
 class LastLayer(nn.Module):
-    """adaLN (shift, scale) + linear; kernel J on the no-grad forward outside
+    """adaLN (shift, scale) + linear; kernel J (J' its backward) outside
     calibration (collect_stats), as in the blocks."""
 
     def __init__(self, cfg: FluxConfig):
@@ -574,7 +570,7 @@ class LastLayer(nn.Module):
         l = lora or {}
         mod = self.adaLN(F.silu(vec), l.get("adaLN"), lora_scale).to(torch.float32)
         shift, scale = mod.chunk(2, dim=-1)
-        fused = _fused(self, collect_stats, (x, vec), l)
+        fused = not collect_stats
         x = _modulate(x, {"shift": shift[:, None], "scale": scale[:, None]},
                       _input_dtype(self.linear) if fused else torch.float32, fused)
         return self.linear(x, l.get("linear"), lora_scale)

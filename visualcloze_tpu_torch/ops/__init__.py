@@ -1,7 +1,8 @@
 """Tensor ops of the port and the wrappers of its hand-written CUDA kernels."""
 
 from .act_quant import act_quant_int8
-from .block_fusions import gated_residual, layernorm_modulate, merge_heads, qk_norm_split
+from .block_fusions import (gated_residual, gated_residual_bwd, layernorm_modulate, layernorm_modulate_bwd, merge_heads,
+                            merge_heads_bwd, qk_norm_split, qk_norm_split_bwd)
 from .conv2d import conv3x3_gn_swish
 from .flash_attention import (
     flash_attn_bwd_dkv,
@@ -31,6 +32,10 @@ KERNELS = {
     "gated_residual": gated_residual,
     "qk_norm_split": qk_norm_split,
     "merge_heads": merge_heads,
+    "layernorm_modulate_bwd": layernorm_modulate_bwd,
+    "gated_residual_bwd": gated_residual_bwd,
+    "qk_norm_split_bwd": qk_norm_split_bwd,
+    "merge_heads_bwd": merge_heads_bwd,
 }
 
 

@@ -7,9 +7,10 @@ so their output gradients are 0, which the backward kernels rely on). The
 half RoPE layout, the serving one, goes to kernel A with the rotation inside
 the kernel (or, under autograd, to its E/F gradient); the interleaved layout,
 the reference's and the trainer's, rotates q and k here and goes to
-`flash_mha` (kernel D, or E and F under autograd). The head merge is
-kernel M on the blocks' no-grad forward (ops/block_fusions.py). `mha_xla`
-is the fp32 oracle the kernels are held against.
+`flash_mha` (kernel D, or E and F under autograd). The blocks' head merge
+is kernel M (ops/block_fusions.py), under autograd its Function with
+kernel M' as the backward. `mha_xla` is the fp32 oracle the kernels are
+held against.
 
 Under a `RingSpec` (JAX's sequence-parallel dispatch) q, k, v, the mask
 and the RoPE tables are this rank's block of the sequence; q and k are
@@ -24,8 +25,8 @@ import dataclasses
 
 import torch
 
-from .block_fusions import merge_heads, merge_heads_plain
-from .flash_attention import _wants_grad, flash_mha, flash_mha_rope
+from .block_fusions import apply_merge_heads, merge_heads_plain
+from .flash_attention import flash_mha, flash_mha_rope
 from .rope import apply_rope, apply_rope_half
 
 NEG_INF = -1e30
@@ -119,14 +120,14 @@ def attention(
     (the kernels) or a RingSpec. Returns (B, L, H * D) with padded query rows
     zeroed. gelu: (B, L, G), whose gelu(tanh) is appended -> (B, L, H * D +
     G), the single block's linear2 input in one buffer. fused: the merge by
-    kernel M (the blocks' no-grad forward); else, and whenever the output
-    wants a gradient, its plain version."""
+    kernel M (under autograd its Function, kernel M' the backward); else its
+    plain version (calibration)."""
     bias = mask_to_bias(mask)
     if impl is None and pe is not None and rope_layout == "half" and q.shape[2] == k.shape[2]:
         x = flash_mha_rope(q, k, v, bias, pe[0].contiguous(), pe[1].contiguous())
     else:
         q, k = rope_qk(q, k, pe, rope_layout)
         x = mha(q, k, v, bias, impl)
-    if fused and not _wants_grad(x):
-        return merge_heads(x, mask, gelu)
+    if fused:
+        return apply_merge_heads(x, mask, gelu)
     return merge_heads_plain(x, mask, gelu)

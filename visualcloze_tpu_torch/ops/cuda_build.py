@@ -27,7 +27,8 @@ DEFAULT_BUILD_DIR = (_ROOT / "build" if (_ROOT / "setup.py").exists() else CSRC.
 BUILD_DIR = DEFAULT_BUILD_DIR
 # one library per source file
 SOURCES = ("flash_attn_rope", "flash_attn_bwd", "flash_attn_d512", "conv3x3_gn_swish", "int8_matmul", "w8a8_matmul",
-           "act_quant_int8", "int4_matmul", "layernorm_modulate", "gated_residual", "qk_norm_split", "merge_heads")
+           "act_quant_int8", "int4_matmul", "layernorm_modulate", "gated_residual", "qk_norm_split", "merge_heads",
+           "layernorm_modulate_bwd", "gated_residual_bwd", "qk_norm_split_bwd", "merge_heads_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

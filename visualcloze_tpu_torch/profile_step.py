@@ -9,11 +9,13 @@ default query (a 2x3 grid at 384: 3456 image + 512 text tokens), times
 torch.profiler and sums the device time of every CUDA kernel by class:
 the DiT's GEMMs (cuBLAS through F.linear), kernel A (the rotation pass and
 the attention kernel), kernels J-M (the blocks' LayerNorm-modulate, gated
-residual, head split with q/k norm, head merge with gelu), and the rest
+residual, head split with q/k norm, head merge with gelu) and, in a train
+step, their backward kernels J'-M' and J'-L''s column sums, and the rest
 (the modulation and embedders' small ops, RoPE tables, the LoRA-free glue,
 casts and copies). The linears' FLOPs are counted with forward hooks
 on one untraced step, so their rate is their FLOPs over their own kernel
-time. Prints one JSON object; writes the 30 costliest kernels to --out.
+time. Prints one JSON object (device ms and kernel launches per class and
+step, idle share); writes the 30 costliest kernels to --out.
 Exits 1 if the trace holds no device events.
 
 --quantize int8 profiles the same step of the single-card int8 stack
@@ -65,11 +67,17 @@ INT4_KERNEL = re.compile(r"\bint4_gemv<|\bmatmul_wide<[^,]*\bInt4Convert\b")  # 
 W8A8_KERNEL = re.compile(r"\bw8a8_matmul_kernel[<(]")  # csrc/w8a8_matmul.cu (H)
 ACT_QUANT_KERNEL = re.compile(r"\bact_quant_kernel<")  # csrc/act_quant_int8.cu (I)
 # the DiT blocks' fused passes: csrc/layernorm_modulate.cu (J), gated_residual.cu (K), qk_norm_split.cu (L),
-# merge_heads.cu (M)
+# merge_heads.cu (M), and their backward kernels, csrc/*_bwd.cu (J'-M'; J', K' and L''s second pass, the
+# fixed-order column sums of colsum.cuh, is a class of its own)
 FUSION_KERNELS = ((re.compile(r"\bln_modulate_kernel<"), "layernorm modulate (kernel J)"),
                   (re.compile(r"\bgated_residual_kernel\("), "gated residual (kernel K)"),
                   (re.compile(r"\bqk_norm_split_kernel\("), "head split + q/k norm (kernel L)"),
-                  (re.compile(r"\bmerge_heads_kernel\("), "head merge + gelu (kernel M)"))
+                  (re.compile(r"\bmerge_heads_kernel\("), "head merge + gelu (kernel M)"),
+                  (re.compile(r"\bln_modulate_bwd_kernel<"), "layernorm modulate backward (kernel J')"),
+                  (re.compile(r"\bgated_residual_bwd_kernel\("), "gated residual backward (kernel K')"),
+                  (re.compile(r"\bqk_norm_split_bwd_kernel\("), "head split + q/k norm backward (kernel L')"),
+                  (re.compile(r"\bmerge_heads_bwd_kernel\("), "head merge + gelu backward (kernel M')"),
+                  (re.compile(r"\bcolumn_sums\("), "column sums (J', K', L')"))
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 CONV_KERNEL = re.compile(r"\bconv3x3_kernel<")  # csrc/conv3x3_gn_swish.cu (B)
 D512_KERNEL = re.compile(r"\bflash_d512")  # csrc/flash_attn_d512.cu (C)
@@ -322,8 +330,10 @@ def main(argv=None) -> int:
         print(json.dumps({"error": "the trace holds no device events", "step_ms_cuda_events": step_ms}))
         return 1
     classes: dict[str, float] = {}
-    for name, (us, _) in per_kernel.items():
+    counts: dict[str, int] = {}
+    for name, (us, calls) in per_kernel.items():
         classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + us
+        counts[kernel_class(name)] = counts.get(kernel_class(name), 0) + calls
     kernel_ms = sum(classes.values()) / 1e3 / args.steps
     gemm_ms = sum(classes.get(k, 0.0) for k in ("gemm (linears)", "int8 matmul (kernel G)", "int4 matmul (kernel G4)",
                                                 "w8a8 matmul (kernel H)")) / 1e3 / args.steps
@@ -341,6 +351,7 @@ def main(argv=None) -> int:
         linear_tflop_per_step=flops[0] / 1e12,
         linear_tflops_rate=flops[0] / (gemm_ms * 1e-3) / 1e12 if gemm_ms else None,
         kernels_per_step=sum(n for _, n in per_kernel.values()) / args.steps,
+        class_kernels_per_step={k: v / args.steps for k, v in sorted(counts.items())},
     )
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:30]
     with open(args.out, "w") as f:
