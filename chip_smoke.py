@@ -67,8 +67,14 @@ Phases, each followed by one flushed JSON line on stdout:
              torch.autograd.grad of the plain forward, deterministic: J'
              at 3968, 3456, 512 tokens, 3968 at batch 2 (the column sums
              per batch element), the final layer's strided image rows at
-             batch 2, an fp32 dy and 7 rows (dx within 2 bf16 ulps, dshift
-             and dscale within 2^-16 of the largest sum of |terms|), K' at
+             batch 2, an fp32 dy and 7 rows, then 3969 rows, 3456 at batch
+             2 (66 CTAs an element), C = 64, fp32 dy without dx and
+             without the vectors (dx within 2 bf16 ulps, dshift and dscale
+             within 2^-16 of the largest sum of |terms|, what is not
+             asked for None); at batch 1 J beside F.layer_norm (bf16 out),
+             J' beside aten's native_layer_norm_backward (bf16 dy, mean and
+             rstd computed beforehand) and K beside torch.addcmul, each
+             graph-timed (library_ms; J, J' and K's kernels-line yardstick), K' at
              3968, 3456, 512, 3968 batch 2 and 7 rows batch 2 (dy bit for
              bit, dgate as J''s sums), L' into linear1's 21504-column
              gradient buffer (its other columns untouched), from the joint
@@ -991,13 +997,30 @@ def bf16_ulps_each(want):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def _fusion_line(name, what, shape, err, tol, deterministic, ms, plain_ms, nbytes, **extra) -> dict:
-    """A kernel line of J-M: memory-bound passes, no single PyTorch call
-    computes any of them (no library time)."""
+def _fusion_line(name, what, shape, err, tol, deterministic, ms, plain_ms, nbytes, library_ms=None,
+                 library="none (no single PyTorch call)", **extra) -> dict:
+    """A kernel line of J-M and J'-M': memory-bound passes. library_ms: one
+    PyTorch call computing the same function (J, J' and K at batch 1, where
+    each per-batch vector is one vector), a yardstick only."""
     bms, by = bound(0.0, nbytes)
     return dict(name=name, what=what, shape=shape, max_abs_err=err, tol=tol, ok=err <= tol and deterministic,
-                deterministic=deterministic, ms=ms, plain_ms=plain_ms, library_ms=None,
-                library="none (no single PyTorch call)", bound_ms=bms, bound_by=by, share_of_bound=bms / ms, **extra)
+                deterministic=deterministic, ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=library,
+                bound_ms=bms, bound_by=by, share_of_bound=bms / ms, **extra)
+
+
+def _layer_norm_affine(x, shift, scale):
+    """F.layer_norm's weight 1 + scale[0] and bias shift[0] (batch 1): fp32
+    where PyTorch takes fp32 affine parameters with a bf16 x, else cast to
+    x's dtype. Returns (weight, bias, note)."""
+    import torch
+    import torch.nn.functional as F
+
+    w, bias = (1.0 + scale[0, 0]).contiguous(), shift[0, 0].contiguous()
+    try:
+        F.layer_norm(x[:, :1], (x.shape[-1],), w, bias, 1e-6)
+        return w, bias, "fp32 weight and bias"
+    except RuntimeError:
+        return w.to(x.dtype), bias.to(x.dtype), "weight and bias cast to bf16 (refused in fp32 with a bf16 x)"
 
 
 def _modulation_vectors(g, b: int, c: int, chunks: int = 6):
@@ -1035,8 +1058,18 @@ def check_layernorm_modulate(tokens: int, out_bf16: bool, what: str, reps: int, 
     ms = cuda_ms(lambda: layernorm_modulate(x, shift, scale, dt), reps, graph=True)
     plain_ms = cuda_ms(lambda: layernorm_modulate_plain(x, shift, scale, dt), 5)
     nbytes = b * tokens * c * (2 + got.element_size()) + 2 * b * c * 4
+    lib = {}
+    if b == 1 and out_bf16:
+        import torch.nn.functional as F
+
+        w, bias, note = _layer_norm_affine(x, shift, scale)
+        lib = dict(library_ms=cuda_ms(lambda: F.layer_norm(x, (c,), w, bias, 1e-6), reps, graph=True),
+                   library=f"F.layer_norm, {note} (graph-timed)",
+                   library_err=_max_err(F.layer_norm(x, (c,), w, bias, 1e-6), want))
+    elif b == 1:
+        lib = dict(library="none (F.layer_norm returns x's dtype, bf16)")
     return _fusion_line("layernorm_modulate", what, [b, tokens, c], err, tol, deterministic, ms, plain_ms, nbytes,
-                        out_dtype="bf16" if out_bf16 else "fp32")
+                        out_dtype="bf16" if out_bf16 else "fp32", **lib)
 
 
 def check_gated_residual(tokens: int, what: str, reps: int, b: int = 1, c: int = 3072) -> dict:
@@ -1056,8 +1089,14 @@ def check_gated_residual(tokens: int, what: str, reps: int, b: int = 1, c: int =
     err = (got.float() - gated_residual_plain(x, gate, y).float()).abs().max().item()
     ms = cuda_ms(lambda: gated_residual(x, gate, y), reps, graph=True)
     plain_ms = cuda_ms(lambda: gated_residual_plain(x, gate, y), 5)
+    lib = {}
+    if b == 1:
+        gate16 = gate.to(x.dtype)
+        lib = dict(library_ms=cuda_ms(lambda: torch.addcmul(x, gate16, y), reps, graph=True),
+                   library="torch.addcmul(x, gate in bf16, y) (graph-timed; one rounding, K rounds the product "
+                           "first)", library_err=_max_err(torch.addcmul(x, gate16, y), got))
     return _fusion_line("gated_residual", what, [b, tokens, c], err, 0.0, deterministic, ms, plain_ms,
-                        3 * b * tokens * c * 2 + b * c * 4)
+                        3 * b * tokens * c * 2 + b * c * 4, **lib)
 
 
 def check_qk_norm_split(tokens: int, what: str, reps: int, cols: int = 9216, heads: int = 24, total: int = 0,
@@ -1164,13 +1203,15 @@ def _backward_line(name, what, shape, checks, deterministic, ms, plain_ms, nbyte
 
 
 def check_layernorm_modulate_bwd(tokens: int, dy_bf16: bool, what: str, reps: int, b: int = 1, skip: int = 0,
-                                 c: int = 3072) -> dict:
+                                 c: int = 3072, need_dx: bool = True, need_vectors: bool = True) -> dict:
     """Kernel J' against its plain backward and against torch.autograd.grad
     of J's plain version: x N(0.5, 4) bf16, rows [skip, skip + tokens) of a
     (B, skip + tokens, C) tensor, scale a strided chunk, dy N(0, 1) in J's
     output dtype; dx within 2 bf16 ulps of the largest, dshift and dscale
-    (per batch element) within _colsum_tol; two launches give the same bits.
-    Timed as a replayed CUDA graph."""
+    (per batch element) within _colsum_tol, what is not asked for None; two
+    launches give the same bits. Timed as a replayed CUDA graph; at batch 1
+    with bf16 dy beside `native_layer_norm_backward` (weight 1 + scale,
+    graph-timed), whose mean and rstd are computed beforehand."""
     import torch
 
     from visualcloze_tpu_torch.ops.block_fusions import (layer_norm, layernorm_modulate_bwd,
@@ -1182,20 +1223,45 @@ def check_layernorm_modulate_bwd(tokens: int, dy_bf16: bool, what: str, reps: in
     shift, scale, _ = _modulation_vectors(g, b, c)
     dt = torch.bfloat16 if dy_bf16 else torch.float32
     dy = torch.randn((b, tokens, c), generator=g, device=dev).to(dt)
-    got = layernorm_modulate_bwd(x, scale, dy)
-    deterministic = all(torch.equal(a, w) for a, w in zip(got, layernorm_modulate_bwd(x, scale, dy)))
+
+    def run():
+        return layernorm_modulate_bwd(x, scale, dy, need_dx, need_vectors)
+
+    got = run()
+    deterministic = all((a is None and w is None) or torch.equal(a, w) for a, w in zip(got, run()))
     want = layernorm_modulate_bwd_plain(x, scale, dy)
     ins = [t.detach().requires_grad_() for t in (x, shift, scale)]
     auto = torch.autograd.grad(layernorm_modulate_plain(*ins, dt), ins, dy)
     n = layer_norm(x)
     tols = (bf16_ulps_tol(want[0].float(), 2), _colsum_tol(dy, 1), _colsum_tol(dy.float() * n, 1))
+    wanted = (need_dx, need_vectors, need_vectors)
     checks = {k: (_max_err(a, w), _max_err(a, u), t)
-              for k, a, w, u, t in zip(("dx", "dshift", "dscale"), got, want, auto, tols)}
-    ms = cuda_ms(lambda: layernorm_modulate_bwd(x, scale, dy), reps, graph=True)
-    plain_ms = cuda_ms(lambda: layernorm_modulate_bwd_plain(x, scale, dy), 5)
-    nbytes = b * tokens * c * (2 + dy.element_size() + 2) + 3 * b * c * 4
-    return _backward_line("layernorm_modulate_bwd", what, [b, tokens, c], checks, deterministic, ms, plain_ms,
-                          nbytes, dy_dtype="bf16" if dy_bf16 else "fp32")
+              for k, a, w, u, t, on in zip(("dx", "dshift", "dscale"), got, want, auto, tols, wanted) if on}
+    unasked_none = all(a is None for a, on in zip(got, wanted) if not on)
+    ms = cuda_ms(run, reps, graph=True)
+    plain_ms = cuda_ms(lambda: layernorm_modulate_bwd_plain(x, scale, dy, need_dx, need_vectors), 5)
+    nbytes = b * tokens * c * (2 + dy.element_size() + 2 * need_dx) + (1 + 2 * need_vectors) * b * c * 4
+    lib = {}
+    if b == 1 and dy_bf16 and need_dx and need_vectors:
+        w, bias, note = _layer_norm_affine(x, shift, scale)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [c], w, bias, 1e-6)
+
+        def library():
+            return torch.ops.aten.native_layer_norm_backward(dy, x, [c], mean, rstd, w, bias, [True, True, True])
+
+        ldx, lw, lb = library()
+        lib = dict(library_ms=cuda_ms(library, reps, graph=True),
+                   library=f"torch.ops.aten.native_layer_norm_backward, {note}; it reads mean and rstd computed "
+                           "beforehand, which J' recomputes (favours the call); graph-timed",
+                   library_err=dict(dx=_max_err(ldx, want[0]), dshift=_max_err(lb, want[1][0, 0]),
+                                    dscale=_max_err(lw, want[2][0, 0])))
+    elif b == 1:
+        lib = dict(library="none timed (the yardstick line is bf16 dy with every output)")
+    line = _backward_line("layernorm_modulate_bwd", what, [b, tokens, c], checks, deterministic, ms, plain_ms,
+                          nbytes, dy_dtype="bf16" if dy_bf16 else "fp32", need_dx=need_dx,
+                          need_vectors=need_vectors, unasked_none=unasked_none, **lib)
+    line["ok"] = line["ok"] and unasked_none
+    return line
 
 
 def check_gated_residual_bwd(tokens: int, what: str, reps: int, b: int = 1, c: int = 3072) -> dict:
@@ -3458,6 +3524,14 @@ def main() -> int:
                                               b=2, skip=512)],
         lambda: [check_layernorm_modulate_bwd(3968, False, "fp32 dy (a J stored in fp32)", 50)],
         lambda: [check_layernorm_modulate_bwd(7, True, "a ragged 7 rows", 50)],
+        # J''s ring: rows not a multiple of its 2-row stage in some CTAs, the CTAs split per batch element, C below
+        # a warp's 256 columns, fp32 dy without dx or without the vectors
+        lambda: [check_layernorm_modulate_bwd(3969, True, "3969 rows: a part stage", 50)],
+        lambda: [check_layernorm_modulate_bwd(3456, True, "batch 2, 66 CTAs each", 50, b=2)],
+        lambda: [check_layernorm_modulate_bwd(300, True, "C = 64", 50, c=64)],
+        lambda: [check_layernorm_modulate_bwd(3968, False, "fp32 dy, no dx", 50, need_dx=False)],
+        lambda: [check_layernorm_modulate_bwd(3968, False, "fp32 dy, no dshift or dscale", 50,
+                                              need_vectors=False)],
         lambda: [check_gated_residual_bwd(3968, "single block, 3968 tokens", 50)],
         lambda: [check_gated_residual_bwd(3456, "double block img stream", 50)],
         lambda: [check_gated_residual_bwd(512, "double block txt stream", 50)],

@@ -106,6 +106,32 @@ def test_gated_residual_plain_matches_jax(dtype):
         _assert_close(got, want, dtype)
 
 
+# ------------- the PyTorch calls chip_smoke.py times beside J and K (yardsticks, batch 1) -------------
+
+
+@pytest.mark.parametrize("L, C", [(1, 8), (7, 64), (33, 256)])
+def test_layer_norm_yardstick_computes_kernel_j(L, C):
+    """F.layer_norm with weight 1 + scale[0] and bias shift[0] is J's
+    function at batch 1: against layernorm_modulate_plain in fp32, max |Δ|
+    <= 1e-5 of the largest output (another order of the row sums)."""
+    rng = np.random.default_rng(20 + C)
+    x = _t(rng.standard_normal((1, L, C)) * 2.0 + 0.5)
+    shift, scale = (_t(rng.standard_normal((1, 1, C)) * 0.5) for _ in range(2))
+    got = torch.nn.functional.layer_norm(x, (C,), 1.0 + scale[0, 0], shift[0, 0], 1e-6)
+    _assert_close(got, bf.layernorm_modulate_plain(x, shift, scale, F32), F32)
+
+
+@pytest.mark.parametrize("L, C", [(1, 8), (7, 64), (33, 256)])
+def test_addcmul_yardstick_computes_kernel_k(L, C):
+    """torch.addcmul(x, gate, y) is K's function at batch 1: against
+    gated_residual_plain in fp32, max |Δ| <= 1e-5 of the largest output (K
+    rounds the product before the sum, addcmul may not)."""
+    rng = np.random.default_rng(30 + C)
+    x, y = (_t(rng.standard_normal((1, L, C)) * 2.0) for _ in range(2))
+    gate = _t(rng.standard_normal((1, 1, C)))
+    _assert_close(torch.addcmul(x, gate, y), bf.gated_residual_plain(x, gate, y), F32)
+
+
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_qk_norm_split_plain_matches_jax_at_an_offset_into_a_joint_buffer(dtype):
     """L: _split_heads + qk_norm of a strided qkv (the first 3 H D columns of

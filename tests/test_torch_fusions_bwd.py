@@ -115,6 +115,25 @@ def test_layernorm_modulate_bwd_matches_jax_vjp(x_dtype, out_dtype, strided):
         _assert_close(g, w, F32, what)
 
 
+@pytest.mark.parametrize("L, C", [(1, 8), (7, 64), (33, 256)])
+def test_native_layer_norm_backward_yardstick_computes_kernel_j_prime(L, C):
+    """The call chip_smoke.py times beside J' (batch 1): aten's
+    native_layer_norm_backward with weight 1 + scale[0], fed the mean and
+    rstd of native_layer_norm, gives J''s dx, dscale (its dweight) and
+    dshift (its dbias): against layernorm_modulate_bwd_plain in fp32, max
+    |Δ| <= 1e-5 of the largest of each."""
+    rng = np.random.default_rng(40 + C)
+    x = _t(rng.standard_normal((1, L, C)) * 2.0 + 0.5)
+    shift, scale = (_t(rng.standard_normal((1, 1, C)) * 0.5) for _ in range(2))
+    dy = _t(rng.standard_normal((1, L, C)))
+    w, b = 1.0 + scale[0, 0], shift[0, 0]
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [C], w, b, 1e-6)
+    dx, dw, db = torch.ops.aten.native_layer_norm_backward(dy, x, [C], mean, rstd, w, b, [True, True, True])
+    want = bf.layernorm_modulate_bwd_plain(x, scale, dy)
+    for got, ref, what in ((dx, want[0], "dx"), (db, want[1][0, 0], "dshift"), (dw, want[2][0, 0], "dscale")):
+        _assert_close(got, ref, F32, what)
+
+
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_gated_residual_bwd_matches_jax_vjp(dtype):
     """K': dx (dout itself), dgate, dy of x + (gate * y.astype(f32)).astype(x.dtype);

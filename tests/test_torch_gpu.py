@@ -779,11 +779,15 @@ def _colsum_tol(terms, dims):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b, L, c, dy_dtype", [(1, 300, 3072, torch.bfloat16), (2, 37, 3072, torch.float32),
-                                                (1, 5, 64, torch.bfloat16)])
+                                                (1, 5, 64, torch.bfloat16), (1, 3969, 3072, torch.bfloat16),
+                                                (1, 7, 3072, torch.bfloat16), (2, 3456, 3072, torch.bfloat16),
+                                                (1, 300, 64, torch.float32), (1, 3968, 3072, torch.bfloat16)])
 def test_gpu_layernorm_modulate_bwd_matches_plain(b, L, c, dy_dtype):
     """Kernel J': dx within 2 bf16 ulps of the largest, dshift and dscale
     (per batch element) within _colsum_tol; x strided; the same bits twice;
-    without the vectors' gradients nothing but dx."""
+    without the vectors' gradients nothing but dx. Rows of a CTA not a
+    multiple of the kernel's 2-row stage (3969, 7), batch 2 (the CTAs split
+    per element), C below a warp's 256 columns (64)."""
     from visualcloze_tpu_torch.ops import block_fusions as bfu
 
     dev = _cuda_or_skip()
@@ -801,6 +805,24 @@ def test_gpu_layernorm_modulate_bwd_matches_plain(b, L, c, dy_dtype):
     assert all(torch.equal(a, w) for a, w in zip(got, again))
     dx, dshift, dscale = bfu.layernorm_modulate_bwd(x, scale, dy, need_vectors=False)
     assert torch.equal(dx, got[0]) and dshift is None and dscale is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_dx, need_vectors", [(False, True), (True, False)])
+def test_gpu_layernorm_modulate_bwd_partial_outputs(need_dx, need_vectors):
+    """Kernel J' with fp32 dy asked for dx alone or the vectors alone: what
+    it returns has the bits of the full call's, the rest is None."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(5 + need_dx)
+    x = (torch.randn((1, 1000, 3072), generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+    scale = torch.randn((1, 1, 3072), generator=g, device=dev) * 0.5
+    dy = torch.randn((1, 1000, 3072), generator=g, device=dev)
+    full = bfu.layernorm_modulate_bwd(x, scale, dy)
+    part = bfu.layernorm_modulate_bwd(x, scale, dy, need_dx, need_vectors)
+    for a, f, on in zip(part, full, (need_dx, need_vectors, need_vectors)):
+        assert torch.equal(a, f) if on else a is None
 
 
 @pytest.mark.gpu

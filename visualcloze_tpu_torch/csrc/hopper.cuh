@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels
 // (flash_attn_rope.cu, flash_attn_bwd.cu, flash_attn_d512.cu,
-// conv3x3_gn_swish.cu, weight_only_wide.cuh, w8a8_matmul.cu): mbarriers
-// and ring slots, named barriers, 16-byte shared-memory loads and stores,
-// TMA tile loads (multicast to a cluster too) and stores and the host-side
+// conv3x3_gn_swish.cu, weight_only_wide.cuh, w8a8_matmul.cu,
+// layernorm_modulate_bwd.cu): mbarriers and ring slots, named barriers,
+// 16-byte shared-memory loads and stores, 1-D bulk loads, TMA tile loads
+// (multicast to a cluster too) and stores and the host-side
 // tensor maps they read, thread-block clusters (ranks, the peer's shared
 // memory, cluster barriers, a launch with a cluster shape), warpgroup MMA
 // (wgmma) with shared-memory descriptors for the 128-byte swizzle and for
@@ -202,6 +203,15 @@ __device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, uint32_t src, ui
   asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
                    dst),
                "r"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16) of global memory at src (16-byte aligned) into
+// this CTA's shared memory at dst, completing them on the mbarrier at `bar`:
+// a 1-D bulk copy, no tensor map (one row of a tensor with strided rows)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
                : "memory");
 }
 

@@ -52,7 +52,10 @@ from . import cuda_build
 BF16 = torch.bfloat16
 VEC = 8  # elements a thread loads at once: 16 bytes of bf16
 MAX_ROW = 8 * 1024  # J's row: one 8-element vector a thread, 1024 threads
-MAX_ROW_BWD = 8 * 512  # J' and K' (and L''s H * D): 512 threads, whose registers hold a row's state
+# J', K' and L''s H * D: K' and L' give a row 512 threads, whose registers
+# hold its state; J' gives it 16 warps of 8 columns a thread, its rows
+# staged through a shared-memory ring
+MAX_ROW_BWD = 8 * 512
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _J_ARGTYPES = [_P, _LL, _LL, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _P]
@@ -63,7 +66,7 @@ _JB_ARGTYPES = [_P, _LL, _LL, _P, _LL, _P, _I, _P, _P, _P, _P] + [_I] * 4 + [_P]
 _KB_ARGTYPES = [_P, _P, _P, _LL, _P, _P, _P] + [_I] * 4 + [_P]
 _LB_ARGTYPES = [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P] + [_I] * 7 + [_P]
 _MB_ARGTYPES = [_P, _P, _P, _LL, _LL, _P, _P, _LL, _LL] + [_I] * 5 + [_P]
-SM_COUNT = 132  # the H100 SXM's SMs: the backward kernels' row chunks aim at two CTAs on each
+SM_COUNT = 132  # the H100 SXM's SMs: K' and L''s row chunks aim at two CTAs on each, J''s CTAs at one
 
 
 def _layer_norm_stats(x: torch.Tensor, eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
@@ -131,6 +134,14 @@ def _rows_per_cta(b: int, l: int) -> int:
     a small share of the traffic. Fixed by the shape: the same sums in the
     same order at every launch."""
     return max(4, -(-b * l // (2 * SM_COUNT)))
+
+
+def _bwd_ctas(b: int, l: int) -> int:
+    """Kernel J''s persistent CTAs per batch element: about one an SM over
+    the B elements (ceil(SM_COUNT / B)), at most one per 4 rows, so the fp32
+    column-sum partials stay a small share of the traffic. Fixed by the
+    shape: the same sums in the same order at every launch."""
+    return max(1, min(-(-SM_COUNT // b), -(-l // 4)))
 
 
 def _check_vector(name: str, what: str, t: torch.Tensor, b: int, c: int) -> None:
@@ -357,11 +368,14 @@ def layernorm_modulate_bwd_plain(x: torch.Tensor, scale: torch.Tensor, dy: torch
 def layernorm_modulate_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, need_dx: bool = True,
                            need_vectors: bool = True):
     """Kernel J': layernorm_modulate_bwd_plain in one pass over x and dy
-    (mean and rstd recomputed from each row, not saved), the column sums as
-    per-CTA partials and a fixed-order second pass. On CUDA x as kernel J
-    takes it (bf16, rows may be strided) with C at most 4096, scale fp32
-    (B, 1, C), dy bf16 or fp32 (B, L, C) (made contiguous); dx a new
-    contiguous bf16 tensor."""
+    (mean and rstd recomputed from each row, not saved): persistent CTAs
+    (_bwd_ctas a batch element, each a contiguous range of rows), the rows
+    staged two at a time through a shared-memory ring filled by bulk copies,
+    two CTA-wide reductions a stage; the column sums as one fp32 partial a
+    CTA and a fixed-order second pass. On CUDA x as kernel J takes it
+    (bf16, rows may be strided) with C at most 4096, scale fp32 (B, 1, C),
+    dy bf16 or fp32 (B, L, C) (made contiguous); dx a new contiguous bf16
+    tensor."""
     if x.device.type == "cpu":
         return layernorm_modulate_bwd_plain(x, scale, dy, need_dx, need_vectors)
     name = "layernorm_modulate_bwd"
@@ -372,16 +386,15 @@ def layernorm_modulate_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tenso
     _require(dy.is_cuda and dy.dtype in (BF16, torch.float32) and dy.shape == x.shape, name,
              f"dy must be a CUDA bfloat16 or float32 {tuple(x.shape)}, got {dy.dtype} {tuple(dy.shape)}")
     dy = dy.contiguous()
-    rows = _rows_per_cta(b, l)
-    chunks = -(-l // rows)
+    ctas = _bwd_ctas(b, l)
     dx = torch.empty((b, l, c), dtype=BF16, device=x.device) if need_dx else None
     partial = dshift = dscale = None
     if need_vectors:
-        partial = torch.empty((2, b, chunks, c), dtype=torch.float32, device=x.device)
+        partial = torch.empty((2, b, ctas, c), dtype=torch.float32, device=x.device)
         dshift, dscale = (torch.empty((b, 1, c), dtype=torch.float32, device=x.device) for _ in range(2))
     kernel = cuda_build.load(name, _JB_ARGTYPES)
     status = kernel(_ptr(x), x.stride(0), x.stride(1), _ptr(scale), scale.stride(0), _ptr(dy), int(dy.dtype == BF16),
-                    _ptr(dx), _ptr(partial), _ptr(dshift), _ptr(dscale), b, l, c, rows, _stream())
+                    _ptr(dx), _ptr(partial), _ptr(dshift), _ptr(dscale), b, l, c, ctas, _stream())
     cuda_build.check(name, status)
     cuda_build.count_launch(layernorm_modulate_bwd)
     return dx, dshift, dscale
