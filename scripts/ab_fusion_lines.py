@@ -4,11 +4,11 @@
 
 Runs, as a fresh process in each checkout in the order other, this, this,
 other, that checkout's own `chip_smoke.check_layernorm_modulate_bwd`,
-`check_layernorm_modulate` and `check_gated_residual` at the shapes of
-PR 16's `chip_smoke.py` lines (both checkouts have these functions with
-these arguments). Each checkout builds its own kernels and times them by
-its own graph-replayed timer. While a turn runs, nvidia-smi samples the SM
-clock and power draw (as scripts/ab_profile_step.py does).
+`check_layernorm_modulate` and `check_gated_residual` at the main path's
+shapes, with the arguments older checkouts' functions take too. Each
+checkout builds its own kernels and times them by its own graph-replayed
+timer. While a turn runs, nvidia-smi samples the SM clock and power draw
+(as scripts/ab_profile_step.py does).
 
 One JSON line per turn and kernel line: the tree, the kernel, the line's
 shape, what it stands for, ms, bound ms, share of the bound, plain ms,
@@ -29,7 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from ab_profile_step import run_turn  # noqa: E402
 
 HERE = Path(__file__).resolve().parents[1]
-# (check function, positional arguments, keyword arguments): PR 16's lines
+# (check function, positional arguments, keyword arguments)
 LINES = {
     "layernorm_modulate_bwd": [
         ("check_layernorm_modulate_bwd", (3968, True, "single block, 3968 tokens", 50), {}),

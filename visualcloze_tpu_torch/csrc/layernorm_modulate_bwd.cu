@@ -31,14 +31,15 @@
 //     shuffle tree sums the warp, and every thread adds the warps' partials
 //     (exchanged through shared memory) in warp order. Two named barriers a
 //     stage of R rows (the sums of x and g; then of (x - mu)^2 and g (x -
-//     mu)), in place of PR 16's three CTA-wide sums a row.
+//     mu)), in place of three CTA-wide sums a row.
 //   - Then each thread writes dx of its 8 columns with 16-byte stores and
 //     adds dy and dy * n into fp32 register partials.
-// Measured on the H100 (scripts/ab_fusion_lines.py, PERF.md): a ring of 2
-// stages beat 3 and 4 (the first stage lands sooner), R = 2 beat R = 4 (no
-// spills, the same time per row), and one warp per row computing its
-// statistics from shared memory while the other warps wait (the design
-// first tried) took 0.047 ms at (3968, 3072) against 0.036 for this one.
+// The design's alternatives were timed against it on the H100
+// (scripts/ab_jprime_variants.py at commit f7487ae, PERF.md): one warp a
+// row computing its statistics from shared memory while the other warps
+// wait (0.048 ms at (3968, 3072) with bf16 dy, against 0.036), three
+// reductions a stage, 4 rows a stage (spills) and 4 stages (the first
+// stage lands later) were each slower.
 // The column sums stay deterministic: each CTA writes its partials once,
 // (2, B, ctas, C) fp32 (3.2 MB at 132 CTAs, L2-resident), and a second
 // pass (colsum.cuh) adds them in a fixed order. The split of rows to CTAs
