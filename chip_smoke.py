@@ -17,7 +17,11 @@ Phases, each followed by one flushed JSON line on stdout:
              (M = 1), final_layer.linear (N = 64), a ragged M and the
              512-token text stream's proj and linear2; G's launches timed
              as a replayed CUDA graph, as the GEMV is shorter than its
-             wrapper's host-side launch; the int4 matmul G4 likewise, at
+             wrapper's host-side launch; then G with a bf16 bias in its
+             epilogue at linear1 and the M = 1 modulation (bit for bit its
+             unbiased launch + the bf16 add, deterministic; the unbiased
+             launch's and the two passes' ms beside it); the int4 matmul G4
+             likewise (the biased lines too), at
              the same shapes, group 128, and at the edges of its 2-CTA
              clusters (M 17 and 129: a pair with an empty or nearly empty
              peer; M 257: an odd count of tiles, also at N 64), with the
@@ -58,7 +62,10 @@ Phases, each followed by one flushed JSON line on stdout:
              column rows, the double block's streams into a joint 3968-token
              buffer at offsets 512 and 0, 4608 tokens, a tp = 2 shard's 12
              heads and 7 rows at an offset (q, k within 2 ulps, v bit for
-             bit, the rest of the buffer untouched), M (head merge, padded
+             bit, the rest of the buffer untouched), then with the RoPE
+             rotation (random tables) in the interleaved and the half layout
+             at linear1's rows and the joint buffer's offset 512, and 7
+             rows in the half layout, M (head merge, padded
              rows zeroed, + gelu of linear1's last 12288 columns) at 3968
              with 64 padded rows, the merge alone, 4608, 5760 with 512
              padded rows and 7 rows (the merge bit for bit, the gelu within
@@ -80,7 +87,10 @@ Phases, each followed by one flushed JSON line on stdout:
              gradient buffer (its other columns untouched), from the joint
              3968-token dq, dk, dv at offsets 512 and 0, at batch 2, a tp =
              2 shard and 7 rows (q and k's columns within 2 ulps, v's bit
-             for bit, the q/k scales' sums as J''s), M' with gelu and 64
+             for bit, the q/k scales' sums as J''s), then taking the
+             rotated rows' gradients (the transposed rotation first): linear1's
+             buffer in both layouts, the joint buffer's offset 512
+             interleaved, batch 2 in the half layout, M' with gelu and 64
              padded rows, the merge alone, batch 2, 5760 with 512 padded
              rows and 7 rows (dx bit for bit, dg within one ulp of each
              element, floored at 2^-16 of the largest, written into
@@ -237,7 +247,11 @@ per pass over the blocks (twice an evaluation under the trainer's remat
 "full", the final layer's J once) and J'-M' as often per backward
 (autograd_expected: exactly); never in the calibration evaluations that
 collect statistics (counted apart by wrapping Flux.forward in
-load_checkpoint_w8a8_smooth). reference and cfg_forward swap A, B, C and
+load_checkpoint_w8a8_smooth). grad_reference (its kernel route),
+likelihood, train, query_interleaved, moe_train and dist_one_rank count
+the plain RoPE rotations (rope_calls: ops/rope.py's apply_rope and
+apply_rope_half) and fail on any: there kernel L rotates q and k and L'
+takes the transpose. reference and cfg_forward swap A, B, C and
 J-M for their plain versions for their plain runs. Then the kernels
 line, the nvidia-smi
 line, and {"ok": true, "device": ...} last. Exits non-zero, with no result
@@ -380,10 +394,11 @@ def plain_block_route():
     from visualcloze_tpu_torch.ops import attention as att
     from visualcloze_tpu_torch.ops import block_fusions as bfu
 
-    def split(streams, heads, cols):
+    def split(streams, heads, cols, pe=None, rope_layout="interleaved"):
         parts = [bfu.qk_norm_split_plain(x[..., :cols], qs, ks, heads) for x, qs, ks in streams]
         rest = streams[0][0][..., cols:] if len(streams) == 1 and streams[0][0].shape[-1] > cols else None
-        return (*(torch.cat(ts, dim=2) for ts in zip(*parts)), rest)
+        q, k, v = (torch.cat(ts, dim=2) for ts in zip(*parts))
+        return (*att.rope_qk(q, k, pe, rope_layout), v, rest)
 
     swaps = [(layers, "apply_layernorm_modulate", bfu.layernorm_modulate_plain),
              (layers, "apply_gated_residual", bfu.gated_residual_plain), (layers, "apply_qk_norm_split", split),
@@ -396,6 +411,47 @@ def plain_block_route():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def rope_calls():
+    """Counts the calls of the plain RoPE rotations (ops/rope.py's apply_rope
+    and apply_rope_half, wherever attention's rope_qk, FlashMHARope or the
+    blocks' plain versions call them) while the block runs: the kernel route
+    rotates in kernels L and L' (or inside A), so it makes none."""
+    from visualcloze_tpu_torch.ops import attention as att
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+    from visualcloze_tpu_torch.ops import flash_attention as fa
+    from visualcloze_tpu_torch.ops import rope
+
+    seen = {"apply_rope": 0, "apply_rope_half": 0}
+    plain = {name: getattr(rope, name) for name in seen}
+
+    def counting(name):
+        fn = plain[name]
+
+        def wrapper(*args, **kwargs):
+            seen[name] += 1
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    saved = [(mod, name, getattr(mod, name)) for mod in (rope, att, fa, bfu) for name in seen if hasattr(mod, name)]
+    try:
+        for mod, name, _ in saved:
+            setattr(mod, name, counting(name))
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def no_plain_rope(result: dict, seen: dict) -> dict:
+    """result with the plain rotations' calls (rope_calls) beside it, and
+    not ok if any ran."""
+    result["plain_rope_calls"] = dict(seen)
+    result["ok"] = result["ok"] and not any(seen.values())
+    return result
 
 
 def emit(obj) -> None:
@@ -798,11 +854,30 @@ def int8pack_ms(x, w, scale) -> float | None:
     return cuda_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s16), 2)  # slow: 2 launches are enough
 
 
-def check_int8_matmul(m: int, k: int, n: int, what: str, reps: int) -> dict:
+def bias_fields(kernel, x, w, scale, bias, got, reps: int) -> dict:
+    """What a weight-only matmul (G, G4) launched with a bias (N,) bf16 must
+    hold: `got` equals the same kernel's unbiased launch followed by the
+    bf16 add the linears ran before the bias moved into the epilogue
+    (add_bias_plain) bit for bit; beside it the ms of that unbiased launch
+    and of the two passes (graph-timed, this call)."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.int8_matmul import add_bias_plain
+
+    unbiased = kernel(x, w, scale)
+    bit_equal = torch.equal(got, add_bias_plain(unbiased, bias))
+    return dict(bias=True, bias_bit_equal=bit_equal,
+                unbiased_ms=cuda_ms(lambda: kernel(x, w, scale), reps, graph=True),
+                two_pass_ms=cuda_ms(lambda: add_bias_plain(kernel(x, w, scale), bias), reps, graph=True))
+
+
+def check_int8_matmul(m: int, k: int, n: int, what: str, reps: int, with_bias: bool = False) -> dict:
     """Kernel G against its plain version: N(0,1) bf16 x, uniform int8 w,
-    scale d_in^-0.5 / 127; 4 bf16 ulps of the largest output; a second
-    launch gives the same bits (deterministic). Beside the library call,
-    F.linear (cuBLAS bf16) on a copy dequantized beforehand."""
+    scale d_in^-0.5 / 127, with_bias: an N(0,1) bf16 bias (N,) in the
+    epilogue (bias_fields: bit for bit the unbiased launch + the bias add);
+    4 bf16 ulps of the largest output; a second launch gives the same bits
+    (deterministic). Beside the library call, F.linear (cuBLAS bf16) on a
+    copy dequantized beforehand."""
     import torch
     import torch.nn.functional as F
 
@@ -813,28 +888,32 @@ def check_int8_matmul(m: int, k: int, n: int, what: str, reps: int) -> dict:
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
     w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
     scale = torch.full((n,), k ** -0.5 / 127, device=dev)
-    got = int8_matmul(x, w, scale)
-    deterministic = torch.equal(got, int8_matmul(x, w, scale))
+    bias = torch.randn((n,), generator=g, device=dev).to(torch.bfloat16) if with_bias else None
+    got = int8_matmul(x, w, scale, bias=bias)
+    deterministic = torch.equal(got, int8_matmul(x, w, scale, bias=bias))
     torch.cuda.synchronize()
     want = int8_matmul_plain(x, w, scale, torch.float32)
+    if bias is not None:
+        want = int8_matmul_plain(x, w, scale, bias=bias).float()
     err = (got.float() - want).abs().max().item()
     tol = bf16_ulps_tol(want)
     rms = want.pow(2).mean().sqrt().item()
     del want
-    ms = cuda_ms(lambda: int8_matmul(x, w, scale), reps, graph=True)
-    plain_ms = cuda_ms(lambda: int8_matmul_plain(x, w, scale), 2)
+    extra = bias_fields(int8_matmul, x, w, scale, bias, got, reps) if with_bias else {}
+    ms = cuda_ms(lambda: int8_matmul(x, w, scale, bias=bias), reps, graph=True)
+    plain_ms = cuda_ms(lambda: int8_matmul_plain(x, w, scale, bias=bias), 2)
     w16 = (w.t().float() * scale[:, None]).to(torch.bfloat16)  # (N, K), dequantized beforehand
-    dequant_ms = cuda_ms(lambda: F.linear(x, w16), reps)
+    dequant_ms = cuda_ms(lambda: F.linear(x, w16, bias), reps)
     del w16
     library_ms, library = int8pack_ms(x, w, scale), "torch._weight_int8pack_mm"
     if library_ms is None:
         library_ms, library = dequant_ms, "F.linear on a bf16 copy dequantized beforehand"
-    bms, by = bound(2.0 * m * n * k, 2 * m * k + k * n + 4 * n + 2 * m * n)
+    bms, by = bound(2.0 * m * n * k, 2 * m * k + k * n + 4 * n + 2 * m * n + (2 * n if with_bias else 0))
     return dict(name="int8_matmul", what=what, shape=[m, k, n], max_abs_err=err, tol=tol, rms_plain=rms,
-                ok=err <= tol and deterministic, deterministic=deterministic, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, library=library, dequant_f_linear_ms=dequant_ms, bound_ms=bms, bound_by=by,
-                share_of_bound=bms / ms, tflops=2.0 * m * n * k / ms / 1e9,
-                weight_gbps=k * n / ms / 1e6)
+                ok=err <= tol and deterministic and extra.get("bias_bit_equal", True), deterministic=deterministic,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=library, dequant_f_linear_ms=dequant_ms,
+                bound_ms=bms, bound_by=by, share_of_bound=bms / ms, tflops=2.0 * m * n * k / ms / 1e9,
+                weight_gbps=k * n / ms / 1e6, **extra)
 
 
 def int4pack_ms(x, w_int4, scale, group: int) -> float | None:
@@ -855,11 +934,13 @@ def int4pack_ms(x, w_int4, scale, group: int) -> float | None:
     return cuda_ms(lambda: torch._weight_int4pack_mm(x, packed, group, sz), 5)
 
 
-def check_int4_matmul(m: int, k: int, n: int, what: str, reps: int, group: int = 128) -> dict:
+def check_int4_matmul(m: int, k: int, n: int, what: str, reps: int, group: int = 128,
+                      with_bias: bool = False) -> dict:
     """Kernel G4 against its plain version: N(0,1) bf16 x, uniform packed
     bytes (every nibble), one scale per (group, column) uniform over
-    [0.75, 1.25] x d_in^-0.5 / 7 (so the scale varies along K); 4 bf16 ulps
-    of the largest output; a second launch gives the same bits
+    [0.75, 1.25] x d_in^-0.5 / 7 (so the scale varies along K), with_bias:
+    an N(0,1) bf16 bias (N,) in the epilogue (bias_fields); 4 bf16 ulps of
+    the largest output; a second launch gives the same bits
     (deterministic). Yardsticks: torch._weight_int4pack_mm where it runs
     (library_ms), F.linear on a bf16 copy dequantized beforehand."""
     import torch
@@ -872,26 +953,32 @@ def check_int4_matmul(m: int, k: int, n: int, what: str, reps: int, group: int =
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
     w = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
     scale = (torch.rand((k // group, n), generator=g, device=dev) * 0.5 + 0.75) * (k ** -0.5 / 7)
-    got = int4_matmul(x, w, scale)
-    deterministic = torch.equal(got, int4_matmul(x, w, scale))
+    bias = torch.randn((n,), generator=g, device=dev).to(torch.bfloat16) if with_bias else None
+    got = int4_matmul(x, w, scale, bias=bias)
+    deterministic = torch.equal(got, int4_matmul(x, w, scale, bias=bias))
     torch.cuda.synchronize()
     want = int4_matmul_plain(x, w, scale, torch.float32)
+    if bias is not None:
+        want = int4_matmul_plain(x, w, scale, bias=bias).float()
     err = (got.float() - want).abs().max().item()
     tol = bf16_ulps_tol(want)
     rms = want.pow(2).mean().sqrt().item()
     del want
-    ms = cuda_ms(lambda: int4_matmul(x, w, scale), reps, graph=True)
-    plain_ms = cuda_ms(lambda: int4_matmul_plain(x, w, scale), 2)
+    extra = bias_fields(int4_matmul, x, w, scale, bias, got, reps) if with_bias else {}
+    ms = cuda_ms(lambda: int4_matmul(x, w, scale, bias=bias), reps, graph=True)
+    plain_ms = cuda_ms(lambda: int4_matmul_plain(x, w, scale, bias=bias), 2)
     w16 = dequant_int4_plain(w, scale).t().contiguous()  # (N, K) bf16, dequantized beforehand
-    dequant_ms = cuda_ms(lambda: F.linear(x, w16), reps)
+    dequant_ms = cuda_ms(lambda: F.linear(x, w16, bias), reps)
     del w16
     library_ms = int4pack_ms(x, w, scale, group)
-    bms, by = bound(2.0 * m * n * k, 2 * m * k + k * n // 2 + 4 * (k // group) * n + 2 * m * n)
+    bms, by = bound(2.0 * m * n * k, 2 * m * k + k * n // 2 + 4 * (k // group) * n + 2 * m * n
+                    + (2 * n if with_bias else 0))
     return dict(name="int4_matmul", what=what, shape=[m, k, n], group=group, max_abs_err=err, tol=tol,
-                rms_plain=rms, ok=err <= tol and deterministic, deterministic=deterministic, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, library="torch._weight_int4pack_mm (bf16 scales, zero 0)",
-                dequant_f_linear_ms=dequant_ms, bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
-                tflops=2.0 * m * n * k / ms / 1e9, weight_gbps=k * n / 2 / ms / 1e6)
+                rms_plain=rms, ok=err <= tol and deterministic and extra.get("bias_bit_equal", True),
+                deterministic=deterministic, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library="torch._weight_int4pack_mm (bf16 scales, zero 0)", dequant_f_linear_ms=dequant_ms,
+                bound_ms=bms, bound_by=by, share_of_bound=bms / ms, tflops=2.0 * m * n * k / ms / 1e9,
+                weight_gbps=k * n / 2 / ms / 1e6, **extra)
 
 
 def int_mm_ms(a, w, x_scale, w_scale, bias) -> tuple[float | None, float | None]:
@@ -1093,14 +1180,25 @@ def check_gated_residual(tokens: int, what: str, reps: int, b: int = 1, c: int =
                         3 * b * tokens * c * 2 + b * c * 4, **lib)
 
 
+def rope_tables(g, b: int, total: int, d: int = 128):
+    """Random RoPE tables (cos, sin), each (b, total, d / 2) fp32, of angles
+    uniform over [0, 40) (as the attention checks draw them)."""
+    import torch
+
+    ang = torch.rand((b, total, d // 2), generator=g, device="cuda") * 40.0
+    return torch.cos(ang), torch.sin(ang)
+
+
 def check_qk_norm_split(tokens: int, what: str, reps: int, cols: int = 9216, heads: int = 24, total: int = 0,
-                        offset: int = 0) -> dict:
+                        offset: int = 0, rope: str | None = None) -> dict:
     """Kernel L against its plain version: the first 3 * heads * 128 of
     `cols` columns of an N(0, 4) bf16 projection (linear1's 21504 in the
     single block, the stream's qkv in the double block), written at token
     `offset` of (1, heads, total, 128) buffers, scales uniform over [0.5,
-    1.5]; q and k within 2 bf16 ulps of the largest output, v bit for bit,
-    the tokens outside [offset, offset + tokens) untouched; deterministic."""
+    1.5]; rope: q and k then rotated in that layout by random (1, total, 64)
+    tables (rope_tables); q and k within 2 bf16 ulps of the largest output,
+    v bit for bit, the tokens outside [offset, offset + tokens) untouched;
+    deterministic."""
     import torch
 
     from visualcloze_tpu_torch.ops.block_fusions import qk_norm_split, qk_norm_split_plain, qkv_buffers
@@ -1111,24 +1209,26 @@ def check_qk_norm_split(tokens: int, what: str, reps: int, cols: int = 9216, hea
     qkv = h[..., : 3 * heads * 128]
     qs, ks = ((torch.rand((128,), generator=g, device=dev) + 0.5).to(torch.bfloat16) for _ in range(2))
     total = total or tokens
+    pe, layout = (rope_tables(g, 1, total), rope) if rope else (None, "interleaved")
     got, again, want = (qkv_buffers(qkv, heads, total) for _ in range(3))
     for bufs in (got, again, want):
         for t in bufs:
             t.fill_(3.0)
-    qk_norm_split(qkv, qs, ks, heads, got, offset)
-    qk_norm_split(qkv, qs, ks, heads, again, offset)
-    qk_norm_split_plain(qkv, qs, ks, heads, want, offset)
+    qk_norm_split(qkv, qs, ks, heads, got, offset, pe, layout)
+    qk_norm_split(qkv, qs, ks, heads, again, offset, pe, layout)
+    qk_norm_split_plain(qkv, qs, ks, heads, want, offset, pe, layout)
     deterministic = all(torch.equal(a, c) for a, c in zip(got, again))
     span = slice(offset, offset + tokens)
     err = max((a[:, :, span].float() - w[:, :, span].float()).abs().max().item() for a, w in zip(got[:2], want[:2]))
     tol = max(bf16_ulps_tol(w[:, :, span].float(), 2) for w in want[:2])
     v_equal = torch.equal(got[2], want[2])
     untouched = all(bool((torch.cat([a[:, :, :offset], a[:, :, offset + tokens:]], 2) == 3.0).all()) for a in got)
-    ms = cuda_ms(lambda: qk_norm_split(qkv, qs, ks, heads, got, offset), reps, graph=True)
-    plain_ms = cuda_ms(lambda: qk_norm_split_plain(qkv, qs, ks, heads, want, offset), 5)
+    ms = cuda_ms(lambda: qk_norm_split(qkv, qs, ks, heads, got, offset, pe, layout), reps, graph=True)
+    plain_ms = cuda_ms(lambda: qk_norm_split_plain(qkv, qs, ks, heads, want, offset, pe, layout), 5)
     line = _fusion_line("qk_norm_split", what, [1, tokens, cols, heads], err, tol, deterministic, ms, plain_ms,
-                        2 * tokens * 3 * heads * 128 * 2 + 2 * 128 * 2, joint_tokens=total, offset=offset,
-                        v_bit_equal=v_equal, outside_untouched=untouched)
+                        2 * tokens * 3 * heads * 128 * 2 + 2 * 128 * 2 + (2 * tokens * 64 * 4 if rope else 0),
+                        joint_tokens=total, offset=offset, rope_layout=rope, v_bit_equal=v_equal,
+                        outside_untouched=untouched)
     line["ok"] = line["ok"] and v_equal and untouched
     return line
 
@@ -1286,11 +1386,13 @@ def check_gated_residual_bwd(tokens: int, what: str, reps: int, b: int = 1, c: i
 
 
 def check_qk_norm_split_bwd(tokens: int, what: str, reps: int, cols: int = 9216, heads: int = 24, total: int = 0,
-                            offset: int = 0, b: int = 1) -> dict:
+                            offset: int = 0, b: int = 1, rope: str | None = None) -> dict:
     """Kernel L' against its plain backward and autograd of L's plain
     version: the raw q, k from the first 3 * heads * 128 of `cols` columns of
     an N(0, 4) bf16 projection, dq, dk, dv N(0, 1) (B, heads, total, 128)
-    read at token `offset`; dqkv written into the first 3 * heads * 128 of a
+    read at token `offset` (rope: the gradients of q and k rotated in that
+    layout by random (B, total, 64) tables, L's output then the rotated
+    rows); dqkv written into the first 3 * heads * 128 of a
     (B, tokens, cols) gradient buffer (linear1's 21504 columns in the single
     block): q and k's columns within 2 bf16 ulps of the largest, v's bit for
     bit, the buffer's other columns untouched; the scales' gradients within
@@ -1298,6 +1400,7 @@ def check_qk_norm_split_bwd(tokens: int, what: str, reps: int, cols: int = 9216,
     deterministic."""
     import torch
 
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
     from visualcloze_tpu_torch.ops.block_fusions import qk_norm_split_bwd, qk_norm_split_bwd_plain, qk_norm_split_plain
 
     dev = torch.device("cuda")
@@ -1307,29 +1410,36 @@ def check_qk_norm_split_bwd(tokens: int, what: str, reps: int, cols: int = 9216,
     qs, ks = ((torch.rand((128,), generator=g, device=dev) + 0.5).to(torch.bfloat16) for _ in range(2))
     total = total or tokens
     grads = [torch.randn((b, heads, total, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3)]
+    pe, layout = (rope_tables(g, b, total), rope) if rope else (None, "interleaved")
     outs = [torch.full((b, tokens, cols), 3.0, dtype=torch.bfloat16, device=dev) for _ in range(3)]
-    got = qk_norm_split_bwd(qkv, qs, ks, heads, *grads, offset, outs[0], True)
-    again = qk_norm_split_bwd(qkv, qs, ks, heads, *grads, offset, outs[1], True)
-    want = qk_norm_split_bwd_plain(qkv, qs, ks, heads, *grads, offset, outs[2], True)
+    got = qk_norm_split_bwd(qkv, qs, ks, heads, *grads, offset, outs[0], True, pe, layout)
+    again = qk_norm_split_bwd(qkv, qs, ks, heads, *grads, offset, outs[1], True, pe, layout)
+    want = qk_norm_split_bwd_plain(qkv, qs, ks, heads, *grads, offset, outs[2], True, pe, layout)
     deterministic = all(torch.equal(a, w) for a, w in zip(got, again))
     span = slice(offset, offset + tokens)
     ins = [t.detach().requires_grad_() for t in (qkv, qs, ks)]
-    auto = torch.autograd.grad(qk_norm_split_plain(*ins, heads), ins, [t[:, :, span] for t in grads])
+    auto = torch.autograd.grad(qk_norm_split_plain(*ins, heads, offset=offset, pe=pe, rope_layout=layout), ins,
+                               [t[:, :, span] for t in grads])
+    dn = [t[:, :, span] for t in grads[:2]]  # the scales' sums read the gradients of L's unrotated output
+    if pe is not None:
+        cos, sin = (t[:, None, span] for t in pe)
+        dn = [bfu._rope_fn(layout)(t, cos, -sin) for t in dn]
     qn, kn, _ = qk_norm_split_plain(qkv, torch.ones_like(qs), torch.ones_like(ks), heads)
     qk = slice(0, 2 * hd)
     checks = {"dqkv_qk": (_max_err(got[0][..., qk], want[0][..., qk]), _max_err(got[0][..., qk], auto[0][..., qk]),
                           bf16_ulps_tol(want[0][..., qk].float(), 2)),
               "dqkv_v": (_max_err(got[0][..., 2 * hd:3 * hd], want[0][..., 2 * hd:3 * hd]),
                          _max_err(got[0][..., 2 * hd:3 * hd], auto[0][..., 2 * hd:]), 0.0)}
-    for k, i, d, nrm in (("dq_scale", 1, grads[0], qn), ("dk_scale", 2, grads[1], kn)):
-        tol = _colsum_tol(d[:, :, span].float() * nrm, (0, 1, 2))
+    for k, i, d, nrm in (("dq_scale", 1, dn[0], qn), ("dk_scale", 2, dn[1], kn)):
+        tol = _colsum_tol(d.float() * nrm, (0, 1, 2))
         checks[k] = (_max_err(got[i], want[i]), max(0.0, _max_err(got[i], auto[i]) - bf16_ulps_tol(auto[i], 1)), tol)
     untouched = cols == 3 * hd or bool((outs[0][..., 3 * hd:] == 3.0).all())
-    ms = cuda_ms(lambda: qk_norm_split_bwd(qkv, qs, ks, heads, *grads, offset, outs[0], True), reps, graph=True)
-    plain_ms = cuda_ms(lambda: qk_norm_split_bwd_plain(qkv, qs, ks, heads, *grads, offset, outs[2], True), 5)
+    args = (qkv, qs, ks, heads, *grads, offset)
+    ms = cuda_ms(lambda: qk_norm_split_bwd(*args, outs[0], True, pe, layout), reps, graph=True)
+    plain_ms = cuda_ms(lambda: qk_norm_split_bwd_plain(*args, outs[2], True, pe, layout), 5)
     line = _backward_line("qk_norm_split_bwd", what, [b, tokens, cols, heads], checks, deterministic, ms, plain_ms,
-                          8 * b * tokens * hd * 2 + 2 * 128 * (2 + 4), joint_tokens=total, offset=offset,
-                          other_columns_untouched=untouched)
+                          8 * b * tokens * hd * 2 + 2 * 128 * (2 + 4) + (2 * b * tokens * 64 * 4 if rope else 0),
+                          joint_tokens=total, offset=offset, rope_layout=rope, other_columns_untouched=untouched)
     line["ok"] = line["ok"] and untouched
     return line
 
@@ -1444,7 +1554,8 @@ def grad_reference() -> dict:
         return [gr.float() for gr in torch.autograd.grad((x.float() * cot).sum(), leaves)]
 
     ops.reset_kernel_launches()
-    got = grads()
+    with rope_calls() as seen:
+        got = grads()
     launches = ops.kernel_launches()
     saved = (fa.flash_attn_fwd_lse, fa.flash_attn_bwd_dq, fa.flash_attn_bwd_dkv)
     fa.flash_attn_fwd_lse, fa.flash_attn_bwd_dq, fa.flash_attn_bwd_dkv = (
@@ -1471,7 +1582,7 @@ def grad_reference() -> dict:
     out["plain_run_launches"] = plain_launches
     out["ok"] = (out["finite"] and out["rel_rms_err"] <= out["tol"] and all(n > 0 for n in out["launches"].values())
                  and out["fusion_launches"] == out["fusion_launches_expected"] and not plain_launches)
-    return out
+    return no_plain_rope(out, seen)
 
 
 # ----------------------------- reference on a small input -----------------------------
@@ -3438,6 +3549,9 @@ def main() -> int:
         lambda: [check_int8_matmul(4097, 3072, 3072, "ragged M (proj)", 20)],
         lambda: [check_int8_matmul(512, 3072, 3072, "text stream proj", 50)],
         lambda: [check_int8_matmul(512, 12288, 3072, "text stream linear2", 50)],
+        # the bias in the epilogue (Int8Linear): equal to the unbiased launch + the bf16 add bit for bit
+        lambda: [check_int8_matmul(3968, 3072, 21504, "linear1 with its bias", 20, with_bias=True)],
+        lambda: [check_int8_matmul(1, 3072, 18432, "double-block modulation with its bias", 50, with_bias=True)],
         lambda: [check_int4_matmul(3968, 3072, 21504, "linear1", 20)],
         lambda: [check_int4_matmul(3968, 15360, 3072, "linear2", 20)],
         lambda: [check_int4_matmul(3456, 3072, 9216, "img_attn.qkv", 20)],
@@ -3450,6 +3564,8 @@ def main() -> int:
         lambda: [check_int4_matmul(129, 3072, 3072, "cluster edge: M 129, a pair with one row in its peer", 50)],
         lambda: [check_int4_matmul(257, 3072, 3072, "cluster edge: M 257, an odd count of tiles", 50)],
         lambda: [check_int4_matmul(257, 3072, 64, "cluster edge: M 257, N 64", 50)],
+        lambda: [check_int4_matmul(3968, 3072, 21504, "linear1 with its bias", 20, with_bias=True)],
+        lambda: [check_int4_matmul(1, 3072, 18432, "double-block modulation with its bias", 50, with_bias=True)],
         lambda: [check_w8a8_matmul(3968, 3072, 21504, "linear1", 20)],
         lambda: [check_w8a8_matmul(3968, 15360, 3072, "linear2", 20)],
         lambda: [check_w8a8_matmul(3968, 3072, 9216, "qkv", 20)],
@@ -3502,6 +3618,15 @@ def main() -> int:
         lambda: [check_qk_norm_split(3968, "tp = 2: 12 heads of linear1's 10752 local columns", 50, cols=10752,
                                      heads=12)],
         lambda: [check_qk_norm_split(7, "a ragged 7 rows at token 5 of 16", 50, total=16, offset=5)],
+        # L with the RoPE rotation: the interleaved layout (every route but kernel A's), the half one (autograd)
+        lambda: [check_qk_norm_split(3968, "single block, interleaved RoPE", 50, cols=21504, rope="interleaved")],
+        lambda: [check_qk_norm_split(3968, "single block, half RoPE", 50, cols=21504, rope="half")],
+        lambda: [check_qk_norm_split(3456, "double block img stream at token 512 of the joint 3968, interleaved "
+                                     "RoPE", 50, total=3968, offset=512, rope="interleaved")],
+        lambda: [check_qk_norm_split(3456, "double block img stream at token 512 of the joint 3968, half RoPE", 50,
+                                     total=3968, offset=512, rope="half")],
+        lambda: [check_qk_norm_split(7, "a ragged 7 rows at token 5 of 16, half RoPE", 50, total=16, offset=5,
+                                     rope="half")],
         # M: the single block writes linear2's whole input (the merge, then gelu of linear1's last 12288)
         lambda: [check_merge_heads(3968, "single block, 64 padded query rows", 50, gelu_cols=12288, cols=21504,
                                    padded=64)],
@@ -3542,6 +3667,15 @@ def main() -> int:
         lambda: [check_qk_norm_split_bwd(3968, "tp = 2: 12 heads of linear1's 10752 local columns", 50,
                                          cols=10752, heads=12)],
         lambda: [check_qk_norm_split_bwd(7, "a ragged 7 rows from token 5 of 16", 50, total=16, offset=5)],
+        # L' with the transposed rotation first
+        lambda: [check_qk_norm_split_bwd(3968, "single block into linear1's gradient buffer, interleaved RoPE", 50,
+                                         cols=21504, rope="interleaved")],
+        lambda: [check_qk_norm_split_bwd(3968, "single block into linear1's gradient buffer, half RoPE", 50,
+                                         cols=21504, rope="half")],
+        lambda: [check_qk_norm_split_bwd(3456, "double block img stream from token 512 of the joint 3968, "
+                                         "interleaved RoPE", 50, total=3968, offset=512, rope="interleaved")],
+        lambda: [check_qk_norm_split_bwd(3968, "single block, batch 2 (a table each), half RoPE", 50, cols=21504,
+                                         b=2, rope="half")],
         lambda: [check_merge_heads_bwd(3968, "single block, 64 padded query rows", 50, gelu_cols=12288, cols=21504,
                                        padded=64)],
         lambda: [check_merge_heads_bwd(3968, "double block: the merge alone", 50)],
@@ -3629,7 +3763,8 @@ def main() -> int:
     if not rsde["ok"]:
         raise RuntimeError("the SDE samplers failed")
     free()
-    rlik = likelihood(model)
+    with rope_calls() as seen:
+        rlik = no_plain_rope(likelihood(model), seen)
     emit(rlik)
     if not rlik["ok"]:
         raise RuntimeError("the likelihood failed")
@@ -3708,9 +3843,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, rope_calls() as seen:
         train, result = run_training(Path(tmp), REMAT_POLICY)
-        emit(train)
+        emit(no_plain_rope(train, seen))
         if not train["ok"]:
             raise RuntimeError("training failed")
     model = result["model"]
@@ -3718,23 +3853,27 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()  # the LoRA, its gradients and AdamW's state are gone
     emit(dict(phase="freed", allocated_gib=torch.cuda.memory_allocated() / 2 ** 30))
-    r3 = run_request(model, "2x2 query, interleaved layout", 2, 2, 9, False, seed=3,
-                     used=("flash_attn_fwd", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS,
-                     unused=("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
-                             "int8_matmul", "int4_matmul") + W8A8_KERNELS)
-    emit(dict(r3, phase="query_interleaved", rope_layout=model.rope_layout))
+    with rope_calls() as seen:
+        r3 = run_request(model, "2x2 query, interleaved layout", 2, 2, 9, False, seed=3,
+                         used=("flash_attn_fwd", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS,
+                         unused=("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                                 "int8_matmul", "int4_matmul") + W8A8_KERNELS)
+    r3 = no_plain_rope(dict(r3, phase="query_interleaved", rope_layout=model.rope_layout), seen)
+    emit(r3)
     if not r3["ok"]:
         raise RuntimeError("interleaved query failed")
     del model
     free()
 
     with tempfile.TemporaryDirectory() as tmp:
-        rmoe = moe_train(Path(tmp))
+        with rope_calls() as seen:
+            rmoe = no_plain_rope(moe_train(Path(tmp)), seen)
         emit(rmoe)
         if not rmoe["ok"]:
             raise RuntimeError("MoE-LoRA training failed")
         free()
-        rdist = dist_one_rank(Path(tmp))
+        with rope_calls() as seen:
+            rdist = no_plain_rope(dist_one_rank(Path(tmp)), seen)
         emit(rdist)
         if not rdist["ok"]:
             raise RuntimeError("the one-rank distributed trainer failed")

@@ -961,3 +961,217 @@ def test_gpu_single_block_gradients_run_through_the_backward_kernels():
     num = sum((a - b).pow(2).sum() for a, b in zip(got, want))
     den = sum(b.pow(2).sum() for b in want)
     assert (num / den).sqrt().item() <= 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n", [(1, 3072, 18432), (7, 3072, 3072), (17, 3072, 3072), (300, 3072, 9216),
+                                     (3968, 3072, 21504), (129, 256, 16)])
+def test_gpu_int8_matmul_with_a_bias_is_the_unbiased_launch_plus_the_add(m, k, n):
+    """Kernel G with a bias (N,) bf16 in its epilogue: bit for bit its
+    unbiased launch followed by the bf16 add the linears ran before
+    (add_bias_plain), in the GEMV body (M <= 16) and the wide body, lone and
+    paired; the same bits twice."""
+    from visualcloze_tpu_torch.ops.int8_matmul import add_bias_plain, int8_matmul
+
+    dev = _cuda_or_skip()
+    x, w, scale = _int8_case(dev, m, k, n)
+    bias = (torch.randn((n,), generator=torch.Generator(device=dev).manual_seed(n), device=dev) * 4).to(torch.bfloat16)
+    got = int8_matmul(x, w, scale, bias=bias)
+    again = int8_matmul(x, w, scale, bias=bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, add_bias_plain(int8_matmul(x, w, scale), bias)) and torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n, group", [(1, 3072, 18432, 128), (7, 3072, 3072, 128), (17, 3072, 3072, 128),
+                                            (300, 3072, 9216, 128), (3968, 3072, 21504, 128), (129, 256, 64, 64)])
+def test_gpu_int4_matmul_with_a_bias_is_the_unbiased_launch_plus_the_add(m, k, n, group):
+    """Kernel G4 with a bias, as G's."""
+    from visualcloze_tpu_torch.ops.int4_matmul import int4_matmul
+    from visualcloze_tpu_torch.ops.int8_matmul import add_bias_plain
+
+    dev = _cuda_or_skip()
+    x, w, scale = _int4_case(dev, m, k, n, group)
+    bias = (torch.randn((n,), generator=torch.Generator(device=dev).manual_seed(n), device=dev) * 4).to(torch.bfloat16)
+    got = int4_matmul(x, w, scale, bias=bias)
+    again = int4_matmul(x, w, scale, bias=bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, add_bias_plain(int4_matmul(x, w, scale), bias)) and torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_gpu_weight_only_matmuls_refuse_a_bias_they_cannot_take():
+    """An fp32 bias, a bias of the wrong length, a strided one or a bias with
+    an fp32 output raise; no plain fallback on the card."""
+    from visualcloze_tpu_torch.ops.int4_matmul import int4_matmul
+    from visualcloze_tpu_torch.ops.int8_matmul import int8_matmul
+
+    dev = _cuda_or_skip()
+    x, w, scale = _int8_case(dev, 3, 256, 64)
+    x4, w4, scale4 = _int4_case(dev, 3, 256, 64, 128)
+    ok = torch.zeros((64,), device=dev, dtype=torch.bfloat16)
+    for fn, args in ((int8_matmul, (x, w, scale)), (int4_matmul, (x4, w4, scale4))):
+        with pytest.raises(ValueError, match="bias"):
+            fn(*args, bias=ok.float())
+        with pytest.raises(ValueError, match="bias"):
+            fn(*args, bias=ok[:32])
+        with pytest.raises(ValueError, match="bias"):
+            fn(*args, bias=torch.zeros((128,), device=dev, dtype=torch.bfloat16)[::2])
+        with pytest.raises(ValueError, match="bf16 output only"):
+            fn(*args, out_dtype=torch.float32, bias=ok)
+
+
+def _rope_tables(dev, g, b, total, d=128):
+    ang = torch.rand((b, total, d // 2), generator=g, device=dev) * 40.0
+    return torch.cos(ang), torch.sin(ang)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["interleaved", "half"])
+@pytest.mark.parametrize("b, L, heads, cols, total, offset", [(1, 300, 24, 21504, 300, 0), (2, 100, 24, 9216, 164, 64),
+                                                              (1, 7, 3, 2000, 9, 2)])
+def test_gpu_qk_norm_split_rotates_as_its_plain_version(layout, b, L, heads, cols, total, offset):
+    """Kernel L with RoPE tables (B, L_total, 64), in both layouts, into a
+    joint buffer at an offset: q, k within 2 bf16 ulps of the plain version
+    (split + norm, then the rotation in fp32), v bit for bit, the other
+    tokens untouched; the same bits twice; a table shared by the batch
+    (B = 1 against 2 rows) rotates as the table repeated."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(L + cols + b)
+    qkv = (torch.randn((b, L, cols), generator=g, device=dev) * 2).to(torch.bfloat16)[..., : 3 * heads * 128]
+    qs, ks = ((torch.rand((128,), generator=g, device=dev) + 0.5).to(torch.bfloat16) for _ in range(2))
+    pe = _rope_tables(dev, g, b, total)
+    got, again, want = (bfu.qkv_buffers(qkv, heads, total) for _ in range(3))
+    for t in (*got, *again, *want):
+        t.fill_(3.0)
+    bfu.qk_norm_split(qkv, qs, ks, heads, got, offset, pe, layout)
+    bfu.qk_norm_split(qkv, qs, ks, heads, again, offset, pe, layout)
+    bfu.qk_norm_split_plain(qkv, qs, ks, heads, want, offset, pe, layout)
+    span = slice(offset, offset + L)
+    for a, w in zip(got[:2], want[:2]):
+        _close(a[:, :, span], w[:, :, span], _ulps_tol(w[:, :, span].float(), 2))
+    assert torch.equal(got[2], want[2]) and all(torch.equal(a, c) for a, c in zip(got, again))
+    assert all(bool((torch.cat([a[:, :, :offset], a[:, :, offset + L:]], 2) == 3.0).all()) for a in got)
+    if b == 2:
+        shared = tuple(t[:1] for t in pe)
+        rows, rep = bfu.qkv_buffers(qkv, heads, total), bfu.qkv_buffers(qkv, heads, total)
+        bfu.qk_norm_split(qkv, qs, ks, heads, rows, offset, shared, layout)
+        bfu.qk_norm_split(qkv, qs, ks, heads, rep, offset, tuple(t.expand(2, -1, -1).contiguous() for t in shared),
+                          layout)
+        assert all(torch.equal(a[:, :, span], c[:, :, span]) for a, c in zip(rows, rep))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["interleaved", "half"])
+@pytest.mark.parametrize("b, L, heads, cols, total, offset", [(1, 300, 24, 21504, 300, 0), (2, 100, 24, 9216, 164, 64),
+                                                              (1, 7, 3, 2000, 9, 2)])
+def test_gpu_qk_norm_split_bwd_unrotates_as_its_plain_version(layout, b, L, heads, cols, total, offset):
+    """Kernel L' taking the rotated rows' gradients (tables (B, L_total,
+    64), both layouts): dq and dk's columns within 2 bf16 ulps of the plain
+    backward (the transposed rotation in fp32, rounded, then the norm's
+    backward) and of autograd through the plain forward, dv's bit for bit,
+    the buffer's other columns untouched; the scales' gradients within
+    _colsum_tol; the same bits twice."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(13 * L + cols + b)
+    f = 3 * heads * 128
+    qkv = (torch.randn((b, L, cols), generator=g, device=dev) * 2).to(torch.bfloat16)[..., :f]
+    qs, ks = ((torch.rand((128,), generator=g, device=dev) + 0.5).to(torch.bfloat16) for _ in range(2))
+    dq, dk, dv = (torch.randn((b, heads, total, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    pe = _rope_tables(dev, g, b, total)
+    outs = [torch.full((b, L, cols), 3.0, device=dev, dtype=torch.bfloat16) for _ in range(3)]
+    got = bfu.qk_norm_split_bwd(qkv, qs, ks, heads, dq, dk, dv, offset, outs[0], True, pe, layout)
+    again = bfu.qk_norm_split_bwd(qkv, qs, ks, heads, dq, dk, dv, offset, outs[1], True, pe, layout)
+    want = bfu.qk_norm_split_bwd_plain(qkv, qs, ks, heads, dq, dk, dv, offset, outs[2], True, pe, layout)
+    ins = [t.detach().requires_grad_() for t in (qkv, qs, ks)]
+    span = slice(offset, offset + L)
+    auto = torch.autograd.grad(bfu.qk_norm_split_plain(*ins, heads, offset=offset, pe=pe, rope_layout=layout), ins,
+                               [t[:, :, span] for t in (dq, dk, dv)])
+    assert got[0] is outs[0] and all(torch.equal(a, w) for a, w in zip(got, again))
+    hd = heads * 128
+    tol = _ulps_tol(want[0][..., :2 * hd].float(), 2)
+    _close(got[0][..., :2 * hd], want[0][..., :2 * hd], tol)
+    _close(got[0][..., :2 * hd], auto[0][..., :2 * hd], tol)
+    assert torch.equal(got[0][..., 2 * hd:f], want[0][..., 2 * hd:f])
+    assert cols == f or bool((outs[0][..., f:] == 3.0).all())
+    for i, d in ((1, dq), (2, dk)):
+        _close(got[i], want[i], _colsum_tol(d[:, :, span], (0, 1, 2)) * 4)
+
+
+@pytest.mark.gpu
+def test_gpu_qk_norm_split_refuses_tables_it_cannot_take():
+    """Tables of the wrong length, in bf16, with strided rows, or an unknown
+    layout raise on the card, forward and backward."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+
+    dev = _cuda_or_skip()
+    qkv = torch.randn((1, 8, 3 * 2 * 128), device=dev).to(torch.bfloat16)
+    qs = torch.ones((128,), device=dev, dtype=torch.bfloat16)
+    good = (torch.ones((1, 8, 64), device=dev), torch.zeros((1, 8, 64), device=dev))
+    grads = [torch.zeros((1, 2, 8, 128), device=dev, dtype=torch.bfloat16) for _ in range(3)]
+    bad = [(good[0][:, :4], good[1][:, :4]), tuple(t.to(torch.bfloat16) for t in good),
+           tuple(torch.ones((1, 8, 128), device=dev)[..., ::2] for _ in range(2))]
+    for pe in bad:
+        with pytest.raises(ValueError, match="cos"):
+            bfu.qk_norm_split(qkv, qs, qs, 2, pe=pe)
+        with pytest.raises(ValueError, match="cos"):
+            bfu.qk_norm_split_bwd(qkv, qs, qs, 2, *grads, pe=pe)
+    with pytest.raises(ValueError, match="rope_layout"):
+        bfu.qk_norm_split(qkv, qs, qs, 2, pe=good, rope_layout="spiral")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["interleaved", "half"])
+def test_gpu_single_block_under_autograd_rotates_in_l_only(layout):
+    """A full-width single block with RoPE tables under autograd with a
+    LoRA: L takes the rotation and L' its transpose (no plain rotation
+    runs: chip_smoke.rope_calls), J-M and J'-M' once each; the LoRA
+    gradients within 5% RMS of the all-plain route, which rotates with
+    attention's plain rope_qk."""
+    from chip_smoke import plain_block_route, rope_calls
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.config import FluxConfig
+    from visualcloze_tpu_torch.models import layers
+    from visualcloze_tpu_torch.models.init import init_linears_, materialize
+    from visualcloze_tpu_torch.models.lora import init_lora, tree_items
+
+    dev = _cuda_or_skip()
+    cfg = FluxConfig()
+    g = torch.Generator(device=dev).manual_seed(6)
+    block = materialize(lambda: layers.SingleBlock(cfg), dev, torch.bfloat16)
+    init_linears_(block, g)
+    block.norm.q_scale.data.fill_(1.0)
+    block.norm.k_scale.data.fill_(1.0)
+    lora = init_lora(block, 16, generator=g)
+    leaves = []
+    for path, t in tree_items(lora):
+        if path.endswith(".b"):
+            t.normal_(0.0, 0.02, generator=g)
+        leaves.append(t.requires_grad_())
+    x = torch.randn((1, 64, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    vec = torch.randn((1, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    pe = _rope_tables(dev, g, 1, 64)
+    cot = torch.randn((1, 64, cfg.hidden_size), generator=g, device=dev)
+
+    def grads():
+        out = block(x, vec, pe, None, lora, rope_layout=layout)
+        return [t.float() for t in torch.autograd.grad((out.float() * cot).sum(), leaves)]
+
+    ops.reset_kernel_launches()
+    with rope_calls() as seen:
+        got = grads()
+    launches = ops.kernel_launches()
+    with plain_block_route():
+        want = grads()
+    names = ("layernorm_modulate", "gated_residual", "qk_norm_split", "merge_heads")
+    assert not any(seen.values()), seen
+    assert {n: launches[n] for n in names} == dict.fromkeys(names, 1), launches
+    assert {n: launches[f"{n}_bwd"] for n in names} == dict.fromkeys(names, 1), launches
+    num = sum((a - b).pow(2).sum() for a, b in zip(got, want))
+    den = sum(b.pow(2).sum() for b in want)
+    assert (num / den).sqrt().item() <= 5e-2

@@ -50,6 +50,13 @@ __device__ __forceinline__ void stage2(uint32_t addr, float a, float b, const fl
   asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
 }
 
+// v rounded to bf16, plus a bf16 bias b in fp32 (the caller rounds the sum):
+// a linear's bf16 output y, then the bf16 `y + b` (as PyTorch adds two bf16
+// tensors: in fp32, one rounding)
+__device__ __forceinline__ float add_bias(float v, float b) {
+  return __fadd_rn(__bfloat162float(__float2bfloat16_rn(v)), b);
+}
+
 // a bf16 pair times s in fp32, rounded back to bf16: bf16(q * scale * log2(e))
 __device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
   const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));

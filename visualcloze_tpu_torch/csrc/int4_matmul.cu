@@ -42,14 +42,17 @@
 //     A stage lies inside one scale group (g
 //     is a multiple of 64), so a thread keeps the 16 scales of its columns
 //     in registers and reloads them when the group changes;
-//   - the consumers run at setmaxnreg 192, and the epilogue only rounds.
+//   - the consumers run at setmaxnreg 192, and the epilogue only rounds
+//     (given a bias (N,) bf16, bf16 output only: to bf16, then + b[n] in
+//     fp32, rounded again, bf16(float(bf16(acc)) + float(b[n])), JAX's
+//     linear's bias add, where the port once ran a bf16 pass over y).
 //
 // Small M (M <= SMALL_M; in the query only M = 1), int4_gemv: no tensor
 // cores. A CTA of 8 warps owns 64 columns; each thread streams 16 columns of
 // 4 consecutive packed rows (8 K rows, one scale group) a step with 16-byte
 // loads, dequantizes them as above (bf16-rounded, as the MMA sees them) and
 // sums against x held in shared memory in fp32; the 64 slices of K are
-// reduced in a fixed order.
+// reduced in a fixed order; then the bias, as above.
 //
 // No atomics and no split of K across CTAs: the order of every sum is fixed,
 // so two launches give the same bits.
@@ -185,7 +188,7 @@ constexpr int GV_KCH = 1024;               // rows of x staged in shared memory 
 template <typename OutT, int MR>
 __global__ void __launch_bounds__(GV_THREADS)
     int4_gemv(const bf16* __restrict__ x, const uint8_t* __restrict__ w, const float* __restrict__ scale,
-              OutT* __restrict__ y, int M, int N, int K, int group) {
+              const bf16* __restrict__ bias, OutT* __restrict__ y, int M, int N, int K, int group) {
   __shared__ float xs[MR][GV_KCH];
   __shared__ float red[GV_WARPS][MR][GV_COLS];
   const int n0 = blockIdx.x * GV_COLS, m0 = blockIdx.y * MR;
@@ -261,43 +264,48 @@ __global__ void __launch_bounds__(GV_THREADS)
     float v = 0.0f;
 #pragma unroll
     for (int wi = 0; wi < GV_WARPS; ++wi) v += red[wi][m][cc];
+    if (bias != nullptr) v = add_bias(v, __bfloat162float(bias[n0 + cc]));  // bf16 out only
     store1(y + (size_t)(m0 + m) * N + n0 + cc, v);
   }
 }
 
 template <typename OutT>
-int launch_gemv(const bf16* x, const uint8_t* w, const float* scale, OutT* y, int M, int N, int K, int group,
-                cudaStream_t s) {
+int launch_gemv(const bf16* x, const uint8_t* w, const float* scale, const bf16* bias, OutT* y, int M, int N, int K,
+                int group, cudaStream_t s) {
   const int cols = (N + GV_COLS - 1) / GV_COLS;
   if (M == 1)
-    int4_gemv<OutT, 1><<<dim3(cols, 1), GV_THREADS, 0, s>>>(x, w, scale, y, M, N, K, group);
+    int4_gemv<OutT, 1><<<dim3(cols, 1), GV_THREADS, 0, s>>>(x, w, scale, bias, y, M, N, K, group);
   else
-    int4_gemv<OutT, 4><<<dim3(cols, (M + 3) / 4), GV_THREADS, 0, s>>>(x, w, scale, y, M, N, K, group);
+    int4_gemv<OutT, 4><<<dim3(cols, (M + 3) / 4), GV_THREADS, 0, s>>>(x, w, scale, bias, y, M, N, K, group);
   return (int)cudaGetLastError();
 }
 
 template <typename OutT>
-int launch(const void* x, const void* w, const float* scale, OutT* y, int M, int N, int K, int group, int pair,
-           cudaStream_t s) {
+int launch(const void* x, const void* w, const float* scale, const bf16* bias, OutT* y, int M, int N, int K,
+           int group, int pair, cudaStream_t s) {
   if (M <= SMALL_M)
-    return launch_gemv(static_cast<const bf16*>(x), static_cast<const uint8_t*>(w), scale, y, M, N, K, group, s);
-  return launch_wide<Int4Convert>(x, w, scale, y, M, N, K, group, pair, s);
+    return launch_gemv(static_cast<const bf16*>(x), static_cast<const uint8_t*>(w), scale, bias, y, M, N, K, group,
+                       s);
+  return launch_wide<Int4Convert>(x, w, scale, bias, y, M, N, K, group, pair, s);
 }
 
 }  // namespace
 
 // Kernel G4. x (M, K) bf16, w (K/2, N) uint8 (two codes a byte, the low
-// nibble the even row), scale (K/group, N) fp32, y (M, N) bf16 (out_f32 = 0)
-// or fp32 (out_f32 = 1), all contiguous and 16-byte aligned; K and group
-// multiples of 64, K of group, N a multiple of 16; pair: the wide body's
-// CTAs in clusters of two (ops/int8_matmul.py:wide_pairs decides). Launches
-// on `stream`; returns a cudaError_t (0 on success).
-extern "C" int int4_matmul(const void* x, const void* w, const void* scale, void* y, int M, int N, int K,
-                           int group, int out_f32, int pair, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || group <= 0 || K % BK || group % BK || K % group || N % 16)
+// nibble the even row), scale (K/group, N) fp32, bias (N,) bf16 or null, y
+// (M, N) bf16 (out_f32 = 0) or fp32 (out_f32 = 1, no bias), x, w, scale and
+// y contiguous and 16-byte aligned, bias contiguous; K and group multiples
+// of 64, K of group, N a multiple of 16; pair: the wide body's CTAs in
+// clusters of two (ops/int8_matmul.py:wide_pairs decides). Launches on
+// `stream`; returns a cudaError_t (0 on success).
+extern "C" int int4_matmul(const void* x, const void* w, const void* scale, const void* bias, void* y, int M, int N,
+                           int K, int group, int out_f32, int pair, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || group <= 0 || K % BK || group % BK || K % group || N % 16 ||
+      (out_f32 && bias != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(scale);
-  if (out_f32) return launch<float>(x, w, sp, static_cast<float*>(y), M, N, K, group, pair, s);
-  return launch<bf16>(x, w, sp, static_cast<bf16*>(y), M, N, K, group, pair, s);
+  const bf16* bp = static_cast<const bf16*>(bias);
+  if (out_f32) return launch<float>(x, w, sp, nullptr, static_cast<float*>(y), M, N, K, group, pair, s);
+  return launch<bf16>(x, w, sp, bp, static_cast<bf16*>(y), M, N, K, group, pair, s);
 }

@@ -26,7 +26,9 @@
 //     and writes are free of bank conflicts (piece_offsets);
 //   - the consumers run at setmaxnreg 200, and the epilogue scales the sums
 //     by scale[n] in fp32 (each scale loaded once per column a thread holds)
-//     before the one rounding.
+//     before the one rounding; given a bias (N,) bf16 (bf16 output only),
+//     it then adds b[n] as JAX's linear does, bf16(float(bf16(acc *
+//     scale[n])) + float(b[n])), where the port once ran a bf16 pass over y.
 // On the H100 the convert, not the tensor cores, sets the pace (PERF.md):
 // hence eight transform warps and piece offsets computed once, and the
 // CTAs in pairs along M where that adds no wave (each CTA converts half of
@@ -37,7 +39,7 @@
 // columns of every 64th weight row with 16-byte loads, several in flight,
 // against x held in shared memory in fp32 (in chunks of K), and sums in fp32;
 // the 64 slices of K are reduced in a fixed order (shuffles within a warp,
-// then shared memory across warps), then the same epilogue.
+// then shared memory across warps), then the same epilogue (and bias).
 //
 // No atomics and no split of K across CTAs: the order of every sum is fixed,
 // so two launches give the same bits.
@@ -150,7 +152,7 @@ constexpr int GV_UNROLL = 4;                   // 16-byte weight loads in flight
 template <typename OutT, int MR>
 __global__ void __launch_bounds__(GV_THREADS)
     int8_gemv(const bf16* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
-              OutT* __restrict__ y, int M, int N, int K) {
+              const bf16* __restrict__ bias, OutT* __restrict__ y, int M, int N, int K) {
   __shared__ float xs[MR][GV_KCH];
   __shared__ float red[GV_WARPS][MR][GV_COLS];
   const int n0 = blockIdx.x * GV_COLS, m0 = blockIdx.y * MR;
@@ -223,40 +225,46 @@ __global__ void __launch_bounds__(GV_THREADS)
     float v = 0.0f;
 #pragma unroll
     for (int wi = 0; wi < GV_WARPS; ++wi) v += red[wi][m][cc];
-    store1(y + (size_t)(m0 + m) * N + n0 + cc, v * __ldg(scale + n0 + cc));
+    v *= __ldg(scale + n0 + cc);
+    if (bias != nullptr) v = add_bias(v, __bfloat162float(bias[n0 + cc]));  // bf16 out only
+    store1(y + (size_t)(m0 + m) * N + n0 + cc, v);
   }
 }
 
 template <typename OutT>
-int launch_gemv(const bf16* x, const int8_t* w, const float* scale, OutT* y, int M, int N, int K, cudaStream_t s) {
+int launch_gemv(const bf16* x, const int8_t* w, const float* scale, const bf16* bias, OutT* y, int M, int N, int K,
+                cudaStream_t s) {
   const int cols = (N + GV_COLS - 1) / GV_COLS;
   if (M == 1)
-    int8_gemv<OutT, 1><<<dim3(cols, 1), GV_THREADS, 0, s>>>(x, w, scale, y, M, N, K);
+    int8_gemv<OutT, 1><<<dim3(cols, 1), GV_THREADS, 0, s>>>(x, w, scale, bias, y, M, N, K);
   else
-    int8_gemv<OutT, 4><<<dim3(cols, (M + 3) / 4), GV_THREADS, 0, s>>>(x, w, scale, y, M, N, K);
+    int8_gemv<OutT, 4><<<dim3(cols, (M + 3) / 4), GV_THREADS, 0, s>>>(x, w, scale, bias, y, M, N, K);
   return (int)cudaGetLastError();
 }
 
 template <typename OutT>
-int launch(const void* x, const void* w, const float* scale, OutT* y, int M, int N, int K, int pair,
-           cudaStream_t s) {
+int launch(const void* x, const void* w, const float* scale, const bf16* bias, OutT* y, int M, int N, int K,
+           int pair, cudaStream_t s) {
   if (M <= SMALL_M)
-    return launch_gemv(static_cast<const bf16*>(x), static_cast<const int8_t*>(w), scale, y, M, N, K, s);
-  return launch_wide<Int8Convert>(x, w, scale, y, M, N, K, 0, pair, s);
+    return launch_gemv(static_cast<const bf16*>(x), static_cast<const int8_t*>(w), scale, bias, y, M, N, K, s);
+  return launch_wide<Int8Convert>(x, w, scale, bias, y, M, N, K, 0, pair, s);
 }
 
 }  // namespace
 
-// Kernel G. x (M, K) bf16, w (K, N) int8, scale (N,) fp32, y (M, N) bf16
-// (out_f32 = 0) or fp32 (out_f32 = 1), all contiguous and 16-byte aligned;
-// K a multiple of 64, N a multiple of 16; pair: the wide body's CTAs in
+// Kernel G. x (M, K) bf16, w (K, N) int8, scale (N,) fp32, bias (N,) bf16
+// or null, y (M, N) bf16 (out_f32 = 0) or fp32 (out_f32 = 1, no bias), x,
+// w, scale and y contiguous and 16-byte aligned, bias contiguous; K a
+// multiple of 64, N a multiple of 16; pair: the wide body's CTAs in
 // clusters of two (ops/int8_matmul.py:wide_pairs decides). Launches on
 // `stream`; returns a cudaError_t (0 on success).
-extern "C" int int8_matmul(const void* x, const void* w, const void* scale, void* y, int M, int N, int K,
-                           int out_f32, int pair, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % BK || N % 16) return (int)cudaErrorInvalidValue;
+extern "C" int int8_matmul(const void* x, const void* w, const void* scale, const void* bias, void* y, int M, int N,
+                           int K, int out_f32, int pair, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % BK || N % 16 || (out_f32 && bias != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(scale);
-  if (out_f32) return launch<float>(x, w, sp, static_cast<float*>(y), M, N, K, pair, s);
-  return launch<bf16>(x, w, sp, static_cast<bf16*>(y), M, N, K, pair, s);
+  const bf16* bp = static_cast<const bf16*>(bias);
+  if (out_f32) return launch<float>(x, w, sp, nullptr, static_cast<float*>(y), M, N, K, pair, s);
+  return launch<bf16>(x, w, sp, bp, static_cast<bf16*>(y), M, N, K, pair, s);
 }

@@ -56,7 +56,13 @@
 //   - the epilogue scales the sums by scale[n] in fp32 where the policy
 //     leaves the scale to it (Cv::EPILOGUE_SCALE; each consumer thread
 //     loads one column's before the products and the epilogue exchanges
-//     them through the w ring), rounds once into the x ring (free once both
+//     them through the w ring), and where a bias is given (BIAS, bf16 out
+//     only) rounds that to bf16 and adds the column's bf16 bias in fp32,
+//     bf16(float(bf16(acc * scale[n])) + float(b[n])): the arithmetic of
+//     the product rounded to bf16 and then `y + b` in bf16, as JAX's linear
+//     adds its bias to the dot's output (loaded and exchanged as the
+//     scales are, so the bias costs no pass over y and the no-bias body is
+//     the one it was), rounds once into the x ring (free once both
 //     warpgroups' last products are done; the B ring may still feed the
 //     peer's last copy: a bf16 tile at once, fp32 in two halves) as
 //     128-byte-swizzled boxes of 64 rows, each stored by TMA: rows and
@@ -146,11 +152,12 @@ struct Layout {
 // 256, or N where N < 256); x_bytes: what TMA brings of a warpgroup's 64
 // rows of an x tile; ty: y's
 // map, boxes of 64 rows x 128 bytes, 128-byte swizzle
-template <class Cv, typename OutT>
+template <class Cv, typename OutT, bool BIAS>
 __global__ void __launch_bounds__(NT, 1)
     matmul_wide(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-                const __grid_constant__ CUtensorMap ty, const float* __restrict__ scale, int M, int N, int K,
-                int group, int wpitch, uint32_t x_bytes) {
+                const __grid_constant__ CUtensorMap ty, const float* __restrict__ scale,
+                const bf16* __restrict__ bias, int M, int N, int K, int group, int wpitch, uint32_t x_bytes) {
+  static_assert(!BIAS || sizeof(OutT) == 2, "the bias is added to a bf16 output only");
   using L = Layout<Cv>;
   constexpr int CL = L::CL, BST = L::BST;
   constexpr int CONSUMER_WARPS = 8, HALF_BYTES = B_BYTES / 2;
@@ -232,6 +239,7 @@ __global__ void __launch_bounds__(NT, 1)
     const int c = wg - 2, tid = threadIdx.x % 128, ci = 128 * c + tid;
     // the epilogue's scale of column n0 + ci, loaded while the products run
     const float sc_col = Cv::EPILOGUE_SCALE && n0 + ci < N ? __ldg(scale + n0 + ci) : 1.0f;
+    const bf16 b_col = BIAS && n0 + ci < N ? bias[n0 + ci] : __float2bfloat16_rn(0.0f);  // likewise its bias
     // the warpgroup's first thread loads its 64 rows of each x tile (64 K,
     // bf16, 128-byte swizzle: the K-major A operand; rows past M arrive as
     // zeros) into the ring: the first STAGES, then each stage's refill once
@@ -282,7 +290,8 @@ __global__ void __launch_bounds__(NT, 1)
     wgmma_wait0();
     fence_operands<128>(acc);
 
-    // epilogue: acc (* scale[n]) in fp32, one rounding to OutT (N is a
+    // epilogue: acc (* scale[n]) in fp32, one rounding to OutT (with a
+    // bias: that rounded to bf16, + bias[n] in fp32, rounded again; N is a
     // multiple of 16, so a live column pair is whole), staged in the x ring
     // once both warpgroups are done with it (a bf16 tile at once, fp32 in
     // two halves), each warpgroup's 64 rows as boxes of 128-byte rows, and
@@ -296,9 +305,12 @@ __global__ void __launch_bounds__(NT, 1)
     // + 1024 (8 rows of 128 bytes)
     const uint32_t tb = st + r * 128 + ((2 * E * t) ^ ((r & 7) << 4));
     named_barrier<3, 256>();  // both warpgroups' last products have read the x ring
-    const uint32_t col_s = base + L::SM_W;  // the w ring, read by the transform long before: the tile's scales
-    if constexpr (Cv::EPILOGUE_SCALE) {
-      sts32(col_s + 4 * ci, __float_as_uint(sc_col));
+    // the w ring, read by the transform long before: the tile's scales (fp32)
+    // and, after them, its bias (bf16)
+    const uint32_t col_s = base + L::SM_W, col_b = col_s + 4 * BN;
+    if constexpr (Cv::EPILOGUE_SCALE || BIAS) {
+      if constexpr (Cv::EPILOGUE_SCALE) sts32(col_s + 4 * ci, __float_as_uint(sc_col));
+      if constexpr (BIAS) sts16(col_b + 2 * ci, __bfloat16_as_ushort(b_col));
       named_barrier<3, 256>();
     }
 #pragma unroll
@@ -312,8 +324,15 @@ __global__ void __launch_bounds__(NT, 1)
           s1 = sw.y;
         }
         const uint32_t a = (tb + cj / BOX_COLS * OUT_BOX) ^ (cj % BOX_COLS * E);
-        stage2(a, acc[4 * j] * s0, acc[4 * j + 1] * s1, (OutT*)nullptr);
-        stage2(a + 1024, acc[4 * j + 2] * s0, acc[4 * j + 3] * s1, (OutT*)nullptr);
+        if constexpr (BIAS) {
+          const uint32_t bb = lds32(col_b + 2 * cl);
+          const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bb));
+          stage2(a, add_bias(acc[4 * j] * s0, b.x), add_bias(acc[4 * j + 1] * s1, b.y), (OutT*)nullptr);
+          stage2(a + 1024, add_bias(acc[4 * j + 2] * s0, b.x), add_bias(acc[4 * j + 3] * s1, b.y), (OutT*)nullptr);
+        } else {
+          stage2(a, acc[4 * j] * s0, acc[4 * j + 1] * s1, (OutT*)nullptr);
+          stage2(a + 1024, acc[4 * j + 2] * s0, acc[4 * j + 3] * s1, (OutT*)nullptr);
+        }
       }
       if ((8 * j + 8) % CHUNK == 0) {  // a chunk is staged: store it
         const int c0 = n0 + 8 * j + 8 - CHUNK;  // its first column
@@ -335,11 +354,11 @@ __global__ void __launch_bounds__(NT, 1)
   if constexpr (CL == 2) cluster_sync();  // the peer no longer touches this CTA's shared memory
 }
 
-// x (M, K) bf16, w the stored (K / Cv::PACK, N) bytes row-major; returns a
-// cudaError_t or CUresult (0 on success)
-template <class Cv, typename OutT>
-int launch_wide(const void* x, const void* w, const float* scale, OutT* y, int M, int N, int K, int group,
-                cudaStream_t s) {
+// x (M, K) bf16, w the stored (K / Cv::PACK, N) bytes row-major, bias (N,)
+// bf16 or null (BIAS); returns a cudaError_t or CUresult (0 on success)
+template <class Cv, typename OutT, bool BIAS>
+int launch_wide(const void* x, const void* w, const float* scale, const bf16* bias, OutT* y, int M, int N, int K,
+                int group, cudaStream_t s) {
   using L = Layout<Cv>;
   CUtensorMap m[3];
   const int xrows = M < 64 ? M : 64, wpitch = N < BN ? N : BN;  // boxes no larger than the tensor
@@ -368,21 +387,30 @@ int launch_wide(const void* x, const void* w, const float* scale, OutT* y, int M
                          E == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
     if (err) return err;
   }
-  cudaError_t e =
-      cudaFuncSetAttribute(matmul_wide<Cv, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+  cudaError_t e = cudaFuncSetAttribute(matmul_wide<Cv, OutT, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)L::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int mt = (M + BM - 1) / BM;
   const dim3 grid((mt + L::CL - 1) / L::CL * L::CL, (N + BN - 1) / BN);  // M rounded up to whole clusters
-  return launch_cluster(matmul_wide<Cv, OutT>, grid, NT, L::SMEM, s, L::CL, m[0], m[1], m[2], scale, M, N, K, group,
-                        wpitch, (uint32_t)(xrows * BK * 2));
+  return launch_cluster(matmul_wide<Cv, OutT, BIAS>, grid, NT, L::SMEM, s, L::CL, m[0], m[1], m[2], scale, bias, M,
+                        N, K, group, wpitch, (uint32_t)(xrows * BK * 2));
 }
 
-// the wide body of policy Pol, its CTAs paired (pair != 0) or alone
+// the wide body of policy Pol, its CTAs paired (pair != 0) or alone, with a
+// bias (bf16 out only) where bias is not null
 template <template <int> class Pol, typename OutT>
-int launch_wide(const void* x, const void* w, const float* scale, OutT* y, int M, int N, int K, int group, int pair,
-                cudaStream_t s) {
-  if (pair) return launch_wide<Pol<2>, OutT>(x, w, scale, y, M, N, K, group, s);
-  return launch_wide<Pol<1>, OutT>(x, w, scale, y, M, N, K, group, s);
+int launch_wide(const void* x, const void* w, const float* scale, const bf16* bias, OutT* y, int M, int N, int K,
+                int group, int pair, cudaStream_t s) {
+  if constexpr (sizeof(OutT) == 2) {
+    if (bias != nullptr) {
+      if (pair) return launch_wide<Pol<2>, OutT, true>(x, w, scale, bias, y, M, N, K, group, s);
+      return launch_wide<Pol<1>, OutT, true>(x, w, scale, bias, y, M, N, K, group, s);
+    }
+  } else if (bias != nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (pair) return launch_wide<Pol<2>, OutT, false>(x, w, scale, nullptr, y, M, N, K, group, s);
+  return launch_wide<Pol<1>, OutT, false>(x, w, scale, nullptr, y, M, N, K, group, s);
 }
 
 }  // namespace wide

@@ -55,9 +55,9 @@ from torch import nn
 
 from ..config import FluxConfig
 from ..ops.act_quant import act_quant_int8
-from ..ops.attention import attention, rope_qk
+from ..ops.attention import RingSpec, attention
 from ..ops.block_fusions import (apply_gated_residual, apply_layernorm_modulate, apply_qk_norm_split,
-                                 gated_residual_plain, layernorm_modulate_plain, qk_norm_split_plain)
+                                 gated_residual_plain, layernorm_modulate_plain, qk_norm_split_plain, wants_grad)
 from ..parallel.collectives import all_gather_cat, copy_to, reduce_from
 from ..ops.int4_matmul import int4_matmul
 from ..ops.int8_matmul import int8_matmul
@@ -191,8 +191,10 @@ class _LinearForward:
         return y
 
 
-def _with_bias(y: torch.Tensor, bias) -> torch.Tensor:
-    return y if bias is None else y + bias.to(y.dtype)
+def _bf16_or_none(bias):
+    """A weight-only linear's bias as kernels G and G4 add it to their bf16
+    output: rounded to bf16 (a no-op for the bf16 models), as `y + b` casts it."""
+    return None if bias is None else bias.to(torch.bfloat16)
 
 
 def lora_delta_dtype(linear: nn.Module) -> torch.dtype:
@@ -228,8 +230,8 @@ class Int8Linear(_LinearForward, nn.Module):
     """The int8 weight-only linear (JAX `linear`'s "w_int8" branch): buffers
     w_int8 (in, out) int8 and w_scale (out,) fp32, as the JAX entry stores
     them, and a bias in the compute dtype. y = bf16(x) @ (w_int8 * w_scale)
-    through kernel G (its plain version for CPU tensors), + b, + the LoRA
-    delta. G rounds once, after the fp32 rescale; JAX rounds the bf16 dot to
+    + bf16(b) through kernel G, the bias in its epilogue (its plain version
+    for CPU tensors), + the LoRA delta. G rounds once, after the fp32 rescale; JAX rounds the bf16 dot to
     bf16 first, so the two differ by at most one bf16 ulp."""
 
     lora_target = True  # models/lora.init_lora gives it a LoRA entry
@@ -242,7 +244,7 @@ class Int8Linear(_LinearForward, nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
     def _product(self, x, bias):
-        return _with_bias(int8_matmul(x.contiguous(), self.w_int8, self.w_scale), bias)
+        return int8_matmul(x.contiguous(), self.w_int8, self.w_scale, bias=_bf16_or_none(bias))
 
 
 INT4_GROUP = 128
@@ -262,8 +264,8 @@ class Int4DiTLinear(_LinearForward, nn.Module):
     quantize_flux_int4 entry): buffers w_int4 (in/2, out) uint8, two codes a
     byte (row 2i in the low nibble), and w_scale (in/group, out) fp32, as the
     JAX entry stores them, and a bias in the compute dtype. y = bf16(x) @
-    bf16(q * scale) through kernel G4 (its plain version for CPU tensors),
-    + b, + the LoRA delta. The dequantized weights equal JAX's bit for bit;
+    bf16(q * scale) + bf16(b) through kernel G4, the bias in its epilogue
+    (its plain version for CPU tensors), + the LoRA delta. The dequantized weights equal JAX's bit for bit;
     G4 sums in fp32 and rounds once, as JAX's bf16 dot does on the CPU."""
 
     lora_target = True  # models/lora.init_lora gives it a LoRA entry
@@ -277,7 +279,7 @@ class Int4DiTLinear(_LinearForward, nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
     def _product(self, x, bias):
-        return _with_bias(int4_matmul(x.contiguous(), self.w_int4, self.w_scale), bias)
+        return int4_matmul(x.contiguous(), self.w_int4, self.w_scale, bias=_bf16_or_none(bias))
 
 
 class W8A8Linear(_LinearForward, nn.Module):
@@ -387,6 +389,19 @@ def _input_dtype(linear: nn.Module) -> torch.dtype:
     return linear._x_dtype or torch.float32
 
 
+def _rope_in_l(pe, rope_layout: str, attn_impl, remat: bool, streams) -> tuple | None:
+    """The RoPE tables kernel L rotates q and k by on a block's fused route
+    (apply_qk_norm_split's pe; attention then takes none), or None: L
+    rotates on every route but kernel A's -- the half layout with no
+    gradient and no ring, where A rotates inside itself. Under the
+    two-segment remat (`remat`) the rotated q, k are the attention's saved
+    inputs, rotated inside the first segment, so L rotates there too."""
+    grad = remat or wants_grad(*(t for stream in streams for t in stream))
+    if rope_layout == "half" and not isinstance(attn_impl, RingSpec) and not grad:
+        return None
+    return pe
+
+
 def _modulate(x, mod, out_dtype: torch.dtype, fused: bool):
     """(1 + scale) * layer_norm(x) + shift as out_dtype: kernel J (J' its
     backward), or its plain version (calibration)."""
@@ -461,14 +476,14 @@ class DoubleBlock(nn.Module):
             txt_qkv = self._qkv(self.txt_attn, txt, txt_mod1, l.get("txt_attn", {}), lora_scale, st("txt_attn"),
                                 fused)
             streams = [(qkv, *attn.norm.scales()) for attn, qkv in ((self.txt_attn, txt_qkv), (self.img_attn, img_qkv))]
-            if fused:  # both streams into one joint buffer, txt first
-                q, k, v, _ = apply_qk_norm_split(streams, self.num_heads, img_qkv.shape[-1])
+            if fused:  # both streams into one joint buffer, txt first, rotated there where L rotates
+                pe_l = _rope_in_l(pe, rope_layout, attn_impl, seg is not None, streams)
+                q, k, v, _ = apply_qk_norm_split(streams, self.num_heads, img_qkv.shape[-1], pe_l, rope_layout)
             else:
+                pe_l = None
                 parts = [qk_norm_split_plain(*stream, self.num_heads) for stream in streams]
                 q, k, v = (torch.cat(ts, dim=2) for ts in zip(*parts))
-            if seg is not None:  # rotated q, k are the attention's saved inputs
-                q, k = rope_qk(q, k, pe, rope_layout)
-            return q, k, v, (img_mod1, img_mod2, txt_mod1, txt_mod2)
+            return q, k, v, pe_l, (img_mod1, img_mod2, txt_mod1, txt_mod2)
 
         def post(img, txt, attn, mods):
             img_mod1, img_mod2, txt_mod1, txt_mod2 = mods
@@ -487,8 +502,8 @@ class DoubleBlock(nn.Module):
 
         if seg is not None:
             pre, post = seg(pre), seg(post)
-        q, k, v, mods = pre(img, txt)
-        attn = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout,
+        q, k, v, pe_l, mods = pre(img, txt)
+        attn = attention(q, k, v, None if pe_l is not None else pe, mask=attn_mask, rope_layout=rope_layout,
                          impl=attn_impl, fused=fused)
         out = post(img, txt, attn, mods)
         return (out, stats) if collect_stats else out
@@ -531,13 +546,14 @@ class SingleBlock(nn.Module):
             h = self.linear1(x_mod, l.get("linear1"), lora_scale)
             cols = 3 * self.hidden_size
             if fused:  # the gelu half comes back through QKNormSplit, which owns h's gradient
-                q, k, v, mlp_h = apply_qk_norm_split([(h, *self.norm.scales())], self.num_heads, cols)
+                streams = [(h, *self.norm.scales())]
+                pe_l = _rope_in_l(pe, rope_layout, attn_impl, seg is not None, streams)
+                q, k, v, mlp_h = apply_qk_norm_split(streams, self.num_heads, cols, pe_l, rope_layout)
             else:
+                pe_l = None
                 q, k, v = qk_norm_split_plain(h[..., :cols], *self.norm.scales(), self.num_heads)
                 mlp_h = h[..., cols:]
-            if seg is not None:
-                q, k = rope_qk(q, k, pe, rope_layout)
-            return q, k, v, mlp_h, mod
+            return q, k, v, mlp_h, pe_l, mod
 
         def post(x, cat, mod):
             """cat: linear2's whole input, the merged heads and gelu of the
@@ -549,8 +565,8 @@ class SingleBlock(nn.Module):
 
         if seg is not None:
             pre, post = seg(pre), seg(post)
-        q, k, v, mlp_h, mod = pre(x)
-        cat = attention(q, k, v, None if seg is not None else pe, mask=attn_mask, rope_layout=rope_layout,
+        q, k, v, mlp_h, pe_l, mod = pre(x)
+        cat = attention(q, k, v, None if pe_l is not None else pe, mask=attn_mask, rope_layout=rope_layout,
                         impl=attn_impl, gelu=mlp_h, fused=fused)
         out = post(x, cat, mod)
         return (out, stats) if collect_stats else out

@@ -18,7 +18,9 @@ where eager PyTorch runs them as many fp32 passes over the token axis:
   - K: the gated residual, x + bf16(gate * fp32(y));
   - L: the head split of a qkv projection with the q/k RMSNorm, written
     into contiguous (B, H, L, D) buffers at a token offset (the double
-    block's txt and img streams land in one joint buffer);
+    block's txt and img streams land in one joint buffer), and given RoPE
+    tables the rotation of q and k that follows it (`rope_qk`, in either
+    layout; L' then applies the transposed rotation first);
   - M: attention's head merge with padded query rows zeroed and, in the
     single block, gelu(tanh) of the MLP half beside it: linear2's input.
 
@@ -48,6 +50,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from . import cuda_build
+from .rope import apply_rope, apply_rope_half
 
 BF16 = torch.bfloat16
 VEC = 8  # elements a thread loads at once: 16 bytes of bf16
@@ -60,11 +63,11 @@ MAX_ROW_BWD = 8 * 512
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _J_ARGTYPES = [_P, _LL, _LL, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _P]
 _K_ARGTYPES = [_P, _P, _P, _LL, _P, _I, _I, _I, _P]
-_L_ARGTYPES = [_P, _LL, _LL, _P, _P, _P, _P, _P] + [_I] * 6 + [_P]
+_L_ARGTYPES = [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _LL] + [_I] * 7 + [_P]
 _M_ARGTYPES = [_P, _P, _P, _LL, _LL, _P] + [_I] * 6 + [_P]
 _JB_ARGTYPES = [_P, _LL, _LL, _P, _LL, _P, _I, _P, _P, _P, _P] + [_I] * 4 + [_P]
 _KB_ARGTYPES = [_P, _P, _P, _LL, _P, _P, _P] + [_I] * 4 + [_P]
-_LB_ARGTYPES = [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P] + [_I] * 7 + [_P]
+_LB_ARGTYPES = [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _LL] + [_I] * 8 + [_P]
 _MB_ARGTYPES = [_P, _P, _P, _LL, _LL, _P, _P, _LL, _LL] + [_I] * 5 + [_P]
 SM_COUNT = 132  # the H100 SXM's SMs: K' and L''s row chunks aim at two CTAs on each, J''s CTAs at one
 
@@ -123,7 +126,7 @@ def _check_rows(name: str, what: str, t: torch.Tensor, dtype) -> None:
              f"{what} needs a contiguous last axis of a multiple of {VEC} and 16-byte aligned rows")
 
 
-def _wants_grad(*ts) -> bool:
+def wants_grad(*ts) -> bool:
     """Whether autograd records a call on these tensors (None skipped)."""
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
 
@@ -226,14 +229,37 @@ gated_residual.launches = 0
 # ----------------------------- L: head split + q/k RMSNorm -----------------------------
 
 
+ROPE_LAYOUTS = {"interleaved": 1, "half": 2}  # the kernels' codes of the two RoPE layouts
+
+
+def _rope_fn(rope_layout: str):
+    """The plain rotation of a layout (ops/rope.py, as attention's rope_qk picks it)."""
+    if rope_layout not in ROPE_LAYOUTS:
+        raise ValueError(f"unknown rope_layout {rope_layout!r}")
+    return apply_rope_half if rope_layout == "half" else apply_rope
+
+
+def _table_rows(pe, offset: int, length: int):
+    """cos, sin (B, L_total, D/2) -> their rows [offset, offset + length),
+    broadcast over heads: (B, 1, length, D/2)."""
+    return tuple(t[:, None, offset:offset + length] for t in pe)
+
+
 def qk_norm_split_plain(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, num_heads: int,
-                        out: tuple | None = None, offset: int = 0):
+                        out: tuple | None = None, offset: int = 0, pe: tuple | None = None,
+                        rope_layout: str = "interleaved"):
     """Plain PyTorch version of kernel L: split_heads, then rms_norm of q and k
-    with their scales, cast to v's dtype; written into `out` (three (B, H,
-    L_total, D) buffers) at tokens [offset, offset + L) when given.
-    Returns (q, k, v): the buffers, or new (B, H, L, D) tensors."""
+    with their scales, cast to v's dtype; given pe = (cos, sin) (B, L_total,
+    D/2) fp32, then q and k rotated in `rope_layout` as attention's rope_qk
+    does (in fp32, rounded back), with the tables' rows [offset, offset + L);
+    written into `out` (three (B, H, L_total, D) buffers) at tokens [offset,
+    offset + L) when given. Returns (q, k, v): the buffers, or new (B, H, L,
+    D) tensors."""
     q, k, v = split_heads(qkv, num_heads)
     q, k = rms_norm(q, q_scale).to(v.dtype), rms_norm(k, k_scale).to(v.dtype)
+    if pe is not None:
+        rope, (cos, sin) = _rope_fn(rope_layout), _table_rows(pe, offset, q.shape[2])
+        q, k = rope(q, cos, sin), rope(k, cos, sin)
     if out is None:
         return q, k, v
     for buf, t in zip(out, (q, k, v)):
@@ -249,15 +275,39 @@ def qkv_buffers(qkv: torch.Tensor, num_heads: int, length: int) -> tuple:
     return tuple(torch.empty(shape, dtype=qkv.dtype, device=qkv.device) for _ in range(3))
 
 
+def _rope_args(name: str, pe, rope_layout: str, b: int, total: int, d: int) -> tuple:
+    """The kernels' (cos, sin, batch stride, layout code) of pe, checked: None
+    -> no rotation; else fp32 CUDA (B or 1, L_total, D/2) tables with
+    contiguous 16-byte aligned rows, in a known layout (the half one wants
+    D / 8 >= 2: a pair's partner in another lane)."""
+    if pe is None:
+        return None, None, 0, 0
+    _require(rope_layout in ROPE_LAYOUTS, name, f"unknown rope_layout {rope_layout!r}")
+    _require(rope_layout != "half" or d // VEC >= 2, name, f"the half layout needs D >= {2 * VEC}, got {d}")
+    cos, sin = pe
+    for what, t in (("cos", cos), ("sin", sin)):
+        _require(t.is_cuda and t.dtype == torch.float32 and t.dim() == 3 and t.shape[0] in (1, b)
+                 and tuple(t.shape[1:]) == (total, d // 2), name,
+                 f"{what} must be a CUDA float32 ({b} or 1, {total}, {d // 2}), got {t.dtype} {tuple(t.shape)}")
+        _require(t.stride(2) == 1 and t.stride(1) == d // 2 and t.data_ptr() % 16 == 0
+                 and (t.shape[0] == 1 or t.stride(0) % 4 == 0), name,
+                 f"{what} needs contiguous 16-byte aligned rows")
+    _require(cos.stride() == sin.stride() and cos.shape == sin.shape, name, "cos and sin must match")
+    return cos, sin, 0 if cos.shape[0] == 1 else cos.stride(0), ROPE_LAYOUTS[rope_layout]
+
+
 def qk_norm_split(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, num_heads: int,
-                  out: tuple | None = None, offset: int = 0):
+                  out: tuple | None = None, offset: int = 0, pe: tuple | None = None,
+                  rope_layout: str = "interleaved"):
     """Kernel L: qkv (B, L, 3*H*D) -> q, k RMS-normalized and v, each
-    (B, H, L, D), or written into `out` (qkv_buffers) at token `offset`.
+    (B, H, L, D), or written into `out` (qkv_buffers) at token `offset`;
+    given pe = (cos, sin) (B or 1, L_total, D/2) fp32, q and k rotated in
+    `rope_layout` (rows offset + l), as qk_norm_split_plain.
     On CUDA qkv is bf16 with a contiguous last axis (its rows may be
     strided: linear1's first 3*H*D columns), D / 8 a power of two up to 32;
     the scales (D,) are cast to bf16, as rms_norm casts them."""
     if qkv.device.type == "cpu":
-        return qk_norm_split_plain(qkv, q_scale, k_scale, num_heads, out, offset)
+        return qk_norm_split_plain(qkv, q_scale, k_scale, num_heads, out, offset, pe, rope_layout)
     name = "qk_norm_split"
     _check_rows(name, "qkv", qkv, BF16)
     b, l, f = qkv.shape
@@ -280,9 +330,11 @@ def qk_norm_split(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tenso
         _require(s.is_cuda and tuple(s.shape) == (d,) and s.data_ptr() % 16 == 0, name,
                  f"{what} must be a 16-byte aligned CUDA ({d},)")
         scales.append(s)
+    cos, sin, tb, rope = _rope_args(name, pe, rope_layout, b, total, d)
     kernel = cuda_build.load(name, _L_ARGTYPES)
     status = kernel(_ptr(qkv), qkv.stride(0), qkv.stride(1), _ptr(scales[0]), _ptr(scales[1]), _ptr(out[0]),
-                    _ptr(out[1]), _ptr(out[2]), b, l, num_heads, d, total, offset, _stream())
+                    _ptr(out[1]), _ptr(out[2]), _ptr(cos), _ptr(sin), tb, rope, b, l, num_heads, d, total, offset,
+                    _stream())
     cuda_build.check(name, status)
     cuda_build.count_launch(qk_norm_split)
     return out
@@ -459,10 +511,16 @@ gated_residual_bwd.launches = 0
 
 def qk_norm_split_bwd_plain(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, num_heads: int,
                             dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, offset: int = 0,
-                            out: torch.Tensor | None = None, need_scales: bool = False):
+                            out: torch.Tensor | None = None, need_scales: bool = False, pe: tuple | None = None,
+                            rope_layout: str = "interleaved"):
     """Plain PyTorch version of kernel L': the gradients of
-    qk_norm_split_plain(qkv, ..., offset=offset) given dq, dk, dv (B, H,
-    L_total, D), read at tokens [offset, offset + L). For q and k (x, its
+    qk_norm_split_plain(qkv, ..., offset=offset, pe=pe,
+    rope_layout=rope_layout) given dq, dk, dv (B, H, L_total, D), read at
+    tokens [offset, offset + L). Given pe, dq and dk are the rotated rows'
+    gradients: first the transposed rotation, the layout's rotation by
+    (cos, -sin) in fp32 rounded back to x's dtype (the values autograd's
+    backward of apply_rope and FlashMHARope's of apply_rope_half give),
+    which is then the d below. For q and k (x, its
     scale s): dn = fp32(bf16(dq * s)) (rms_norm's multiply in x's dtype),
     then in fp32 with n = x * rrms: dx = rrms * (dn - n * mean(dn * n));
     v's gradient is dv. dqkv (B, L, 3*H*D) in x's dtype, feature order (k,
@@ -479,6 +537,9 @@ def qk_norm_split_bwd_plain(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: t
         rrms = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + 1e-6)
         n = x32 * rrms
         d = dt[:, :, span]
+        if pe is not None:
+            cos, sin = _table_rows(pe, offset, l)
+            d = _rope_fn(rope_layout)(d, cos, -sin).to(x.dtype)
         dn = (d.to(x.dtype) * s.to(x.dtype)).to(torch.float32)
         grads.append((rrms * (dn - n * (dn * n).mean(dim=-1, keepdim=True))).to(x.dtype))
         if need_scales:
@@ -493,16 +554,19 @@ def qk_norm_split_bwd_plain(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: t
 
 def qk_norm_split_bwd(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, num_heads: int,
                       dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, offset: int = 0,
-                      out: torch.Tensor | None = None, need_scales: bool = False):
+                      out: torch.Tensor | None = None, need_scales: bool = False, pe: tuple | None = None,
+                      rope_layout: str = "interleaved"):
     """Kernel L': qk_norm_split_bwd_plain in one pass: a CTA a chunk of
     tokens and one of q, k, v, raw q and k re-read from qkv's strided rows,
-    dq, dk, dv read from (B, H, L_total, D) at `offset` (made contiguous),
+    dq, dk, dv read from (B, H, L_total, D) at `offset` (made contiguous;
+    given pe, the gradients of the rotated q and k, unrotated first),
     dqkv written in _split_heads' feature order into `out` (B, L, >= 3*H*D
     bf16, rows may be strided: linear1's gradient buffer) or a new (B, L,
     3*H*D); the scales' sums as per-CTA partials and a fixed-order second
     pass. Shapes as kernel L takes them, H * D at most 4096."""
     if qkv.device.type == "cpu":
-        return qk_norm_split_bwd_plain(qkv, q_scale, k_scale, num_heads, dq, dk, dv, offset, out, need_scales)
+        return qk_norm_split_bwd_plain(qkv, q_scale, k_scale, num_heads, dq, dk, dv, offset, out, need_scales, pe,
+                                       rope_layout)
     name = "qk_norm_split_bwd"
     _check_rows(name, "qkv", qkv, BF16)
     b, l, f = qkv.shape
@@ -531,6 +595,7 @@ def qk_norm_split_bwd(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.T
         _require(s.is_cuda and tuple(s.shape) == (d,) and s.data_ptr() % 16 == 0, name,
                  f"{what} must be a 16-byte aligned CUDA ({d},)")
         scales.append(s)
+    cos, sin, tb, rope = _rope_args(name, pe, rope_layout, b, total, d)
     rows = _rows_per_cta(b, l)
     partial = dscales = None
     if need_scales:
@@ -538,8 +603,8 @@ def qk_norm_split_bwd(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.T
         dscales = torch.empty((2, d), dtype=torch.float32, device=qkv.device)
     kernel = cuda_build.load(name, _LB_ARGTYPES)
     status = kernel(_ptr(qkv), qkv.stride(0), qkv.stride(1), _ptr(scales[0]), _ptr(scales[1]), *map(_ptr, grads),
-                    _ptr(out), out.stride(0), out.stride(1), _ptr(partial), _ptr(dscales), b, l, num_heads, d, total,
-                    offset, rows, _stream())
+                    _ptr(out), out.stride(0), out.stride(1), _ptr(partial), _ptr(dscales), _ptr(cos), _ptr(sin), tb,
+                    rope, b, l, num_heads, d, total, offset, rows, _stream())
     cuda_build.check(name, status)
     cuda_build.count_launch(qk_norm_split_bwd)
     return (out, dscales[0], dscales[1]) if need_scales else (out, None, None)
@@ -702,8 +767,11 @@ def _complete_rows(x: torch.Tensor, d_rest: torch.Tensor, cols: int) -> torch.Te
 class QKNormSplit(torch.autograd.Function):
     """qk_norm_split of one or more streams into one joint (B, H, sum L, D)
     q, k, v (in order, each at its token offset), kernel L' as the backward
-    (one launch a stream each way). The streams come flat: (x, q_scale,
-    k_scale) each, qkv = x[..., :qkv_cols]. A single stream wider than
+    (one launch a stream each way); given the RoPE tables cos, sin (B,
+    sum L, D/2; saved, no gradient) q and k come out rotated in
+    `rope_layout`, and L' takes the rotated rows' gradients. The streams
+    come flat: (x, q_scale, k_scale) each, qkv = x[..., :qkv_cols]. A
+    single stream wider than
     qkv_cols (the single block's linear1 output h) also returns its other
     columns (the gelu half) as a fourth output, which kernel M takes: M'
     writes that output's gradient into a (B, L, W) buffer (_grad_rows) and
@@ -712,31 +780,33 @@ class QKNormSplit(torch.autograd.Function):
     and no sum."""
 
     @staticmethod
-    def forward(ctx, num_heads, qkv_cols, *flat):
+    def forward(ctx, num_heads, qkv_cols, rope_layout, cos, sin, *flat):
         streams = [flat[i:i + 3] for i in range(0, len(flat), 3)]
-        out = _split_streams(streams, num_heads, qkv_cols)
-        ctx.num_heads, ctx.qkv_cols = num_heads, qkv_cols
-        ctx.save_for_backward(*flat)
+        pe = None if cos is None else (cos, sin)
+        out = _split_streams(streams, num_heads, qkv_cols, pe, rope_layout)
+        ctx.num_heads, ctx.qkv_cols, ctx.rope_layout = num_heads, qkv_cols, rope_layout
+        ctx.save_for_backward(cos, sin, *flat)
         rest = _rest_columns(streams, qkv_cols)
         return out if rest is None else (*out, rest)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dq, dk, dv, *d_rest):
-        flat, cols = ctx.saved_tensors, ctx.qkv_cols
+        cos, sin, *flat = ctx.saved_tensors
+        pe, cols = None if cos is None else (cos, sin), ctx.qkv_cols
         grads, offset = [], 0
         for i in range(0, len(flat), 3):
             x, q_scale, k_scale = flat[i:i + 3]
-            need_x, need_q, need_k = ctx.needs_input_grad[2 + i:5 + i]
+            need_x, need_q, need_k = ctx.needs_input_grad[5 + i:8 + i]
             dx = dqs = dks = None
             if need_x or need_q or need_k:
                 out = _complete_rows(x, d_rest[0], cols) if d_rest else None
                 dx, dqs, dks = qk_norm_split_bwd(x[..., :cols], q_scale, k_scale, ctx.num_heads, dq, dk, dv, offset,
-                                                 out, need_q or need_k)
+                                                 out, need_q or need_k, pe, ctx.rope_layout)
             grads += [dx if need_x else None, dqs.to(q_scale.dtype) if need_q else None,
                       dks.to(k_scale.dtype) if need_k else None]
             offset += x.shape[1]
-        return (None, None, *grads)
+        return (None, None, None, None, None, *grads)
 
 
 class MergeHeads(torch.autograd.Function):
@@ -762,25 +832,26 @@ class MergeHeads(torch.autograd.Function):
 
 def apply_layernorm_modulate(x, shift, scale, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel J; under autograd LayerNormModulate (J forward, J' backward)."""
-    if _wants_grad(x, shift, scale):
+    if wants_grad(x, shift, scale):
         return LayerNormModulate.apply(x, shift, scale, out_dtype)
     return layernorm_modulate(x, shift, scale, out_dtype)
 
 
 def apply_gated_residual(x, gate, y) -> torch.Tensor:
     """Kernel K; under autograd GatedResidual (K forward, K' backward)."""
-    if _wants_grad(x, gate, y):
+    if wants_grad(x, gate, y):
         return GatedResidual.apply(x, gate, y)
     return gated_residual(x, gate, y)
 
 
-def _split_streams(streams, num_heads: int, qkv_cols: int) -> tuple:
-    """Kernel L on each stream's x[..., :qkv_cols], into one joint buffer."""
+def _split_streams(streams, num_heads: int, qkv_cols: int, pe=None, rope_layout: str = "interleaved") -> tuple:
+    """Kernel L on each stream's x[..., :qkv_cols], into one joint buffer
+    (rotated by the joint sequence's tables pe, when given)."""
     first = streams[0][0][..., :qkv_cols]
     out = qkv_buffers(first, num_heads, sum(s[0].shape[1] for s in streams))
     offset = 0
     for x, q_scale, k_scale in streams:
-        qk_norm_split(x[..., :qkv_cols], q_scale, k_scale, num_heads, out, offset)
+        qk_norm_split(x[..., :qkv_cols], q_scale, k_scale, num_heads, out, offset, pe, rope_layout)
         offset += x.shape[1]
     return out
 
@@ -793,21 +864,23 @@ def _rest_columns(streams, qkv_cols: int):
     return None
 
 
-def apply_qk_norm_split(streams, num_heads: int, qkv_cols: int):
+def apply_qk_norm_split(streams, num_heads: int, qkv_cols: int, pe=None, rope_layout: str = "interleaved"):
     """Kernel L on each stream (x, q_scale, k_scale) of `streams`: q, k, v
     (B, H, sum L, D), the streams' tokens in order, each from x[...,
-    :qkv_cols]; under autograd QKNormSplit (L forward, L' backward). Returns
-    (q, k, v, rest): rest the other columns of a single stream wider than
-    qkv_cols (the single block's gelu half), else None."""
+    :qkv_cols], q and k rotated in `rope_layout` by pe = (cos, sin) (B, sum
+    L, D/2) when given; under autograd QKNormSplit (L forward, L' backward).
+    Returns (q, k, v, rest): rest the other columns of a single stream wider
+    than qkv_cols (the single block's gelu half), else None."""
     flat = [t for s in streams for t in s]
-    if _wants_grad(*flat):
-        out = QKNormSplit.apply(num_heads, qkv_cols, *flat)
+    if wants_grad(*flat):
+        cos, sin = pe if pe is not None else (None, None)
+        out = QKNormSplit.apply(num_heads, qkv_cols, rope_layout, cos, sin, *flat)
         return tuple(out) if len(out) == 4 else (*out, None)
-    return (*_split_streams(streams, num_heads, qkv_cols), _rest_columns(streams, qkv_cols))
+    return (*_split_streams(streams, num_heads, qkv_cols, pe, rope_layout), _rest_columns(streams, qkv_cols))
 
 
 def apply_merge_heads(x, mask=None, gelu=None) -> torch.Tensor:
     """Kernel M; under autograd MergeHeads (M forward, M' backward)."""
-    if _wants_grad(x, gelu):
+    if wants_grad(x, gelu):
         return MergeHeads.apply(x, mask, gelu)
     return merge_heads(x, mask, gelu)

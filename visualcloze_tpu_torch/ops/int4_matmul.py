@@ -11,7 +11,8 @@ uint8, two sign-extended 4-bit codes q a byte (row 2i in the low nibble, 2i+1
 in the high one); scale (K/g, N) fp32, one per (g-row input group, output
 column). Each weight is dequantized as JAX does it, an fp32 product rounded
 once to bf16, the bf16 x bf16 products are summed in fp32 and rounded once
-to `out_dtype`. It is the int4 DiT linear of the port (models/layers.
+to `out_dtype`; with a bias (N,) (bf16 output only) y + bias in bf16 after
+that, as JAX's `linear` adds it to the dot's output. It is the int4 DiT linear of the port (models/layers.
 Int4DiTLinear): a per-call dequantize would write a bf16 copy of every weight
 to device memory at every DiT evaluation. On the card the kernel takes
 M <= 16 rows (the modulation and embedder GEMVs) in a body that streams the
@@ -25,9 +26,9 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .int8_matmul import sm_count, wide_pairs
+from .int8_matmul import add_bias_plain, check_bias, sm_count, wide_pairs
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # a paired CTA's time for one tile over a lone CTA's, at the same K (0.84-0.87
 # on the H100, PERF.md): the pair halves G4's convert, which sets its pace
 PAIR_TIME = 0.85
@@ -49,13 +50,14 @@ def dequant_int4_plain(w_int4: torch.Tensor, scale: torch.Tensor, dtype: torch.d
 
 
 def int4_matmul_plain(x: torch.Tensor, w_int4: torch.Tensor, scale: torch.Tensor,
-                      out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                      out_dtype: torch.dtype = torch.bfloat16, bias: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of kernel G4: bf16(x) @ the dequantized bf16
-    weight, summed in fp32, one rounding to `out_dtype`. Any group size."""
+    weight, summed in fp32, one rounding to `out_dtype`; then + bias in bf16
+    (int8_matmul.add_bias_plain). Any group size."""
     *lead, k = x.shape
     w = dequant_int4_plain(w_int4, scale).to(torch.float32)
     y = torch.matmul(x.reshape(-1, k).to(torch.bfloat16).to(torch.float32), w)
-    return y.to(out_dtype).reshape(*lead, w_int4.shape[1])
+    return add_bias_plain(y.to(out_dtype).reshape(*lead, w_int4.shape[1]), bias, "int4_matmul")
 
 
 def _require(cond: bool, what: str) -> None:
@@ -64,13 +66,16 @@ def _require(cond: bool, what: str) -> None:
 
 
 def int4_matmul(x: torch.Tensor, w_int4: torch.Tensor, scale: torch.Tensor,
-                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.bfloat16, bias: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel G4: x (..., K) @ dequant(w_int4 (K/2, N), scale (K/g, N)) ->
-    (..., N) in `out_dtype` (bf16 or fp32). On CUDA x must be contiguous bf16,
-    w_int4 contiguous uint8 and scale contiguous fp32, K and g multiples of
-    64 and N of 16; anything else raises."""
+    (..., N) in `out_dtype` (bf16 or fp32), + bias (N,) in the epilogue:
+    bf16(bf16(y) + bias), the plain `y + bias` of a bf16 y. A bias is taken
+    with a bf16 output only (with fp32 the kernel and the plain version
+    refuse it). On CUDA x must be contiguous bf16, w_int4 contiguous uint8,
+    scale contiguous fp32 and bias contiguous bf16, K and g multiples of 64
+    and N of 16; anything else raises."""
     if x.device.type == "cpu":
-        return int4_matmul_plain(x, w_int4, scale, out_dtype)
+        return int4_matmul_plain(x, w_int4, scale, out_dtype, bias)
     _require(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
     _require(w_int4.dtype == torch.uint8 and w_int4.dim() == 2, f"w_int4 must be (K/2, N) uint8, got "
              f"{w_int4.dtype} {tuple(w_int4.shape)}")
@@ -93,11 +98,13 @@ def int4_matmul(x: torch.Tensor, w_int4: torch.Tensor, scale: torch.Tensor,
         _require(t.is_contiguous(), "x, w_int4 and scale must be contiguous")
     _require(x.data_ptr() % 16 == 0 and w_int4.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0,
              "x, w_int4 and scale must be 16-byte aligned")
+    check_bias(bias, n, out_dtype, "int4_matmul")
     y = torch.empty((*x.shape[:-1], n), dtype=out_dtype, device=x.device)
     kernel = cuda_build.load("int4_matmul", _ARGTYPES)
     status = kernel(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w_int4.data_ptr()), ctypes.c_void_p(scale.data_ptr()),
-        ctypes.c_void_p(y.data_ptr()), m, n, k, group, int(out_dtype == torch.float32),
+        ctypes.c_void_p(bias.data_ptr() if bias is not None else 0), ctypes.c_void_p(y.data_ptr()), m, n, k, group,
+        int(out_dtype == torch.float32),
         int(wide_pairs(m, n, sm_count(x.device), PAIR_TIME)),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )

@@ -8,7 +8,9 @@ int8_matmul (`_kernel`), in its layout:
 
 x (..., K) with its leading dimensions flattened into M, w_int8 (K, N) int8
 row-major, scale (N,) fp32: bf16 x int8 products summed in fp32, the scale
-applied once to the sums, then one rounding to `out_dtype`. It is the int8
+applied once to the sums, then one rounding to `out_dtype`; with a bias (N,)
+(bf16 output only) y + bias in bf16 after that, as JAX's `linear` adds its
+bias to the dot's output (XLA fuses the add into the dot). It is the int8
 linear of the port (models/layers.Int8Linear): the JAX package's int8 linear
 leaves the convert to XLA, which fuses it into the matmul's weight loads;
 PyTorch has no fused convert-dot, and a dequantized bf16 copy would write
@@ -25,7 +27,7 @@ import torch
 
 from . import cuda_build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 BLOCK_K = 64  # the kernel's K step: K must be a multiple of it
 N_ALIGN = 16  # 16-byte int8 column chunks: N must be a multiple of it
 SMALL_M = 16  # M at or below it takes the GEMV body
@@ -56,28 +58,55 @@ def sm_count(device: torch.device) -> int:
     return _SMS[index]
 
 
+def add_bias_plain(y: torch.Tensor, bias: torch.Tensor | None, name: str = "int8_matmul") -> torch.Tensor:
+    """y + bias cast to y's dtype (a bf16 add: in fp32, one rounding), the
+    bias add of kernels G and G4 and of their plain versions; a bias with an
+    fp32 output is refused, as the kernels refuse it."""
+    if bias is None:
+        return y
+    if y.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: a bias is added to a bf16 output only, got out_dtype {y.dtype}")
+    return y + bias.to(y.dtype)
+
+
 def int8_matmul_plain(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
-                      out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                      out_dtype: torch.dtype = torch.bfloat16, bias: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of kernel G, in fp32: bf16(x) @ w * scale, then
-    one rounding to `out_dtype`."""
+    one rounding to `out_dtype`; then + bias in bf16 (add_bias_plain)."""
     *lead, k = x.shape
     y = torch.matmul(x.reshape(-1, k).to(torch.bfloat16).to(torch.float32), w_int8.to(torch.float32))
-    return (y * scale.to(torch.float32)).to(out_dtype).reshape(*lead, w_int8.shape[1])
+    y = (y * scale.to(torch.float32)).to(out_dtype).reshape(*lead, w_int8.shape[1])
+    return add_bias_plain(y, bias)
 
 
-def _require(cond: bool, what: str) -> None:
+def _require(cond: bool, what: str, name: str = "int8_matmul") -> None:
     if not cond:
-        raise ValueError(f"int8_matmul: {what}")
+        raise ValueError(f"{name}: {what}")
+
+
+def check_bias(bias: torch.Tensor | None, n: int, out_dtype: torch.dtype, name: str) -> None:
+    """What kernels G and G4 take as a bias: None, or a contiguous bf16 (N,)
+    CUDA tensor with a bf16 output (the kernels read it an element at a
+    time, so a bf16 tensor's own alignment serves)."""
+    if bias is None:
+        return
+    _require(bias.is_cuda and bias.dtype == torch.bfloat16 and tuple(bias.shape) == (n,) and bias.is_contiguous(),
+             f"bias must be a contiguous bf16 CUDA ({n},), got {bias.dtype} {tuple(bias.shape)}", name)
+    _require(bias.data_ptr() % bias.element_size() == 0, "bias must be aligned to its element", name)
+    _require(out_dtype == torch.bfloat16, f"a bias is added to a bf16 output only, got out_dtype {out_dtype}", name)
 
 
 def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
-                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.bfloat16, bias: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel G: x (..., K) @ (w_int8 (K, N) * scale (N,)) -> (..., N) in
-    `out_dtype` (bf16 or fp32). On CUDA x must be contiguous bf16, w_int8
-    contiguous int8 and scale contiguous fp32, K a multiple of 64 and N of 16;
-    anything else raises."""
+    `out_dtype` (bf16 or fp32), + bias (N,) in the epilogue: bf16(bf16(y) +
+    bias), the plain `y + bias` of a bf16 y. A bias is taken with a bf16
+    output only (with fp32 the kernel and the plain version refuse it). On
+    CUDA x must be contiguous bf16, w_int8 contiguous int8, scale contiguous
+    fp32 and bias contiguous bf16, K a multiple of 64 and N of 16; anything
+    else raises."""
     if x.device.type == "cpu":
-        return int8_matmul_plain(x, w_int8, scale, out_dtype)
+        return int8_matmul_plain(x, w_int8, scale, out_dtype, bias)
     for t in (x, w_int8, scale):
         _require(t.is_cuda, "x, w_int8 and scale must be CUDA tensors")
         _require(t.is_contiguous(), "x, w_int8 and scale must be contiguous")
@@ -94,11 +123,13 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
     m = x.numel() // k
     _require(m >= 1, "x has no rows")
     _require(x.data_ptr() % 16 == 0 and w_int8.data_ptr() % 16 == 0, "x and w_int8 must be 16-byte aligned")
+    check_bias(bias, n, out_dtype, "int8_matmul")
     y = torch.empty((*x.shape[:-1], n), dtype=out_dtype, device=x.device)
     kernel = cuda_build.load("int8_matmul", _ARGTYPES)
     status = kernel(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w_int8.data_ptr()), ctypes.c_void_p(scale.data_ptr()),
-        ctypes.c_void_p(y.data_ptr()), m, n, k, int(out_dtype == torch.float32),
+        ctypes.c_void_p(bias.data_ptr() if bias is not None else 0), ctypes.c_void_p(y.data_ptr()), m, n, k,
+        int(out_dtype == torch.float32),
         int(wide_pairs(m, n, sm_count(x.device))), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
     )
     cuda_build.check("int8_matmul", status)

@@ -15,7 +15,8 @@ step, their backward kernels J'-M' and J'-L''s column sums, and the rest
 casts and copies). The linears' FLOPs are counted with forward hooks
 on one untraced step, so their rate is their FLOPs over their own kernel
 time. Prints one JSON object (device ms and kernel launches per class and
-step, idle share); writes the 30 costliest kernels to --out.
+step, idle share, and the "other" class split by kernel name: its 12
+costliest kernels); writes the 30 costliest kernels to --out.
 Exits 1 if the trace holds no device events.
 
 --quantize int8 profiles the same step of the single-card int8 stack
@@ -82,6 +83,7 @@ GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 CONV_KERNEL = re.compile(r"\bconv3x3_kernel<")  # csrc/conv3x3_gn_swish.cu (B)
 D512_KERNEL = re.compile(r"\bflash_d512")  # csrc/flash_attn_d512.cu (C)
 VAE_ROW, VAE_SDEDIT = (384, 1152), (1024, 1024)  # the default query's rows and its SDEdit image
+OTHER_TOP = 12  # the "other" class's kernels named in a step's result, costliest first
 
 
 def kernel_class(name: str) -> str:
@@ -353,6 +355,11 @@ def main(argv=None) -> int:
         kernels_per_step=sum(n for _, n in per_kernel.values()) / args.steps,
         class_kernels_per_step={k: v / args.steps for k, v in sorted(counts.items())},
     )
+    # "other" split by kernel name: its costliest kernels (names cut to 160 characters)
+    other = sorted(((n, us, c) for n, (us, c) in per_kernel.items() if kernel_class(n) == "other"),
+                   key=lambda t: -t[1])[:OTHER_TOP]
+    result["other_by_kernel"] = [dict(name=n[:160], ms_per_step=us / 1e3 / args.steps, calls_per_step=c / args.steps)
+                                 for n, us, c in other]
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:30]
     with open(args.out, "w") as f:
         json.dump(dict(result, top=[dict(name=n, ms_per_step=us / 1e3 / args.steps, calls=c)
