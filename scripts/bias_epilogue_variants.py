@@ -1,21 +1,21 @@
-"""Three designs of the bias in the weight-only matmuls' wide body
+"""Two designs of the bias add in the weight-only matmuls' wide body
 (csrc/weight_only_wide.cuh, kernels G and G4), timed in turns on the card.
 
     python scripts/bias_epilogue_variants.py
 
-A is the tree's own: each consumer thread loads its column's bf16 bias
-before the products, so it stays in a register through them, and the
-epilogue exchanges it through the w ring with the scales. B stages it in a
-512-byte shared-memory slot of its own before the products (no register
-held through them). C loads it after the products, before the epilogue.
-The script writes B's and C's headers from the tree's (text edits),
-builds G and G4 of each with the tree's nvcc flags into
-build/archive/variants/ (git-ignored), checks that every variant's output
-equals A's bit for bit, and times the biased launches at linear1's shape
-(M 3968, K 3072, N 21504) as replayed CUDA graphs, in turns (no bias, A,
-B, C, then the reverse order, three rounds), beside the unbiased launch.
-Prints one JSON line of ms lists and one of means, then the card's name
-and power limit.
+T is the tree's own: each product rounded to bf16, back to fp32, plus the
+bf16 bias in fp32, rounded again (two conversions and an add an element).
+D rounds the column pair of products to a bf16x2 once and adds the bias
+pair with one `add.rn.bf16x2` (the exactly rounded sum of two bf16
+values, which equals the fp32 sum rounded once for bf16 operands). The
+script writes D's header from the tree's (text edits), builds G and G4
+with the tree's nvcc flags into build/archive/variants/ (git-ignored),
+checks that D's output equals the tree's bit for bit, and times the
+biased launches as replayed CUDA graphs at linear1 (M 3968, K 3072, N
+21504), the image stream's qkv (3456, 3072, 9216), linear2 (3968, 15360,
+3072) and proj (3968, 3072, 3072), in turns (no bias, T, D, then the
+reverse order, five rounds). Prints one JSON line of ms lists and one of
+means, then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -40,36 +40,34 @@ from visualcloze_tpu_torch.ops.int8_matmul import int8_matmul, sm_count, wide_pa
 
 CSRC = ROOT / "visualcloze_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "archive" / "variants"
-LOAD_BEFORE = ("    const bf16 b_col = BIAS && n0 + ci < N ? bias[n0 + ci] : __float2bfloat16_rn(0.0f);"
-               "  // likewise its bias\n")
-EPILOGUE_EXCHANGE = """    const uint32_t col_s = base + L::SM_W, col_b = col_s + 4 * BN;
-    if constexpr (Cv::EPILOGUE_SCALE || BIAS) {
-      if constexpr (Cv::EPILOGUE_SCALE) sts32(col_s + 4 * ci, __float_as_uint(sc_col));
-      if constexpr (BIAS) sts16(col_b + 2 * ci, __bfloat16_as_ushort(b_col));
-      named_barrier<3, 256>();
-    }"""
-WAIT = """    wgmma_wait0();
-    fence_operands<128>(acc);
+SHAPES = ((3968, 3072, 21504, "linear1"), (3456, 3072, 9216, "qkv"), (3968, 15360, 3072, "linear2"),
+          (3968, 3072, 3072, "proj"))
+TREE_ADD = """          const uint32_t bb = lds32(col_b + 2 * cl);
+          const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bb));
+          stage2(a, add_bias(acc[4 * j] * s0, b.x), add_bias(acc[4 * j + 1] * s1, b.y), (OutT*)nullptr);
+          stage2(a + 1024, add_bias(acc[4 * j + 2] * s0, b.x), add_bias(acc[4 * j + 3] * s1, b.y), (OutT*)nullptr);
+"""
+PACKED_ADD = """          const uint32_t bb = lds32(col_b + 2 * cl);
+          sts32(a, add_bias2(pack2(acc[4 * j] * s0, acc[4 * j + 1] * s1), bb));
+          sts32(a + 1024, add_bias2(pack2(acc[4 * j + 2] * s0, acc[4 * j + 3] * s1), bb));
+"""
+ADD2 = """namespace vc {
+namespace wide {
+
+// a bf16 pair plus a bf16 pair, rounded to nearest even once
+__device__ __forceinline__ uint32_t add_bias2(uint32_t y, uint32_t b) {
+  uint32_t r;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(y), "r"(b));
+  return r;
+}
 """
 
 
 def variants(header: str) -> dict[str, str]:
-    """{name: header} of designs B and C, edited from the tree's header (A)."""
-    for piece in (LOAD_BEFORE, EPILOGUE_EXCHANGE, WAIT):
-        if piece not in header:
-            raise SystemExit("the tree's weight_only_wide.cuh is not the design these edits start from")
-    b = header.replace("  static constexpr size_t SMEM = SM_BAR + 8 * (3 * STAGES + 2 * BST) + 1024;",
-                       "  static constexpr int SM_BIAS = (SM_BAR + 8 * (3 * STAGES + 2 * BST) + 15) / 16 * 16;\n"
-                       "  static constexpr size_t SMEM = SM_BIAS + 2 * BN + 1024;")
-    b = b.replace(LOAD_BEFORE, "    if constexpr (BIAS)\n      sts16(base + L::SM_BIAS + 2 * ci, __bfloat16_as_ushort("
-                  "n0 + ci < N ? bias[n0 + ci] : __float2bfloat16_rn(0.0f)));\n")
-    b = b.replace(EPILOGUE_EXCHANGE, """    const uint32_t col_s = base + L::SM_W, col_b = base + L::SM_BIAS;
-    if constexpr (Cv::EPILOGUE_SCALE) {
-      sts32(col_s + 4 * ci, __float_as_uint(sc_col));
-      named_barrier<3, 256>();
-    }""")
-    c = header.replace(LOAD_BEFORE, "").replace(WAIT, WAIT + LOAD_BEFORE)
-    return {"B": b, "C": c}
+    """{name: header} of design D, edited from the tree's header (T)."""
+    if TREE_ADD not in header or header.count("namespace vc {\nnamespace wide {\n") != 1:
+        raise SystemExit("the tree's weight_only_wide.cuh is not the design these edits start from")
+    return {"D": header.replace(TREE_ADD, PACKED_ADD).replace("namespace vc {\nnamespace wide {\n", ADD2)}
 
 
 def build(name: str, header: str) -> dict:
@@ -103,47 +101,55 @@ def main() -> int:
     libs = {name: build(name, h) for name, h in variants((CSRC / "weight_only_wide.cuh").read_text()).items()}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    m, k, n = 3968, 3072, 21504
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    w8 = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
-    s8 = torch.full((n,), k ** -0.5 / 127, device=dev)
-    w4 = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
-    s4 = torch.rand((k // 128, n), generator=g, device=dev) * k ** -0.5 / 7
-    bias = torch.randn((n,), generator=g, device=dev).to(torch.bfloat16)
     p = ctypes.c_void_p
     sms = sm_count(dev)
+    runs, equal = {}, {}
+    for m, k, n, what in SHAPES:
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        w8 = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        s8 = torch.full((n,), k ** -0.5 / 127, device=dev)
+        w4 = torch.randint(0, 256, (k // 2, n), generator=g, device=dev, dtype=torch.uint8)
+        s4 = torch.rand((k // 128, n), generator=g, device=dev) * k ** -0.5 / 7
+        bias = torch.randn((n,), generator=g, device=dev).to(torch.bfloat16)
 
-    def variant(name, kernel):
-        fn = libs[name][kernel]
+        def variant(name, kernel, x=x, w8=w8, s8=s8, w4=w4, s4=s4, bias=bias, m=m, k=k, n=n):
+            fn = libs[name][kernel]
 
-        def run():
-            y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-            stream = p(torch.cuda.current_stream().cuda_stream)
-            if kernel == "int8_matmul":
-                status = fn(p(x.data_ptr()), p(w8.data_ptr()), p(s8.data_ptr()), p(bias.data_ptr()),
-                            p(y.data_ptr()), m, n, k, 0, int(wide_pairs(m, n, sms)), stream)
-            else:
-                status = fn(p(x.data_ptr()), p(w4.data_ptr()), p(s4.data_ptr()), p(bias.data_ptr()),
-                            p(y.data_ptr()), m, n, k, 128, 0, int(wide_pairs(m, n, sms, INT4_PAIR_TIME)), stream)
-            if status:
-                raise RuntimeError(f"{kernel} {name}: status {status}")
-            return y
+            def run():
+                y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+                stream = p(torch.cuda.current_stream().cuda_stream)
+                if kernel == "int8_matmul":
+                    status = fn(p(x.data_ptr()), p(w8.data_ptr()), p(s8.data_ptr()), p(bias.data_ptr()),
+                                p(y.data_ptr()), m, n, k, 0, int(wide_pairs(m, n, sms)), stream)
+                else:
+                    status = fn(p(x.data_ptr()), p(w4.data_ptr()), p(s4.data_ptr()), p(bias.data_ptr()),
+                                p(y.data_ptr()), m, n, k, 128, 0, int(wide_pairs(m, n, sms, INT4_PAIR_TIME)), stream)
+                if status:
+                    raise RuntimeError(f"{kernel} {name}: status {status}")
+                return y
 
-        return run
+            return run
 
-    runs = {"G_none": lambda: int8_matmul(x, w8, s8), "G_A": lambda: int8_matmul(x, w8, s8, bias=bias),
-            "G4_none": lambda: int4_matmul(x, w4, s4), "G4_A": lambda: int4_matmul(x, w4, s4, bias=bias)}
-    for name in libs:
-        runs[f"G_{name}"], runs[f"G4_{name}"] = variant(name, "int8_matmul"), variant(name, "int4_matmul")
-    equal = {key: torch.equal(fn(), runs[key.split("_")[0] + "_A"]())
-             for key, fn in runs.items() if key.split("_")[1] in libs}
-    print(json.dumps({"bit_equal_to_A": equal}), flush=True)
+        shape = {f"G_{what}_none": lambda x=x, w8=w8, s8=s8: int8_matmul(x, w8, s8),
+                 f"G_{what}_T": lambda x=x, w8=w8, s8=s8, bias=bias: int8_matmul(x, w8, s8, bias=bias),
+                 f"G4_{what}_none": lambda x=x, w4=w4, s4=s4: int4_matmul(x, w4, s4),
+                 f"G4_{what}_T": lambda x=x, w4=w4, s4=s4, bias=bias: int4_matmul(x, w4, s4, bias=bias)}
+        for name in libs:
+            shape[f"G_{what}_{name}"] = variant(name, "int8_matmul")
+            shape[f"G4_{what}_{name}"] = variant(name, "int4_matmul")
+            for kern in ("G", "G4"):
+                key = f"{kern}_{what}"
+                equal[f"{key}_{name}"] = torch.equal(shape[f"{key}_{name}"](), shape[f"{key}_T"]())
+        runs[what] = shape
+    print(json.dumps({"bit_equal_to_T": equal}), flush=True)
     ms: dict[str, list] = {}
-    for turn in range(3):
-        for kern in ("G", "G4"):
-            order = ["none", "A", *libs]
-            for v in order if turn % 2 == 0 else order[::-1]:
-                ms.setdefault(f"{kern}_{v}", []).append(cs.cuda_ms(runs[f"{kern}_{v}"], 40, graph=True))
+    for turn in range(5):
+        for what, shape in runs.items():
+            for kern in ("G", "G4"):
+                order = ["none", "T", *libs]
+                for v in order if turn % 2 == 0 else order[::-1]:
+                    key = f"{kern}_{what}_{v}"
+                    ms.setdefault(key, []).append(cs.cuda_ms(shape[key], 20, graph=True))
     print(json.dumps({"ms": ms}), flush=True)
     print(json.dumps({"mean_ms": {key: sum(v) / len(v) for key, v in ms.items()}}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -44,8 +44,8 @@
 //     in registers and reloads them when the group changes;
 //   - the consumers run at setmaxnreg 192, and the epilogue only rounds
 //     (given a bias (N,) bf16, bf16 output only: to bf16, then + b[n] in
-//     fp32, rounded again, bf16(float(bf16(acc)) + float(b[n])), JAX's
-//     linear's bias add, where the port once ran a bf16 pass over y).
+//     fp32, rounded again, bf16(float(bf16(acc)) + float(b[n])): JAX's
+//     linear's bias add, the bf16 `y + b` of the rounded product).
 //
 // Small M (M <= SMALL_M; in the query only M = 1), int4_gemv: no tensor
 // cores. A CTA of 8 warps owns 64 columns; each thread streams 16 columns of

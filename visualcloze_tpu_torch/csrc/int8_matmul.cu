@@ -28,7 +28,7 @@
 //     by scale[n] in fp32 (each scale loaded once per column a thread holds)
 //     before the one rounding; given a bias (N,) bf16 (bf16 output only),
 //     it then adds b[n] as JAX's linear does, bf16(float(bf16(acc *
-//     scale[n])) + float(b[n])), where the port once ran a bf16 pass over y.
+//     scale[n])) + float(b[n])): the bf16 `y + b` of the rounded product.
 // On the H100 the convert, not the tensor cores, sets the pace (PERF.md):
 // hence eight transform warps and piece offsets computed once, and the
 // CTAs in pairs along M where that adds no wave (each CTA converts half of

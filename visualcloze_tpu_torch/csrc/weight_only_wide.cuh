@@ -60,9 +60,12 @@
 //     only) rounds that to bf16 and adds the column's bf16 bias in fp32,
 //     bf16(float(bf16(acc * scale[n])) + float(b[n])): the arithmetic of
 //     the product rounded to bf16 and then `y + b` in bf16, as JAX's linear
-//     adds its bias to the dot's output (loaded and exchanged as the
-//     scales are, so the bias costs no pass over y and the no-bias body is
-//     the one it was), rounds once into the x ring (free once both
+//     adds its bias to the dot's output (each consumer thread copies one
+//     column's bias into a 512-byte slot of shared memory of its own
+//     before the products, so no register holds it through them: held in
+//     a register it cost G ~4% at linear1 on the H100, loaded after the
+//     products ~0.5%; the no-bias body is the one it was), rounds once
+//     into the x ring (free once both
 //     warpgroups' last products are done; the B ring may still feed the
 //     peer's last copy: a bf16 tile at once, fp32 in two halves) as
 //     128-byte-swizzled boxes of 64 rows, each stored by TMA: rows and
@@ -135,9 +138,10 @@ struct Layout {
   static constexpr int W_ROWS = Cv::W_ROWS / CL;  // the stored rows a CTA loads a stage
   static constexpr int W_BYTES = W_ROWS * BN;
   static constexpr int SM_X = 0, SM_W = STAGES * X_BYTES, SM_B = SM_W + STAGES * W_BYTES;
-  // the barriers: xfull[2][STAGES], wfull[STAGES], bfull[BST], bempty[BST]
+  // the barriers: xfull[2][STAGES], wfull[STAGES], bfull[BST], bempty[BST]; then the bias slot
   static constexpr int SM_BAR = SM_B + BST * B_BYTES;
-  static constexpr size_t SMEM = SM_BAR + 8 * (3 * STAGES + 2 * BST) + 1024;
+  static constexpr int SM_BIAS = (SM_BAR + 8 * (3 * STAGES + 2 * BST) + 15) / 16 * 16;  // the tile's bias, bf16
+  static constexpr size_t SMEM = SM_BIAS + 2 * BN + 1024;
   static_assert(CL == 1 || CL == 2, "CTAs pair up or run alone");
   static_assert(SM_B % 1024 == 0, "the swizzled B buffers start on 1024-byte boundaries");
   static_assert(SMEM <= 232448, "more shared memory than a CTA may have");
@@ -239,7 +243,10 @@ __global__ void __launch_bounds__(NT, 1)
     const int c = wg - 2, tid = threadIdx.x % 128, ci = 128 * c + tid;
     // the epilogue's scale of column n0 + ci, loaded while the products run
     const float sc_col = Cv::EPILOGUE_SCALE && n0 + ci < N ? __ldg(scale + n0 + ci) : 1.0f;
-    const bf16 b_col = BIAS && n0 + ci < N ? bias[n0 + ci] : __float2bfloat16_rn(0.0f);  // likewise its bias
+    if constexpr (BIAS) {  // likewise its bias, parked in shared memory until the epilogue
+      const bf16 b = n0 + ci < N ? bias[n0 + ci] : __float2bfloat16_rn(0.0f);
+      sts16(base + L::SM_BIAS + 2 * ci, __bfloat16_as_ushort(b));
+    }
     // the warpgroup's first thread loads its 64 rows of each x tile (64 K,
     // bf16, 128-byte swizzle: the K-major A operand; rows past M arrive as
     // zeros) into the ring: the first STAGES, then each stage's refill once
@@ -305,12 +312,11 @@ __global__ void __launch_bounds__(NT, 1)
     // + 1024 (8 rows of 128 bytes)
     const uint32_t tb = st + r * 128 + ((2 * E * t) ^ ((r & 7) << 4));
     named_barrier<3, 256>();  // both warpgroups' last products have read the x ring
-    // the w ring, read by the transform long before: the tile's scales (fp32)
-    // and, after them, its bias (bf16)
-    const uint32_t col_s = base + L::SM_W, col_b = col_s + 4 * BN;
-    if constexpr (Cv::EPILOGUE_SCALE || BIAS) {
-      if constexpr (Cv::EPILOGUE_SCALE) sts32(col_s + 4 * ci, __float_as_uint(sc_col));
-      if constexpr (BIAS) sts16(col_b + 2 * ci, __bfloat16_as_ushort(b_col));
+    // the w ring, read by the transform long before: the tile's scales; the
+    // bias slot, written before the products
+    const uint32_t col_s = base + L::SM_W, col_b = base + L::SM_BIAS;
+    if constexpr (Cv::EPILOGUE_SCALE) {
+      sts32(col_s + 4 * ci, __float_as_uint(sc_col));
       named_barrier<3, 256>();
     }
 #pragma unroll

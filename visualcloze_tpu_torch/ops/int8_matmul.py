@@ -92,7 +92,6 @@ def check_bias(bias: torch.Tensor | None, n: int, out_dtype: torch.dtype, name: 
         return
     _require(bias.is_cuda and bias.dtype == torch.bfloat16 and tuple(bias.shape) == (n,) and bias.is_contiguous(),
              f"bias must be a contiguous bf16 CUDA ({n},), got {bias.dtype} {tuple(bias.shape)}", name)
-    _require(bias.data_ptr() % bias.element_size() == 0, "bias must be aligned to its element", name)
     _require(out_dtype == torch.bfloat16, f"a bias is added to a bf16 output only, got out_dtype {out_dtype}", name)
 
 
