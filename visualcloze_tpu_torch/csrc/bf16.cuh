@@ -57,6 +57,16 @@ __device__ __forceinline__ float add_bias(float v, float b) {
   return __fadd_rn(__bfloat162float(__float2bfloat16_rn(v)), b);
 }
 
+// two bf16 pairs added, the exact sums rounded to nearest even once: for
+// bf16 operands the same bits as add_bias's fp32 sum rounded to bf16 (the
+// fp32 sum is exact unless one operand is below 2^-16 of the other, and
+// then both round to the larger)
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
 // a bf16 pair times s in fp32, rounded back to bf16: bf16(q * scale * log2(e))
 __device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
   const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));

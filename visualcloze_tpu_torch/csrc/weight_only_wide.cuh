@@ -56,16 +56,17 @@
 //   - the epilogue scales the sums by scale[n] in fp32 where the policy
 //     leaves the scale to it (Cv::EPILOGUE_SCALE; each consumer thread
 //     loads one column's before the products and the epilogue exchanges
-//     them through the w ring), and where a bias is given (BIAS, bf16 out
-//     only) rounds that to bf16 and adds the column's bf16 bias in fp32,
-//     bf16(float(bf16(acc * scale[n])) + float(b[n])): the arithmetic of
+//     them through the w ring), rounds once to OutT; where a bias is given
+//     (BIAS, bf16 out only) it then adds the column pair's bf16 bias with
+//     one add.rn.bf16x2, bf16(float(bf16(acc * scale[n])) + float(b[n])):
 //     the product rounded to bf16 and then `y + b` in bf16, as JAX's linear
 //     adds its bias to the dot's output (each consumer thread copies one
 //     column's bias into a 512-byte slot of shared memory of its own
-//     before the products, so no register holds it through them: held in
-//     a register it cost G ~4% at linear1 on the H100, loaded after the
-//     products ~0.5%; the no-bias body is the one it was), rounds once
-//     into the x ring (free once both
+//     before the products, so no register holds it through them; the
+//     bf16x2 add rounds the exact sum once, which for two bf16 values is
+//     the fp32 sum rounded once, bit for bit: two conversions and an fp32
+//     add an element instead cost G 4-6% at the linear shapes on the H100,
+//     the bf16x2 add ~0.4%), staged into the x ring (free once both
 //     warpgroups' last products are done; the B ring may still feed the
 //     peer's last copy: a bf16 tile at once, fp32 in two halves) as
 //     128-byte-swizzled boxes of 64 rows, each stored by TMA: rows and
@@ -332,9 +333,8 @@ __global__ void __launch_bounds__(NT, 1)
         const uint32_t a = (tb + cj / BOX_COLS * OUT_BOX) ^ (cj % BOX_COLS * E);
         if constexpr (BIAS) {
           const uint32_t bb = lds32(col_b + 2 * cl);
-          const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bb));
-          stage2(a, add_bias(acc[4 * j] * s0, b.x), add_bias(acc[4 * j + 1] * s1, b.y), (OutT*)nullptr);
-          stage2(a + 1024, add_bias(acc[4 * j + 2] * s0, b.x), add_bias(acc[4 * j + 3] * s1, b.y), (OutT*)nullptr);
+          sts32(a, add_bf16x2(pack2(acc[4 * j] * s0, acc[4 * j + 1] * s1), bb));
+          sts32(a + 1024, add_bf16x2(pack2(acc[4 * j + 2] * s0, acc[4 * j + 3] * s1), bb));
         } else {
           stage2(a, acc[4 * j] * s0, acc[4 * j + 1] * s1, (OutT*)nullptr);
           stage2(a + 1024, acc[4 * j + 2] * s0, acc[4 * j + 3] * s1, (OutT*)nullptr);
