@@ -231,8 +231,9 @@ class Int8Linear(_LinearForward, nn.Module):
     w_int8 (in, out) int8 and w_scale (out,) fp32, as the JAX entry stores
     them, and a bias in the compute dtype. y = bf16(x) @ (w_int8 * w_scale)
     + bf16(b) through kernel G, the bias in its epilogue (its plain version
-    for CPU tensors), + the LoRA delta. G rounds once, after the fp32 rescale; JAX rounds the bf16 dot to
-    bf16 first, so the two differ by at most one bf16 ulp."""
+    for CPU tensors), + the LoRA delta. G rounds once, after the fp32
+    rescale; JAX rounds the bf16 dot to bf16 first, so the two differ by at
+    most one bf16 ulp."""
 
     lora_target = True  # models/lora.init_lora gives it a LoRA entry
 
@@ -265,8 +266,9 @@ class Int4DiTLinear(_LinearForward, nn.Module):
     byte (row 2i in the low nibble), and w_scale (in/group, out) fp32, as the
     JAX entry stores them, and a bias in the compute dtype. y = bf16(x) @
     bf16(q * scale) + bf16(b) through kernel G4, the bias in its epilogue
-    (its plain version for CPU tensors), + the LoRA delta. The dequantized weights equal JAX's bit for bit;
-    G4 sums in fp32 and rounds once, as JAX's bf16 dot does on the CPU."""
+    (its plain version for CPU tensors), + the LoRA delta. The dequantized
+    weights equal JAX's bit for bit; G4 sums in fp32 and rounds once, as
+    JAX's bf16 dot does on the CPU."""
 
     lora_target = True  # models/lora.init_lora gives it a LoRA entry
 

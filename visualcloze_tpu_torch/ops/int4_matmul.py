@@ -12,9 +12,10 @@ in the high one); scale (K/g, N) fp32, one per (g-row input group, output
 column). Each weight is dequantized as JAX does it, an fp32 product rounded
 once to bf16, the bf16 x bf16 products are summed in fp32 and rounded once
 to `out_dtype`; with a bias (N,) (bf16 output only) y + bias in bf16 after
-that, as JAX's `linear` adds it to the dot's output. It is the int4 DiT linear of the port (models/layers.
-Int4DiTLinear): a per-call dequantize would write a bf16 copy of every weight
-to device memory at every DiT evaluation. On the card the kernel takes
+that, as JAX's `linear` adds it to the dot's output. It is the int4 DiT
+linear of the port (models/layers.Int4DiTLinear): a per-call dequantize
+would write a bf16 copy of every weight to device memory at every DiT
+evaluation. On the card the kernel takes
 M <= 16 rows (the modulation and embedder GEMVs) in a body that streams the
 packed weights without tensor cores, larger M in a wgmma body.
 """
