@@ -300,6 +300,9 @@ REPLACES = {
     "gated_residual_bwd": "visualcloze_tpu/models/layers.py:280",
     "qk_norm_split_bwd": "visualcloze_tpu/models/layers.py:195",
     "merge_heads_bwd": "visualcloze_tpu/ops/attention.py:176",
+    # none: XLA fusions of the VAE's GroupNorm (statistics; the apply, then swish where no conv takes it)
+    "group_norm_stats": "visualcloze_tpu/models/autoencoder.py:37",
+    "group_norm_apply": "visualcloze_tpu/models/autoencoder.py:61",
 }
 SOURCES = {
     "flash_attn_rope": "visualcloze_tpu_torch/csrc/flash_attn_rope.cu",
@@ -321,10 +324,14 @@ SOURCES = {
     "gated_residual_bwd": "visualcloze_tpu_torch/csrc/gated_residual_bwd.cu",
     "qk_norm_split_bwd": "visualcloze_tpu_torch/csrc/qk_norm_split_bwd.cu",
     "merge_heads_bwd": "visualcloze_tpu_torch/csrc/merge_heads_bwd.cu",
+    "group_norm_stats": "visualcloze_tpu_torch/csrc/group_norm.cu",
+    "group_norm_apply": "visualcloze_tpu_torch/csrc/group_norm.cu",
 }
 # kernel G per DiT evaluation: every linear of the int8 DiT once (19 double
 # blocks x 10, 38 single blocks x 3, 8 embedder and 2 final-layer linears);
-# kernel A once per block (19 + 38); in the w8a8 DiT kernels I and H each
+# the attention, kernel D on q and k that kernel L rotated, once per block
+# (19 + 38: DIT_ATTENTION; kernel A only in calibration's statistics
+# passes, whose plain blocks hand attention() the tables); in the w8a8 DiT kernels I and H each
 # once per token-dim block linear (19 x 8 + 38 x 2) and G the other 86
 INT8_LINEARS, ATTENTION_CALLS = 314, 57
 W8A8_LINEARS = 19 * 8 + 38 * 2
@@ -337,6 +344,21 @@ W8A8_KERNELS = ("w8a8_matmul", "act_quant_int8")
 # their plain versions: 0.
 FUSIONS = ("layernorm_modulate", "gated_residual", "qk_norm_split", "merge_heads")
 BACKWARDS = tuple(f"{n}_bwd" for n in FUSIONS)
+GROUP_NORM = ("group_norm_stats", "group_norm_apply")  # kernel N, the VAE's GroupNorm (csrc/group_norm.cu)
+DIT_ATTENTION = "flash_attn_fwd"
+# what a serving query launches (the DiT's attention and fused passes, the VAE's B, C and N), and what it must not
+SERVING = (DIT_ATTENTION, "conv3x3_gn_swish", "flash_attn_d512") + GROUP_NORM + FUSIONS
+UNSERVED = ("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+
+def group_norm_calls(cfg) -> dict:
+    """Kernel N's launches per encode and per decode of a VAE of `cfg`
+    (models/autoencoder.py): the statistics once per GroupNorm (two a
+    resnet block; the mid block's two resnets and attention block; norm_out),
+    the apply at the attention block (no act) and norm_out (swish)."""
+    levels, blocks = len(cfg.ch_mult), cfg.num_res_blocks
+    return {"encode": {"stats": 2 * (levels * blocks + 2) + 2, "apply": 2},
+            "decode": {"stats": 2 * (levels * (blocks + 1) + 2) + 2, "apply": 2}}
 
 
 def fusion_calls(depth: int = 19, depth_single: int = 38) -> dict:
@@ -681,6 +703,117 @@ def check_conv(shape, pre: bool, reps: int, b0_scale: float = 1.0) -> dict:
                 bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
 
 
+L2_BYTES = 50e6  # H100: an input that fits is read again from L2
+PEAK_FP32 = 67e12  # H100 SXM, fp32 outside the tensor cores
+
+
+def group_norm_inputs(shape):
+    """bf16 NHWC x with per-channel offsets and spreads, and bf16 scale and
+    bias (the VAE's parameter dtype), from a seed of the shape."""
+    import torch
+
+    B, H, W, C = shape
+    g = torch.Generator(device="cuda").manual_seed(H * W + C + 1)
+    mean = torch.randn((C,), generator=g, device="cuda") * 2
+    spread = torch.rand((C,), generator=g, device="cuda") * 2.5 + 0.5
+    x = (torch.randn(shape, generator=g, device="cuda") * spread + mean).to(torch.bfloat16)
+    scale = (1 + 0.2 * torch.randn((C,), generator=g, device="cuda")).to(torch.bfloat16)
+    bias = (0.3 * torch.randn((C,), generator=g, device="cuda")).to(torch.bfloat16)
+    return x, scale, bias
+
+
+def native_group_norm_ms(x, scale, bias, groups: int, reps: int) -> tuple:
+    """(ms, what) of aten's native_group_norm, the statistics and the
+    normalized output in one call (a yardstick), on an NCHW copy of x made
+    inside the timed call: what a caller holding NHWC pays (the card's aten
+    refuses the channels-last view)."""
+    import torch
+
+    B, H, W, C = x.shape
+    xc = x.permute(0, 3, 1, 2)
+    ms = cuda_ms(lambda: torch.ops.aten.native_group_norm(xc.contiguous(), scale, bias, B, C, H * W, groups, 1e-6),
+                 reps)
+    return ms, "aten native_group_norm on an NCHW copy made in the call (statistics + output)"
+
+
+def check_group_norm_stats(shape, reps: int, groups: int = 32) -> dict:
+    """Kernel N's statistics against their plain version: a and bb within
+    1e-5 of their largest magnitude (fp32 sums in another order), the same
+    bits twice; then kernel B taking N's affine against B's plain version on
+    the plain statistics, within B's own bound (check_conv: 1% of the
+    largest output). The bound counts x's bytes twice, once where x fits in
+    L2 (the second pass reads it there; repeated calls find it warm). ms: a
+    replayed CUDA graph (the device's time); eager_ms: launched one by one
+    (at small shapes the wrapper's host time)."""
+    import torch
+
+    from visualcloze_tpu_torch.ops import conv2d as cv
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    B, H, W, C = shape
+    x, scale, bias = group_norm_inputs(shape)
+    a, bb = gn.group_norm_stats(x, scale, bias, groups)
+    a2, bb2 = gn.group_norm_stats(x, scale, bias, groups)
+    deterministic = torch.equal(a, a2) and torch.equal(bb, bb2)
+    torch.cuda.synchronize()
+    wa, wbb = gn.group_norm_stats_plain(x, scale, bias, groups)
+    err_a, err_bb = (a - wa).abs().max().item(), (bb - wbb).abs().max().item()
+    tol_a, tol_bb = 1e-5 * wa.abs().max().item(), 1e-5 * wbb.abs().max().item()
+    g = torch.Generator(device="cuda").manual_seed(C)
+    w = (torch.randn((3, 3, C, C), generator=g, device="cuda") * (9 * C) ** -0.5).to(torch.bfloat16)
+    cb = torch.randn((C,), generator=g, device="cuda") * 0.1
+    got = cv.conv3x3_gn_swish(x, w, cb, pre_affine=(a, bb))
+    want = cv.conv3x3_plain(x, w, cb, (wa, wbb), "swish")
+    b_err = (got.float() - want.float()).abs().max().item()
+    b_tol = 1e-2 * want.abs().max().item()
+    del got, want, w
+    ms = cuda_ms(lambda: gn.group_norm_stats(x, scale, bias, groups), reps, graph=True)
+    eager_ms = cuda_ms(lambda: gn.group_norm_stats(x, scale, bias, groups), reps)
+    plain_ms = cuda_ms(lambda: gn.group_norm_stats_plain(x, scale, bias, groups), max(2, reps // 5))
+    library_ms, library = native_group_norm_ms(x, scale, bias, groups, reps)
+    x_bytes = x.numel() * 2
+    bms, by = bound(4.0 * x.numel(), x_bytes * (2 if x_bytes > L2_BYTES else 1) + 2 * C * 2 + 2 * B * C * 4,
+                    PEAK_FP32)
+    ok = err_a <= tol_a and err_bb <= tol_bb and deterministic and b_err <= b_tol
+    return dict(name="group_norm_stats", shape=[B, H, W, C], groups=groups, max_abs_err=max(err_a, err_bb),
+                err_a=err_a, err_bb=err_bb, tol_a=tol_a, tol_bb=tol_bb, b_after_n_max_abs_err=b_err,
+                b_after_n_tol=b_tol, ok=ok, deterministic=deterministic, ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, library_ms=library_ms, library=library, bound_ms=bms, bound_by=by,
+                share_of_bound=bms / ms)
+
+
+def check_group_norm_apply(shape, act: str, reps: int, groups: int = 32) -> dict:
+    """Kernel N's apply (act none or swish) against its plain version: each
+    element within one bf16 ulp of its own magnitude, the same bits twice.
+    The bound: x read and y written once."""
+    import torch
+
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    B, H, W, C = shape
+    x, scale, bias = group_norm_inputs(shape)
+    a, bb = gn.group_norm_stats_plain(x, scale, bias, groups)
+    got = gn.group_norm_apply(x, a, bb, act)
+    deterministic = torch.equal(got, gn.group_norm_apply(x, a, bb, act))
+    torch.cuda.synchronize()
+    want = gn.group_norm_apply_plain(x, a, bb, act)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ulps = (diff / bf16_ulps_each(want)).max().item()
+    del got, want, diff
+    ms = cuda_ms(lambda: gn.group_norm_apply(x, a, bb, act), reps, graph=True)
+    eager_ms = cuda_ms(lambda: gn.group_norm_apply(x, a, bb, act), reps)
+    plain_ms = cuda_ms(lambda: gn.group_norm_apply_plain(x, a, bb, act), max(2, reps // 5))
+    # no single PyTorch call applies a given affine; native_group_norm also takes the statistics
+    library_ms, library = (native_group_norm_ms(x, scale, bias, groups, reps) if act == "none"
+                           else (None, "none (no single PyTorch call)"))
+    bms, by = bound((4.0 if act == "swish" else 2.0) * x.numel(), 2 * x.numel() * 2 + 2 * B * C * 4, PEAK_FP32)
+    return dict(name="group_norm_apply", shape=[B, H, W, C], act=act, max_abs_err=err, max_ulps=ulps, tol_ulps=1.0,
+                ok=ulps <= 1.0 and deterministic, deterministic=deterministic, ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, library_ms=library_ms, library=library, bound_ms=bms, bound_by=by,
+                share_of_bound=bms / ms)
+
+
 def attention_case(b: int, L: int, padded: bool, seed: int, holes: bool = False):
     """N(0,1) bf16 q, k, v, dO of (b, 24, L, 128); padded: batch 0's last 64
     keys are padding (and their query rows' dO is 0, as attention() zeroes
@@ -858,16 +991,22 @@ def bias_fields(kernel, x, w, scale, bias, got, reps: int) -> dict:
     """What a weight-only matmul (G, G4) launched with a bias (N,) bf16 must
     hold: `got` equals the same kernel's unbiased launch followed by the
     bf16 add the linears ran before the bias moved into the epilogue
-    (add_bias_plain) bit for bit; beside it the ms of that unbiased launch
-    and of the two passes (graph-timed, this call)."""
+    (add_bias_plain) bit for bit; beside it the ms of the biased launch
+    ("ms") and of that unbiased launch, timed in turns (biased, unbiased,
+    unbiased, biased: the mean of each pair, so that neither reads the
+    order it was timed in), and of the two passes (graph-timed, this call)."""
     import torch
 
     from visualcloze_tpu_torch.ops.int8_matmul import add_bias_plain
 
     unbiased = kernel(x, w, scale)
     bit_equal = torch.equal(got, add_bias_plain(unbiased, bias))
-    return dict(bias=True, bias_bit_equal=bit_equal,
-                unbiased_ms=cuda_ms(lambda: kernel(x, w, scale), reps, graph=True),
+    runs = {"biased": lambda: kernel(x, w, scale, bias=bias), "unbiased": lambda: kernel(x, w, scale)}
+    turns = {"biased": [], "unbiased": []}
+    for name in ("biased", "unbiased", "unbiased", "biased"):
+        turns[name].append(cuda_ms(runs[name], reps, graph=True))
+    return dict(bias=True, bias_bit_equal=bit_equal, ms=sum(turns["biased"]) / 2,
+                unbiased_ms=sum(turns["unbiased"]) / 2, ms_turns=turns,
                 two_pass_ms=cuda_ms(lambda: add_bias_plain(kernel(x, w, scale), bias), reps, graph=True))
 
 
@@ -900,7 +1039,7 @@ def check_int8_matmul(m: int, k: int, n: int, what: str, reps: int, with_bias: b
     rms = want.pow(2).mean().sqrt().item()
     del want
     extra = bias_fields(int8_matmul, x, w, scale, bias, got, reps) if with_bias else {}
-    ms = cuda_ms(lambda: int8_matmul(x, w, scale, bias=bias), reps, graph=True)
+    ms = extra.pop("ms") if with_bias else cuda_ms(lambda: int8_matmul(x, w, scale), reps, graph=True)
     plain_ms = cuda_ms(lambda: int8_matmul_plain(x, w, scale, bias=bias), 2)
     w16 = (w.t().float() * scale[:, None]).to(torch.bfloat16)  # (N, K), dequantized beforehand
     dequant_ms = cuda_ms(lambda: F.linear(x, w16, bias), reps)
@@ -965,7 +1104,7 @@ def check_int4_matmul(m: int, k: int, n: int, what: str, reps: int, group: int =
     rms = want.pow(2).mean().sqrt().item()
     del want
     extra = bias_fields(int4_matmul, x, w, scale, bias, got, reps) if with_bias else {}
-    ms = cuda_ms(lambda: int4_matmul(x, w, scale, bias=bias), reps, graph=True)
+    ms = extra.pop("ms") if with_bias else cuda_ms(lambda: int4_matmul(x, w, scale), reps, graph=True)
     plain_ms = cuda_ms(lambda: int4_matmul_plain(x, w, scale, bias=bias), 2)
     w16 = dequant_int4_plain(w, scale).t().contiguous()  # (N, K) bf16, dequantized beforehand
     dequant_ms = cuda_ms(lambda: F.linear(x, w16, bias), reps)
@@ -1619,15 +1758,19 @@ def reference_inputs(model):
 
 @contextlib.contextmanager
 def plain_dit():
-    """Kernels A, B, C and J-M swapped for their plain versions where their
-    callers reach them (A by attention(), B and C by the VAE, J-M through
-    plain_block_route)."""
+    """Kernels A, B, C, D, N and J-M swapped for their plain versions where
+    their callers reach them (A and D by attention(), B, C and N by the VAE,
+    J-M through plain_block_route)."""
     import visualcloze_tpu_torch.models.autoencoder as ae_mod
     import visualcloze_tpu_torch.ops.attention as att_mod
     from visualcloze_tpu_torch.ops import conv2d as cv
     from visualcloze_tpu_torch.ops import flash_attention as fa
+    from visualcloze_tpu_torch.ops import group_norm as gn
 
     plain = {(att_mod, "flash_mha_rope"): fa.flash_attention_plain,
+             (att_mod, "flash_mha"): fa.flash_attention_plain,
+             (ae_mod, "group_norm_stats"): gn.group_norm_stats_plain,
+             (ae_mod, "group_norm_apply"): gn.group_norm_apply_plain,
              (ae_mod, "conv3x3_gn_swish"): lambda x, w, b, pre_affine=None, act="swish": cv.conv3x3_plain(
                  x, w, b, pre_affine, act),
              (ae_mod, "flash_attn_d512"): fa.flash_attention_plain}
@@ -1717,16 +1860,16 @@ def cfg_forward(model) -> dict:
         with plain_dit():
             want = model.flux.forward_cfg(cfg_scale=CFG_SCALE, **inp)
         plain_launches = {n: c for n, c in ops.kernel_launches().items() if c}
-    used = {n: launches[n] for n in ("flash_attn_rope", *FUSIONS)}
+    used = {n: launches[n] for n in (DIT_ATTENTION, *FUSIONS)}
     out = dict(phase="cfg_forward", batch=2, tokens=l_img + l_txt, cfg_scale=CFG_SCALE, seconds=seconds,
                shape=list(got.shape), finite=bool(torch.isfinite(got).all()),
                rel_rms_err_vs_plain=rel_rms(got.float(), want.float()),
                rel_rms_err_vs_two_b1=rel_rms(got.float(), split.float()), bit_equal_two_b1=torch.equal(got, split),
-               launches=used, launches_expected=dict(FUSION_CALLS, flash_attn_rope=ATTENTION_CALLS),
+               launches=used, launches_expected=dict(FUSION_CALLS, **{DIT_ATTENTION: ATTENTION_CALLS}),
                plain_run_launches=plain_launches, tol=5e-2)
     out["ok"] = (out["finite"] and out["shape"] == [2, l_img, cfg.out_channels]
                  and out["rel_rms_err_vs_plain"] <= out["tol"] and out["rel_rms_err_vs_two_b1"] <= out["tol"]
-                 and used == out["launches_expected"] and not any(launches[n] for n in BACKWARDS)
+                 and used == out["launches_expected"] and not any(launches[n] for n in BACKWARDS + UNSERVED)
                  and not plain_launches)
     return out
 
@@ -1857,12 +2000,12 @@ def w8a8_launches_ok(run: dict) -> dict:
     """DiT evaluations (A's launches / 57) and, for a w8a8 DiT, I and H
     launched 228 times each per evaluation, G 86 times: the fields for the
     run's line, with `ok` folded in."""
-    evals = run["launches"]["flash_attn_rope"] // ATTENTION_CALLS
+    evals = run["launches"][DIT_ATTENTION] // ATTENTION_CALLS
     want = {"w8a8_matmul": W8A8_LINEARS * evals, "act_quant_int8": W8A8_LINEARS * evals,
             "int8_matmul": (INT8_LINEARS - W8A8_LINEARS) * evals}
     got = {k: run["launches"][k] for k in want}
     return dict(dit_evaluations=evals, w8a8_launches_expected=want,
-                ok=run["ok"] and got == want and run["launches"]["flash_attn_rope"] == ATTENTION_CALLS * evals)
+                ok=run["ok"] and got == want and run["launches"][DIT_ATTENTION] == ATTENTION_CALLS * evals)
 
 
 # ----------------------------- the main path -----------------------------
@@ -1908,6 +2051,9 @@ def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(
         return out
 
     model.denoise_query = recording
+    vae_calls = {"encode": 0, "decode": 0}
+    hooks = [part.register_forward_pre_hook(lambda *_, k=k: vae_calls.__setitem__(k, vae_calls[k] + 1))
+             for k, part in (("encode", model.ae.encoder), ("decode", model.ae.decoder))]
     grid = synthetic_grid(rows, cols, seed)
     model.set_grid_size(rows, cols)
     prompts = query_prompts(rows, cols)
@@ -1921,6 +2067,8 @@ def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(
         torch.cuda.synchronize()
     finally:
         model.denoise_query = orig
+        for h in hooks:
+            h.remove()
     seconds = time.perf_counter() - t0
     launches = ops.kernel_launches()
     import numpy as np
@@ -1945,6 +2093,11 @@ def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(
         evals = (launches["flash_attn_rope"] + launches["flash_attn_fwd"]) // ATTENTION_CALLS
         out["fusion_launches_expected"] = fusions_expected(evals)
         out["ok"] = out["ok"] and fusion_launches(launches) == out["fusion_launches_expected"]
+    if set(GROUP_NORM) <= set(used):  # N once per GroupNorm of every encode and decode (group_norm_calls)
+        per = group_norm_calls(model.ae.cfg)
+        want = {n: sum(vae_calls[k] * per[k][n.split("_")[-1]] for k in per) for n in GROUP_NORM}
+        out.update(vae_calls=vae_calls, group_norm_launches_expected=want)
+        out["ok"] = out["ok"] and all(launches[n] == want[n] for n in GROUP_NORM)
     return out
 
 
@@ -2058,7 +2211,7 @@ def serve_phase(model, r1, base_images) -> dict:
     model.adapters.clear()
     free()
 
-    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS
+    serving = SERVING
     queries = 2 * len(SERVE_REQUESTS) + 1
     expected = {n: (queries * r1["launches"][n] if n in serving else 0) for n in launches}
     statuses = [a["status"] for a in answers + fifo_answers]
@@ -2148,12 +2301,12 @@ def diffusers_phase(model, lora_path: str) -> dict:
     launches = ops.kernel_launches()
     vs_folded = float(np.abs(adapted - folded).mean())
     vs_base = float(np.abs(adapted - base).mean())
-    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS
+    serving = SERVING
     line = dict(phase="diffusers_api", grid=[2, 2], steps=10, image=list(adapted.shape), seconds=seconds,
                 mean_abs_diff_adapter_vs_folded=vs_folded, mean_abs_diff_adapter_vs_base=vs_base,
                 launches=launches, attention_launches_expected=ATTENTION_CALLS * 9 * 3,
                 fusion_launches_expected=fusions_expected(9 * 3))
-    line["ok"] = (vs_folded < 0.5 * vs_base and launches["flash_attn_rope"] == ATTENTION_CALLS * 9 * 3
+    line["ok"] = (vs_folded < 0.5 * vs_base and launches[DIT_ATTENTION] == ATTENTION_CALLS * 9 * 3
                   and fusion_launches(launches) == line["fusion_launches_expected"]
                   and all(launches[n] > 0 for n in serving)
                   and all(v == 0 for n, v in launches.items() if n not in serving))
@@ -2245,7 +2398,7 @@ def samplers_sde(model) -> dict:
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t)
             counts.append(ops.kernel_launches())
-        a = [c["flash_attn_rope"] for c in counts]
+        a = [c[DIT_ATTENTION] for c in counts]
         r = dict(seconds=seconds, dit_evaluations=[n // ATTENTION_CALLS for n in a],
                  evaluations_expected=evals, finite=bool(torch.isfinite(outs[0]).all()),
                  bit_equal_twice=torch.equal(outs[0], outs[1]), tokens_img=int(q["x"].shape[1]))
@@ -2463,13 +2616,13 @@ def bfl_route(model, fill: dict, root) -> dict:
     del flux, siglip, redux
     free()
 
-    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS
+    serving = SERVING
     names = ("fill", "canny", "depth", "redux")
     out["launches"] = {k: sum(out[n]["launches"][k] for n in names) for k in out["fill"]["launches"]}
     out["ok"] = all(out[n]["finite"] and out[n]["image_std"] > 0 and all(out[n]["launches"][k] > 0 for k in serving)
                     and all(v == 0 for k, v in out[n]["launches"].items() if k not in serving)
                     and fusion_launches(out[n]["launches"]) == fusions_expected(
-                        out[n]["launches"]["flash_attn_rope"] // ATTENTION_CALLS) for n in names)
+                        out[n]["launches"][DIT_ATTENTION] // ATTENTION_CALLS) for n in names)
     out["ok"] = out["ok"] and out["redux_tokens"] == 729 and out["redux"]["tokens_txt"] == 512 + 729
     return out
 
@@ -3327,7 +3480,7 @@ def fusions_by_collect():
         Flux.forward = orig
 
 
-def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
+def checkpoint_phases(r1, serving, bf16_unused, unserved) -> list:
     """Write the seed-0 stack as checkpoint files, serve from them through
     build_visualcloze (bf16 with the LoRA folded, every solver, int8 with an
     int4 T5, SmoothQuant w8a8, a diffusers snapshot), each checked; returns the main-path runs
@@ -3396,7 +3549,7 @@ def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
             stats = model.solver_stats.get("denoise", {})
             if want is None:
                 want = stats.get("evaluations")
-            a = r["launches"]["flash_attn_rope"]
+            a = r["launches"][DIT_ATTENTION]
             r.update(phase="solvers", solver=solver, dit_evaluations=a / ATTENTION_CALLS,
                      dit_evaluations_expected=want, solver_stats=stats)
             r["ok"] = r["ok"] and want is not None and a == ATTENTION_CALLS * want
@@ -3410,8 +3563,8 @@ def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
         # the int8 route on the same BFL files: int8 DiT (kernel G), int4 T5
         model, load = load_timed(model_path=paths["lora"], quantize="int8", t5_int4=True)
         rq = run_request(model, "2x3 default query with SDEdit, int8 DiT + int4 T5-XXL from checkpoint files",
-                         2, 3, 30, True, seed=1, used=serving + ("int8_matmul",), unused=training + W8A8_KERNELS)
-        evals = rq["launches"]["flash_attn_rope"] // ATTENTION_CALLS
+                         2, 3, 30, True, seed=1, used=serving + ("int8_matmul",), unused=unserved + W8A8_KERNELS)
+        evals = rq["launches"][DIT_ATTENTION] // ATTENTION_CALLS
         rq.update(phase="load_checkpoint_int8", **load, resident_gib_pr3_synthetic=14.0, dit_evaluations=evals,
                   int8_launches_expected=INT8_LINEARS * evals)
         rq["ok"] = rq["ok"] and rq["launches"]["int8_matmul"] == INT8_LINEARS * evals
@@ -3429,13 +3582,15 @@ def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
         calib_launches = ops.kernel_launches()
         calib = dict(model.stage_seconds)
         rw = run_request(model, "2x3 default query with SDEdit, SmoothQuant w8a8 DiT from checkpoint files",
-                         2, 3, 30, True, seed=1, used=serving + W8A8_USED_WITH, unused=training)
+                         2, 3, 30, True, seed=1, used=serving + W8A8_USED_WITH, unused=unserved)
         rw.update(phase="load_checkpoint_w8a8_smooth", **load, calibration_stage_seconds=calib,
                   calibration_seconds=sum(calib.values()), calibration_launches=calib_launches,
                   calibration_fusions=calib_split, **w8a8_launches_ok(rw))
-        # the calibration: 29 evaluations of the bf16 DiT (kernel A), no quantized kernel; the 7 that
-        # collect statistics (every 5th step and the last) run J-M's plain versions, the 22 others the kernels
-        rw["ok"] = (rw["ok"] and calib_launches["flash_attn_rope"] == 29 * ATTENTION_CALLS
+        # the calibration: 29 evaluations of the bf16 DiT, no quantized kernel; the 7 that collect statistics
+        # (every 5th step and the last) run J-M's plain versions and attend through kernel A (their plain
+        # blocks pass the tables), the 22 others the kernels and D
+        rw["ok"] = (rw["ok"] and calib_launches["flash_attn_rope"] == 7 * ATTENTION_CALLS
+                    and calib_launches[DIT_ATTENTION] == 22 * ATTENTION_CALLS
                     and all(calib_launches[k] == 0 for k in W8A8_USED_WITH)
                     and calib_split["collecting"]["evaluations"] == 7
                     and not any(calib_split["collecting"]["launches"].values())
@@ -3443,7 +3598,7 @@ def checkpoint_phases(r1, serving, bf16_unused, training) -> list:
         emit(rw)
         if not rw["ok"]:
             raise RuntimeError("the SmoothQuant w8a8 query from checkpoint files failed")
-        runs.append(rw)
+        runs += [rw, dict(phase="calibration", launches=calib_launches)]  # kernel A's main-path launches
         del model
         free()
 
@@ -3541,6 +3696,14 @@ def main() -> int:
         lambda: [check_conv((1, 192, 576, 512, 256), True, 10)],   # decoder 512 -> 256
         lambda: [check_conv((1, 384, 1152, 256, 128), True, 10)],  # decoder 256 -> 128
         lambda: [check_conv((1, 37, 91, 128, 128), True, 20, b0_scale=4.0)],  # ragged; swish(b0) on the border
+        # N: the statistics at the VAE's GroupNorm shapes (SDEdit level 0 at 128 and 256 channels, a row's level 0,
+        # the bottleneck), each with B after it; the apply at the decoder's norm_out (swish) and without an act
+        lambda: [check_group_norm_stats((1, 1024, 1024, 128), 20)],
+        lambda: [check_group_norm_stats((1, 1024, 1024, 256), 10)],
+        lambda: [check_group_norm_stats((1, 384, 1152, 128), 20)],
+        lambda: [check_group_norm_stats((1, 48, 144, 512), 50)],
+        lambda: [check_group_norm_apply((1, 1024, 1024, 128), "swish", 20)],
+        lambda: [check_group_norm_apply((1, 1024, 1024, 128), "none", 20)],
         lambda: [check_int8_matmul(3968, 3072, 21504, "linear1", 20)],
         lambda: [check_int8_matmul(3968, 15360, 3072, "linear2", 20)],
         lambda: [check_int8_matmul(3456, 3072, 9216, "img_attn.qkv", 20)],
@@ -3728,9 +3891,8 @@ def main() -> int:
         raise RuntimeError(f"the classifier-free-guidance forward failed: {rcfg}")
     free()
 
-    serving = ("flash_attn_rope", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS
-    training = ("flash_attn_fwd", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
-    bf16_unused = training + ("int8_matmul", "int4_matmul") + W8A8_KERNELS
+    serving, unserved = SERVING, UNSERVED
+    bf16_unused = unserved + ("int8_matmul", "int4_matmul") + W8A8_KERNELS
     r1_images = []
     r1 = run_request(model, "2x3 default query with SDEdit", 2, 3, 30, True, seed=1, used=serving,
                      unused=bf16_unused, images_out=r1_images)
@@ -3784,7 +3946,7 @@ def main() -> int:
     free()
     resident = torch.cuda.memory_allocated() / 2 ** 30
     rw = run_request(model, "2x3 default query with SDEdit, w8a8 DiT", 2, 3, 30, True, seed=1,
-                     used=serving + W8A8_USED_WITH, unused=training + ("int4_matmul",))
+                     used=serving + W8A8_USED_WITH, unused=unserved + ("int4_matmul",))
     rw.update(phase="request_w8a8", resident_gib=resident, w8a8_launches_predicted=W8A8_LINEARS * 38,
               stage_seconds_bf16=r1["stage_seconds"], **w8a8_launches_ok(rw))
     emit(rw)
@@ -3799,8 +3961,8 @@ def main() -> int:
     free()
     resident = torch.cuda.memory_allocated() / 2 ** 30
     r4 = run_request(model, "2x3 default query with SDEdit, int4 DiT", 2, 3, 30, True, seed=1,
-                     used=serving + ("int4_matmul",), unused=training + ("int8_matmul",) + W8A8_KERNELS)
-    evals = r4["launches"]["flash_attn_rope"] // ATTENTION_CALLS  # 29 + 9 predicted
+                     used=serving + ("int4_matmul",), unused=unserved + ("int8_matmul",) + W8A8_KERNELS)
+    evals = r4["launches"][DIT_ATTENTION] // ATTENTION_CALLS  # 29 + 9 predicted
     r4.update(phase="request_int4", resident_gib=resident, dit_evaluations=evals,
               int4_launches_predicted=INT8_LINEARS * 38, int4_launches_expected=INT8_LINEARS * evals,
               stage_seconds_bf16=r1["stage_seconds"], launches_bf16=r1["launches"])
@@ -3830,8 +3992,8 @@ def main() -> int:
     emit(dict(phase="init_int8", seconds=time.perf_counter() - t, resident_gib=resident,
               init_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
     rq = run_request(qmodel, "2x3 default query with SDEdit, int8 DiT + int4 T5-XXL + int8 CLIP-L", 2, 3, 30, True,
-                     seed=1, used=serving + ("int8_matmul",), unused=training + W8A8_KERNELS + ("int4_matmul",))
-    evals = rq["launches"]["flash_attn_rope"] // ATTENTION_CALLS  # DiT evaluations: 29 + 9 predicted
+                     seed=1, used=serving + ("int8_matmul",), unused=unserved + W8A8_KERNELS + ("int4_matmul",))
+    evals = rq["launches"][DIT_ATTENTION] // ATTENTION_CALLS  # DiT evaluations: 29 + 9 predicted
     rq.update(phase="request_int8", resident_gib=resident, dit_evaluations=evals,
               int8_launches_predicted=INT8_LINEARS * 38, int8_launches_expected=INT8_LINEARS * evals,
               stage_seconds_bf16=r1["stage_seconds"])
@@ -3855,7 +4017,7 @@ def main() -> int:
     emit(dict(phase="freed", allocated_gib=torch.cuda.memory_allocated() / 2 ** 30))
     with rope_calls() as seen:
         r3 = run_request(model, "2x2 query, interleaved layout", 2, 2, 9, False, seed=3,
-                         used=("flash_attn_fwd", "conv3x3_gn_swish", "flash_attn_d512") + FUSIONS,
+                         used=SERVING,
                          unused=("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
                                  "int8_matmul", "int4_matmul") + W8A8_KERNELS)
     r3 = no_plain_rope(dict(r3, phase="query_interleaved", rope_layout=model.rope_layout), seen)
@@ -3879,7 +4041,7 @@ def main() -> int:
             raise RuntimeError("the one-rank distributed trainer failed")
     free()
 
-    loaded = checkpoint_phases(r1, serving, bf16_unused, training)
+    loaded = checkpoint_phases(r1, serving, bf16_unused, unserved)
 
     kernels = []
     for name in REPLACES:

@@ -1,11 +1,12 @@
 """profile_step's denoise step on every serving stack, or its LoRA train step, another checkout against this one,
 in turns.
 
-    python scripts/ab_profile_step.py OTHER_CHECKOUT [--modes none int8 w8a8 int4 train] [--steps 3]
+    python scripts/ab_profile_step.py OTHER_CHECKOUT [--modes none int8 w8a8 int4 train vae] [--steps 3]
 
 For each stack (`--quantize` none: the bf16 DiT; int8: the single-card int8
 stack; w8a8 and int4: the bf16 stack with its DiT quantized; train:
-`profile_step --train`, the full-width trainer's LoRA step) runs
+`profile_step --train`, the full-width trainer's LoRA step; vae:
+`profile_step --vae`, the default query's VAE work) runs
 `python -m visualcloze_tpu_torch.profile_step` as a fresh process in each
 checkout, in the order other, this, this, other, so that both checkouts see
 the same card in the same state. Each checkout builds its own kernels and
@@ -32,7 +33,7 @@ import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-MODES = ("none", "int8", "w8a8", "int4", "train")
+MODES = ("none", "int8", "w8a8", "int4", "train", "vae")
 SMI_QUERY = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits", "-lms", "200"]
 
 
@@ -73,8 +74,8 @@ def main(argv=None) -> int:
             for turn in ("other", "this", "this", "other"):
                 cmd = [sys.executable, "-m", "visualcloze_tpu_torch.profile_step", "--steps", str(args.steps),
                        "--out", str(Path(tmp) / f"{mode}_{turn}.json")]
-                if mode == "train":
-                    cmd.append("--train")
+                if mode in ("train", "vae"):
+                    cmd.append(f"--{mode}")
                 elif mode != "none":
                     cmd += ["--quantize", mode]
                 out, card = run_turn(cmd, trees[turn])

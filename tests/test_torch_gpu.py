@@ -1175,3 +1175,146 @@ def test_gpu_single_block_under_autograd_rotates_in_l_only(layout):
     num = sum((a - b).pow(2).sum() for a, b in zip(got, want))
     den = sum(b.pow(2).sum() for b in want)
     assert (num / den).sqrt().item() <= 5e-2
+
+
+def _group_norm_case(dev, shape, seed):
+    """bf16 NHWC x with per-channel offsets and spreads, bf16 scale and bias."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=dev) * (torch.rand((c,), generator=g, device=dev) * 2.5 + 0.5)
+    x = (x + torch.randn((c,), generator=g, device=dev) * 2).to(torch.bfloat16)
+    scale = (1 + 0.2 * torch.randn((c,), generator=g, device=dev)).to(torch.bfloat16)
+    bias = (0.3 * torch.randn((c,), generator=g, device=dev)).to(torch.bfloat16)
+    return x, scale, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, groups", [((1, 48, 144, 512), 32), ((2, 37, 91, 384), 32), ((1, 8, 8, 32), 32),
+                                           ((3, 5, 7, 128), 16), ((1, 64, 64, 2048), 32), ((1, 1, 3, 256), 32)])
+def test_gpu_group_norm_stats_match_plain(shape, groups):
+    """Kernel N's statistics against their plain version: a and bb within
+    1e-5 of their largest magnitude (fp32 sums in another order), the same
+    bits on a second launch; ragged pixel counts, batches, C from 32 to
+    2048, fewer pixels than a CTA's lanes."""
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    dev = _cuda_or_skip()
+    x, scale, bias = _group_norm_case(dev, shape, sum(shape))
+    a, bb = gn.group_norm_stats(x, scale, bias, groups)
+    a2, bb2 = gn.group_norm_stats(x, scale, bias, groups)
+    torch.cuda.synchronize()
+    wa, wbb = gn.group_norm_stats_plain(x, scale, bias, groups)
+    _close(a, wa, 1e-5 * wa.abs().max().item())
+    _close(bb, wbb, 1e-5 * wbb.abs().max().item())
+    assert torch.equal(a, a2) and torch.equal(bb, bb2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["none", "swish"])
+@pytest.mark.parametrize("shape", [(1, 48, 144, 512), (2, 37, 91, 384), (1, 3, 5, 8)])
+def test_gpu_group_norm_apply_matches_plain(shape, act):
+    """Kernel N's apply: every element within one bf16 ulp of its plain
+    version's (the fp32 affine rounded to bf16, then swish as the bf16
+    chain rounds it), deterministic."""
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    dev = _cuda_or_skip()
+    x, scale, bias = _group_norm_case(dev, shape, 7)
+    a, bb = gn.group_norm_stats_plain(x, scale, bias, min(32, shape[-1]))
+    got = gn.group_norm_apply(x, a, bb, act)
+    assert torch.equal(got, gn.group_norm_apply(x, a, bb, act))
+    want = gn.group_norm_apply_plain(x, a, bb, act)
+    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126))) - 7)
+    assert ((got.float() - want.float()).abs() <= ulp).all()
+
+
+@pytest.mark.gpu
+def test_gpu_group_norm_refuses_what_it_cannot_take():
+    """No quiet fallback on CUDA tensors: not bf16, C not a multiple of 8 or
+    above 2048, groups not dividing C, the tiny configs' C < 32."""
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    dev = _cuda_or_skip()
+    x, scale, bias = _group_norm_case(dev, (1, 4, 4, 64), 1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gn.group_norm_stats(x.float(), scale, bias, 32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gn.group_norm_stats(x[..., :60], scale[:60], bias[:60], 30)
+    with pytest.raises(ValueError, match="groups"):
+        gn.group_norm_stats(x, scale, bias, 24)
+    with pytest.raises(ValueError, match="groups"):
+        gn.group_norm_stats(x[..., :16].contiguous(), scale[:16], bias[:16], 16)
+    big = torch.zeros((1, 1, 1, 4096), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        gn.group_norm_apply(big, torch.ones((1, 4096), device=dev), torch.zeros((1, 4096), device=dev))
+    a, bb = gn.group_norm_stats(x, scale, bias, 32)
+    with pytest.raises(ValueError, match="unknown act"):
+        gn.group_norm_apply(x, a, bb, "gelu")
+    with pytest.raises(ValueError, match="bb"):
+        gn.group_norm_apply(x, a, bb[:, :32], "swish")
+
+
+@pytest.mark.gpu
+def test_gpu_vae_decode_runs_every_group_norm_through_n():
+    """The full-width FLUX VAE decoding a small latent: N's statistics once
+    per GroupNorm and its apply at the attention block and norm_out
+    (chip_smoke.group_norm_calls), no other plain GroupNorm; the pixels
+    within 5% RMS of the all-plain route (chip_smoke.plain_dit), as
+    chip_smoke's reference check holds the VAE."""
+    from chip_smoke import group_norm_calls, plain_dit
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.config import AutoEncoderConfig
+    from visualcloze_tpu_torch.models.autoencoder import build_autoencoder
+
+    dev = _cuda_or_skip()
+    cfg = AutoEncoderConfig()
+    g = torch.Generator(device=dev).manual_seed(2)
+    ae = build_autoencoder(cfg, dev, torch.bfloat16).init_random_(g)
+    z = torch.randn((1, 8, 12, cfg.z_channels), generator=g, device=dev).to(torch.bfloat16)
+    ops.reset_kernel_launches()
+    with torch.no_grad():
+        got = ae.decode(z).float()
+    launches = ops.kernel_launches()
+    want_calls = group_norm_calls(cfg)["decode"]
+    assert launches["group_norm_stats"] == want_calls["stats"] and launches["group_norm_apply"] == 2, launches
+    ops.reset_kernel_launches()
+    with torch.no_grad(), plain_dit():
+        want = ae.decode(z).float()
+    assert not any(ops.kernel_launches().values())
+    assert ((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item() <= 5e-2
+
+
+@pytest.mark.gpu
+def test_gpu_half_layout_serving_block_attends_through_l_and_d():
+    """A full-width single block in the serving layout (half) without a
+    gradient: kernel L rotates q and k and kernel D attends; kernel A is
+    not launched and no plain rotation runs (chip_smoke.rope_calls); the
+    output within 5% RMS of the all-plain route."""
+    from chip_smoke import plain_dit, rope_calls
+
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.config import FluxConfig
+    from visualcloze_tpu_torch.models import layers
+    from visualcloze_tpu_torch.models.init import init_linears_, materialize
+
+    dev = _cuda_or_skip()
+    cfg = FluxConfig()
+    g = torch.Generator(device=dev).manual_seed(8)
+    block = materialize(lambda: layers.SingleBlock(cfg), dev, torch.bfloat16)
+    init_linears_(block, g)
+    block.norm.q_scale.data.fill_(1.0)
+    block.norm.k_scale.data.fill_(1.0)
+    x = torch.randn((1, 300, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    vec = torch.randn((1, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    pe = _rope_tables(dev, g, 1, 300)
+    ops.reset_kernel_launches()
+    with torch.no_grad(), rope_calls() as seen:
+        got = block(x, vec, pe, None, rope_layout="half").float()
+    launches = ops.kernel_launches()
+    assert not any(seen.values()), seen
+    assert launches["flash_attn_fwd"] == 1 and launches["flash_attn_rope"] == 0, launches
+    assert launches["qk_norm_split"] == 1, launches
+    with torch.no_grad(), plain_dit():
+        want = block(x, vec, pe, None, rope_layout="half").float()
+    assert ((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item() <= 5e-2

@@ -73,12 +73,16 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
     qkv = torch.randn(2, 5, 3 * 2 * 16)
     assert ops.qk_norm_split_bwd(qkv, torch.ones(16), torch.ones(16), 2, q, k, v)[0].shape == qkv.shape
     assert ops.merge_heads_bwd(torch.randn(2, 5, 2 * 16 + 64), 2, None, x)[1].shape == x.shape
+    x = torch.randn(1, 4, 4, 64)
+    a, bb = ops.group_norm_stats(x, torch.ones(64), torch.zeros(64), 32)
+    assert ops.group_norm_apply(x, a, bb, "swish").shape == x.shape
     assert ops.kernel_launches() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"flash_attn_rope", "flash_attn_d512", "conv3x3_gn_swish", "flash_attn_fwd",
                                 "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "int8_matmul",
                                 "w8a8_matmul", "act_quant_int8", "int4_matmul", "layernorm_modulate",
                                 "gated_residual", "qk_norm_split", "merge_heads", "layernorm_modulate_bwd",
-                                "gated_residual_bwd", "qk_norm_split_bwd", "merge_heads_bwd"}
+                                "gated_residual_bwd", "qk_norm_split_bwd", "merge_heads_bwd", "group_norm_stats",
+                                "group_norm_apply"}
 
 
 def _imports(path: Path) -> set[str]:
@@ -345,13 +349,15 @@ def test_inference_cli_serves_the_int8_stack_on_the_cpu(tmp_path):
 def test_profile_step_classes_kernels_by_demangled_name():
     from visualcloze_tpu_torch.profile_step import kernel_class
 
-    assert kernel_class("(anonymous namespace)::flash_fwd(__nv_bfloat16 const*, int)") == "attention (kernel A)"
-    assert kernel_class("void (anonymous namespace)::flash_fwd<false>(__nv_bfloat16 const*)") == "attention (kernel A)"
+    assert kernel_class("(anonymous namespace)::flash_fwd(__nv_bfloat16 const*, int)") == \
+        "attention (kernel A or D)"
+    assert kernel_class("void (anonymous namespace)::flash_fwd<false>(__nv_bfloat16 const*)") == \
+        "attention (kernel A or D)"
     assert kernel_class("void (anonymous namespace)::flash_fwd<true>(__nv_bfloat16 const*)") == \
         "attention forward (kernel E)"
     assert kernel_class("(anonymous namespace)::flash_bwd_dkv(__nv_bfloat16 const*)") == \
         "attention backward (kernel F)"
-    assert kernel_class("(anonymous namespace)::rope_rotate(__nv_bfloat16 const*)") == "attention (kernel A)"
+    assert kernel_class("(anonymous namespace)::rope_rotate(__nv_bfloat16 const*)") == "rotation pass (kernel A)"
     assert kernel_class("void (anonymous namespace)::int8_matmul_kernel<__nv_bfloat16>(__nv_bfloat16 const*, "
                         "signed char const*)") == "int8 matmul (kernel G)"
     assert kernel_class("(anonymous namespace)::w8a8_matmul_kernel(CUtensorMap, CUtensorMap, float const*)") == \
@@ -489,6 +495,10 @@ def test_profile_step_classes_vae_kernels_by_demangled_name():
     assert vae_class("(anonymous namespace)::flash_d512(CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 const*)") == \
         "attention (kernel C)"
     assert vae_class("(anonymous namespace)::flash_d512_kernel(__nv_bfloat16 const*)") == "attention (kernel C)"
+    assert vae_class("void (anonymous namespace)::group_norm_stats_pass<false>(__nv_bfloat16 const*, float*)") == \
+        "group norm (kernel N)"
+    assert vae_class("void (anonymous namespace)::group_norm_apply_kernel<true>(__nv_bfloat16 const*)") == \
+        "group norm (kernel N)"
     assert vae_class("void at::native::reduce_kernel<512, 1>(at::native::ReduceOp)") == "other"
     assert vae_class("void at::native::conv_depthwise2d_forward_kernel<float>(float const*)") == "other"
 

@@ -12,8 +12,8 @@ bias of the int8 and int4 linears into kernels G and G4.
   route kernel L rotates (its wrapper gets the tables) and no plain
   rotation runs (attention's rope_qk, FlashMHARope: counted by the `calls`
   fixture); the half layout under autograd likewise; without a gradient
-  the interleaved layout rotates in L and the half layout leaves the
-  rotation to kernel A (flash_mha_rope).
+  both layouts rotate in L too (the half one, serving's, once left the
+  rotation to kernel A, flash_mha_rope, which the blocks now never reach).
 - G's and G4's plain versions with a bias equal the bias-less plain version
   followed by the bf16 add `y + b` bit for bit (what the linears ran before
   the bias moved into the kernels' epilogues); Int8Linear and Int4DiTLinear
@@ -353,13 +353,16 @@ def test_blocks_rotate_in_l_and_match_jax(calls, kind, layout, grad):
 
 @pytest.mark.parametrize("kind", ["double", "single"])
 def test_the_half_layout_without_a_gradient_keeps_kernel_a_route(calls, kind):
-    """Serving's route: the half layout with no gradient leaves the rotation
-    to kernel A (flash_mha_rope, once a block); L runs without tables."""
+    """Serving's route: the half layout with no gradient, which once left
+    the rotation to kernel A, now rotates in L as every other route does
+    (L takes the tables, twice in a double block, once in a single block);
+    kernel A's entry (flash_mha_rope) is not reached and no plain rotation
+    runs."""
     for what, got, want in _block_run(kind, "half", False):
         _assert_rms_close(got, want, what)
     per_block = 2 if kind == "double" else 1
-    assert calls == dict(rope_qk=0, flash_mha_rope_plain_rotation=0, flash_mha_rope=1, l_rotating=0,
-                         l_plain=per_block), calls
+    assert calls == dict(rope_qk=0, flash_mha_rope_plain_rotation=0, flash_mha_rope=0, l_rotating=per_block,
+                         l_plain=0), calls
 
 
 def test_the_tiny_dit_under_autograd_in_the_interleaved_layout_matches_jax_vjp(calls):

@@ -27,7 +27,11 @@
 //   - rope_rotate (kernel A) rotates and scales q and k ONCE into bf16
 //     scratch: about 25 MB each way at L = 3968, against the ~3 GB of L2
 //     reads that rotating every k tile in every q-tile CTA from the fp32
-//     tables costs. D and E skip it and read the caller's q and k;
+//     tables costs. D and E skip it and read the caller's q and k. The DiT
+//     no longer takes this route: its kernel L writes q and k rotated
+//     (models/layers.py) and kernel D attends, so the pass's read and write
+//     of q and k are gone. A stays for direct callers of flash_mha_rope and
+//     for calibration's plain blocks;
 //   - flash_fwd (Hopper: TMA, wgmma, warp specialisation, after
 //     FlashAttention-3's forward): a CTA of 384 threads owns 128 query rows
 //     of one (b, h). Warpgroup 0 is the producer (setmaxnreg down to 24

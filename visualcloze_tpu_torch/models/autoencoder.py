@@ -1,11 +1,13 @@
 """FLUX VAE (AutoencoderKL), NHWC (counterpart of visualcloze_tpu/models/autoencoder.py).
 
 Activations are NHWC and conv weights HWIO (3, 3, C, Cout), as in JAX.
-GroupNorm statistics are fp32 torch ops; every resnet half-block
-(GroupNorm -> swish -> conv3x3) and every upsample conv goes through kernel B,
-and the bottleneck attention through kernel C, at every sequence length.
-The remaining convs (conv_in/out, the stride-2 downsample, 1x1 projections)
-are plain PyTorch convs, as they were plain XLA convs in JAX.
+Every GroupNorm's statistics go through kernel N (group_norm_stats); every
+resnet half-block (GroupNorm -> swish -> conv3x3) and every upsample conv
+goes through kernel B, the attention block's GroupNorm and the norm_outs'
+GroupNorm + swish through kernel N's apply, and the bottleneck attention
+through kernel C, at every sequence length. The remaining convs
+(conv_in/out, the stride-2 downsample, 1x1 projections), the residual adds
+and the upsample's repeats are plain PyTorch, as they were plain XLA in JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from torch import nn
 from ..config import AutoEncoderConfig
 from ..ops.conv2d import conv3x3_gn_swish
 from ..ops.flash_attention import flash_attn_d512
+from ..ops.group_norm import group_norm_apply, group_norm_stats
 from .init import materialize, normal_
 
 
@@ -54,29 +57,14 @@ def conv2d(p: Conv, x: torch.Tensor, stride: int = 1, padding: str = "SAME") -> 
 
 
 def group_norm_affine(p: GroupNorm, x: torch.Tensor, groups: int | None = None, eps: float = 1e-6):
-    """GroupNorm collapsed to a per-(batch, channel) fp32 affine y = x * a + b."""
-    b, h, w, c = x.shape
-    if groups is None:
-        groups = min(32, c)
-    cg = c // groups
-    x32 = x.to(torch.float32)
-    mu = x32.mean(dim=(1, 2)).reshape(b, groups, cg).mean(-1)
-    mu_c = mu.repeat_interleave(cg, dim=-1)
-    var_c = (x32 - mu_c[:, None, None, :]).square().mean(dim=(1, 2))
-    var = var_c.reshape(b, groups, cg).mean(-1)
-    rsig_c = torch.rsqrt(var + eps).repeat_interleave(cg, dim=-1)
-    a = rsig_c * p.scale.to(torch.float32)[None]
-    bb = p.bias.to(torch.float32)[None] - mu_c * a
-    return a, bb
+    """GroupNorm collapsed to a per-(batch, channel) fp32 affine y = x * a + b
+    (kernel N's statistics). 32 groups, clamped for tiny configs (C < 32)."""
+    return group_norm_stats(x, p.scale, p.bias, min(32, x.shape[-1]) if groups is None else groups, eps)
 
 
-def group_norm(p: GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    a, bb = group_norm_affine(p, x)
-    return (x.to(torch.float32) * a[:, None, None, :] + bb[:, None, None, :]).to(x.dtype)
-
-
-def swish(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
+def group_norm(p: GroupNorm, x: torch.Tensor, act: str = "none") -> torch.Tensor:
+    """GroupNorm, then act ("none" or "swish"), in x.dtype (kernel N)."""
+    return group_norm_apply(x, *group_norm_affine(p, x), act)
 
 
 def _gn_swish_conv(norm: GroupNorm, conv: Conv, x: torch.Tensor, residual=None) -> torch.Tensor:
@@ -185,7 +173,7 @@ class Encoder(nn.Module):
         h = self.mid["block_1"](h)
         h = self.mid["attn_1"](h)
         h = self.mid["block_2"](h)
-        return conv2d(self.conv_out, swish(group_norm(self.norm_out, h)))
+        return conv2d(self.conv_out, group_norm(self.norm_out, h, act="swish"))
 
 
 class Decoder(nn.Module):
@@ -222,7 +210,7 @@ class Decoder(nn.Module):
                 h = block(h)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return conv2d(self.conv_out, swish(group_norm(self.norm_out, h)))
+        return conv2d(self.conv_out, group_norm(self.norm_out, h, act="swish"))
 
 
 def diagonal_gaussian(z: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:

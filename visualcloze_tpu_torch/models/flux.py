@@ -133,7 +133,7 @@ class Flux(nn.Module):
                 attn_impl=None, pipeline=None, pe=None):
         """(B, L_img, in_channels) tokens -> (B, L_img, out_channels) velocity.
         txt/img masks are (B, L) int {1 real, 0 pad}; timesteps (B,) flux time;
-        rope_layout "half" (the serving layout, kernel A) or "interleaved"
+        rope_layout "half" (the serving layout) or "interleaved"
         (the reference's, which the trainer keeps). collect_a8_stats: returns
         (velocity, {"double_blocks": [per-block stats], "single_blocks": [...]}).
         pe: the RoPE tables from rope_tables(img_ids, txt_ids, attn_impl),

@@ -36,6 +36,9 @@ ep group finishes the combine. Blocks take `attn_impl` (None: the kernels;
 an ops.attention.RingSpec: ring attention over cp) and
 `seg`, a wrapper applied to their pre- and post-attention halves (the
 two-segment remat of models/flux.py); RoPE then runs inside the first half.
+On the fused route (every route but calibration's statistics passes) kernel
+L rotates q and k, in either layout, with and without a gradient, and
+attention() gets no tables.
 With collect_stats, a block also returns the per-input-channel absmax of
 each w8a8 linear's input (the SmoothQuant calibration of models/quant.py),
 keyed as the block's modules: {"img_attn": {"qkv", "proj"}, "img_mlp":
@@ -55,9 +58,9 @@ from torch import nn
 
 from ..config import FluxConfig
 from ..ops.act_quant import act_quant_int8
-from ..ops.attention import RingSpec, attention
+from ..ops.attention import attention
 from ..ops.block_fusions import (apply_gated_residual, apply_layernorm_modulate, apply_qk_norm_split,
-                                 gated_residual_plain, layernorm_modulate_plain, qk_norm_split_plain, wants_grad)
+                                 gated_residual_plain, layernorm_modulate_plain, qk_norm_split_plain)
 from ..parallel.collectives import all_gather_cat, copy_to, reduce_from
 from ..ops.int4_matmul import int4_matmul
 from ..ops.int8_matmul import int8_matmul
@@ -391,19 +394,6 @@ def _input_dtype(linear: nn.Module) -> torch.dtype:
     return linear._x_dtype or torch.float32
 
 
-def _rope_in_l(pe, rope_layout: str, attn_impl, remat: bool, streams) -> tuple | None:
-    """The RoPE tables kernel L rotates q and k by on a block's fused route
-    (apply_qk_norm_split's pe; attention then takes none), or None: L
-    rotates on every route but kernel A's -- the half layout with no
-    gradient and no ring, where A rotates inside itself. Under the
-    two-segment remat (`remat`) the rotated q, k are the attention's saved
-    inputs, rotated inside the first segment, so L rotates there too."""
-    grad = remat or wants_grad(*(t for stream in streams for t in stream))
-    if rope_layout == "half" and not isinstance(attn_impl, RingSpec) and not grad:
-        return None
-    return pe
-
-
 def _modulate(x, mod, out_dtype: torch.dtype, fused: bool):
     """(1 + scale) * layer_norm(x) + shift as out_dtype: kernel J (J' its
     backward), or its plain version (calibration)."""
@@ -478,14 +468,12 @@ class DoubleBlock(nn.Module):
             txt_qkv = self._qkv(self.txt_attn, txt, txt_mod1, l.get("txt_attn", {}), lora_scale, st("txt_attn"),
                                 fused)
             streams = [(qkv, *attn.norm.scales()) for attn, qkv in ((self.txt_attn, txt_qkv), (self.img_attn, img_qkv))]
-            if fused:  # both streams into one joint buffer, txt first, rotated there where L rotates
-                pe_l = _rope_in_l(pe, rope_layout, attn_impl, seg is not None, streams)
-                q, k, v, _ = apply_qk_norm_split(streams, self.num_heads, img_qkv.shape[-1], pe_l, rope_layout)
+            if fused:  # both streams into one joint buffer, txt first, rotated there
+                q, k, v, _ = apply_qk_norm_split(streams, self.num_heads, img_qkv.shape[-1], pe, rope_layout)
             else:
-                pe_l = None
                 parts = [qk_norm_split_plain(*stream, self.num_heads) for stream in streams]
                 q, k, v = (torch.cat(ts, dim=2) for ts in zip(*parts))
-            return q, k, v, pe_l, (img_mod1, img_mod2, txt_mod1, txt_mod2)
+            return q, k, v, (img_mod1, img_mod2, txt_mod1, txt_mod2)
 
         def post(img, txt, attn, mods):
             img_mod1, img_mod2, txt_mod1, txt_mod2 = mods
@@ -504,8 +492,8 @@ class DoubleBlock(nn.Module):
 
         if seg is not None:
             pre, post = seg(pre), seg(post)
-        q, k, v, pe_l, mods = pre(img, txt)
-        attn = attention(q, k, v, None if pe_l is not None else pe, mask=attn_mask, rope_layout=rope_layout,
+        q, k, v, mods = pre(img, txt)
+        attn = attention(q, k, v, None if fused else pe, mask=attn_mask, rope_layout=rope_layout,
                          impl=attn_impl, fused=fused)
         out = post(img, txt, attn, mods)
         return (out, stats) if collect_stats else out
@@ -548,14 +536,12 @@ class SingleBlock(nn.Module):
             h = self.linear1(x_mod, l.get("linear1"), lora_scale)
             cols = 3 * self.hidden_size
             if fused:  # the gelu half comes back through QKNormSplit, which owns h's gradient
-                streams = [(h, *self.norm.scales())]
-                pe_l = _rope_in_l(pe, rope_layout, attn_impl, seg is not None, streams)
-                q, k, v, mlp_h = apply_qk_norm_split(streams, self.num_heads, cols, pe_l, rope_layout)
+                q, k, v, mlp_h = apply_qk_norm_split([(h, *self.norm.scales())], self.num_heads, cols, pe,
+                                                     rope_layout)
             else:
-                pe_l = None
                 q, k, v = qk_norm_split_plain(h[..., :cols], *self.norm.scales(), self.num_heads)
                 mlp_h = h[..., cols:]
-            return q, k, v, mlp_h, pe_l, mod
+            return q, k, v, mlp_h, mod
 
         def post(x, cat, mod):
             """cat: linear2's whole input, the merged heads and gelu of the
@@ -567,8 +553,8 @@ class SingleBlock(nn.Module):
 
         if seg is not None:
             pre, post = seg(pre), seg(post)
-        q, k, v, mlp_h, pe_l, mod = pre(x)
-        cat = attention(q, k, v, None if pe_l is not None else pe, mask=attn_mask, rope_layout=rope_layout,
+        q, k, v, mlp_h, mod = pre(x)
+        cat = attention(q, k, v, None if fused else pe, mask=attn_mask, rope_layout=rope_layout,
                         impl=attn_impl, gelu=mlp_h, fused=fused)
         out = post(x, cat, mod)
         return (out, stats) if collect_stats else out

@@ -12,6 +12,7 @@ from .flash_attention import (
     flash_attn_fwd_lse,
     flash_attn_rope,
 )
+from .group_norm import group_norm_apply, group_norm_stats
 from .int4_matmul import int4_matmul
 from .int8_matmul import int8_matmul
 from .w8a8_matmul import w8a8_matmul
@@ -36,6 +37,8 @@ KERNELS = {
     "gated_residual_bwd": gated_residual_bwd,
     "qk_norm_split_bwd": qk_norm_split_bwd,
     "merge_heads_bwd": merge_heads_bwd,
+    "group_norm_stats": group_norm_stats,
+    "group_norm_apply": group_norm_apply,
 }
 
 

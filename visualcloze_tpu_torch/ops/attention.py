@@ -5,14 +5,14 @@ Padding is an additive key bias over static lengths; padded query rows are
 zeroed at the end, as flash-attn's unpad/re-pad round trip leaves them (and
 so their output gradients are 0, which the backward kernels rely on). The
 DiT blocks rotate q and k in kernel L (ops/block_fusions.py; kernel L' takes
-the transposed rotation) on every route but kernel A's and then pass pe =
-None, so attention goes to `flash_mha` (kernel D, or E and F under
-autograd) or to the ring. With tables (kernel A's route, calibration's plain
-blocks and direct callers), the half RoPE layout, the serving one, goes to
-kernel A with the rotation inside the kernel (or, under autograd, to
-FlashMHARope: the rotation in plain passes, E and F); the interleaved
-layout, the reference's and the trainer's, rotates q and k here (rope_qk)
-and goes to `flash_mha`. The blocks' head merge
+the transposed rotation) on every route they fuse (both layouts, with and
+without a gradient, under a ring) and then pass pe = None, so attention goes
+to `flash_mha` (kernel D, or E and F under autograd) or to the ring. With
+tables (calibration's plain blocks and direct callers), the half RoPE
+layout goes to kernel A with the rotation inside the kernel (or, under
+autograd, to FlashMHARope: the rotation in plain passes, E and F); the
+interleaved layout, the reference's and the trainer's, rotates q and k here
+(rope_qk) and goes to `flash_mha`. The blocks' head merge
 is kernel M (ops/block_fusions.py), under autograd its Function with
 kernel M' as the backward. `mha_xla` is the fp32 oracle the kernels are
 held against.
@@ -121,8 +121,8 @@ def attention(
     """RoPE + masked MHA + head merge.
 
     q, k, v: (B, H, L, D), unrotated (pe = (cos, sin), each (B, L, D/2)) or
-    already rotated (pe None: the blocks' kernel L rotated them, everywhere
-    but kernel A's route); mask: (B, L) int {1 real, 0 pad}; impl None
+    already rotated (pe None: the blocks' kernel L rotated them on every
+    fused route); mask: (B, L) int {1 real, 0 pad}; impl None
     (the kernels) or a RingSpec. Returns (B, L, H * D) with padded query rows
     zeroed. gelu: (B, L, G), whose gelu(tanh) is appended -> (B, L, H * D +
     G), the single block's linear2 input in one buffer. fused: the merge by

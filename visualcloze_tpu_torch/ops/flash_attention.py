@@ -37,9 +37,10 @@ a gradient is wanted, else D; backward delta = rowsum(dO * O) in fp32, then
 F). `flash_mha_rope` is kernel A without gradients and, under autograd,
 `FlashMHARope`: q and k rotated in PyTorch, E, and in the backward F followed
 by the inverse rotation (sin -> -sin), as JAX's `_flash_mha_rope_fwd/bwd`.
-The DiT blocks do not reach FlashMHARope: under autograd kernel L rotates
-q and k and L' takes the inverse rotation (ops/block_fusions.py); it stays
-for direct callers and as the plain route's rotation.
+The DiT blocks reach neither on their fused route: kernel L rotates q and k
+(L' takes the inverse rotation) and flash_mha attends; kernel A and
+FlashMHARope stay for direct callers and the calibration passes' plain
+blocks.
 """
 
 from __future__ import annotations

@@ -67,8 +67,8 @@ def random_components(
 ) -> VisualClozeModel:
     """A randomly initialized pipeline. Random weights are valid in either
     RoPE layout as they stand, so no permutation is applied: rope_layout
-    "half" serves through kernel A, "interleaved" (the reference's channel
-    order, which the trainer keeps) through kernel D. The tokenizers are
+    "half" (kernel L rotates q and k) and "interleaved" (the reference's
+    channel order, which the trainer keeps) both attend through kernel D. The tokenizers are
     FallbackTokenizers (tiny vocabularies, or the full T5/CLIP ones). mesh,
     attn_impl: as build_visualcloze (every rank draws the same weights from
     the same generator seed)."""

@@ -98,10 +98,9 @@ class VisualClozeModel:
 
     flux: the DiT with LoRA folded in (models/lora.fold_lora; the loader
     folds while it places the weights); ae, t5, clip: the VAE and the two
-    TextEncoders. rope_layout "half" (the serving layout: kernel A rotates
-    inside the attention kernel) or "interleaved" (the reference's channel
-    order, as the trainer keeps it: q and k are rotated in PyTorch and kernel
-    D attends). With "half" and permute_params the constructor permutes the
+    TextEncoders. rope_layout "half" (the serving layout) or "interleaved"
+    (the reference's channel order, as the trainer keeps it); in both the
+    blocks' kernel L rotates q and k and kernel D attends. With "half" and permute_params the constructor permutes the
     q/k channels of `flux` from the reference order in place
     (models/weights.permute_rope_layout), as the JAX constructor does;
     permute_params=False: the caller's weights already sit in the half order
@@ -347,7 +346,7 @@ class VisualClozeModel:
 
         with self._stage("text_encode", seconds):
             true_len = sum(h * w // 256 for (h, w) in sizes)
-            # bucket to 128 only: kernel A takes any length
+            # bucket to 128 only: kernel D takes any length
             inp = prepare_modified(
                 self.t5, self.clip, [noise_rows], [" ".join(prompts)], bucket=128
             )

@@ -7,8 +7,8 @@ Builds the full-width random-weight model in bf16 on the GPU, prepares the
 default query (a 2x3 grid at 384: 3456 image + 512 text tokens), times
 `--steps` Euler steps with CUDA events, then traces the same steps with
 torch.profiler and sums the device time of every CUDA kernel by class:
-the DiT's GEMMs (cuBLAS through F.linear), kernel A (the rotation pass and
-the attention kernel), kernels J-M (the blocks' LayerNorm-modulate, gated
+the DiT's GEMMs (cuBLAS through F.linear), the attention (kernel D, or
+kernel A with its rotation pass a class of its own), kernels J-M (the blocks' LayerNorm-modulate, gated
 residual, head split with q/k norm, head merge with gelu) and, in a train
 step, their backward kernels J'-M' and J'-L''s column sums, and the rest
 (the modulation and embedders' small ops, RoPE tables, the LoRA-free glue,
@@ -38,13 +38,21 @@ alone (random weights, bf16): its vae_encode and vae_decode stages (two
 sdedit_decode (the 1024^2 image and a blank one encoded, one decoded). Each
 part is timed with CUDA events (mean of --steps), then all are traced once;
 device time is summed as kernel B (GroupNorm affine + swish + conv3x3),
-kernel C (the D = 512 attention) and other (GroupNorm statistics, the plain
-convs, resampling, residual adds, casts).
+kernel C (the D = 512 attention), kernel N (GroupNorm statistics and apply)
+and other (the plain convs, resampling, residual adds, casts; the
+GroupNorm passes of a tree without kernel N). The traced pass wraps the autoencoder's
+functions in profiler ranges (VAE_SPANS) and splits "other" by the range
+that launched each kernel (other_by_span: GroupNorm statistics, GroupNorm
+apply + swish, plain convs, residual adds, upsampling, padding, attention
+glue; "unlabeled" is the rest), and names its 12 costliest kernels
+(other_by_kernel).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -59,7 +67,8 @@ from .models.quant import quantize_flux_int4, quantize_flux_w8a8
 from .pipeline import random_components, synthetic_full_components
 
 # demangled names of csrc/flash_attn_rope.cu (A, D, E) and flash_attn_bwd.cu (F)
-ATTENTION_KERNEL = re.compile(r"\b(rope_rotate|flash_fwd)[<(]")
+ATTENTION_KERNEL = re.compile(r"\bflash_fwd[<(]")
+ROPE_PASS_KERNEL = re.compile(r"\brope_rotate[<(]")  # kernel A's rotation pass
 LSE_KERNEL = re.compile(r"\bflash_fwd<true>")
 BACKWARD_KERNEL = re.compile(r"\bflash_bwd_(dq|dkv)\(")
 # csrc/int8_matmul.cu: its GEMV body, and the shared wide body (weight_only_wide.cuh) with G's policy
@@ -82,6 +91,15 @@ FUSION_KERNELS = ((re.compile(r"\bln_modulate_kernel<"), "layernorm modulate (ke
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 CONV_KERNEL = re.compile(r"\bconv3x3_kernel<")  # csrc/conv3x3_gn_swish.cu (B)
 D512_KERNEL = re.compile(r"\bflash_d512")  # csrc/flash_attn_d512.cu (C)
+GROUP_NORM_KERNEL = re.compile(r"\bgroup_norm_(stats|apply)\w*[<(]")  # csrc/group_norm.cu (N)
+# profiler ranges around models/autoencoder.py's functions in the traced VAE pass: (owner, attribute, span);
+# a kernel counts to the innermost range that launched it; an attribute a tree lacks is skipped (swish: a
+# tree without kernel N applies it apart)
+VAE_SPANS = ((None, "group_norm_affine", "group norm statistics"), (None, "group_norm", "group norm apply + swish"),
+             (None, "swish", "group norm apply + swish"), (None, "conv2d", "plain conv + bias"),
+             (None, "_gn_swish_conv", "resnet residual add"), ("Upsample", "forward", "upsample repeat"),
+             ("Downsample", "forward", "downsample pad"), ("AttnBlock", "forward", "attention glue"))
+SPAN_PREFIX = "vae_span::"
 VAE_ROW, VAE_SDEDIT = (384, 1152), (1024, 1024)  # the default query's rows and its SDEdit image
 OTHER_TOP = 12  # the "other" class's kernels named in a step's result, costliest first
 
@@ -99,8 +117,10 @@ def kernel_class(name: str) -> str:
         return "attention forward (kernel E)"
     if BACKWARD_KERNEL.search(name):
         return "attention backward (kernel F)"
+    if ROPE_PASS_KERNEL.search(name):
+        return "rotation pass (kernel A)"
     if ATTENTION_KERNEL.search(name):
-        return "attention (kernel A)"
+        return "attention (kernel A or D)"
     for pattern, cls in FUSION_KERNELS:
         if pattern.search(name):
             return cls
@@ -114,7 +134,52 @@ def vae_class(name: str) -> str:
         return "conv (kernel B)"
     if D512_KERNEL.search(name):
         return "attention (kernel C)"
+    if GROUP_NORM_KERNEL.search(name):
+        return "group norm (kernel N)"
     return "other"
+
+
+@contextlib.contextmanager
+def vae_spans():
+    """Wrap the autoencoder's functions named in VAE_SPANS in profiler ranges
+    while the block runs."""
+    from .models import autoencoder
+
+    saved = []
+    for owner_name, attr, span in VAE_SPANS:
+        owner = autoencoder if owner_name is None else getattr(autoencoder, owner_name)
+        fn = getattr(owner, attr, None)
+        if fn is None:
+            continue
+
+        @functools.wraps(fn)
+        def spanned(*args, _fn=fn, _span=SPAN_PREFIX + span, **kwargs):
+            with torch.profiler.record_function(_span):
+                return _fn(*args, **kwargs)
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, spanned)
+    try:
+        yield
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
+def other_by_span(prof) -> dict[str, float]:
+    """Device ms of the "other" VAE class by the innermost VAE_SPANS range
+    that launched each kernel."""
+
+    def own_us(ev):
+        us = sum(k.duration for k in ev.kernels if vae_class(k.name) == "other")
+        return us + sum(own_us(ch) for ch in ev.cpu_children if not ch.name.startswith(SPAN_PREFIX))
+
+    out: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.name.startswith(SPAN_PREFIX):
+            span = ev.name[len(SPAN_PREFIX):]
+            out[span] = out.get(span, 0.0) + own_us(ev) / 1e3
+    return out
 
 
 def device_time(prof) -> tuple[dict[str, list], float, float]:
@@ -123,8 +188,8 @@ def device_time(prof) -> tuple[dict[str, list], float, float]:
     per_kernel: dict[str, list] = {}
     spans = []
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith(SPAN_PREFIX):
+            continue  # a VAE_SPANS range's device-side copy is no kernel
         spans.append((e.time_range.start, e.time_range.end))
         acc = per_kernel.setdefault(e.name, [0.0, 0])
         acc[0] += e.time_range.end - e.time_range.start
@@ -170,13 +235,16 @@ def vae_work(ae, generator) -> dict:
 def vae_profile(ae, generator, reps: int) -> dict:
     """CUDA-event ms of each part of vae_work (mean of `reps`, after a
     warm-up), then one traced pass of every part: device ms by class
-    (vae_class), launches, idle share and the 20 costliest kernels."""
+    (vae_class), launches, idle share, "other" split (other_by_span,
+    other_by_kernel) and the 20 costliest kernels; each part's peak GiB of
+    device memory."""
     parts = vae_work(ae, generator)
     for run in parts.values():
         run()
     torch.cuda.synchronize()
-    part_ms = {}
+    part_ms, part_peak = {}, {}
     for name, run in parts.items():
+        torch.cuda.reset_peak_memory_stats()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
@@ -184,7 +252,8 @@ def vae_profile(ae, generator, reps: int) -> dict:
         end.record()
         torch.cuda.synchronize()
         part_ms[name] = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        part_peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    with vae_spans(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for run in parts.values():
             run()
         torch.cuda.synchronize()
@@ -199,12 +268,17 @@ def vae_profile(ae, generator, reps: int) -> dict:
     kernel_ms = sum(ms for ms, _ in classes.values())
     total_ms = sum(part_ms.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:20]
+    other = sorted(((n, v) for n, v in per_kernel.items() if vae_class(n) == "other"), key=lambda kv: -kv[1][0])
+    spans = other_by_span(prof)
+    spans["unlabeled"] = classes.get("other", [0.0])[0] - sum(spans.values())
     return dict(
-        part_ms_cuda_events=part_ms, ms_cuda_events=total_ms, kernel_ms_traced=kernel_ms,
+        part_ms_cuda_events=part_ms, part_peak_gib=part_peak, ms_cuda_events=total_ms, kernel_ms_traced=kernel_ms,
         class_ms={k: ms for k, (ms, _) in sorted(classes.items())},
         class_share={k: ms / kernel_ms for k, (ms, _) in sorted(classes.items())},
         class_launches={k: n for k, (_, n) in sorted(classes.items())},
         device_idle_share=1.0 - kernel_ms / total_ms, device_idle_share_traced=1.0 - busy / window,
+        other_by_span=dict(sorted(spans.items(), key=lambda kv: -kv[1])),
+        other_by_kernel=[dict(name=n[:160], ms=us / 1e3, calls=c) for n, (us, c) in other[:OTHER_TOP]],
         top=[dict(name=n, ms=us / 1e3, calls=c) for n, (us, c) in top],
     )
 
@@ -272,7 +346,7 @@ def main(argv=None) -> int:
     p.add_argument("--quantize", default=None, choices=[None, "int8", "w8a8", "int4"],
                    help="int8: the denoise step of the single-card int8 stack (kernel G); w8a8: of the "
                         "bf16 model with a w8a8 DiT (kernels I, H and G); int4: with an int4 DiT (kernel G4)")
-    p.add_argument("--vae", action="store_true", help="profile the default query's VAE work (kernels B and C)")
+    p.add_argument("--vae", action="store_true", help="profile the default query's VAE work (kernels B, C and N)")
     args = p.parse_args(argv)
     if args.train and args.quantize:
         p.error("--quantize profiles a denoise step; the trainer trains the bf16 DiT")
