@@ -69,7 +69,18 @@ Phases, each followed by one flushed JSON line on stdout:
              rows zeroed, + gelu of linear1's last 12288 columns) at 3968
              with 64 padded rows, the merge alone, 4608, 5760 with 512
              padded rows and 7 rows (the merge bit for bit, the gelu within
-             one bf16 ulp of each element); their backward kernels, graph-
+             one bf16 ulp of each element); the w8a8 DiT's fused route, each
+             with and without a_sinv, graph-timed beside the unfused kernels
+             they replace: J writing its consumer linear's codes (bf16-
+             rounded at the single block's 3968 tokens, fp32 at the double
+             block's 3456 and 512, 7 rows at batch 2), M writing them (the
+             single block's linear2 input with 64 padded rows, the double
+             block's joint rows cut into the txt and img projs' buffers, 7
+             rows), O (gelu + quantize) at 3456, 512 and 7 rows of 12288:
+             each bit for bit kernel I applied to J's, M's and M's gelu
+             output (tolerance 0), deterministic, within 1 code and 1 bf16
+             ulp of the scales of its plain version (the merge alone 0);
+             their backward kernels, graph-
              timed, each against its plain backward and against
              torch.autograd.grad of the plain forward, deterministic: J'
              at 3968, 3456, 512 tokens, 3968 at batch 2 (the column sums
@@ -142,9 +153,12 @@ Phases, each followed by one flushed JSON line on stdout:
   quant_reference  the bf16 DiT quantized beside itself (quantize_flux_int8):
              the int8 DiT through G vs through G's plain version, and vs the
              bf16 DiT (correlation, as the JAX package's int8 test);
-  quant_reference_w8a8  the same for the w8a8 DiT (I, H and G vs their
-             plain versions) and for the SmoothQuant w8a8 DiT calibrated on
-             the default query (30 steps, statistics every 5th);
+  quant_reference_w8a8  the same for the w8a8 DiT (its fused route: J, M
+             and O writing the codes, H and G, vs their plain versions; I,
+             H, G, J, M and O launches 0, 228, 86, 114, 57, 38; the RMS
+             against the unfused kernels' route, J, M, gelu and I, reported)
+             and for the SmoothQuant w8a8 DiT calibrated on the default
+             query (30 steps, statistics every 5th);
   samplers_sde  a 2x2 query at 384 through Sampler.sample_sde (Euler-Maruyama
              and Heun, 10 points), each twice from one generator seed: DiT
              evaluations 9 and 17 (A's launches / 57), bit-equal runs;
@@ -161,8 +175,13 @@ Phases, each followed by one flushed JSON line on stdout:
              Euler steps, decoded and saved through the ViT-base NSFW gate
              and the watermark;
   request_w8a8  the bf16 DiT swapped for its w8a8 copy (bf16 T5, CLIP-L and
-             VAE) serving request 1's query: I and H 228 times per DiT
-             evaluation, G 86; stage seconds beside request 1's;
+             VAE) serving request 1's query: H 228 times per DiT
+             evaluation, G 86, the quantizing J, M and O 114, 57 and 38, the
+             plain J once, M and I never; stage seconds beside request 1's;
+  request_w8a8_adapter  a random rank-16 runtime adapter on that DiT, a 2x2
+             query at 10 steps: every w8a8 linear has a LoRA entry, so I and
+             H 228 times per evaluation, J-M 115 / 114 / 76 / 57, no
+             quantizing J, M or O;
   request_int4  the w8a8 DiT swapped for the int4 copy, request 1's query:
              G4 314 x 38 times, no G, H or I, A, B and C as in request 1;
              resident and peak memory;
@@ -220,7 +239,8 @@ Phases, each followed by one flushed JSON line on stdout:
   load_checkpoint_w8a8_smooth  the same files with quantize="w8a8_smooth":
              the folded bf16 DiT calibrated at load (a blank 2x2 grid, 30
              steps: 29 evaluations through A, no quantized kernel), then the
-             default query: I and H 228 times per evaluation, G 86;
+             default query: H 228 times per evaluation, G 86, the
+             quantizing J, M and O 114, 57 and 38, I never;
   load_snapshot  the BFL file removed, the seed-0 DiT written as a diffusers
              snapshot (transformer/ shards, model_index.json) and loaded:
              every tensor bit-identical to the seed-0 DiT it was written
@@ -235,13 +255,17 @@ Phases, each followed by one flushed JSON line on stdout:
 The checkpoint files are removed after the last of them, also on failure.
 Launch counters are zeroed just before each main-path phase (ring_chunks'
 two ring schedules at each length, moe_train, dist_one_rank's NCCL run, request,
-serve, samplers_sde, likelihood, request_w8a8, request_int4, each query of
-bfl_route, request_int8, train, query_interleaved, request_loaded,
-solvers, load_checkpoint_int8, the calibrating load and the query of
-load_checkpoint_w8a8_smooth, load_snapshot, diffusers_api) and read just after; G runs in
-the int8 and w8a8 phases only, H and I in the w8a8 ones only, G4 in
-request_int4 only; J, K, L and M in every serving phase, 115, 114, 76 and
-57 times per DiT evaluation (A's or D's launches / 57); under autograd
+serve, samplers_sde, likelihood, request_w8a8, request_w8a8_adapter,
+request_int4, each query of bfl_route, request_int8, train,
+query_interleaved, request_loaded, solvers, load_checkpoint_int8, the
+calibrating load and the query of load_checkpoint_w8a8_smooth,
+load_snapshot, diffusers_api) and read just after; G runs in the int8 and
+w8a8 phases only, H in the w8a8 ones only, G4 in request_int4 only; J, K,
+L and M in every serving phase, 115, 114, 76 and 57 times per DiT
+evaluation (D's launches / 57), except on the w8a8 DiT's fused route
+(request_w8a8, load_checkpoint_w8a8_smooth's query): J 1, K 114, L 76, M
+0, the quantizing J, M and O 114, 57 and 38, I 0 (I 228 only with the
+adapter of request_w8a8_adapter); under autograd
 (grad_reference, likelihood, train, moe_train, dist_one_rank) J-M as often
 per pass over the blocks (twice an evaluation under the trainer's remat
 "full", the final layer's J once) and J'-M' as often per backward
@@ -289,6 +313,11 @@ REPLACES = {
     "int8_matmul": "visualcloze_tpu/ops/int8_matmul.py:52",
     "w8a8_matmul": "visualcloze_tpu/models/layers.py:85",  # linear's w8a8 branch: an XLA fusion, no Pallas kernel
     "act_quant_int8": "visualcloze_tpu/models/quant.py:181",  # likewise
+    # the same quantize fused into the chain that produces the linear's input (XLA), here written by that
+    # chain's kernel: J's LayerNorm + modulate, M's merge (+ gelu), and kernel O's gelu of mlp.0's output
+    "layernorm_modulate_quant": "visualcloze_tpu/models/layers.py:145",  # + the a8 branch :99-100, quant.py:181
+    "merge_heads_quant": "visualcloze_tpu/ops/attention.py:176",  # + layers.py:342, the a8 branch :99-100
+    "gelu_act_quant": "visualcloze_tpu/models/layers.py:276",  # jax.nn.gelu + the a8 branch :99-100
     "int4_matmul": "visualcloze_tpu/models/layers.py:124",  # linear's w_int4 branch (dequant_weight_int4 :358), XLA
     # none: XLA fusions inside double_block :207 and single_block :302, no Pallas kernel
     "layernorm_modulate": "visualcloze_tpu/models/layers.py:145",  # layer_norm + the modulate :247, :273, :330
@@ -315,6 +344,9 @@ SOURCES = {
     "int8_matmul": "visualcloze_tpu_torch/csrc/int8_matmul.cu",
     "w8a8_matmul": "visualcloze_tpu_torch/csrc/w8a8_matmul.cu",
     "act_quant_int8": "visualcloze_tpu_torch/csrc/act_quant_int8.cu",
+    "layernorm_modulate_quant": "visualcloze_tpu_torch/csrc/layernorm_modulate.cu",
+    "merge_heads_quant": "visualcloze_tpu_torch/csrc/merge_heads.cu",
+    "gelu_act_quant": "visualcloze_tpu_torch/csrc/gelu_act_quant.cu",
     "int4_matmul": "visualcloze_tpu_torch/csrc/int4_matmul.cu",
     "layernorm_modulate": "visualcloze_tpu_torch/csrc/layernorm_modulate.cu",
     "gated_residual": "visualcloze_tpu_torch/csrc/gated_residual.cu",
@@ -331,11 +363,16 @@ SOURCES = {
 # blocks x 10, 38 single blocks x 3, 8 embedder and 2 final-layer linears);
 # the attention, kernel D on q and k that kernel L rotated, once per block
 # (19 + 38: DIT_ATTENTION; kernel A only in calibration's statistics
-# passes, whose plain blocks hand attention() the tables); in the w8a8 DiT kernels I and H each
-# once per token-dim block linear (19 x 8 + 38 x 2) and G the other 86
+# passes, whose plain blocks hand attention() the tables); in the w8a8 DiT kernel H once per token-dim
+# block linear (19 x 8 + 38 x 2) and G the other 86. H takes the codes that J (before qkv, mlp.0, linear1),
+# M (before proj, linear2) and O (gelu + quantize before mlp.2) write on the fused route; kernel I quantizes
+# a w8a8 linear's input itself only off that route (a LoRA entry, a tp shard, autograd): W8A8_UNFUSED
 INT8_LINEARS, ATTENTION_CALLS = 314, 57
 W8A8_LINEARS = 19 * 8 + 38 * 2
-W8A8_KERNELS = ("w8a8_matmul", "act_quant_int8")
+QUANT_FUSIONS = ("layernorm_modulate_quant", "merge_heads_quant", "gelu_act_quant")
+W8A8_KERNELS = ("w8a8_matmul",) + QUANT_FUSIONS
+W8A8_UNFUSED = "act_quant_int8"
+W8A8_ONLY = W8A8_KERNELS + (W8A8_UNFUSED,)  # launched by no other DiT
 # kernels J, K, L and M per DiT evaluation (models/layers.py): J before a double block's qkv and mlp.0 of
 # each stream, a single block's linear1 and the final layer's linear; K at a double block's four gated
 # residuals and a single block's one; L twice a double block (txt, then img into the joint buffer) and once a
@@ -368,6 +405,10 @@ def fusion_calls(depth: int = 19, depth_single: int = 38) -> dict:
 
 
 FUSION_CALLS = dict(fusion_calls(), layernorm_modulate=fusion_calls()["layernorm_modulate"] + 1)
+# the w8a8 DiT's fused route: J writes the codes of 4 linears' inputs a double block and linear1's (the
+# final layer's J stays bf16: its linear is G), M those of both projs and linear2, O those of both mlp.2s
+W8A8_FUSION_CALLS = dict(FUSION_CALLS, layernorm_modulate=1, merge_heads=0, layernorm_modulate_quant=4 * 19 + 38,
+                         merge_heads_quant=19 + 38, gelu_act_quant=2 * 19)
 # the blocks run twice a training evaluation under remat "full" (the forward and its recomputation)
 REMAT_PASSES = 2
 
@@ -395,13 +436,15 @@ def autograd_launches(launches: dict) -> dict:
     return {n: launches[n] for n in FUSIONS + BACKWARDS}
 
 
-def fusions_expected(evals: int) -> dict:
-    """J-M's launches for `evals` no-grad DiT evaluations."""
-    return {n: FUSION_CALLS[n] * evals for n in FUSIONS}
+def fusions_expected(evals: int, w8a8: bool = False) -> dict:
+    """J-M's launches and those of the quantizing J, M and O for `evals`
+    no-grad DiT evaluations (w8a8: of a w8a8 DiT on its fused route)."""
+    per = W8A8_FUSION_CALLS if w8a8 else FUSION_CALLS
+    return {n: per.get(n, 0) * evals for n in FUSIONS + QUANT_FUSIONS}
 
 
 def fusion_launches(launches: dict) -> dict:
-    return {n: launches[n] for n in FUSIONS}
+    return {n: launches[n] for n in FUSIONS + QUANT_FUSIONS}
 
 
 @contextlib.contextmanager
@@ -1413,6 +1456,145 @@ def check_merge_heads(tokens: int, what: str, reps: int, gelu_cols: int = 0, col
     return line
 
 
+def _quant_err(got, want) -> float:
+    """The largest difference of two (codes, scale) pairs: codes in steps, scales absolute."""
+    return max((got[0].int() - want[0].int()).abs().max().item(), (got[1] - want[1]).abs().max().item())
+
+
+def _quant_fields(name, what, shape, kernel, composed, plain, reps: int, nbytes: float, smooth: bool,
+                  plain_codes: int = 0, plain_scale_ulps: float = 0.0, **extra) -> dict:
+    """A kernel line of a quantizing kernel (J, M, O writing codes): `kernel`
+    against `composed` (the unfused kernels: I applied to the producing
+    kernel's own output) bit for bit, tolerance 0, and deterministic; against
+    `plain` (its plain version) within plain_codes codes and plain_scale_ulps
+    bf16 ulps of each scale. Each a function returning a list of (codes,
+    scale) segments. Kernel, the composed kernels and the plain version timed
+    (the first two as replayed CUDA graphs)."""
+    got, again, want, ref = kernel(), kernel(), composed(), plain()
+    deterministic = all(torch_equal_pair(a, c) for a, c in zip(got, again))
+    err = max(_quant_err(a, w) for a, w in zip(got, want))
+    codes_off = max((a[0].int() - p[0].int()).abs().max().item() for a, p in zip(got, ref))
+    scale_ulps = max(((a[1] - p[1]).abs() / bf16_ulps_each(p[1])).max().item() for a, p in zip(got, ref))
+    line = _fusion_line(name, what, shape, err, 0.0, deterministic, cuda_ms(kernel, reps, graph=True),
+                        cuda_ms(plain, 5), nbytes, a_sinv=smooth,
+                        unfused_kernels_ms=cuda_ms(composed, reps, graph=True),
+                        plain_codes_off=codes_off, plain_codes_tol=plain_codes, plain_scale_ulps=scale_ulps,
+                        plain_scale_tol_ulps=plain_scale_ulps, **extra)
+    line["ok"] = line["ok"] and codes_off <= plain_codes and scale_ulps <= plain_scale_ulps
+    return line
+
+
+def torch_equal_pair(a, b) -> bool:
+    import torch
+
+    return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _a_sinv(g, k: int, smooth: bool):
+    import torch
+
+    return torch.rand((k,), generator=g, device="cuda") * 4.8 + 0.2 if smooth else None
+
+
+def check_layernorm_modulate_quant(tokens: int, bf16: bool, smooth: bool, what: str, reps: int, b: int = 1,
+                                   c: int = 3072) -> dict:
+    """Kernel J writing the codes of its output (fp32, or rounded to bf16
+    first: the single block's linear1) times a_sinv (uniform over [0.2, 5])
+    or not: bit for bit kernel I applied to kernel J's output, and within 1
+    code and 1 bf16 ulp of the scales of its plain version (J's row sums run
+    in another order than PyTorch's); x N(0.5, 4) bf16, the modulation's
+    shift and scale strided chunks."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_int8
+    from visualcloze_tpu_torch.ops.block_fusions import (layernorm_modulate, layernorm_modulate_quant,
+                                                         layernorm_modulate_quant_plain)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31 * tokens + bf16 + 2 * smooth)
+    x = (torch.randn((b, tokens, c), generator=g, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
+    shift, scale, _ = _modulation_vectors(g, b, c)
+    a_sinv = _a_sinv(g, c, smooth)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    m = b * tokens
+    return _quant_fields(
+        "layernorm_modulate_quant", what, [b, tokens, c],
+        lambda: [layernorm_modulate_quant(x, shift, scale, a_sinv, dt)],
+        lambda: [act_quant_int8(layernorm_modulate(x, shift, scale, dt), a_sinv)],
+        lambda: [layernorm_modulate_quant_plain(x, shift, scale, a_sinv, dt)], reps,
+        m * c * 2 + m * c + m * 4 + 2 * b * c * 4 + (c * 4 if smooth else 0), smooth,
+        plain_codes=1, plain_scale_ulps=1.0, value_dtype="bf16" if bf16 else "fp32")
+
+
+def check_merge_heads_quant(tokens: int, what: str, reps: int, smooth: bool, gelu_cols: int = 0, cols: int = 0,
+                            padded: int = 0, split: int = 0, heads: int = 24) -> dict:
+    """Kernel M writing the codes of its output: the single block's linear2
+    input (the merge, then gelu of linear1's last gelu_cols of `cols`
+    N(0, 9) columns) or a double block's joint rows cut at `split` (the text
+    tokens, then the image's, each with its own a_sinv), the last `padded`
+    query rows masked: each segment bit for bit kernel I applied to kernel
+    M's output rows; against its plain version (F.gelu) within 1 code and 1
+    bf16 ulp of the scales (tanhf moves a bf16 gelu by up to one ulp), the
+    merge alone exactly."""
+    import torch
+
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_int8
+    from visualcloze_tpu_torch.ops.block_fusions import merge_heads, merge_heads_quant, merge_heads_quant_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(37 * tokens + gelu_cols + padded + split + smooth)
+    x = torch.randn((1, heads, tokens, 128), generator=g, device=dev).to(torch.bfloat16)
+    mask = None
+    if padded:
+        mask = torch.ones((1, tokens), dtype=torch.int32, device=dev)
+        mask[:, tokens - padded:] = 0
+    gelu = None
+    if gelu_cols:
+        gelu = (torch.randn((1, tokens, cols), generator=g, device=dev) * 3.0).to(torch.bfloat16)[..., -gelu_cols:]
+    w = heads * 128 + gelu_cols
+    first, rest = _a_sinv(g, w, smooth), _a_sinv(g, w, smooth)
+
+    def composed():
+        out = merge_heads(x, mask, gelu)
+        parts = [(out[:, :split], first)] if split else []
+        return [act_quant_int8(t.contiguous(), a) for t, a in parts + [(out[:, split:], rest)]]
+
+    tol = 1 if gelu_cols else 0
+    return _quant_fields(
+        "merge_heads_quant", what, [1, heads, tokens, 128, gelu_cols],
+        lambda: merge_heads_quant(x, mask, gelu, rest, split, first), composed,
+        lambda: merge_heads_quant_plain(x, mask, gelu, rest, split, first), reps,
+        tokens * w * 3 + tokens * 4 * (2 if padded else 1) + (w * 4 * (2 if split else 1) if smooth else 0), smooth,
+        plain_codes=tol, plain_scale_ulps=float(tol), padded_rows=padded, split=split)
+
+
+def check_gelu_act_quant(m: int, k: int, smooth: bool, what: str, reps: int) -> dict:
+    """Kernel O: bit for bit kernel I applied to kernel M's gelu of the same
+    h (N(0, 9) bf16: mlp.0's output), within 1 code and 1 bf16 ulp of the
+    scales of its plain version (F.gelu, then the quantize)."""
+    import torch
+    import torch.nn.functional as F
+
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_int8, gelu_act_quant, gelu_act_quant_plain
+    from visualcloze_tpu_torch.ops.block_fusions import merge_heads
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(41 * m + k + smooth)
+    h = (torch.randn((m, k), generator=g, device=dev) * 3.0).to(torch.bfloat16)
+    a_sinv = _a_sinv(g, k, smooth)
+    stub = torch.zeros((1, 1, m, 8), dtype=torch.bfloat16, device=dev)  # M's merge of one 8-wide head: dropped
+
+    def composed():
+        return [act_quant_int8(merge_heads(stub, None, h[None])[0, :, 8:].contiguous(), a_sinv)]
+
+    line = _quant_fields("gelu_act_quant", what, [m, k], lambda: [gelu_act_quant(h, a_sinv)], composed,
+                         lambda: [gelu_act_quant_plain(h, a_sinv)], reps,
+                         m * k * 2 + m * k + m * 4 + (k * 4 if smooth else 0), smooth, plain_codes=1,
+                         plain_scale_ulps=1.0, composed_by="kernel M's gelu (an 8-wide stub head), then kernel I")
+    line["gelu_then_i_ms"] = cuda_ms(lambda: act_quant_int8(F.gelu(h, approximate="tanh"), a_sinv), reps, graph=True)
+    return line
+
+
 def _colsum_tol(terms, dims) -> float:
     """2^-16 of the largest sum of |terms| over `dims`: an fp32 column sum
     over thousands of tokens taken in another order (measured well under it)."""
@@ -1917,21 +2099,43 @@ def quant_reference(model) -> dict:
 
 
 def _plain_w8a8_kernels():
-    """Kernels I, H and G replaced by their plain versions in the DiT's
-    linears, until the returned function restores them."""
+    """Kernels I, H and G, and the quantizing J, M and O, replaced by their
+    plain versions in the DiT's linears and blocks, until the returned
+    function restores them."""
     import visualcloze_tpu_torch.models.layers as layers_mod
-    from visualcloze_tpu_torch.ops.act_quant import act_quant_plain
+    import visualcloze_tpu_torch.ops.attention as att
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_plain, gelu_act_quant_plain
+    from visualcloze_tpu_torch.ops.block_fusions import layernorm_modulate_quant_plain, merge_heads_quant_plain
     from visualcloze_tpu_torch.ops.int8_matmul import int8_matmul_plain
     from visualcloze_tpu_torch.ops.w8a8_matmul import w8a8_matmul_plain
 
-    saved = (layers_mod.act_quant_int8, layers_mod.w8a8_matmul, layers_mod.int8_matmul)
-    layers_mod.act_quant_int8, layers_mod.w8a8_matmul, layers_mod.int8_matmul = (
-        act_quant_plain, w8a8_matmul_plain, int8_matmul_plain)
+    swaps = [(layers_mod, "act_quant_int8", act_quant_plain), (layers_mod, "w8a8_matmul", w8a8_matmul_plain),
+             (layers_mod, "int8_matmul", int8_matmul_plain),
+             (layers_mod, "layernorm_modulate_quant", layernorm_modulate_quant_plain),
+             (layers_mod, "gelu_act_quant", gelu_act_quant_plain), (att, "merge_heads_quant", merge_heads_quant_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
 
     def restore():
-        layers_mod.act_quant_int8, layers_mod.w8a8_matmul, layers_mod.int8_matmul = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
     return restore
+
+
+@contextlib.contextmanager
+def unfused_w8a8():
+    """Every w8a8 linear quantizing its own input through kernel I (J, M and
+    the gelu writing bf16 or fp32 rows, as before they wrote codes)."""
+    from visualcloze_tpu_torch.models.layers import W8A8Linear
+
+    saved = W8A8Linear.takes_codes
+    W8A8Linear.takes_codes = lambda self, lora, *inputs: False
+    try:
+        yield
+    finally:
+        W8A8Linear.takes_codes = saved
 
 
 def quant_reference_w8a8(model) -> dict:
@@ -1939,10 +2143,13 @@ def quant_reference_w8a8(model) -> dict:
     and to SmoothQuant w8a8 (quantize_flux_w8a8_smooth, calibrated on the
     default query: 2x3 grid at 384, 30 Euler steps, statistics every 5th and
     at the last, seed 1), one at a time (~12 GB more): on reference_inputs,
-    each through kernels I, H and G vs through their plain versions
-    (relative RMS, 5%, as quant_reference), and vs the bf16 DiT under the
-    JAX package's own w8a8 criterion (tests/test_quant.py:93-113:
-    correlation > 0.97, mean |Δ| / max |bf16| < 0.2)."""
+    each on its fused route (J, M and O writing the codes, H, G) vs through
+    their plain versions (relative RMS, 5%, as quant_reference), and vs the
+    bf16 DiT under the JAX package's own w8a8 criterion
+    (tests/test_quant.py:93-113: correlation > 0.97, mean |Δ| / max |bf16| <
+    0.2); its relative RMS against the unfused kernels' route (J, M, gelu,
+    then I) is reported (O's gelu is M's, F.gelu's may differ by a bf16
+    ulp)."""
     import numpy as np
     import torch
 
@@ -1969,23 +2176,30 @@ def quant_reference_w8a8(model) -> dict:
         with torch.no_grad():
             ops.reset_kernel_launches()
             got = qflux(**inp).float()
-            launches = {k: v for k, v in ops.kernel_launches().items() if k in W8A8_KERNELS + ("int8_matmul",)}
+            launches = {k: v for k, v in ops.kernel_launches().items() if k in W8A8_USED_WITH + (W8A8_UNFUSED,)}
             restore = _plain_w8a8_kernels()
             try:
                 plain = qflux(**inp).float()
             finally:
                 restore()
+            ops.reset_kernel_launches()
+            with unfused_w8a8():
+                unfused = qflux(**inp).float()
+            unfused_launches = ops.kernel_launches()
         gib = sum(b.numel() * b.element_size() for b in qflux.buffers()) / 2 ** 30
         del qflux
         corr = float(np.corrcoef(ref.flatten().cpu().numpy(), got.flatten().cpu().numpy())[0, 1])
         r = dict(quantize_seconds=quantize_s, quantized_buffers_gib=gib, launches=launches,
-                 kernels_vs_plain_rel_rms_err=rel_rms(got, plain), vs_bf16_corr=corr,
+                 kernels_vs_plain_rel_rms_err=rel_rms(got, plain), vs_unfused_rel_rms=rel_rms(got, unfused),
+                 unfused_act_quant_launches=unfused_launches[W8A8_UNFUSED], vs_bf16_corr=corr,
                  vs_bf16_mean_abs_over_max=((got - ref).abs().mean() / ref.abs().max()).item(),
                  vs_bf16_rel_rms=rel_rms(got, ref), finite=bool(torch.isfinite(got).all()))
         r["ok"] = (r["finite"] and r["kernels_vs_plain_rel_rms_err"] <= out["tol"] and corr > 0.97
                    and r["vs_bf16_mean_abs_over_max"] < 0.2
                    and launches == {"int8_matmul": INT8_LINEARS - W8A8_LINEARS, "w8a8_matmul": W8A8_LINEARS,
-                                    "act_quant_int8": W8A8_LINEARS})
+                                    W8A8_UNFUSED: 0, **{n: W8A8_FUSION_CALLS[n] for n in QUANT_FUSIONS}}
+                   and unfused_launches[W8A8_UNFUSED] == W8A8_LINEARS
+                   and not any(unfused_launches[n] for n in QUANT_FUSIONS))
         out[mode] = r
         ok = ok and r["ok"]
         torch.cuda.empty_cache()
@@ -1994,18 +2208,54 @@ def quant_reference_w8a8(model) -> dict:
 
 
 W8A8_USED_WITH = ("int8_matmul",) + W8A8_KERNELS
+W8A8_UNUSED = ("merge_heads", W8A8_UNFUSED)  # on the w8a8 DiT's fused route M and I write no bf16 rows, no codes
 
 
-def w8a8_launches_ok(run: dict) -> dict:
-    """DiT evaluations (A's launches / 57) and, for a w8a8 DiT, I and H
-    launched 228 times each per evaluation, G 86 times: the fields for the
-    run's line, with `ok` folded in."""
+def w8a8_serving(serving: tuple) -> tuple:
+    """What a query on a w8a8 DiT launches: the serving kernels, M as its
+    quantizing variant, kernels H and G."""
+    return tuple(n for n in serving if n not in W8A8_UNUSED) + W8A8_USED_WITH
+
+
+def w8a8_launches_ok(run: dict, fused: bool = True) -> dict:
+    """DiT evaluations (D's launches / 57) and, for a w8a8 DiT, H launched
+    228 times per evaluation and G 86 times; on the fused route J, M and O
+    quantizing 114, 57 and 38 times and I never, off it (every linear with
+    a LoRA entry) I 228 times: the fields for the run's line, with `ok`
+    folded in."""
     evals = run["launches"][DIT_ATTENTION] // ATTENTION_CALLS
-    want = {"w8a8_matmul": W8A8_LINEARS * evals, "act_quant_int8": W8A8_LINEARS * evals,
-            "int8_matmul": (INT8_LINEARS - W8A8_LINEARS) * evals}
+    per = {n: W8A8_FUSION_CALLS[n] if fused else 0 for n in QUANT_FUSIONS}
+    want = {"w8a8_matmul": W8A8_LINEARS * evals, W8A8_UNFUSED: 0 if fused else W8A8_LINEARS * evals,
+            "int8_matmul": (INT8_LINEARS - W8A8_LINEARS) * evals, **{n: c * evals for n, c in per.items()}}
     got = {k: run["launches"][k] for k in want}
     return dict(dit_evaluations=evals, w8a8_launches_expected=want,
                 ok=run["ok"] and got == want and run["launches"][DIT_ATTENTION] == ATTENTION_CALLS * evals)
+
+
+W8A8_ADAPTER_RANK = 16
+
+
+def w8a8_adapter_request(model, serving, unserved) -> dict:
+    """A random rank-16 runtime adapter on the w8a8 DiT (init_lora +
+    randomize_lora_b), a 2x2 query at 10 steps without SDEdit through it:
+    every w8a8 linear has a LoRA entry, so each quantizes its own input
+    (kernel I, its delta on bf16(x)) and J, M and the gelu write bf16 / fp32
+    rows: I and H 228 times per evaluation, G 86, no quantizing J, M or O."""
+    import torch
+
+    from visualcloze_tpu_torch.models.lora import init_lora, randomize_lora_b
+
+    gen = torch.Generator(device=model.device)
+    lora = init_lora(model.flux, W8A8_ADAPTER_RANK, generator=gen.manual_seed(16))
+    model.add_adapter("w8a8_r16", randomize_lora_b(lora, gen.manual_seed(17)))
+    try:
+        r = run_request(model, "2x2 query, 10 steps, w8a8 DiT with a rank-16 runtime adapter", 2, 2, 10, False,
+                        seed=4, used=serving + ("int8_matmul", "w8a8_matmul", W8A8_UNFUSED),
+                        unused=unserved + QUANT_FUSIONS + ("int4_matmul",), adapter="w8a8_r16")
+    finally:
+        model.adapters.clear()
+    r.update(phase="request_w8a8_adapter", **w8a8_launches_ok(r, fused=False))
+    return r
 
 
 # ----------------------------- the main path -----------------------------
@@ -2034,10 +2284,11 @@ def query_prompts(rows: int, cols: int) -> list[str]:
     ]
 
 
-def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(), images_out=None) -> dict:
+def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(), images_out=None,
+                adapter=None) -> dict:
     """One query through process_images; ok if finite, of the right size, and
     every kernel in `used` launched and none in `unused`. images_out: a list
-    that receives the images."""
+    that receives the images; adapter: a registered runtime LoRA."""
     import torch
 
     from visualcloze_tpu_torch import ops
@@ -2063,7 +2314,7 @@ def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(
     t0 = time.perf_counter()
     try:
         images = model.process_images(grid, prompts, seed=seed, steps=steps, upsampling_steps=10,
-                                      upsampling_noise=0.4, is_upsampling=upsampling)
+                                      upsampling_noise=0.4, is_upsampling=upsampling, adapter=adapter)
         torch.cuda.synchronize()
     finally:
         model.denoise_query = orig
@@ -2089,9 +2340,10 @@ def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(
     out["ok"] = (finite and len(images) == 1 and images[0].size == want_size
                  and all(s > 0 for s in out["image_std"]) and all(launches[n] > 0 for n in used)
                  and all(launches[n] == 0 for n in unused))
-    if set(FUSIONS) <= set(used):  # J-M once per DiT evaluation's count (A's or D's launches / 57)
+    if "gated_residual" in used:  # a DiT ran: J-M (and the quantizing J, M, O) per evaluation (D's launches / 57)
         evals = (launches["flash_attn_rope"] + launches["flash_attn_fwd"]) // ATTENTION_CALLS
-        out["fusion_launches_expected"] = fusions_expected(evals)
+        # a w8a8 DiT takes the fused route unless an adapter gives its linears LoRA entries
+        out["fusion_launches_expected"] = fusions_expected(evals, w8a8="w8a8_matmul" in used and adapter is None)
         out["ok"] = out["ok"] and fusion_launches(launches) == out["fusion_launches_expected"]
     if set(GROUP_NORM) <= set(used):  # N once per GroupNorm of every encode and decode (group_norm_calls)
         per = group_norm_calls(model.ae.cfg)
@@ -3460,7 +3712,8 @@ def fusions_by_collect():
     from visualcloze_tpu_torch import ops
     from visualcloze_tpu_torch.models.flux import Flux
 
-    split = {k: {"evaluations": 0, "launches": dict.fromkeys(FUSIONS, 0)} for k in ("collecting", "plain_steps")}
+    split = {k: {"evaluations": 0, "launches": dict.fromkeys(FUSIONS + QUANT_FUSIONS, 0)}
+             for k in ("collecting", "plain_steps")}
     orig = Flux.forward
 
     def forward(self, *args, **kw):
@@ -3469,7 +3722,7 @@ def fusions_by_collect():
         after = ops.kernel_launches()
         rec = split["collecting" if kw.get("collect_a8_stats") else "plain_steps"]
         rec["evaluations"] += 1
-        for n in FUSIONS:
+        for n in FUSIONS + QUANT_FUSIONS:
             rec["launches"][n] += after[n] - before[n]
         return out
 
@@ -3563,7 +3816,7 @@ def checkpoint_phases(r1, serving, bf16_unused, unserved) -> list:
         # the int8 route on the same BFL files: int8 DiT (kernel G), int4 T5
         model, load = load_timed(model_path=paths["lora"], quantize="int8", t5_int4=True)
         rq = run_request(model, "2x3 default query with SDEdit, int8 DiT + int4 T5-XXL from checkpoint files",
-                         2, 3, 30, True, seed=1, used=serving + ("int8_matmul",), unused=unserved + W8A8_KERNELS)
+                         2, 3, 30, True, seed=1, used=serving + ("int8_matmul",), unused=unserved + W8A8_ONLY)
         evals = rq["launches"][DIT_ATTENTION] // ATTENTION_CALLS
         rq.update(phase="load_checkpoint_int8", **load, resident_gib_pr3_synthetic=14.0, dit_evaluations=evals,
                   int8_launches_expected=INT8_LINEARS * evals)
@@ -3582,7 +3835,7 @@ def checkpoint_phases(r1, serving, bf16_unused, unserved) -> list:
         calib_launches = ops.kernel_launches()
         calib = dict(model.stage_seconds)
         rw = run_request(model, "2x3 default query with SDEdit, SmoothQuant w8a8 DiT from checkpoint files",
-                         2, 3, 30, True, seed=1, used=serving + W8A8_USED_WITH, unused=unserved)
+                         2, 3, 30, True, seed=1, used=w8a8_serving(serving), unused=unserved + W8A8_UNUSED)
         rw.update(phase="load_checkpoint_w8a8_smooth", **load, calibration_stage_seconds=calib,
                   calibration_seconds=sum(calib.values()), calibration_launches=calib_launches,
                   calibration_fusions=calib_split, **w8a8_launches_ok(rw))
@@ -3591,7 +3844,7 @@ def checkpoint_phases(r1, serving, bf16_unused, unserved) -> list:
         # blocks pass the tables), the 22 others the kernels and D
         rw["ok"] = (rw["ok"] and calib_launches["flash_attn_rope"] == 7 * ATTENTION_CALLS
                     and calib_launches[DIT_ATTENTION] == 22 * ATTENTION_CALLS
-                    and all(calib_launches[k] == 0 for k in W8A8_USED_WITH)
+                    and all(calib_launches[k] == 0 for k in W8A8_USED_WITH + (W8A8_UNFUSED,))
                     and calib_split["collecting"]["evaluations"] == 7
                     and not any(calib_split["collecting"]["launches"].values())
                     and calib_split["plain_steps"]["launches"] == fusions_expected(22))
@@ -3798,6 +4051,29 @@ def main() -> int:
         lambda: [check_merge_heads(5760, "the 3x3 grid: 5760 tokens, 512 padded rows", 50, padded=512)],
         lambda: [check_merge_heads(7, "a ragged 7 rows, 2 padded, with gelu", 50, gelu_cols=12288, cols=21504,
                                    padded=2)],
+        # the w8a8 DiT's fused route: J and M writing their consumer linears' codes, O (gelu + quantize), each
+        # with and without SmoothQuant's a_sinv, bit for bit I applied to J's, M's and M's gelu output
+        lambda: [check_layernorm_modulate_quant(3968, True, False, "single block before linear1 (bf16 first)", 50)],
+        lambda: [check_layernorm_modulate_quant(3968, True, True, "single block before linear1, a_sinv", 50)],
+        lambda: [check_layernorm_modulate_quant(3456, False, False, "double block img stream before qkv / mlp.0",
+                                                50)],
+        lambda: [check_layernorm_modulate_quant(3456, False, True, "double block img stream, a_sinv", 50)],
+        lambda: [check_layernorm_modulate_quant(512, False, True, "double block txt stream, a_sinv", 50)],
+        lambda: [check_layernorm_modulate_quant(7, False, True, "a ragged 7 rows, batch 2", 50, b=2)],
+        lambda: [check_merge_heads_quant(3968, "single block's linear2 input, 64 padded rows", 50, False,
+                                         gelu_cols=12288, cols=21504, padded=64)],
+        lambda: [check_merge_heads_quant(3968, "single block's linear2 input, 64 padded rows, a_sinv", 50, True,
+                                         gelu_cols=12288, cols=21504, padded=64)],
+        lambda: [check_merge_heads_quant(3968, "double block: txt proj's 512 rows, img proj's 3456", 50, False,
+                                         split=512)],
+        lambda: [check_merge_heads_quant(3968, "double block: txt / img proj, a_sinv each, 64 padded", 50, True,
+                                         split=512, padded=64)],
+        lambda: [check_merge_heads_quant(7, "a ragged 7 rows, 2 padded, with gelu, a_sinv", 50, True,
+                                         gelu_cols=12288, cols=21504, padded=2)],
+        lambda: [check_gelu_act_quant(3456, 12288, False, "double block img stream's mlp.0 output", 50)],
+        lambda: [check_gelu_act_quant(3456, 12288, True, "double block img stream's mlp.0 output, a_sinv", 50)],
+        lambda: [check_gelu_act_quant(512, 12288, True, "double block txt stream's mlp.0 output, a_sinv", 50)],
+        lambda: [check_gelu_act_quant(7, 12288, False, "a ragged 7 rows", 50)],
         # J'-M', the trainer's and the likelihood's backward (B = 2: the column sums per batch element)
         lambda: [check_layernorm_modulate_bwd(3968, True, "single block, 3968 tokens", 50)],
         lambda: [check_layernorm_modulate_bwd(3456, True, "double block img stream", 50)],
@@ -3892,7 +4168,7 @@ def main() -> int:
     free()
 
     serving, unserved = SERVING, UNSERVED
-    bf16_unused = unserved + ("int8_matmul", "int4_matmul") + W8A8_KERNELS
+    bf16_unused = unserved + ("int8_matmul", "int4_matmul") + W8A8_ONLY
     r1_images = []
     r1 = run_request(model, "2x3 default query with SDEdit", 2, 3, 30, True, seed=1, used=serving,
                      unused=bf16_unused, images_out=r1_images)
@@ -3946,12 +4222,16 @@ def main() -> int:
     free()
     resident = torch.cuda.memory_allocated() / 2 ** 30
     rw = run_request(model, "2x3 default query with SDEdit, w8a8 DiT", 2, 3, 30, True, seed=1,
-                     used=serving + W8A8_USED_WITH, unused=unserved + ("int4_matmul",))
+                     used=w8a8_serving(serving), unused=unserved + W8A8_UNUSED + ("int4_matmul",))
     rw.update(phase="request_w8a8", resident_gib=resident, w8a8_launches_predicted=W8A8_LINEARS * 38,
               stage_seconds_bf16=r1["stage_seconds"], **w8a8_launches_ok(rw))
     emit(rw)
     if not rw["ok"]:
         raise RuntimeError("w8a8 request failed")
+    rwa = w8a8_adapter_request(model, serving, unserved)
+    emit(rwa)
+    if not rwa["ok"]:
+        raise RuntimeError("the w8a8 request with an adapter failed")
 
     # the w8a8 DiT swapped for the int4 copy (bf16 T5, CLIP and VAE), serving request 1's query
     model.flux = None
@@ -3961,7 +4241,7 @@ def main() -> int:
     free()
     resident = torch.cuda.memory_allocated() / 2 ** 30
     r4 = run_request(model, "2x3 default query with SDEdit, int4 DiT", 2, 3, 30, True, seed=1,
-                     used=serving + ("int4_matmul",), unused=unserved + ("int8_matmul",) + W8A8_KERNELS)
+                     used=serving + ("int4_matmul",), unused=unserved + ("int8_matmul",) + W8A8_ONLY)
     evals = r4["launches"][DIT_ATTENTION] // ATTENTION_CALLS  # 29 + 9 predicted
     r4.update(phase="request_int4", resident_gib=resident, dit_evaluations=evals,
               int4_launches_predicted=INT8_LINEARS * 38, int4_launches_expected=INT8_LINEARS * evals,
@@ -3992,7 +4272,7 @@ def main() -> int:
     emit(dict(phase="init_int8", seconds=time.perf_counter() - t, resident_gib=resident,
               init_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
     rq = run_request(qmodel, "2x3 default query with SDEdit, int8 DiT + int4 T5-XXL + int8 CLIP-L", 2, 3, 30, True,
-                     seed=1, used=serving + ("int8_matmul",), unused=unserved + W8A8_KERNELS + ("int4_matmul",))
+                     seed=1, used=serving + ("int8_matmul",), unused=unserved + W8A8_ONLY + ("int4_matmul",))
     evals = rq["launches"][DIT_ATTENTION] // ATTENTION_CALLS  # DiT evaluations: 29 + 9 predicted
     rq.update(phase="request_int8", resident_gib=resident, dit_evaluations=evals,
               int8_launches_predicted=INT8_LINEARS * 38, int8_launches_expected=INT8_LINEARS * evals,
@@ -4019,7 +4299,7 @@ def main() -> int:
         r3 = run_request(model, "2x2 query, interleaved layout", 2, 2, 9, False, seed=3,
                          used=SERVING,
                          unused=("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
-                                 "int8_matmul", "int4_matmul") + W8A8_KERNELS)
+                                 "int8_matmul", "int4_matmul") + W8A8_ONLY)
     r3 = no_plain_rope(dict(r3, phase="query_interleaved", rope_layout=model.rope_layout), seen)
     emit(r3)
     if not r3["ok"]:
@@ -4048,8 +4328,8 @@ def main() -> int:
         r = first[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=sum(run["launches"][name] for run in (rring, r1, r2, rserve, rsde, rlik, rw, r4, rbfl, rq, train,
-                                                           r3, rmoe, rdist, *loaded)),
+            launches=sum(run["launches"][name] for run in (rring, r1, r2, rserve, rsde, rlik, rw, rwa, r4, rbfl, rq,
+                                                           train, r3, rmoe, rdist, *loaded)),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
         ))

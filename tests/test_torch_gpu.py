@@ -771,6 +771,107 @@ def test_gpu_merge_heads_matches_plain(L, gelu_cols, padded):
         assert bool((d <= ulp).all())
 
 
+def _quant_equal(got, want):
+    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, L, c, dtype, smooth", [(1, 300, 3072, torch.float32, True),
+                                                    (2, 37, 3072, torch.bfloat16, False),
+                                                    (1, 5, 64, torch.float32, False),
+                                                    (1, 7, 3072, torch.bfloat16, True)])
+def test_gpu_layernorm_modulate_quant_is_kernel_i_of_kernel_j(b, L, c, dtype, smooth):
+    """Kernel J quantized: the codes and scales of kernel I applied to kernel
+    J's own output (fp32, or rounded to bf16), bit for bit; x strided, a
+    second launch the same bits."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_int8
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(b * L + c + 1)
+    x = (torch.randn((b, L + 3, c), generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)[:, 3:]
+    shift, scale = (torch.randn((b, 1, 6 * c), generator=g, device=dev) * 0.5).chunk(6, dim=-1)[:2]
+    a_sinv = torch.rand((c,), generator=g, device=dev) * 4.8 + 0.2 if smooth else None
+    got = bfu.layernorm_modulate_quant(x, shift, scale, a_sinv, dtype)
+    assert got[0].shape == (b * L, c) and got[1].shape == (b * L,)
+    assert _quant_equal(got, act_quant_int8(bfu.layernorm_modulate(x, shift, scale, dtype), a_sinv))
+    assert _quant_equal(got, bfu.layernorm_modulate_quant(x, shift, scale, a_sinv, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, L, gelu_cols, padded, split, smooth", [(1, 300, 12288, 10, 0, True),
+                                                                    (2, 300, 0, 20, 64, True),
+                                                                    (1, 9, 0, 3, 2, False), (1, 5, 64, 5, 0, False)])
+def test_gpu_merge_heads_quant_is_kernel_i_of_kernel_m(b, L, gelu_cols, padded, split, smooth):
+    """Kernel M quantized: each segment's codes and scales those of kernel I
+    applied to kernel M's own output rows with that segment's a_sinv, bit
+    for bit (the double block's text rows [0, split) and image rows apart);
+    padded rows of a merge alone give codes 0."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_int8
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(L + gelu_cols + split)
+    x = torch.randn((b, 24, L, 128), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.ones((b, L), dtype=torch.int32, device=dev)
+    mask[:, L - padded:] = 0
+    gelu = None
+    if gelu_cols:
+        gelu = (torch.randn((b, L, gelu_cols + 40), generator=g, device=dev) * 3).to(torch.bfloat16)[..., 40:]
+    w = 24 * 128 + gelu_cols
+    sinv = [torch.rand((w,), generator=g, device=dev) * 4.8 + 0.2 if smooth else None for _ in range(2)]
+    got = bfu.merge_heads_quant(x, mask, gelu, sinv[1], split, sinv[0])
+    merged = bfu.merge_heads(x, mask, gelu)
+    parts = [(merged[:, :split], sinv[0])] if split else []
+    parts.append((merged[:, split:], sinv[1]))
+    assert len(got) == len(parts)
+    for seg, (rows, s) in zip(got, parts):
+        assert _quant_equal(seg, act_quant_int8(rows.contiguous(), s))
+    again = bfu.merge_heads_quant(x, mask, gelu, sinv[1], split, sinv[0])
+    assert all(_quant_equal(a, c) for a, c in zip(got, again))
+    if not gelu_cols:
+        assert not got[-1][0].reshape(b, L - split, w)[:, L - split - padded:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, smooth", [(300, 12288, True), (512, 12288, False), (3, 64, True)])
+def test_gpu_gelu_act_quant_is_kernel_i_of_kernel_m_gelu(m, k, smooth):
+    """Kernel O: the codes and scales of kernel I applied to kernel M's gelu
+    of the same h, bit for bit; against its plain version (F.gelu) within one
+    code and one bf16 ulp of each scale; a second launch the same bits."""
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_int8, gelu_act_quant, gelu_act_quant_plain
+
+    dev = _cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    h = (torch.randn((m, k), generator=g, device=dev) * 3).to(torch.bfloat16)
+    a_sinv = torch.rand((k,), generator=g, device=dev) * 4.8 + 0.2 if smooth else None
+    got = gelu_act_quant(h, a_sinv)
+    m_gelu = bfu.merge_heads(torch.zeros((1, 1, m, 8), dtype=torch.bfloat16, device=dev), None, h[None])[0, :, 8:]
+    assert _quant_equal(got, act_quant_int8(m_gelu.contiguous(), a_sinv))
+    assert _quant_equal(got, gelu_act_quant(h, a_sinv))
+    codes, scale = gelu_act_quant_plain(h, a_sinv)
+    assert (got[0].int() - codes.int()).abs().max().item() <= 1
+    assert bool(((got[1] - scale).abs() <= scale * 2.0 ** -7).all())
+
+
+@pytest.mark.gpu
+def test_gpu_fused_quantize_wrappers_refuse_what_they_cannot_take():
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+    from visualcloze_tpu_torch.ops.act_quant import gelu_act_quant
+
+    dev = _cuda_or_skip()
+    with pytest.raises(ValueError, match="bfloat16"):
+        gelu_act_quant(torch.randn((4, 64), device=dev))
+    with pytest.raises(ValueError, match="up to"):
+        gelu_act_quant(torch.randn((4, 24576), device=dev).to(torch.bfloat16))
+    x = torch.randn((1, 2, 5, 16), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="split"):
+        bfu.merge_heads_quant(x, None, None, None, 5)
+    with pytest.raises(ValueError, match="a_sinv"):
+        bfu.merge_heads_quant(x, None, None, torch.ones(8, device=dev))
+
+
 def _colsum_tol(terms, dims):
     """2^-16 of the largest sum of |terms| over `dims`: an fp32 column sum
     over thousands of tokens taken in another order."""

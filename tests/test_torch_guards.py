@@ -59,6 +59,8 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
     assert codes.dtype == torch.int8 and scale.shape == (3,)
     y = ops.w8a8_matmul(codes, torch.ones(16, 128, dtype=torch.int8), scale, torch.ones(16))
     assert y.shape == (3, 16) and y.dtype == torch.bfloat16
+    codes, scale = ops.gelu_act_quant(torch.randn(3, 128).to(torch.bfloat16))
+    assert codes.dtype == torch.int8 and scale.shape == (3,)
     y = ops.int4_matmul(torch.randn(3, 64), torch.full((32, 16), 0x99, dtype=torch.uint8), torch.ones(1, 16))
     assert y.shape == (3, 16) and y.dtype == torch.bfloat16
     x = torch.randn(2, 5, 64)
@@ -68,6 +70,9 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
     q, k, v = ops.qk_norm_split(torch.randn(2, 5, 3 * 2 * 16), torch.ones(16), torch.ones(16), 2)
     assert q.shape == k.shape == v.shape == (2, 2, 5, 16)
     assert ops.merge_heads(q, torch.ones(2, 5, dtype=torch.int32), x).shape == (2, 5, 2 * 16 + 64)
+    assert ops.layernorm_modulate_quant(x, vec, vec)[0].shape == (2 * 5, 64)
+    (c0, s0), (c1, s1) = ops.merge_heads_quant(q, None, None, None, 2)
+    assert c0.shape == (2 * 2, 2 * 16) and c1.shape == (2 * 3, 2 * 16) and s1.shape == (2 * 3,)
     assert ops.layernorm_modulate_bwd(x, vec, x)[0].shape == x.shape
     assert ops.gated_residual_bwd(vec, x, x)[1].shape == vec.shape
     qkv = torch.randn(2, 5, 3 * 2 * 16)
@@ -79,8 +84,9 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
     assert ops.kernel_launches() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"flash_attn_rope", "flash_attn_d512", "conv3x3_gn_swish", "flash_attn_fwd",
                                 "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "int8_matmul",
-                                "w8a8_matmul", "act_quant_int8", "int4_matmul", "layernorm_modulate",
-                                "gated_residual", "qk_norm_split", "merge_heads", "layernorm_modulate_bwd",
+                                "w8a8_matmul", "act_quant_int8", "gelu_act_quant", "int4_matmul",
+                                "layernorm_modulate", "gated_residual", "qk_norm_split", "merge_heads",
+                                "layernorm_modulate_quant", "merge_heads_quant", "layernorm_modulate_bwd",
                                 "gated_residual_bwd", "qk_norm_split_bwd", "merge_heads_bwd", "group_norm_stats",
                                 "group_norm_apply"}
 
@@ -380,6 +386,14 @@ def test_profile_step_classes_kernels_by_demangled_name():
     ("(anonymous namespace)::merge_heads_kernel(__nv_bfloat16 const*, int const*, __nv_bfloat16 const*)",
      "head merge + gelu (kernel M)"),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::GeluCUDAKernelImpl>(int)", "other"),
+    ("void (anonymous namespace)::ln_modulate_quant_kernel<true>(__nv_bfloat16 const*, long long, long long, "
+     "float const*, long long, float const*, long long, float const*, signed char*, float*, int, int)",
+     "layernorm modulate + quantize (kernel J, codes)"),
+    ("(anonymous namespace)::merge_heads_quant_kernel(__nv_bfloat16 const*, int const*, __nv_bfloat16 const*, "
+     "long long, long long, int, int, int, int, int, float const*, signed char*, float*)",
+     "head merge + quantize (kernel M, codes)"),
+    ("(anonymous namespace)::gelu_act_quant_kernel(__nv_bfloat16 const*, float const*, signed char*, float*, int)",
+     "gelu + quantize (kernel O)"),
 ])
 def test_profile_step_classes_the_block_fusions_by_demangled_name(name, cls):
     from visualcloze_tpu_torch.profile_step import kernel_class

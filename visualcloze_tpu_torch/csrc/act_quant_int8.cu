@@ -8,11 +8,11 @@
 //     scale[m] = max(max_k |xf|, 1e-8) / 127
 //     codes[m, k] = clamp(rint(xf / scale[m]), -127, 127)   int8
 //
-// x (M, K) fp32 or bf16, a_sinv (K,) fp32 or null. The division is the IEEE
-// one (__fdiv_rn, no reciprocal), the rounding half to even
-// (__float2int_rn) and the a_sinv product one fp32 multiply, as jnp does:
-// the codes and scales equal the JAX package's and the plain version's bit
-// for bit. A max is exact in any order, so two launches give the same bits.
+// x (M, K) fp32 or bf16, a_sinv (K,) fp32 or null. The arithmetic is
+// act_quant.cuh's (IEEE quotients, round half to even), which J, M and O
+// share where they write the codes of their own output: the codes and scales
+// equal the JAX package's and the plain version's bit for bit, and two
+// launches give the same bits.
 //
 // Bound on the H100 (3.35 TB/s): the bytes, M*K*(4 or 2) read, M*K int8 and
 // M*4 written (M = 3968, K = 3072, fp32: 0.018 ms). One CTA of 256 threads a
@@ -23,6 +23,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act_quant.cuh"
 #include "bf16.cuh"
 
 namespace {
@@ -43,51 +44,29 @@ __device__ __forceinline__ void load8(const bf16* x, float* f) {
 }
 
 template <typename T>
-__device__ __forceinline__ void load_scaled(const T* row, const float* a_sinv, int k, float* f) {
-  load8(row + k, f);
-  if (a_sinv != nullptr) {
-    float s[8];
-    load8(a_sinv + k, s);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) f[i] = __fmul_rn(f[i], s[i]);
-  }
-}
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS) act_quant_kernel(const T* __restrict__ x, const float* __restrict__ a_sinv,
                                                             int8_t* __restrict__ codes, float* __restrict__ scale,
                                                             int K) {
-  __shared__ float warp_max[THREADS / 32];
+  __shared__ float partial[THREADS / 32];
   const size_t m = blockIdx.x;
   const T* row = x + m * K;
   float amax = 0.0f;
   for (int k = threadIdx.x * VEC; k < K; k += THREADS * VEC) {
     float f[VEC];
-    load_scaled(row, a_sinv, k, f);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) amax = fmaxf(amax, fabsf(f[i]));
+    load8(row + k, f);
+    vc::smooth8(f, a_sinv, k);
+    amax = vc::absmax8(f, amax);
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  amax = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < THREADS / 32; ++w) amax = fmaxf(amax, warp_max[w]);
-  const float s = __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
+  const float s = vc::quant_scale(vc::block_max(amax, partial));
+  const float r = vc::quant_rcp(s);
   if (threadIdx.x == 0) scale[m] = s;
 
   int8_t* out = codes + m * K;
   for (int k = threadIdx.x * VEC; k < K; k += THREADS * VEC) {
     float f[VEC];
-    load_scaled(row, a_sinv, k, f);
-    uint32_t packed[2] = {0u, 0u};
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const int q = min(127, max(-127, __float2int_rn(__fdiv_rn(f[i], s))));
-      packed[i / 4] |= (uint32_t)(q & 0xff) << (8 * (i % 4));
-    }
-    *reinterpret_cast<uint2*>(out + k) = make_uint2(packed[0], packed[1]);
+    load8(row + k, f);
+    vc::smooth8(f, a_sinv, k);
+    *reinterpret_cast<uint2*>(out + k) = vc::quant8(f, s, r);
   }
 }
 

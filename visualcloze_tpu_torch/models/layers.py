@@ -6,7 +6,14 @@ cast to the stream dtype at the residual add. Module and parameter names
 mirror the JAX parameter tree so that convert.py maps one onto the other.
 The dense linear, the int8 weight-only one (`Int8Linear`, through kernel G),
 the int4 weight-only one (`Int4DiTLinear`, through kernel G4) and the w8a8
-one (`W8A8Linear`, through kernels I and H) are ported.
+one (`W8A8Linear`, through kernels I and H) are ported. On the fused w8a8
+route (`_takes_codes`: no LoRA or MoE entry, no tp shard, no gradient, not
+calibration) the kernel that produces a w8a8 linear's input writes its int8
+codes and row scales itself -- J before qkv, mlp.0 and linear1, M before
+proj and linear2, O (gelu + quantize) before mlp.2 -- and the linear runs
+kernel H alone (`W8A8Linear.forward_codes`), as XLA fuses JAX's quantize
+into the producing chain; everywhere else the linear quantizes its input
+with kernel I.
 
 What XLA fuses inside JAX's blocks runs as kernels J (LayerNorm +
 modulate), K (gated residual), L (head split + q/k RMSNorm into attention's
@@ -57,10 +64,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import FluxConfig
-from ..ops.act_quant import act_quant_int8
+from ..ops.act_quant import act_quant_int8, gelu_act_quant
 from ..ops.attention import attention
 from ..ops.block_fusions import (apply_gated_residual, apply_layernorm_modulate, apply_qk_norm_split,
-                                 gated_residual_plain, layernorm_modulate_plain, qk_norm_split_plain)
+                                 gated_residual_plain, layernorm_modulate_plain, layernorm_modulate_quant,
+                                 qk_norm_split_plain, wants_grad)
 from ..parallel.collectives import all_gather_cat, copy_to, reduce_from
 from ..ops.int4_matmul import int4_matmul
 from ..ops.int8_matmul import int8_matmul
@@ -299,8 +307,10 @@ class W8A8Linear(_LinearForward, nn.Module):
     are fp32; JAX does not round them to bf16 first) by kernel I, times
     a_sinv; kernel H takes the codes and returns bf16((acc * x_scale) *
     w_scale) + bf16 bias (a bf16 add, in its epilogue); then + the LoRA
-    delta of bf16(x), in JAX's order.
-    On CPU tensors both kernels run their plain versions, which equal JAX's
+    delta of bf16(x), in JAX's order. On the blocks' fused route
+    (`takes_codes`) the kernel before it has already written the codes and
+    `forward_codes` runs H alone.
+    On CPU tensors the kernels run their plain versions, which equal JAX's
     arithmetic bit for bit."""
 
     lora_target = True  # models/lora.init_lora gives it a LoRA entry
@@ -328,6 +338,38 @@ class W8A8Linear(_LinearForward, nn.Module):
             codes, x_scale = act_quant_int8(x.contiguous(), self.a_sinv)
         y = w8a8_matmul(codes, self.w_int8, x_scale.reshape(-1), self.w_scale, bias)
         return y.reshape(*x.shape[:-1], self.out_features)
+
+    def takes_codes(self, lora: Lora | None, *inputs) -> bool:
+        """Whether this linear takes its input as int8 codes and row scales
+        written by the kernel that produces the input (J, M or O with kernel
+        I folded in; then `forward_codes`). Not with a LoRA or MoE entry (the
+        delta needs bf16(x)), not under a tp shard (a row shard quantizes the
+        group's gathered input, a column one takes its input from copy_to),
+        not when a gradient is wanted through the producer's `inputs`
+        (autograd); calibration's statistics passes never ask. There x comes
+        whole and kernel I quantizes it in `_product`."""
+        return lora is None and self.tp is None and not wants_grad(*inputs)
+
+    def forward_codes(self, codes: torch.Tensor, x_scale: torch.Tensor, lead: tuple) -> torch.Tensor:
+        """y of the input whose codes (M, K) int8 and row scales (M,) fp32
+        (a_sinv applied) another kernel wrote: kernel H alone, the bias in
+        its epilogue; (*lead, out)."""
+        y = w8a8_matmul(codes, self.w_int8, x_scale, self.w_scale, self.bias)
+        return y.reshape(*lead, self.out_features)
+
+
+def _takes_codes(linear: nn.Module, lora: Lora | None, *inputs) -> bool:
+    """The fused w8a8 route of `linear` with its LoRA entry (W8A8Linear.takes_codes)."""
+    return isinstance(linear, W8A8Linear) and linear.takes_codes(lora, *inputs)
+
+
+def _modulated_codes(linear: nn.Module, x, mod, lora: Lora | None, dtype: torch.dtype, fused: bool):
+    """On the fused w8a8 route of `linear`, kernel J's codes and row scales of
+    (1 + scale) * layer_norm(x) + shift in `dtype` (with linear's a_sinv),
+    else None."""
+    if not fused or not _takes_codes(linear, lora, x, mod["shift"], mod["scale"]):
+        return None
+    return layernorm_modulate_quant(x, mod["shift"], mod["scale"], linear.a_sinv, dtype)
 
 
 def _absmax_in(t: torch.Tensor) -> torch.Tensor:
@@ -429,7 +471,11 @@ class DoubleBlock(nn.Module):
 
     @staticmethod
     def _qkv(attn: SelfAttention, x, mod, lora: Lora, lora_scale, stats: dict | None, fused: bool):
-        """The stream's qkv projection of its modulated input."""
+        """The stream's qkv projection of its modulated input (JAX quantizes
+        the fp32 value on the w8a8 route)."""
+        codes = _modulated_codes(attn.qkv, x, mod, lora.get("qkv"), torch.float32, fused)
+        if codes is not None:
+            return attn.qkv.forward_codes(*codes, x.shape[:-1])
         x_mod = _modulate(x, mod, _input_dtype(attn.qkv) if fused else torch.float32, fused)
         if stats is not None:
             stats["qkv"] = _absmax_in(x_mod)
@@ -437,10 +483,19 @@ class DoubleBlock(nn.Module):
 
     @staticmethod
     def _mlp(mlp: nn.ModuleDict, x, mod, lora: Lora, lora_scale, stats: dict | None, fused: bool):
-        x_mod = _modulate(x, mod, _input_dtype(mlp["0"]) if fused else torch.float32, fused)
-        if stats is not None:
-            stats["0"] = _absmax_in(x_mod)
-        h = F.gelu(mlp["0"](x_mod, lora.get("0"), lora_scale), approximate="tanh")
+        """mlp.2(gelu(mlp.0(modulated x))); on the fused w8a8 route kernel O
+        takes mlp.0's output to mlp.2's codes (gelu and quantize in one pass)."""
+        codes = _modulated_codes(mlp["0"], x, mod, lora.get("0"), torch.float32, fused)
+        if codes is not None:
+            h = mlp["0"].forward_codes(*codes, x.shape[:-1])
+        else:
+            x_mod = _modulate(x, mod, _input_dtype(mlp["0"]) if fused else torch.float32, fused)
+            if stats is not None:
+                stats["0"] = _absmax_in(x_mod)
+            h = mlp["0"](x_mod, lora.get("0"), lora_scale)
+        if fused and _takes_codes(mlp["2"], lora.get("2"), h):
+            return mlp["2"].forward_codes(*gelu_act_quant(h.contiguous(), mlp["2"].a_sinv), h.shape[:-1])
+        h = F.gelu(h, approximate="tanh")
         if stats is not None:
             stats["2"] = _absmax_in(h)
         return mlp["2"](h, lora.get("2"), lora_scale)
@@ -475,17 +530,27 @@ class DoubleBlock(nn.Module):
                 q, k, v = (torch.cat(ts, dim=2) for ts in zip(*parts))
             return q, k, v, (img_mod1, img_mod2, txt_mod1, txt_mod2)
 
+        li, lt = l.get("img_attn", {}), l.get("txt_attn", {})
+
         def post(img, txt, attn, mods):
+            """attn: the merged heads (B, L, H * D), or on the fused w8a8 route
+            kernel M's codes of their txt and img rows (quant)."""
             img_mod1, img_mod2, txt_mod1, txt_mod2 = mods
-            txt_attn, img_attn = attn[:, :txt_len], attn[:, txt_len:]
-            if stats is not None:
-                stats["img_attn"]["proj"] = _absmax_in(img_attn)
-                stats["txt_attn"]["proj"] = _absmax_in(txt_attn)
-            li, lt = l.get("img_attn", {}), l.get("txt_attn", {})
-            img = residual(img, img_mod1["gate"], self.img_attn.proj(img_attn, li.get("proj"), lora_scale))
+            if quant is not None:
+                (txt_codes, txt_scale), (img_codes, img_scale) = attn
+                img_proj = self.img_attn.proj.forward_codes(img_codes, img_scale, img.shape[:-1])
+                txt_proj = self.txt_attn.proj.forward_codes(txt_codes, txt_scale, txt.shape[:-1])
+            else:
+                txt_attn, img_attn = attn[:, :txt_len], attn[:, txt_len:]
+                if stats is not None:
+                    stats["img_attn"]["proj"] = _absmax_in(img_attn)
+                    stats["txt_attn"]["proj"] = _absmax_in(txt_attn)
+                img_proj = self.img_attn.proj(img_attn, li.get("proj"), lora_scale)
+                txt_proj = self.txt_attn.proj(txt_attn, lt.get("proj"), lora_scale)
+            img = residual(img, img_mod1["gate"], img_proj)
             img = residual(img, img_mod2["gate"], self._mlp(self.img_mlp, img, img_mod2, l.get("img_mlp", {}),
                                                             lora_scale, st("img_mlp"), fused))
-            txt = residual(txt, txt_mod1["gate"], self.txt_attn.proj(txt_attn, lt.get("proj"), lora_scale))
+            txt = residual(txt, txt_mod1["gate"], txt_proj)
             txt = residual(txt, txt_mod2["gate"], self._mlp(self.txt_mlp, txt, txt_mod2, l.get("txt_mlp", {}),
                                                             lora_scale, st("txt_mlp"), fused))
             return img, txt
@@ -493,8 +558,12 @@ class DoubleBlock(nn.Module):
         if seg is not None:
             pre, post = seg(pre), seg(post)
         q, k, v, mods = pre(img, txt)
+        quant = None  # kernel M writes both proj's codes on their fused w8a8 route (not under remat segments)
+        if (fused and seg is None and txt_len and _takes_codes(self.txt_attn.proj, lt.get("proj"), q, k, v)
+                and _takes_codes(self.img_attn.proj, li.get("proj"), q, k, v)):
+            quant = (txt_len, self.txt_attn.proj.a_sinv, self.img_attn.proj.a_sinv)
         attn = attention(q, k, v, None if fused else pe, mask=attn_mask, rope_layout=rope_layout,
-                         impl=attn_impl, fused=fused)
+                         impl=attn_impl, fused=fused, quant=quant)
         out = post(img, txt, attn, mods)
         return (out, stats) if collect_stats else out
 
@@ -530,10 +599,14 @@ class SingleBlock(nn.Module):
 
         def pre(x):
             mod, _ = self.modulation(F.silu(vec), l.get("modulation", {}).get("lin"), lora_scale)
-            x_mod = _modulate(x, mod, x.dtype, fused)
-            if stats is not None:
-                stats["linear1"] = _absmax_in(x_mod)
-            h = self.linear1(x_mod, l.get("linear1"), lora_scale)
+            codes = _modulated_codes(self.linear1, x, mod, l.get("linear1"), x.dtype, fused)
+            if codes is not None:  # rounded to x's dtype first, as JAX's .astype(x.dtype)
+                h = self.linear1.forward_codes(*codes, x.shape[:-1])
+            else:
+                x_mod = _modulate(x, mod, x.dtype, fused)
+                if stats is not None:
+                    stats["linear1"] = _absmax_in(x_mod)
+                h = self.linear1(x_mod, l.get("linear1"), lora_scale)
             cols = 3 * self.hidden_size
             if fused:  # the gelu half comes back through QKNormSplit, which owns h's gradient
                 q, k, v, mlp_h = apply_qk_norm_split([(h, *self.norm.scales())], self.num_heads, cols, pe,
@@ -545,7 +618,11 @@ class SingleBlock(nn.Module):
 
         def post(x, cat, mod):
             """cat: linear2's whole input, the merged heads and gelu of the
-            MLP half (kernel M or its plain version)."""
+            MLP half (kernel M or its plain version), or on the fused w8a8
+            route kernel M's codes of it (one segment)."""
+            if quant is not None:
+                ((codes, x_scale),) = cat
+                return residual(x, mod["gate"], self.linear2.forward_codes(codes, x_scale, x.shape[:-1]))
             if stats is not None:
                 stats["linear2"] = _absmax_in(cat)
             out = self.linear2(cat, l.get("linear2"), lora_scale)
@@ -554,8 +631,11 @@ class SingleBlock(nn.Module):
         if seg is not None:
             pre, post = seg(pre), seg(post)
         q, k, v, mlp_h, mod = pre(x)
+        quant = None  # kernel M writes linear2's codes on its fused w8a8 route (not under remat segments)
+        if fused and seg is None and _takes_codes(self.linear2, l.get("linear2"), q, k, v, mlp_h):
+            quant = (0, None, self.linear2.a_sinv)
         cat = attention(q, k, v, None if fused else pe, mask=attn_mask, rope_layout=rope_layout,
-                        impl=attn_impl, gelu=mlp_h, fused=fused)
+                        impl=attn_impl, gelu=mlp_h, fused=fused, quant=quant)
         out = post(x, cat, mod)
         return (out, stats) if collect_stats else out
 

@@ -1,8 +1,9 @@
 """Tensor ops of the port and the wrappers of its hand-written CUDA kernels."""
 
-from .act_quant import act_quant_int8
-from .block_fusions import (gated_residual, gated_residual_bwd, layernorm_modulate, layernorm_modulate_bwd, merge_heads,
-                            merge_heads_bwd, qk_norm_split, qk_norm_split_bwd)
+from .act_quant import act_quant_int8, gelu_act_quant
+from .block_fusions import (gated_residual, gated_residual_bwd, layernorm_modulate, layernorm_modulate_bwd,
+                            layernorm_modulate_quant, merge_heads, merge_heads_bwd, merge_heads_quant, qk_norm_split,
+                            qk_norm_split_bwd)
 from .conv2d import conv3x3_gn_swish
 from .flash_attention import (
     flash_attn_bwd_dkv,
@@ -29,10 +30,13 @@ KERNELS = {
     "int4_matmul": int4_matmul,
     "w8a8_matmul": w8a8_matmul,
     "act_quant_int8": act_quant_int8,
+    "gelu_act_quant": gelu_act_quant,
     "layernorm_modulate": layernorm_modulate,
     "gated_residual": gated_residual,
     "qk_norm_split": qk_norm_split,
     "merge_heads": merge_heads,
+    "layernorm_modulate_quant": layernorm_modulate_quant,
+    "merge_heads_quant": merge_heads_quant,
     "layernorm_modulate_bwd": layernorm_modulate_bwd,
     "gated_residual_bwd": gated_residual_bwd,
     "qk_norm_split_bwd": qk_norm_split_bwd,

@@ -14,8 +14,9 @@ autograd, to FlashMHARope: the rotation in plain passes, E and F); the
 interleaved layout, the reference's and the trainer's, rotates q and k here
 (rope_qk) and goes to `flash_mha`. The blocks' head merge
 is kernel M (ops/block_fusions.py), under autograd its Function with
-kernel M' as the backward. `mha_xla` is the fp32 oracle the kernels are
-held against.
+kernel M' as the backward; on the fused w8a8 route (`quant`) kernel M
+writes the consumer linears' int8 codes instead. `mha_xla` is the fp32
+oracle the kernels are held against.
 
 Under a `RingSpec` (JAX's sequence-parallel dispatch) q, k, v, the mask
 and the RoPE tables are this rank's block of the sequence; q and k are
@@ -30,7 +31,7 @@ import dataclasses
 
 import torch
 
-from .block_fusions import apply_merge_heads, merge_heads_plain
+from .block_fusions import apply_merge_heads, merge_heads_plain, merge_heads_quant, wants_grad
 from .flash_attention import flash_mha, flash_mha_rope
 from .rope import apply_rope, apply_rope_half
 
@@ -117,7 +118,8 @@ def attention(
     impl: RingSpec | None = None,
     gelu: torch.Tensor | None = None,
     fused: bool = False,
-) -> torch.Tensor:
+    quant: tuple | None = None,
+):
     """RoPE + masked MHA + head merge.
 
     q, k, v: (B, H, L, D), unrotated (pe = (cos, sin), each (B, L, D/2)) or
@@ -127,13 +129,21 @@ def attention(
     zeroed. gelu: (B, L, G), whose gelu(tanh) is appended -> (B, L, H * D +
     G), the single block's linear2 input in one buffer. fused: the merge by
     kernel M (under autograd its Function, kernel M' the backward); else its
-    plain version (calibration)."""
+    plain version (calibration). quant: (split, a_sinv_first, a_sinv) of the
+    linears that take the merged rows as int8 codes (the fused w8a8 route,
+    no gradient): kernel M quantizes its output (merge_heads_quant) and the
+    result is its list of (codes, scale) segments."""
     bias = mask_to_bias(mask)
     if impl is None and pe is not None and rope_layout == "half" and q.shape[2] == k.shape[2]:
         x = flash_mha_rope(q, k, v, bias, pe[0].contiguous(), pe[1].contiguous())
     else:
         q, k = rope_qk(q, k, pe, rope_layout)
         x = mha(q, k, v, bias, impl)
+    if quant is not None:
+        if not fused or wants_grad(x, gelu):
+            raise ValueError("attention: quantized output is for the fused route without a gradient")
+        split, a_sinv_first, a_sinv = quant
+        return merge_heads_quant(x, mask, gelu, a_sinv, split, a_sinv_first)
     if fused:
         return apply_merge_heads(x, mask, gelu)
     return merge_heads_plain(x, mask, gelu)

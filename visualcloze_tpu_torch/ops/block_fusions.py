@@ -23,6 +23,11 @@ where eager PyTorch runs them as many fp32 passes over the token axis:
     layout; L' then applies the transposed rotation first);
   - M: attention's head merge with padded query rows zeroed and, in the
     single block, gelu(tanh) of the MLP half beside it: linear2's input.
+On the fused w8a8 route (models/layers.py `_takes_codes`) J and M write
+their consumer linear's int8 codes and row scales instead of the value
+(`layernorm_modulate_quant`, `merge_heads_quant`: kernel I, the quantize of
+linear's w8a8 branch, folded in, csrc/act_quant.cuh's arithmetic), as XLA
+fuses the quantize into the chain that produces the linear's input.
 
 Each plain version is the blocks' former PyTorch code; each plain backward
 is the closed-form gradient of that code in the rounding order autograd
@@ -50,6 +55,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from . import cuda_build
+from .act_quant import MAX_STAGED_ROW, act_quant_plain
 from .rope import apply_rope, apply_rope_half
 
 BF16 = torch.bfloat16
@@ -65,6 +71,8 @@ _J_ARGTYPES = [_P, _LL, _LL, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _P]
 _K_ARGTYPES = [_P, _P, _P, _LL, _P, _I, _I, _I, _P]
 _L_ARGTYPES = [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _LL] + [_I] * 7 + [_P]
 _M_ARGTYPES = [_P, _P, _P, _LL, _LL, _P] + [_I] * 6 + [_P]
+_JQ_ARGTYPES = [_P, _LL, _LL, _P, _LL, _P, _LL, _P, _P, _P] + [_I] * 4 + [_P]
+_MQ_ARGTYPES = [_P, _P, _P, _LL, _LL] + [_I] * 6 + [_P] * 6 + [_P]
 _JB_ARGTYPES = [_P, _LL, _LL, _P, _LL, _P, _I, _P, _P, _P, _P] + [_I] * 4 + [_P]
 _KB_ARGTYPES = [_P, _P, _P, _LL, _P, _P, _P] + [_I] * 4 + [_P]
 _LB_ARGTYPES = [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _LL] + [_I] * 8 + [_P]
@@ -191,6 +199,51 @@ def layernorm_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor
 
 
 layernorm_modulate.launches = 0
+
+
+def _check_sinv(name: str, a_sinv: torch.Tensor | None, c: int) -> None:
+    if a_sinv is not None:
+        _require(a_sinv.is_cuda and a_sinv.dtype == torch.float32 and a_sinv.is_contiguous()
+                 and tuple(a_sinv.shape) == (c,) and a_sinv.data_ptr() % 16 == 0, name,
+                 f"a_sinv must be a contiguous 16-byte aligned CUDA float32 ({c},)")
+
+
+def layernorm_modulate_quant_plain(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+                                   a_sinv: torch.Tensor | None = None, dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of kernel J quantized: act_quant_plain of
+    layernorm_modulate_plain(x, shift, scale, dtype) with a_sinv."""
+    return act_quant_plain(layernorm_modulate_plain(x, shift, scale, dtype), a_sinv)
+
+
+def layernorm_modulate_quant(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+                             a_sinv: torch.Tensor | None = None, dtype: torch.dtype = torch.float32):
+    """Kernel J with kernel I folded in: (codes (B*L, C) int8, scale (B*L,)
+    fp32) of (1 + scale) * layer_norm(x) + shift as `dtype` (fp32: a double
+    block's qkv and mlp.0 input, which JAX quantizes unrounded; bf16: the
+    single block's linear1 input, after .astype(x.dtype)) times a_sinv (C,)
+    fp32 or None. On CUDA x, shift and scale as layernorm_modulate takes
+    them; anything else raises."""
+    if x.device.type == "cpu":
+        return layernorm_modulate_quant_plain(x, shift, scale, a_sinv, dtype)
+    name = "layernorm_modulate_quant"
+    _check_rows(name, "x", x, BF16)
+    b, l, c = x.shape
+    _require(l >= 1 and c <= MAX_ROW, name, f"x must have rows of at most {MAX_ROW}, got {tuple(x.shape)}")
+    _require(dtype in (BF16, torch.float32), name, f"dtype must be bfloat16 or float32, got {dtype}")
+    for what, t in (("shift", shift), ("scale", scale)):
+        _check_vector(name, what, t, b, c)
+    _check_sinv(name, a_sinv, c)
+    codes = torch.empty((b * l, c), dtype=torch.int8, device=x.device)
+    x_scale = torch.empty((b * l,), dtype=torch.float32, device=x.device)
+    kernel = cuda_build.load(name, _JQ_ARGTYPES, source="layernorm_modulate")
+    status = kernel(_ptr(x), x.stride(0), x.stride(1), _ptr(scale), scale.stride(0), _ptr(shift), shift.stride(0),
+                    _ptr(a_sinv), _ptr(codes), _ptr(x_scale), b, l, c, int(dtype == BF16), _stream())
+    cuda_build.check(name, status)
+    cuda_build.count_launch(layernorm_modulate_quant)
+    return codes, x_scale
+
+
+layernorm_modulate_quant.launches = 0
 
 
 # ----------------------------- K: gated residual -----------------------------
@@ -392,6 +445,66 @@ def merge_heads(x: torch.Tensor, mask: torch.Tensor | None = None, gelu: torch.T
 
 
 merge_heads.launches = 0
+
+
+def merge_heads_quant_plain(x: torch.Tensor, mask: torch.Tensor | None = None, gelu: torch.Tensor | None = None,
+                            a_sinv: torch.Tensor | None = None, split: int = 0,
+                            a_sinv_first: torch.Tensor | None = None) -> list:
+    """Plain PyTorch version of kernel M quantized: act_quant_plain of
+    merge_heads_plain(x, mask, gelu)'s rows [0, split) with a_sinv_first
+    (when split > 0) and of the rest with a_sinv, per batch element."""
+    out = merge_heads_plain(x, mask, gelu)
+    segments = [(out[:, :split], a_sinv_first)] if split else []
+    return [act_quant_plain(t, s) for t, s in segments + [(out[:, split:], a_sinv)]]
+
+
+def merge_heads_quant(x: torch.Tensor, mask: torch.Tensor | None = None, gelu: torch.Tensor | None = None,
+                      a_sinv: torch.Tensor | None = None, split: int = 0,
+                      a_sinv_first: torch.Tensor | None = None) -> list:
+    """Kernel M with kernel I folded in: the int8 codes and row scales of
+    merge_heads(x, mask, gelu)'s rows, as [(codes (B*L, W), scale (B*L,))]
+    quantized with a_sinv (W,) fp32 or None, or with split > 0 (a double
+    block's joint rows, the text tokens first) [(codes (B*split, W), scale)
+    of rows [0, split) with a_sinv_first, (codes (B*(L-split), W), scale) of
+    the rest with a_sinv], each segment's own contiguous buffers. On CUDA x,
+    mask and gelu as merge_heads takes them, W = H*D + G at most 20480;
+    anything else raises."""
+    if x.device.type == "cpu":
+        return merge_heads_quant_plain(x, mask, gelu, a_sinv, split, a_sinv_first)
+    name = "merge_heads_quant"
+    _require(x.is_cuda, name, "x must be a CUDA tensor")
+    x = x.contiguous()
+    _require(x.dtype == BF16 and x.dim() == 4 and x.shape[-1] % VEC == 0 and x.shape[2] >= 1, name,
+             f"x must be (B, H, L, D) bfloat16 with D a multiple of {VEC}, got {x.dtype} {tuple(x.shape)}")
+    b, h, l, d = x.shape
+    _require(0 <= split < l, name, f"split must lie in [0, {l}), got {split}")
+    if mask is not None:
+        _require(mask.is_cuda and tuple(mask.shape) == (b, l), name, f"mask must be a CUDA ({b}, {l})")
+        mask = mask.to(torch.int32).contiguous()
+    g = 0
+    if gelu is not None:
+        _check_rows(name, "gelu", gelu, BF16)
+        _require(tuple(gelu.shape[:2]) == (b, l), name, f"gelu must be ({b}, {l}, G), got {tuple(gelu.shape)}")
+        g = gelu.shape[-1]
+    w = h * d + g
+    _require(w <= MAX_STAGED_ROW, name, f"a row of {w} values is wider than {MAX_STAGED_ROW}")
+    _check_sinv(name, a_sinv, w)
+    _check_sinv(name, a_sinv_first if split else None, w)
+    seg_rows = ([b * split] if split else []) + [b * (l - split)]
+    bufs = [(torch.empty((rows, w), dtype=torch.int8, device=x.device),
+             torch.empty((rows,), dtype=torch.float32, device=x.device)) for rows in seg_rows]
+    (c0, s0), sinv0 = (bufs[0], a_sinv_first) if split else ((None, None), None)
+    c1, s1 = bufs[-1]
+    kernel = cuda_build.load(name, _MQ_ARGTYPES, source="merge_heads")
+    status = kernel(_ptr(x), _ptr(mask), _ptr(gelu), gelu.stride(0) if g else 0, gelu.stride(1) if g else 0,
+                    b, l, h, d, g, split, _ptr(sinv0), _ptr(c0), _ptr(s0), _ptr(a_sinv), _ptr(c1), _ptr(s1),
+                    _stream())
+    cuda_build.check(name, status)
+    cuda_build.count_launch(merge_heads_quant)
+    return bufs
+
+
+merge_heads_quant.launches = 0
 
 
 # ----------------------------- J': the backward of J -----------------------------

@@ -23,7 +23,9 @@ Exits 1 if the trace holds no device events.
 (synthetic_full_components: int8 DiT, int4 T5, int8 CLIP), whose linears are
 kernel G instead of cuBLAS GEMMs. --quantize w8a8 profiles it on the
 random bf16 model with its DiT quantized to w8a8 (quantize_flux_w8a8): the
-token-dim block linears are kernels I and H, the others G. --quantize int4
+token-dim block linears are kernel H, the others G; H takes the codes that
+J, M and O (gelu + quantize) write (classes of their own), and kernel I
+quantizes only off that fused route (a LoRA entry, a tp shard, autograd). --quantize int4
 profiles it with the DiT quantized to int4 (quantize_flux_int4, the bf16 DiT
 freed): every linear is kernel G4.
 
@@ -76,6 +78,11 @@ INT8_KERNEL = re.compile(r"\bint8_(matmul\w*|gemv)<|\bmatmul_wide<[^,]*\bInt8Con
 INT4_KERNEL = re.compile(r"\bint4_gemv<|\bmatmul_wide<[^,]*\bInt4Convert\b")  # csrc/int4_matmul.cu (G4)
 W8A8_KERNEL = re.compile(r"\bw8a8_matmul_kernel[<(]")  # csrc/w8a8_matmul.cu (H)
 ACT_QUANT_KERNEL = re.compile(r"\bact_quant_kernel<")  # csrc/act_quant_int8.cu (I)
+# the w8a8 DiT's fused route: J and M writing their consumer linears' codes (layernorm_modulate.cu,
+# merge_heads.cu) and kernel O, gelu + quantize (gelu_act_quant.cu)
+QUANT_FUSION_KERNELS = ((re.compile(r"\bln_modulate_quant_kernel<"), "layernorm modulate + quantize (kernel J, codes)"),
+                        (re.compile(r"\bmerge_heads_quant_kernel\("), "head merge + quantize (kernel M, codes)"),
+                        (re.compile(r"\bgelu_act_quant_kernel\("), "gelu + quantize (kernel O)"))
 # the DiT blocks' fused passes: csrc/layernorm_modulate.cu (J), gated_residual.cu (K), qk_norm_split.cu (L),
 # merge_heads.cu (M), and their backward kernels, csrc/*_bwd.cu (J'-M'; J', K' and L''s second pass, the
 # fixed-order column sums of colsum.cuh, is a class of its own)
@@ -109,6 +116,9 @@ def kernel_class(name: str) -> str:
         return "w8a8 matmul (kernel H)"
     if ACT_QUANT_KERNEL.search(name):
         return "activation quantize (kernel I)"
+    for pattern, cls in QUANT_FUSION_KERNELS:
+        if pattern.search(name):
+            return cls
     if INT8_KERNEL.search(name):
         return "int8 matmul (kernel G)"
     if INT4_KERNEL.search(name):
