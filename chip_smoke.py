@@ -80,6 +80,12 @@ Phases, each followed by one flushed JSON line on stdout:
              each bit for bit kernel I applied to J's, M's and M's gelu
              output (tolerance 0), deterministic, within 1 code and 1 bf16
              ulp of the scales of its plain version (the merge alone 0);
+             J's and M's persistent walks again at 7 rows, 3969 rows (the
+             grid does not divide them), batch 2 (a CTA's walk crosses the
+             batch boundary: its own scale / shift, or a_sinv segments),
+             the split at 512 with 64 padded rows and linear1's strided
+             gelu half; the gelu of every finite bf16 value through M
+             against F.gelu (bound 1 ulp, the count that differ);
              their backward kernels, graph-
              timed, each against its plain backward and against
              torch.autograd.grad of the plain forward, deterministic: J'
@@ -1527,30 +1533,30 @@ def check_layernorm_modulate_quant(tokens: int, bf16: bool, smooth: bool, what: 
 
 
 def check_merge_heads_quant(tokens: int, what: str, reps: int, smooth: bool, gelu_cols: int = 0, cols: int = 0,
-                            padded: int = 0, split: int = 0, heads: int = 24) -> dict:
+                            padded: int = 0, split: int = 0, heads: int = 24, b: int = 1) -> dict:
     """Kernel M writing the codes of its output: the single block's linear2
     input (the merge, then gelu of linear1's last gelu_cols of `cols`
     N(0, 9) columns) or a double block's joint rows cut at `split` (the text
     tokens, then the image's, each with its own a_sinv), the last `padded`
-    query rows masked: each segment bit for bit kernel I applied to kernel
-    M's output rows; against its plain version (F.gelu) within 1 code and 1
-    bf16 ulp of the scales (tanhf moves a bf16 gelu by up to one ulp), the
-    merge alone exactly."""
+    query rows of each of the b batch elements masked: each segment bit for
+    bit kernel I applied to kernel M's output rows; against its plain
+    version (F.gelu) within 1 code and 1 bf16 ulp of the scales (the gelu
+    can move a bf16 value by up to one ulp), the merge alone exactly."""
     import torch
 
     from visualcloze_tpu_torch.ops.act_quant import act_quant_int8
     from visualcloze_tpu_torch.ops.block_fusions import merge_heads, merge_heads_quant, merge_heads_quant_plain
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(37 * tokens + gelu_cols + padded + split + smooth)
-    x = torch.randn((1, heads, tokens, 128), generator=g, device=dev).to(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(37 * tokens + gelu_cols + padded + split + smooth + 1000 * (b - 1))
+    x = torch.randn((b, heads, tokens, 128), generator=g, device=dev).to(torch.bfloat16)
     mask = None
     if padded:
-        mask = torch.ones((1, tokens), dtype=torch.int32, device=dev)
+        mask = torch.ones((b, tokens), dtype=torch.int32, device=dev)
         mask[:, tokens - padded:] = 0
     gelu = None
     if gelu_cols:
-        gelu = (torch.randn((1, tokens, cols), generator=g, device=dev) * 3.0).to(torch.bfloat16)[..., -gelu_cols:]
+        gelu = (torch.randn((b, tokens, cols), generator=g, device=dev) * 3.0).to(torch.bfloat16)[..., -gelu_cols:]
     w = heads * 128 + gelu_cols
     first, rest = _a_sinv(g, w, smooth), _a_sinv(g, w, smooth)
 
@@ -1560,12 +1566,50 @@ def check_merge_heads_quant(tokens: int, what: str, reps: int, smooth: bool, gel
         return [act_quant_int8(t.contiguous(), a) for t, a in parts + [(out[:, split:], rest)]]
 
     tol = 1 if gelu_cols else 0
+    m = b * tokens
     return _quant_fields(
-        "merge_heads_quant", what, [1, heads, tokens, 128, gelu_cols],
+        "merge_heads_quant", what, [b, heads, tokens, 128, gelu_cols],
         lambda: merge_heads_quant(x, mask, gelu, rest, split, first), composed,
         lambda: merge_heads_quant_plain(x, mask, gelu, rest, split, first), reps,
-        tokens * w * 3 + tokens * 4 * (2 if padded else 1) + (w * 4 * (2 if split else 1) if smooth else 0), smooth,
+        m * w * 3 + m * 4 * (2 if padded else 1) + (w * 4 * (2 if split else 1) if smooth else 0), smooth,
         plain_codes=tol, plain_scale_ulps=float(tol), padded_rows=padded, split=split)
+
+
+# gelu.cuh's tanh through torch's ops: the formula's constants, the cube, tanhf (torch.tanh on the card)
+GELU_BETA, GELU_KAPPA = 1.4142135623730951 * 1.1283791670955126 * 0.5, 0.044715
+
+
+def check_gelu_exhaustive() -> dict:
+    """Kernel M's gelu (gelu.cuh, shared with M quantizing and O) of every
+    finite bf16 value (65,280 bit patterns) against F.gelu(approximate=
+    "tanh") on the card: each within one bf16 ulp (bound 1), with the count
+    of values that differ at all. Beside it the same count for 0.5 x (1 +
+    tanhf(u)) in fp32 through torch's ops (tanhf: the formula gelu.cuh used
+    before its tanh was written out), deterministic."""
+    import torch
+    import torch.nn.functional as F
+
+    from visualcloze_tpu_torch.ops.block_fusions import merge_heads
+
+    dev = torch.device("cuda")
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16).view(torch.bfloat16)
+    x = bits[torch.isfinite(bits)].reshape(1, 255, 256)
+    stub = torch.zeros((1, 1, 255, 8), dtype=torch.bfloat16, device=dev)  # an 8-wide head, dropped
+    got = merge_heads(stub, None, x)[..., 8:]
+    again = merge_heads(stub, None, x)[..., 8:]
+    want = F.gelu(x, approximate="tanh")
+    xf = x.float()
+    old = (0.5 * xf * (1.0 + torch.tanh(GELU_BETA * (xf + GELU_KAPPA * (xf * xf * xf))))).to(torch.bfloat16)
+    ulps = bf16_ulps_each(want)
+    err = ((got.float() - want.float()).abs() / ulps).max().item()
+    old_err = ((old.float() - want.float()).abs() / ulps).max().item()
+    differ = int((got.view(torch.int16) != want.view(torch.int16)).sum().item())
+    old_differ = int((old.view(torch.int16) != want.view(torch.int16)).sum().item())
+    deterministic = torch.equal(got, again)
+    return dict(name="gelu_tanh", what="every finite bf16 input through kernel M's gelu vs F.gelu on the card",
+                values=x.numel(), max_ulps=err, tol_ulps=1.0, differ=differ, old_formula_max_ulps=old_err,
+                old_formula_differ=old_differ, deterministic=deterministic,
+                ok=bool(err <= 1.0 and deterministic))
 
 
 def check_gelu_act_quant(m: int, k: int, smooth: bool, what: str, reps: int) -> dict:
@@ -4070,6 +4114,25 @@ def main() -> int:
                                          split=512, padded=64)],
         lambda: [check_merge_heads_quant(7, "a ragged 7 rows, 2 padded, with gelu, a_sinv", 50, True,
                                          gelu_cols=12288, cols=21504, padded=2)],
+        # the persistent walks of J and M writing codes: fewer rows than CTAs, a row count the grid does not
+        # divide, batch 2 with its own scale / shift (and a_sinv segments) on each side of a boundary that a CTA's
+        # walk crosses, the split at 512 with 64 padded rows, linear1's strided gelu half
+        lambda: [check_layernorm_modulate_quant(7, True, True, "7 rows: fewer than the CTAs, bf16 first", 20)],
+        lambda: [check_layernorm_modulate_quant(3969, True, False, "3969 rows: the grid does not divide them", 20)],
+        lambda: [check_layernorm_modulate_quant(3969, False, True, "3969 rows, fp32, a_sinv", 20)],
+        lambda: [check_layernorm_modulate_quant(3968, True, True, "batch 2: walks cross the batch boundary", 20,
+                                                b=2)],
+        lambda: [check_layernorm_modulate_quant(3456, False, False, "batch 2, fp32: walks cross the boundary", 20,
+                                                b=2)],
+        lambda: [check_merge_heads_quant(7, "7 rows: fewer than the CTAs, the merge alone, a_sinv", 20, True)],
+        lambda: [check_merge_heads_quant(3969, "3969 rows with gelu: the grid does not divide them", 20, True,
+                                         gelu_cols=12288, cols=21504)],
+        lambda: [check_merge_heads_quant(3969, "3969 rows, the merge alone, 64 padded", 20, False, padded=64)],
+        lambda: [check_merge_heads_quant(3968, "batch 2: txt / img proj at 512, a_sinv each, 64 padded", 20, True,
+                                         split=512, padded=64, b=2)],
+        lambda: [check_merge_heads_quant(3968, "batch 2: linear1's strided gelu half, 64 padded, a_sinv", 20, True,
+                                         gelu_cols=12288, cols=21504, padded=64, b=2)],
+        lambda: [check_gelu_exhaustive()],
         lambda: [check_gelu_act_quant(3456, 12288, False, "double block img stream's mlp.0 output", 50)],
         lambda: [check_gelu_act_quant(3456, 12288, True, "double block img stream's mlp.0 output, a_sinv", 50)],
         lambda: [check_gelu_act_quant(512, 12288, True, "double block txt stream's mlp.0 output, a_sinv", 50)],

@@ -1,20 +1,27 @@
-"""chip_smoke.py's kernel lines of J, J' and K, another checkout against this one, in turns.
+"""chip_smoke.py's kernel lines of J, J', K and the w8a8 codes kernels, another checkout against this one, in turns.
 
-    python scripts/ab_fusion_lines.py OTHER_CHECKOUT [--kernels layernorm_modulate_bwd ...]
+    python scripts/ab_fusion_lines.py OTHER_CHECKOUT [--kernels layernorm_modulate_quant merge_heads_quant ...]
 
 Runs, as a fresh process in each checkout in the order other, this, this,
-other, that checkout's own `chip_smoke.check_layernorm_modulate_bwd`,
-`check_layernorm_modulate` and `check_gated_residual` at the main path's
-shapes, with the arguments older checkouts' functions take too. Each
+other, that checkout's own `chip_smoke` check functions at the main path's
+shapes (`check_layernorm_modulate_bwd`, `check_layernorm_modulate`,
+`check_gated_residual`; J and M writing codes, `check_layernorm_modulate_quant`
+and `check_merge_heads_quant`; kernel O, `check_gelu_act_quant`; kernel M,
+`check_merge_heads`), with the arguments older checkouts' functions take too.
+`gelu` runs every finite bf16 value through each checkout's kernel M and
+counts the results that differ from F.gelu(approximate="tanh") on the card
+(the script's own code, calling the checkout's `merge_heads`). Each
 checkout builds its own kernels and times them by its own graph-replayed
 timer. While a turn runs, nvidia-smi samples the SM clock and power draw
 (as scripts/ab_profile_step.py does).
 
 One JSON line per turn and kernel line: the tree, the kernel, the line's
 shape, what it stands for, ms, bound ms, share of the bound, plain ms,
-library ms where the checkout times one, ok, and the turn's clock and power
-samples. Then the card's name and power limit. Compare two checkouts only
-within one run.
+library ms or the unfused kernels' ms where the checkout times them, ok,
+and the turn's clock and power samples. Then, per checkout, one line of
+ptxas' report (-Xptxas -v: registers, shared memory, spills) for the
+sources of the kernels run; then the card's name and power limit. Compare
+two checkouts only within one run.
 """
 
 from __future__ import annotations
@@ -49,20 +56,65 @@ LINES = {
         ("check_gated_residual", (3968, "single block, 3968 tokens", 50), {}),
         ("check_gated_residual", (3456, "double block img stream", 50), {}),
     ],
+    "layernorm_modulate_quant": [
+        ("check_layernorm_modulate_quant", (3968, True, False, "single block before linear1 (bf16 first)", 50), {}),
+        ("check_layernorm_modulate_quant", (3456, False, False, "double block img stream before qkv / mlp.0", 50),
+         {}),
+        ("check_layernorm_modulate_quant", (512, False, True, "double block txt stream, a_sinv", 50), {}),
+    ],
+    "merge_heads_quant": [
+        ("check_merge_heads_quant", (3968, "single block's linear2 input, 64 padded rows", 50, False),
+         {"gelu_cols": 12288, "cols": 21504, "padded": 64}),
+        ("check_merge_heads_quant", (3968, "double block: txt proj's 512 rows, img proj's 3456", 50, False),
+         {"split": 512}),
+    ],
+    "gelu_act_quant": [
+        ("check_gelu_act_quant", (3456, 12288, False, "double block img stream's mlp.0 output", 50), {}),
+    ],
+    "merge_heads": [
+        ("check_merge_heads", (3968, "single block, 64 padded query rows", 50), {"gelu_cols": 12288, "cols": 21504,
+                                                                                  "padded": 64}),
+    ],
+    "gelu": [("gelu_exhaustive", (), {})],
 }
+SOURCES = {"layernorm_modulate_bwd": "layernorm_modulate_bwd", "layernorm_modulate": "layernorm_modulate",
+           "gated_residual": "gated_residual", "layernorm_modulate_quant": "layernorm_modulate",
+           "merge_heads_quant": "merge_heads", "gelu_act_quant": "gelu_act_quant", "merge_heads": "merge_heads",
+           "gelu": "merge_heads"}
 CHILD = r"""
-import json, sys
+import json, re, sys
 
 import torch
 
 import chip_smoke as cs
+from visualcloze_tpu_torch.ops import cuda_build
+
+
+def gelu_exhaustive():
+    import torch.nn.functional as F
+    from visualcloze_tpu_torch.ops.block_fusions import merge_heads
+
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device="cuda").to(torch.int16).view(torch.bfloat16)
+    x = bits[torch.isfinite(bits)].reshape(1, 255, 256)
+    got = merge_heads(torch.zeros((1, 1, 255, 8), dtype=torch.bfloat16, device="cuda"), None, x)[..., 8:]
+    want = F.gelu(x, approximate="tanh")
+    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126))) - 7)
+    err = ((got.float() - want.float()).abs() / ulp).max().item()
+    differ = int((got.view(torch.int16) != want.view(torch.int16)).sum().item())
+    return dict(name="gelu_tanh", what="every finite bf16 value through kernel M vs F.gelu", shape=[x.numel()],
+                max_ulps=err, differ=differ, ok=err <= 1.0)
+
 
 for fn, args, kwargs in json.loads(sys.argv[1]):
-    r = getattr(cs, fn)(*args, **kwargs)
+    r = gelu_exhaustive() if fn == "gelu_exhaustive" else getattr(cs, fn)(*args, **kwargs)
     torch.cuda.synchronize()
     print("LINE " + json.dumps(r), flush=True)
+keep = ("entry function", "registers", "spill")
+print("PTXAS " + json.dumps({n: [re.sub(r"\s+", " ", ln.strip()) for ln in log.splitlines() if any(k in ln for k in keep)]
+                             for n, log in cuda_build.BUILD_LOG.items() if n in sys.argv[2].split(",")}), flush=True)
 """
-KEEP = ("name", "what", "shape", "ms", "bound_ms", "share_of_bound", "plain_ms", "library_ms", "ok")
+KEEP = ("name", "what", "shape", "ms", "bound_ms", "share_of_bound", "plain_ms", "library_ms",
+        "unfused_kernels_ms", "max_abs_err", "deterministic", "max_ulps", "differ", "ok")
 
 
 def main(argv=None) -> int:
@@ -72,14 +124,21 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     trees = {"other": args.other.resolve(), "this": HERE}
     todo = json.dumps([line for k in args.kernels for line in LINES[k]])
+    sources = ",".join(sorted({SOURCES[k] for k in args.kernels}))
+    ptxas = {}
     for turn in ("other", "this", "this", "other"):
-        out, card = run_turn([sys.executable, "-c", CHILD, todo], trees[turn])
+        out, card = run_turn([sys.executable, "-c", CHILD, todo, sources], trees[turn])
         lines = [json.loads(ln[5:]) for ln in out.stdout.splitlines() if ln.startswith("LINE ")]
         if out.returncode or not lines:
             sys.stderr.write(out.stderr[-4000:])
             return out.returncode or 1
         for r in lines:
             print(json.dumps(dict(tree=turn, **{k: r.get(k) for k in KEEP}, card=card)), flush=True)
+        for ln in out.stdout.splitlines():
+            if ln.startswith("PTXAS ") and json.loads(ln[6:]):
+                ptxas.setdefault(turn, json.loads(ln[6:]))  # the turn that built the tree's kernels
+    for turn, report in ptxas.items():
+        print(json.dumps(dict(tree=turn, ptxas=report)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     return 0

@@ -1,15 +1,15 @@
 """profile_step's denoise step on every serving stack, or its LoRA train step, another checkout against this one,
 in turns.
 
-    python scripts/ab_profile_step.py OTHER_CHECKOUT [--modes none int8 w8a8 int4 train vae] [--steps 3]
+    python scripts/ab_profile_step.py OTHER_CHECKOUT [--modes none int8 w8a8 int4 train vae] [--steps 3] [--rounds 1]
 
 For each stack (`--quantize` none: the bf16 DiT; int8: the single-card int8
 stack; w8a8 and int4: the bf16 stack with its DiT quantized; train:
 `profile_step --train`, the full-width trainer's LoRA step; vae:
 `profile_step --vae`, the default query's VAE work) runs
 `python -m visualcloze_tpu_torch.profile_step` as a fresh process in each
-checkout, in the order other, this, this, other, so that both checkouts see
-the same card in the same state. Each checkout builds its own kernels and
+checkout, in the order other, this, this, other (--rounds times), so that
+both checkouts see the same card in the same state. Each checkout builds its own kernels and
 classes the kernels by its own profile_step (a class the other checkout
 does not know falls into its "other"). While each turn runs, nvidia-smi
 samples the card's SM clock and power draw every 200 ms, so that a turn on
@@ -67,11 +67,12 @@ def main(argv=None) -> int:
     p.add_argument("other", type=Path, help="the checkout to compare with (it builds its own kernels)")
     p.add_argument("--modes", nargs="+", choices=MODES, default=list(MODES[:4]))
     p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--rounds", type=int, default=1, help="the turns other, this, this, other, this many times a stack")
     args = p.parse_args(argv)
     trees = {"other": args.other.resolve(), "this": HERE}
     with tempfile.TemporaryDirectory() as tmp:
         for mode in args.modes:
-            for turn in ("other", "this", "this", "other"):
+            for turn in ("other", "this", "this", "other") * args.rounds:
                 cmd = [sys.executable, "-m", "visualcloze_tpu_torch.profile_step", "--steps", str(args.steps),
                        "--out", str(Path(tmp) / f"{mode}_{turn}.json")]
                 if mode in ("train", "vae"):

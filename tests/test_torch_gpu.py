@@ -779,11 +779,19 @@ def _quant_equal(got, want):
 @pytest.mark.parametrize("b, L, c, dtype, smooth", [(1, 300, 3072, torch.float32, True),
                                                     (2, 37, 3072, torch.bfloat16, False),
                                                     (1, 5, 64, torch.float32, False),
-                                                    (1, 7, 3072, torch.bfloat16, True)])
+                                                    (1, 7, 3072, torch.bfloat16, True),
+                                                    (1, 3969, 3072, torch.bfloat16, False),
+                                                    (2, 3968, 3072, torch.float32, True),
+                                                    (3, 1001, 3072, torch.bfloat16, True),
+                                                    (1, 300, 8192, torch.float32, True),
+                                                    (2, 150, 4096, torch.bfloat16, False)])
 def test_gpu_layernorm_modulate_quant_is_kernel_i_of_kernel_j(b, L, c, dtype, smooth):
     """Kernel J quantized: the codes and scales of kernel I applied to kernel
     J's own output (fp32, or rounded to bf16), bit for bit; x strided, a
-    second launch the same bits."""
+    second launch the same bits. The persistent walk: fewer rows than CTAs,
+    a row count the grid does not divide, batch elements with their own
+    scale and shift met inside one CTA's walk, C above 3072 (CTAs of up to
+    1024 threads)."""
     from visualcloze_tpu_torch.ops import block_fusions as bfu
     from visualcloze_tpu_torch.ops.act_quant import act_quant_int8
 
@@ -801,12 +809,22 @@ def test_gpu_layernorm_modulate_quant_is_kernel_i_of_kernel_j(b, L, c, dtype, sm
 @pytest.mark.gpu
 @pytest.mark.parametrize("b, L, gelu_cols, padded, split, smooth", [(1, 300, 12288, 10, 0, True),
                                                                     (2, 300, 0, 20, 64, True),
-                                                                    (1, 9, 0, 3, 2, False), (1, 5, 64, 5, 0, False)])
+                                                                    (1, 9, 0, 3, 2, False), (1, 5, 64, 5, 0, False),
+                                                                    (1, 3969, 12288, 64, 0, True),
+                                                                    (2, 3968, 0, 64, 512, True),
+                                                                    (2, 1000, 12288, 64, 0, False),
+                                                                    (1, 7, 0, 2, 0, True),
+                                                                    (1, 300, 17408, 10, 0, True),
+                                                                    (1, 50, 8, 0, 0, True),
+                                                                    (3, 77, 4096, 5, 30, True)])
 def test_gpu_merge_heads_quant_is_kernel_i_of_kernel_m(b, L, gelu_cols, padded, split, smooth):
     """Kernel M quantized: each segment's codes and scales those of kernel I
     applied to kernel M's own output rows with that segment's a_sinv, bit
     for bit (the double block's text rows [0, split) and image rows apart);
-    padded rows of a merge alone give codes 0."""
+    padded rows of a merge alone give codes 0. The persistent walk: fewer
+    rows than CTAs, a row count the grid does not divide, batch 2 and 3
+    crossing inside a CTA's walk, rows of up to 20480 values (one CTA an
+    SM), a row of 3080 (its codes stored 8 at a time)."""
     from visualcloze_tpu_torch.ops import block_fusions as bfu
     from visualcloze_tpu_torch.ops.act_quant import act_quant_int8
 
@@ -853,6 +871,26 @@ def test_gpu_gelu_act_quant_is_kernel_i_of_kernel_m_gelu(m, k, smooth):
     codes, scale = gelu_act_quant_plain(h, a_sinv)
     assert (got[0].int() - codes.int()).abs().max().item() <= 1
     assert bool(((got[1] - scale).abs() <= scale * 2.0 ** -7).all())
+
+
+@pytest.mark.gpu
+def test_gpu_gelu_of_every_bf16_is_within_one_ulp_of_f_gelu():
+    """gelu.cuh through kernel M (the gelu of M quantizing and O too): every
+    finite bf16 input within one bf16 ulp of F.gelu(approximate="tanh") on
+    the card, and kernel O's codes those of kernel I applied to it."""
+    import torch.nn.functional as F
+
+    from visualcloze_tpu_torch.ops import block_fusions as bfu
+    from visualcloze_tpu_torch.ops.act_quant import act_quant_int8, gelu_act_quant
+
+    dev = _cuda_or_skip()
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16).view(torch.bfloat16)
+    x = bits[torch.isfinite(bits)].reshape(255, 256)
+    got = bfu.merge_heads(torch.zeros((1, 1, 255, 8), dtype=torch.bfloat16, device=dev), None, x[None])[0, :, 8:]
+    want = F.gelu(x, approximate="tanh").float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+    assert bool(((got.float() - want).abs() <= ulp).all())
+    assert _quant_equal(gelu_act_quant(x), act_quant_int8(got.contiguous()))
 
 
 @pytest.mark.gpu

@@ -392,6 +392,12 @@ def test_profile_step_classes_kernels_by_demangled_name():
     ("(anonymous namespace)::merge_heads_quant_kernel(__nv_bfloat16 const*, int const*, __nv_bfloat16 const*, "
      "long long, long long, int, int, int, int, int, float const*, signed char*, float*)",
      "head merge + quantize (kernel M, codes)"),
+    ("void (anonymous namespace)::merge_heads_quant_kernel<4>(__nv_bfloat16 const*, int const*, "
+     "__nv_bfloat16 const*, long long, long long, int, int, int, int, int, int, float const*, signed char*, float*, "
+     "float const*, signed char*, float*)", "head merge + quantize (kernel M, codes)"),
+    ("void (anonymous namespace)::ln_modulate_quant_kernel<false, 128>(__nv_bfloat16 const*, long long, long long, "
+     "float const*, long long, float const*, long long, float const*, signed char*, float*, int, int, int)",
+     "layernorm modulate + quantize (kernel J, codes)"),
     ("(anonymous namespace)::gelu_act_quant_kernel(__nv_bfloat16 const*, float const*, signed char*, float*, int)",
      "gelu + quantize (kernel O)"),
 ])

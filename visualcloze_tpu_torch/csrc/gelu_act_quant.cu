@@ -11,8 +11,8 @@
 //     codes[m, k] = clamp(rint(xf / scale[m]), -127, 127)     act_quant.cuh
 //
 // The same bits as kernel I applied to kernel M's gelu of h (one gelu and one
-// quantize definition); against PyTorch's F.gelu, tanhf can move a bf16 gelu
-// by one ulp and so a code by one.
+// quantize definition); against PyTorch's F.gelu, the gelu can move a bf16
+// value by one ulp and so a code by one.
 //
 // Bound on the H100 (3.35 TB/s): the bytes, h read once (bf16), the codes and
 // scales written once: (3456, 12288) 127 MB, 0.038 ms; (512, 12288) 0.0056

@@ -81,7 +81,7 @@ ACT_QUANT_KERNEL = re.compile(r"\bact_quant_kernel<")  # csrc/act_quant_int8.cu 
 # the w8a8 DiT's fused route: J and M writing their consumer linears' codes (layernorm_modulate.cu,
 # merge_heads.cu) and kernel O, gelu + quantize (gelu_act_quant.cu)
 QUANT_FUSION_KERNELS = ((re.compile(r"\bln_modulate_quant_kernel<"), "layernorm modulate + quantize (kernel J, codes)"),
-                        (re.compile(r"\bmerge_heads_quant_kernel\("), "head merge + quantize (kernel M, codes)"),
+                        (re.compile(r"\bmerge_heads_quant_kernel[<(]"), "head merge + quantize (kernel M, codes)"),
                         (re.compile(r"\bgelu_act_quant_kernel\("), "gelu + quantize (kernel O)"))
 # the DiT blocks' fused passes: csrc/layernorm_modulate.cu (J), gated_residual.cu (K), qk_norm_split.cu (L),
 # merge_heads.cu (M), and their backward kernels, csrc/*_bwd.cu (J'-M'; J', K' and L''s second pass, the
