@@ -1,4 +1,4 @@
-"""chip_smoke.py's kernel lines of J, J', K and the w8a8 codes kernels, another checkout against this one, in turns.
+"""chip_smoke.py's kernel lines of J, J', K, the w8a8 codes kernels and N, another checkout against this one, in turns.
 
     python scripts/ab_fusion_lines.py OTHER_CHECKOUT [--kernels layernorm_modulate_quant merge_heads_quant ...]
 
@@ -7,7 +7,9 @@ other, that checkout's own `chip_smoke` check functions at the main path's
 shapes (`check_layernorm_modulate_bwd`, `check_layernorm_modulate`,
 `check_gated_residual`; J and M writing codes, `check_layernorm_modulate_quant`
 and `check_merge_heads_quant`; kernel O, `check_gelu_act_quant`; kernel M,
-`check_merge_heads`), with the arguments older checkouts' functions take too.
+`check_merge_heads`; kernel N, `check_group_norm_stats` and
+`check_group_norm_apply`), with the arguments older checkouts' functions
+take too.
 `gelu` runs every finite bf16 value through each checkout's kernel M and
 counts the results that differ from F.gelu(approximate="tanh") on the card
 (the script's own code, calling the checkout's `merge_heads`). Each
@@ -76,11 +78,19 @@ LINES = {
                                                                                   "padded": 64}),
     ],
     "gelu": [("gelu_exhaustive", (), {})],
+    # kernel N at the default query's GroupNorm shapes: the statistics where x is 34 MB or less, the two next
+    # above, and two full-resolution lines; the apply at the two latent shapes
+    "group_norm_stats": [("check_group_norm_stats", (s, r), {}) for s, r in (
+        ((1, 48, 144, 512), 50), ((1, 128, 128, 512), 50), ((1, 96, 288, 512), 50), ((1, 96, 288, 256), 50),
+        ((1, 256, 256, 256), 20), ((1, 192, 576, 128), 20), ((1, 256, 256, 512), 20), ((1, 192, 576, 256), 20),
+        ((1, 384, 1152, 128), 20), ((1, 1024, 1024, 128), 20))],
+    "group_norm_apply": [("check_group_norm_apply", (s, act, 50), {}) for s in ((1, 48, 144, 512), (1, 128, 128, 512))
+                         for act in ("none", "swish")],
 }
 SOURCES = {"layernorm_modulate_bwd": "layernorm_modulate_bwd", "layernorm_modulate": "layernorm_modulate",
            "gated_residual": "gated_residual", "layernorm_modulate_quant": "layernorm_modulate",
            "merge_heads_quant": "merge_heads", "gelu_act_quant": "gelu_act_quant", "merge_heads": "merge_heads",
-           "gelu": "merge_heads"}
+           "gelu": "merge_heads", "group_norm_stats": "group_norm", "group_norm_apply": "group_norm"}
 CHILD = r"""
 import json, re, sys
 
@@ -113,8 +123,9 @@ keep = ("entry function", "registers", "spill")
 print("PTXAS " + json.dumps({n: [re.sub(r"\s+", " ", ln.strip()) for ln in log.splitlines() if any(k in ln for k in keep)]
                              for n, log in cuda_build.BUILD_LOG.items() if n in sys.argv[2].split(",")}), flush=True)
 """
-KEEP = ("name", "what", "shape", "ms", "bound_ms", "share_of_bound", "plain_ms", "library_ms",
-        "unfused_kernels_ms", "max_abs_err", "deterministic", "max_ulps", "differ", "ok")
+KEEP = ("name", "what", "shape", "act", "design", "cluster", "ms", "eager_ms", "bound_ms", "share_of_bound",
+        "plain_ms", "library_ms", "unfused_kernels_ms", "max_abs_err", "b_after_n_max_abs_err", "deterministic",
+        "max_ulps", "differ", "ok")
 
 
 def main(argv=None) -> int:

@@ -1328,16 +1328,26 @@ def _group_norm_case(dev, shape, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape, groups", [((1, 48, 144, 512), 32), ((2, 37, 91, 384), 32), ((1, 8, 8, 32), 32),
-                                           ((3, 5, 7, 128), 16), ((1, 64, 64, 2048), 32), ((1, 1, 3, 256), 32)])
-def test_gpu_group_norm_stats_match_plain(shape, groups):
+@pytest.mark.parametrize("shape, groups, design", [
+    ((1, 48, 144, 512), 32, "cluster"), ((2, 37, 91, 384), 32, "stream"), ((1, 8, 8, 32), 32, "cluster"),
+    ((3, 5, 7, 128), 16, "cluster"), ((1, 64, 64, 2048), 32, "cluster"), ((1, 1, 3, 256), 32, "cluster"),
+    # the VAE's latent and half-resolution levels, a ragged batch of 2, C = 128 (two groups a cluster), and a
+    # full-resolution level the cluster design cannot hold
+    ((1, 128, 128, 512), 32, "cluster"), ((1, 96, 288, 512), 32, "cluster"), ((1, 96, 288, 256), 32, "cluster"),
+    ((2, 37, 91, 512), 32, "cluster"), ((1, 37, 91, 128), 32, "cluster"), ((1, 384, 1152, 128), 32, "stream"),
+    # 16-byte rows: held where x exceeds the L2, streamed where it fits
+    ((1, 192, 576, 256), 32, "cluster"), ((1, 192, 576, 128), 32, "stream")])
+def test_gpu_group_norm_stats_match_plain(shape, groups, design):
     """Kernel N's statistics against their plain version: a and bb within
     1e-5 of their largest magnitude (fp32 sums in another order), the same
-    bits on a second launch; ragged pixel counts, batches, C from 32 to
-    2048, fewer pixels than a CTA's lanes."""
+    bits on a second launch, and kernel B taking N's affine within B's bound
+    (1% of the largest output) of B's plain version on the plain statistics;
+    ragged pixel counts, batches, C from 32 to 2048, fewer pixels than a
+    CTA's lanes or a cluster's CTAs, each on the design stats_plan gives it."""
     from visualcloze_tpu_torch.ops import group_norm as gn
 
     dev = _cuda_or_skip()
+    assert gn.stats_plan(*shape, groups, *gn.device_limits(dev.index or 0)).design == design
     x, scale, bias = _group_norm_case(dev, shape, sum(shape))
     a, bb = gn.group_norm_stats(x, scale, bias, groups)
     a2, bb2 = gn.group_norm_stats(x, scale, bias, groups)
@@ -1346,6 +1356,43 @@ def test_gpu_group_norm_stats_match_plain(shape, groups):
     _close(a, wa, 1e-5 * wa.abs().max().item())
     _close(bb, wbb, 1e-5 * wbb.abs().max().item())
     assert torch.equal(a, a2) and torch.equal(bb, bb2)
+    g = torch.Generator(device=dev).manual_seed(3)
+    c = shape[-1]
+    w = (torch.randn((3, 3, c, 64), generator=g, device=dev) * (9 * c) ** -0.5).to(torch.bfloat16)
+    cb = torch.randn((64,), generator=g, device=dev) * 0.1
+    got = tconv.conv3x3_gn_swish(x, w, cb, pre_affine=(a, bb))
+    want = tconv.conv3x3_plain(x, w, cb, (wa, wbb), "swish")
+    _close(got, want, 1e-2 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_gpu_group_norm_cluster_plans_run_on_the_card():
+    """Every cluster-design plan of the default query's GroupNorm shapes
+    (chip_smoke.group_norm_shapes) is one the card schedules: at least one
+    cluster at once (cudaOccupancyMaxActiveClusters), a CTA's shared memory
+    within the card's opt-in limit. On an H100 five shapes take it: the
+    latent and half-resolution levels whose rows are 32 bytes or more, and
+    (1, 192, 576, 256), whose x exceeds the L2."""
+    from chip_smoke import group_norm_shapes
+
+    from visualcloze_tpu_torch.config import AutoEncoderConfig
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    dev = _cuda_or_skip()
+    limits = gn.device_limits(dev.index or 0)
+    cfg = AutoEncoderConfig()
+    shapes = {s for hw in ((384, 1152), (1024, 1024)) for part in ("encode", "decode")
+              for s in group_norm_shapes(cfg, *hw, part)}
+    on_cluster = set()
+    for shape in sorted(shapes):
+        plan = gn.stats_plan(*shape, 32, *limits)
+        if plan.design == "cluster":
+            on_cluster.add(shape)
+            assert plan.cta_bytes <= limits[1] and plan.cluster <= 8
+            assert gn.cluster_occupancy(*shape[1:3], shape[3], 32, plan) >= 1, (shape, plan)
+    if "H100" in torch.cuda.get_device_name(dev):
+        assert on_cluster == {(1, 48, 144, 512), (1, 128, 128, 512), (1, 96, 288, 512), (1, 96, 288, 256),
+                              (1, 192, 576, 256)}
 
 
 @pytest.mark.gpu

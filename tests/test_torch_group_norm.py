@@ -14,6 +14,13 @@ that no longer reaches kernel A.
   count no launch; the tiny VAE calls N's statistics once per GroupNorm
   and the apply once per attention block and norm_out (chip_smoke's
   group_norm_calls, which the card's launch checks use).
+- stats_plan, the design kernel N's statistics take on an H100 (132 SMs,
+  232,448 bytes of shared memory a CTA, a 50 MiB L2): the design, cluster
+  and block at each of a default query's 16 shapes, a CTA's bytes within
+  the limit, every channel (so every group) of every batch element in one
+  cluster and every pixel in one CTA; a torch fp32 emulation of the cluster design's
+  partition and summation order against JAX's `group_norm_affine` (1e-5 of
+  the largest a and bb); profile_step's class for the new kernel's symbol.
 - The half layout without a gradient (serving's route) with kernel A's
   entry patched to raise: the tiny double and single blocks and the tiny
   DiT complete through kernel L's rotation and match JAX within
@@ -39,8 +46,10 @@ from visualcloze_tpu_torch import convert, ops
 from visualcloze_tpu_torch.config import AutoEncoderConfig
 from visualcloze_tpu_torch.models import autoencoder as tae
 from visualcloze_tpu_torch.ops import attention as tatt
-from visualcloze_tpu_torch.ops.group_norm import (group_norm_apply, group_norm_apply_plain, group_norm_stats,
-                                                  group_norm_stats_plain)
+from visualcloze_tpu_torch.ops.group_norm import (CLUSTER_WARPS, MAX_BLOCK_CHUNKS, MAX_CLUSTER, group_norm_apply,
+                                                  group_norm_apply_plain, group_norm_stats, group_norm_stats_plain,
+                                                  stats_plan)
+from visualcloze_tpu_torch.profile_step import GROUP_NORM_KERNEL, vae_class
 
 F32, BF16 = torch.float32, torch.bfloat16
 JAX_DTYPE = {F32: jnp.float32, BF16: jnp.bfloat16}
@@ -215,3 +224,197 @@ def test_native_group_norm_yardstick_computes_kernel_n(shape):
     out, _, _ = torch.ops.aten.native_group_norm(x.permute(0, 3, 1, 2), scale, bias, b, c, h * w, 32, 1e-6)
     want = group_norm_apply_plain(x, *group_norm_stats_plain(x, scale, bias, 32))
     _assert_rel(out.permute(0, 2, 3, 1), want, 1e-5, "native_group_norm")
+
+
+H100 = (132, 232448, 52428800)  # SMs, the shared memory a CTA may opt in to, L2 bytes
+QUERY = (((384, 1152), 2, 2), ((1024, 1024), 2, 1))  # (image, encodes, decodes) of a default query
+# the design and (cluster, groups a block) stats_plan gives each shape of a default query on an H100
+QUERY_PLANS = {
+    (1, 48, 144, 512): ("cluster", 8, 4), (1, 96, 288, 256): ("cluster", 8, 4), (1, 128, 128, 512): ("cluster", 8, 2),
+    (1, 96, 288, 512): ("cluster", 8, 2), (1, 192, 576, 256): ("cluster", 8, 1),
+    # 16-byte rows (the slab fits 8 CTAs only one 8-channel block wide) while x fits in L2: streamed
+    (1, 192, 576, 128): ("stream", 1, 32), (1, 256, 256, 256): ("stream", 1, 32),
+    # slabs wider than 8 CTAs' shared memory
+    **{s: ("stream", 1, 32) for s in ((1, 512, 512, 128), (1, 256, 256, 512), (1, 384, 1152, 128), (1, 192, 576, 512),
+                                      (1, 512, 512, 256), (1, 384, 1152, 256), (1, 1024, 1024, 128), (1, 512, 512, 512),
+                                      (1, 1024, 1024, 256))}}
+
+
+def _query_shapes() -> dict:
+    """{x shape: statistics calls} of a default query's VAE work."""
+    cfg, out = AutoEncoderConfig(), {}
+    for hw, enc, dec in QUERY:
+        for part, n in (("encode", enc), ("decode", dec)):
+            for shape, calls in chip_smoke.group_norm_shapes(cfg, *hw, part).items():
+                out[shape] = out.get(shape, 0) + n * calls
+    return out
+
+
+def test_the_query_runs_sixteen_group_norm_shapes():
+    shapes = _query_shapes()
+    assert len(shapes) == 16 and sum(shapes.values()) == 178
+    small = {s: n for s, n in shapes.items() if math.prod(s) * 2 <= 34e6}
+    assert small == {(1, 48, 144, 512): 42, (1, 128, 128, 512): 31, (1, 96, 288, 512): 18, (1, 96, 288, 256): 2,
+                     (1, 256, 256, 256): 2, (1, 192, 576, 128): 2}
+
+
+@pytest.mark.parametrize("shape", sorted(QUERY_PLANS), ids=lambda s: "x".join(map(str, s)))
+def test_stats_plan_at_the_query_shapes(shape):
+    """The design, cluster and block of every default-query shape: 109 of
+    the query's 178 statistics calls on the cluster design."""
+    p = stats_plan(*shape, 32, *H100)
+    assert (p.design, p.cluster, p.block_groups) == QUERY_PLANS[shape], p
+    on_cluster = sum(n for s, n in _query_shapes().items() if QUERY_PLANS[s][0] == "cluster")
+    assert on_cluster == 109
+
+
+PLAN_CASES = sorted(_query_shapes()) + [(2, 37, 91, 512), (4, 48, 144, 512), (1, 37, 91, 128), (3, 5, 7, 128),
+                                        (1, 64, 64, 2048), (1, 1, 3, 256), (8, 128, 128, 512), (1, 8, 8, 32)]
+
+
+@pytest.mark.parametrize("shape", PLAN_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_stats_plan_covers_every_group_and_pixel_once(shape):
+    """The plan on an H100: a cluster design's CTA fits the card's shared
+    memory, its cluster is a power of two up to 8, its group blocks are 8 K
+    channels (K a power of two up to 32) and tile the channels once, its
+    ranks' pixel ranges tile the pixels once, and its rows are 32 bytes or
+    more unless x exceeds the L2; the streaming design's CTAs cover the
+    pixels."""
+    b, h, w, c = shape
+    groups = min(32, c)
+    plan = stats_plan(b, h, w, c, groups, *H100)
+    hw, cg = h * w, c // groups
+    if plan.design == "stream":
+        assert plan.block_groups == groups and plan.cluster == 1
+        assert 1 <= plan.ctas <= 65535 and plan.ctas * plan.per >= hw
+        return
+    channels = plan.block_groups * cg
+    k = channels // 8
+    assert channels % 8 == 0 and k <= MAX_BLOCK_CHUNKS and k & (k - 1) == 0
+    assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= MAX_CLUSTER
+    assert plan.cta_bytes <= H100[1]
+    assert plan.cta_bytes == plan.per * channels * 2 + (CLUSTER_WARPS + 4) * channels * 4
+    assert channels * 2 >= 32 or math.prod(shape) * 2 > H100[2]
+    # the grid as the kernel reads it: blockIdx.x / cluster is the group block, the rank its pixel share
+    seen_channels = np.zeros(c, int)
+    for blk in range(plan.ctas // plan.cluster):
+        seen_channels[blk * channels:(blk + 1) * channels] += 1
+        assert (blk * channels) % cg == 0  # a block holds whole groups
+    assert (seen_channels == 1).all()
+    seen_pixels = np.zeros(hw, int)
+    for rank in range(plan.cluster):
+        seen_pixels[rank * plan.per:min(hw, (rank + 1) * plan.per)] += 1
+    assert (seen_pixels == 1).all()
+
+
+def test_stats_plan_sizes_clusters_as_designed():
+    """Rows of up to 128 bytes (one L2 line) where 8 CTAs hold the slab, then
+    the cluster halves while a CTA's share fits half its shared memory."""
+    p = stats_plan(1, 48, 144, 512, 32, *H100)  # 4 groups: 128-byte rows, 113 KB a CTA
+    assert (p.design, p.cluster, p.block_groups, p.ctas, p.per) == ("cluster", 8, 4, 64, 864)
+    p = stats_plan(2, 37, 91, 512, 32, *H100)  # 3367 pixels: 4 CTAs of 110 KB
+    assert (p.design, p.cluster, p.block_groups) == ("cluster", 4, 4)
+    assert stats_plan(1, 8, 8, 32, 32, *H100).cluster == 1
+    assert stats_plan(1, 37, 91, 128, 32, *H100).block_groups == 16  # C = 128: 16 groups of 4 channels a row
+    assert stats_plan(1, 64, 64, 2048, 32, *H100).block_groups == 1  # 64 channels a group: one 128-byte row
+    # cg = 12: no run of whole groups is 8 K channels with K a power of two
+    assert stats_plan(2, 37, 91, 384, 32, *H100).design == "stream"
+    # 16-byte rows: streamed while x fits in L2, held once it does not
+    assert stats_plan(1, 192, 576, 128, 32, *H100).design == "stream"
+    assert stats_plan(1, 192, 576, 128, 32, 132, 232448, 16 << 20).design == "cluster"
+    # half the shared memory: the slab no longer fits 8 CTAs
+    assert stats_plan(1, 192, 576, 256, 32, 132, 116224, 52428800).design == "stream"
+
+
+def emulate_cluster_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
+                          eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cluster design (csrc/group_norm.cu group_norm_stats_resident) in
+    torch fp32, one operation per kernel step, on stats_plan's H100 plan:
+    thread t of a CTA sums its chunks t, t + 512, ... in order; a butterfly
+    over the warp's lanes of the same chunk; the 16 warps in order; the
+    cluster's ranks in order; / HW; the group's channels in order; / cg;
+    pass 2 the same on (x - mu)^2."""
+    b, h, w, c = x.shape
+    plan = stats_plan(b, h, w, c, groups, *H100)
+    assert plan.design == "cluster"
+    hw, cg, cl, per = h * w, c // groups, plan.cluster, plan.per
+    channels = plan.block_groups * cg
+    k, nblk, threads = channels // 8, c // channels, 32 * CLUSTER_WARPS
+    x = x.float().reshape(b, hw, nblk, k, 8).permute(0, 2, 1, 3, 4)  # (b, blk, pixel, chunk, 8)
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, cl * per - hw))
+    valid = (torch.arange(cl * per) < hw)[:, None].expand(cl * per, k)
+    chunks = x.reshape(b, nblk, cl, per * k, 8)
+    valid = valid.reshape(cl, per * k)
+    j = -(-per * k // threads)
+    chunks = torch.nn.functional.pad(chunks, (0, 0, 0, j * threads - per * k)).reshape(b, nblk, cl, j, threads, 8)
+    valid = torch.nn.functional.pad(valid, (0, j * threads - per * k)).reshape(cl, j, threads, 1)
+    lane = torch.arange(32)
+    chunk_of_thread = torch.arange(threads) % k
+
+    def cta_sums(acc):  # (b, blk, cl, threads, 8) -> (b, blk, cl, channels)
+        acc = acc.reshape(b, nblk, cl, CLUSTER_WARPS, 32, 8)
+        off = 16
+        while off >= k:
+            acc = acc + acc[:, :, :, :, lane ^ off]
+            off //= 2
+        wsum = acc[:, :, :, :, :k].reshape(b, nblk, cl, CLUSTER_WARPS, channels)
+        v = torch.zeros(b, nblk, cl, channels)
+        for wi in range(CLUSTER_WARPS):
+            v = v + wsum[:, :, :, wi]
+        return v
+
+    def cluster_means(part):  # (b, blk, cl, channels) -> channel means, then group means
+        v = torch.zeros(b, nblk, channels)
+        for r in range(cl):
+            v = v + part[:, :, r]
+        chan = (v / float(hw)).reshape(b, nblk, plan.block_groups, cg)
+        g = torch.zeros(b, nblk, plan.block_groups)
+        for i in range(cg):
+            g = g + chan[..., i]
+        return g / float(cg)
+
+    acc = torch.zeros(b, nblk, cl, threads, 8)
+    for i in range(j):
+        acc = acc + torch.where(valid[:, i], chunks[:, :, :, i], 0.0)
+    mu = cluster_means(cta_sums(acc))  # (b, blk, block_groups)
+    mu_c = mu.repeat_interleave(cg, dim=-1)  # (b, blk, channels)
+    mu_t = mu_c.reshape(b, nblk, k, 8)[:, :, chunk_of_thread][:, :, None]  # (b, blk, 1, threads, 8)
+    acc = torch.zeros(b, nblk, cl, threads, 8)
+    for i in range(j):
+        d = chunks[:, :, :, i] - mu_t
+        acc = acc + torch.where(valid[:, i], d * d, 0.0)
+    var = cluster_means(cta_sums(acc))
+    rsig = torch.rsqrt(var + eps).repeat_interleave(cg, dim=-1).reshape(b, c)
+    a = rsig * scale.float()[None]
+    return a, bias.float()[None] - mu_c.reshape(b, c) * a
+
+
+@pytest.mark.parametrize("shape", [(1, 48, 144, 512), (1, 128, 128, 512), (2, 37, 91, 512), (1, 37, 91, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cluster_design_order_matches_jax(shape):
+    """The emulated cluster design on bf16 x, scale and bias against JAX's
+    group_norm_affine on the same values: a and bb within 1e-5 of their
+    largest magnitude (fp32 sums in another order)."""
+    x, scale, bias = (torch.from_numpy(v).to(BF16) for v in _inputs(shape, sum(shape)))
+    a, bb = emulate_cluster_stats(x, scale, bias, 32)
+    p = {"scale": jnp.asarray(scale.float().numpy()).astype(jnp.bfloat16),
+         "bias": jnp.asarray(bias.float().numpy()).astype(jnp.bfloat16)}
+    wa, wbb = jae.group_norm_affine(p, jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
+    _assert_rel(a, wa, 1e-5, "a")
+    _assert_rel(bb, wbb, 1e-5, "bb")
+
+
+def test_profile_step_classes_both_statistics_kernels_as_n():
+    """The demangled symbols of kernel N's kernels, the cluster design's
+    templated one included, are class "group norm (kernel N)"; kernel B's
+    and aten's are not."""
+    for name in ("void (anonymous namespace)::group_norm_stats_resident<2>(__nv_bfloat16 const*, void const*, "
+                 "void const*, int, float*, float*, int, int, int, int, int, float)",
+                 "(anonymous namespace)::group_norm_stats_resident<32>(__nv_bfloat16 const*)",
+                 "void (anonymous namespace)::group_norm_stats_pass<true>(__nv_bfloat16 const*, float*)",
+                 "void (anonymous namespace)::group_norm_apply_kernel<false>(__nv_bfloat16 const*)"):
+        assert GROUP_NORM_KERNEL.search(name) and vae_class(name) == "group norm (kernel N)", name
+    for name in ("void (anonymous namespace)::conv3x3_kernel<true, true>(CUtensorMap_st, CUtensorMap_st)",
+                 "void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<float, float>(long, float)",
+                 "void at::native::(anonymous namespace)::ComputeFusedParamsCUDAKernel<float>(long, long)"):
+        assert vae_class(name) != "group norm (kernel N)", name

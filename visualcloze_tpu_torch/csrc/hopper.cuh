@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels
 // (flash_attn_rope.cu, flash_attn_bwd.cu, flash_attn_d512.cu,
 // conv3x3_gn_swish.cu, weight_only_wide.cuh, w8a8_matmul.cu,
-// layernorm_modulate_bwd.cu): mbarriers and ring slots, named barriers,
-// 16-byte shared-memory loads and stores, 1-D bulk loads, TMA tile loads
+// layernorm_modulate_bwd.cu, group_norm.cu): mbarriers and ring slots, named
+// barriers, 16-byte shared-memory loads and stores, 1-D bulk loads, 16-byte
+// cp.async, TMA tile loads
 // (multicast to a cluster too) and stores and the host-side
 // tensor maps they read, thread-block clusters (ranks, the peer's shared
 // memory, cluster barriers, a launch with a cluster shape), warpgroup MMA
@@ -190,6 +191,14 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+// a float of a peer's shared memory (a shared::cluster address, mapa), read
+// after a cluster_sync() that follows the peer's store
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // arrive on a peer's mbarrier (a shared::cluster address)
 __device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
@@ -254,6 +263,23 @@ inline int max_active_clusters(void (*kernel)(Exp...), int threads, size_t smem,
   cfg.numAttrs = 1;
   int n = 0;
   return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess ? n : 0;
+}
+
+// ---------------------------------------------------------------- cp.async
+
+// 16 bytes of global memory at src (16-byte aligned) into this CTA's shared
+// memory at dst, through L2 only (.cg); seen by this thread after
+// cp_async_wait, by the others after a barrier that follows it
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wait until at most `pending` of this thread's committed groups are in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
 }
 
 // ---------------------------------------------------------------- TMA

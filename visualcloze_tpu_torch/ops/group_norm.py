@@ -10,7 +10,10 @@ affine (the attention block's norm and the two norm_outs).
 group_norm_stats keeps JAX's order: per-channel means over (H, W), their
 group means, then per-channel means of (x - group mean)^2 and their group
 means, rsqrt(var + eps), a = rsig * scale, bb = bias - mu * a, all in fp32
-(two passes over x, no Welford). group_norm_apply rounds h = x * a + bb to
+(two passes over x, no Welford). stats_plan picks one of its two designs
+from the shape and the card: one launch of a thread-block cluster holding a
+group block's slab in shared memory, or two streaming launches with global
+scratch. group_norm_apply rounds h = x * a + bb to
 x's dtype and, with act "swish", computes h * sigmoid(h) on that value as
 JAX's bf16 swish does (both roundings kept). The plain versions are this
 arithmetic in PyTorch; a wrapper takes its plain version only for a CPU
@@ -20,6 +23,7 @@ tensor, and on a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -29,6 +33,12 @@ from . import cuda_build
 MAX_C = 2048  # csrc/group_norm.cu: C / 8 threads a pixel, at most 256
 STATS_CTA_BYTES = 64 << 10  # x's bytes a statistics CTA streams, at least (fewer rows for the last CTA to sum)
 APPLY_CTA_BYTES = 32 << 10
+# the statistics' cluster design (csrc/group_norm.cu group_norm_stats_cluster)
+CLUSTER_WARPS = 16  # 512 threads a CTA
+MAX_CLUSTER = 8  # CTAs a cluster, the portable limit
+MAX_BLOCK_CHUNKS = 32  # 16-byte channel chunks of a group block, a power of two: a warp's lanes
+ROW_BYTES = 128  # a group block's bytes a pixel, at most where a choice is left: one L2 line a request
+MIN_ROW_BYTES = 32  # a narrower row takes half of every 32-byte sector the L2 serves
 
 
 def group_norm_stats_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
@@ -54,19 +64,91 @@ def group_norm_apply_plain(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor, a
     return h * torch.sigmoid(h) if act == "swish" else h
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+@dataclasses.dataclass(frozen=True)
+class StatsPlan:
+    """How kernel N takes the statistics of one shape on one card.
+
+    design "cluster": one launch; a cluster of `cluster` CTAs per batch
+    element and group block of `block_groups` neighbouring groups, each CTA
+    holding `per` pixels of the block's channels in `cta_bytes` of shared
+    memory. design "stream": two launches of `ctas` CTAs per batch element,
+    each streaming `per` pixels (`cta_bytes` of x), and global scratch."""
+
+    design: str
+    cluster: int
+    block_groups: int
+    ctas: int  # CTAs per batch element
+    per: int  # pixels a CTA
+    cta_bytes: int
 
 
-def _blocks(x: torch.Tensor, cta_bytes: int, per_sm: int) -> int:
-    """CTAs a batch element: enough that each streams about cta_bytes of x,
-    at most per_sm an SM over the batch, at most one a pixel lane group."""
-    b, h, w, c = x.shape
+def cluster_smem(per: int, block_channels: int) -> int:
+    """The cluster design's shared memory a CTA: the slab (per pixels x the
+    block's channels, bf16), then its fp32 sums (CLUSTER_WARPS + 4 rows)."""
+    return per * block_channels * 2 + (CLUSTER_WARPS + 4) * block_channels * 4
+
+
+def stats_plan(b: int, h: int, w: int, c: int, groups: int, sms: int, smem_per_cta: int,
+               l2_bytes: int) -> StatsPlan:
+    """The design kernel N's statistics take for x (b, h, w, c) bf16 on a
+    card of `sms` SMs, `smem_per_cta` bytes of shared memory a CTA and an
+    L2 of `l2_bytes`.
+
+    The cluster design holds a group block's slab (all pixels x the block's
+    channels) in the shared memory of at most MAX_CLUSTER CTAs. Its loads
+    fetch one row of the block a pixel, so the L2 serves a request for each
+    row: the block is the widest run of neighbouring groups up to ROW_BYTES
+    a pixel (8 K channels, K a power of two) whose slab fits 8 CTAs; the
+    cluster then halves while a CTA's share stays within half a CTA's
+    shared memory (two CTAs an SM). It is taken unless its rows are
+    narrower than MIN_ROW_BYTES while x fits in L2: there the streaming
+    design's two dense reads cost the L2 no more than half-sector rows do.
+    Otherwise the streaming design."""
+    hw, cg = h * w, c // groups
+
+    def cta_bytes(bg: int, cluster: int) -> int:
+        return cluster_smem(-(-hw // cluster), bg * cg)
+
+    fits = [bg for bg in range(1, groups + 1)
+            if groups % bg == 0 and bg * cg % 8 == 0 and (bg * cg // 8) & (bg * cg // 8 - 1) == 0
+            and bg * cg // 8 <= MAX_BLOCK_CHUNKS and cta_bytes(bg, MAX_CLUSTER) <= smem_per_cta]
+    narrow = [bg for bg in fits if bg * cg * 2 <= ROW_BYTES]
+    bg = max(narrow) if narrow else min(fits, default=0)
+    if bg and (bg * cg * 2 >= MIN_ROW_BYTES or b * hw * c * 2 > l2_bytes):
+        cluster = MAX_CLUSTER
+        while cluster > 1 and cta_bytes(bg, cluster // 2) <= smem_per_cta // 2:
+            cluster //= 2
+        return StatsPlan("cluster", cluster, bg, groups // bg * cluster, -(-hw // cluster), cta_bytes(bg, cluster))
+    ctas = _stream_ctas(b, hw, c, STATS_CTA_BYTES, 2 * sms)
+    return StatsPlan("stream", 1, groups, ctas, -(-hw // ctas), -(-hw // ctas) * c * 2)
+
+
+def _stream_ctas(b: int, hw: int, c: int, cta_bytes: int, max_ctas: int) -> int:
+    """The streaming kernels' CTAs a batch element: enough that each streams
+    about cta_bytes of bf16 x, at most max_ctas over the batch, at most one
+    a pixel lane group."""
     lanes = max(1, 256 // (c // 8))
-    want = -(-h * w * c * x.element_size() // cta_bytes)
-    cap = max(1, per_sm * _sms(x.device.index or 0) // b)
-    return max(1, min(want, cap, -(-h * w // lanes), 65535))
+    return max(1, min(-(-hw * c * 2 // cta_bytes), max(1, max_ctas // b), -(-hw // lanes), 65535))
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple[int, int, int]:
+    """(SMs, shared memory a CTA may opt in to, L2 bytes) of CUDA device
+    `index`: the card's inputs of stats_plan."""
+    out = [ctypes.c_int() for _ in range(3)]
+    query = cuda_build.load("group_norm_device_limits", [ctypes.c_int] + [ctypes.c_void_p] * 3, source="group_norm")
+    cuda_build.check("group_norm_device_limits", query(index, *map(ctypes.byref, out)))
+    return tuple(v.value for v in out)
+
+
+def cluster_occupancy(h: int, w: int, c: int, groups: int, plan: StatsPlan) -> int:
+    """How many clusters of a cluster-design plan the current card runs at
+    once (cudaOccupancyMaxActiveClusters): the plan's waves are its clusters
+    over this."""
+    fn = cuda_build.load("group_norm_cluster_occupancy", [ctypes.c_int] * 5, source="group_norm")
+    n = fn(h * w, c, groups, plan.block_groups, plan.cluster)
+    cuda_build.check("group_norm_cluster_occupancy", max(0, -n))
+    return n
 
 
 def _check(name: str, x: torch.Tensor, groups: int | None = None) -> None:
@@ -98,6 +180,8 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 _STATS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
+_CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                     + [ctypes.c_float, ctypes.c_void_p])
 _APPLY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
@@ -105,7 +189,9 @@ def group_norm_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, g
                      eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel N's statistics. x: (B, H, W, C) bf16 NHWC; scale, bias: (C,).
     Returns (a, bb), each (B, C) fp32: GroupNorm as y = x * a + bb. On CUDA
-    C is a multiple of 8 in [32, 2048] and groups divides it."""
+    C is a multiple of 8 in [32, 2048] and groups divides it; stats_plan
+    picks the design (one launch of a cluster kernel, or the two streaming
+    passes with their scratch)."""
     if x.device.type == "cpu":
         return group_norm_stats_plain(x, scale, bias, groups, eps)
     name = "group_norm_stats"
@@ -115,17 +201,36 @@ def group_norm_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, g
     params_bf16 = scale.dtype == bias.dtype == torch.bfloat16
     scale = _vector(name, "scale", scale, (c,), x.device, params_bf16)
     bias = _vector(name, "bias", bias, (c,), x.device, params_bf16)
-    nblk = _blocks(x, STATS_CTA_BYTES, 2)
-    out = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
-    # scratch: mu (B, C), the CTAs' partial sums (B, nblk, C), the tickets (B,) as uint32
-    scratch = torch.empty(b * c * (nblk + 1) + b, dtype=torch.float32, device=x.device)
-    mu, partial, ticket = scratch[:b * c], scratch[b * c:b * c * (nblk + 1)], scratch[b * c * (nblk + 1):]
-    kernel = cuda_build.load(name, _STATS_ARGTYPES, source="group_norm")
-    status = kernel(_ptr(x), _ptr(scale), _ptr(bias), int(params_bf16), _ptr(out[0]), _ptr(out[1]), _ptr(mu),
-                    _ptr(partial), _ptr(ticket), b, h * w, c, groups, nblk, ctypes.c_float(eps),
-                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    cuda_build.check(name, status)
+    plan = stats_plan(b, h, w, c, groups, *device_limits(x.device.index or 0))
+    a, bb = launch_stats_plan(x, scale, bias, groups, eps, plan)
     cuda_build.count_launch(group_norm_stats)
+    return a, bb
+
+
+def launch_stats_plan(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float,
+                      plan: StatsPlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel N's statistics by `plan` on x, scale and bias as
+    group_norm_stats passes them (checked, contiguous, on x's device); no
+    launch counted. group_norm_stats runs stats_plan's plan;
+    scripts/group_norm_plans.py times others."""
+    name = "group_norm_stats"
+    b, h, w, c = x.shape
+    params_bf16 = scale.dtype == bias.dtype == torch.bfloat16
+    out = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if plan.design == "cluster":
+        kernel = cuda_build.load("group_norm_stats_cluster", _CLUSTER_ARGTYPES, source="group_norm")
+        status = kernel(_ptr(x), _ptr(scale), _ptr(bias), int(params_bf16), _ptr(out[0]), _ptr(out[1]), b, h * w,
+                        c, groups, plan.block_groups, plan.cluster, ctypes.c_float(eps), stream)
+    else:
+        nblk = plan.ctas
+        # scratch: mu (B, C), the CTAs' partial sums (B, nblk, C), the tickets (B,) as uint32
+        scratch = torch.empty(b * c * (nblk + 1) + b, dtype=torch.float32, device=x.device)
+        mu, partial, ticket = scratch[:b * c], scratch[b * c:b * c * (nblk + 1)], scratch[b * c * (nblk + 1):]
+        kernel = cuda_build.load(name, _STATS_ARGTYPES, source="group_norm")
+        status = kernel(_ptr(x), _ptr(scale), _ptr(bias), int(params_bf16), _ptr(out[0]), _ptr(out[1]), _ptr(mu),
+                        _ptr(partial), _ptr(ticket), b, h * w, c, groups, nblk, ctypes.c_float(eps), stream)
+    cuda_build.check(name, status)
     return out[0], out[1]
 
 
@@ -148,8 +253,9 @@ def group_norm_apply(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor, act: st
     bb = _vector(name, "bb", bb, (b, c), x.device)
     y = torch.empty_like(x)
     kernel = cuda_build.load(name, _APPLY_ARGTYPES, source="group_norm")
-    status = kernel(_ptr(x), _ptr(a), _ptr(bb), _ptr(y), b, h * w, c, int(act == "swish"),
-                    _blocks(x, APPLY_CTA_BYTES, 4), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    nblk = _stream_ctas(b, h * w, c, APPLY_CTA_BYTES, 4 * device_limits(x.device.index or 0)[0])
+    status = kernel(_ptr(x), _ptr(a), _ptr(bb), _ptr(y), b, h * w, c, int(act == "swish"), nblk,
+                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     cuda_build.check(name, status)
     cuda_build.count_launch(group_norm_apply)
     return y
