@@ -827,10 +827,10 @@ def check_group_norm_stats(shape, reps: int, groups: int = 32) -> dict:
     the plain statistics, within B's own bound (check_conv: 1% of the
     largest output). The line names the design stats_plan picked (the
     cluster design: its cluster size, a CTA's shared memory and how many
-    clusters the card runs at once). The bound counts x's bytes once (the
-    streaming design reads x twice; where x fits in L2 the second read hits
-    it). ms: a replayed CUDA graph (the device's time); eager_ms: launched
-    one by one (at small shapes the wrapper's host time)."""
+    clusters the card runs at once; the moments design: its CTAs, ring
+    stages and team size). The bound counts x's bytes once. ms: a replayed
+    CUDA graph (the device's time); eager_ms: launched one by one (at small
+    shapes the wrapper's host time)."""
     import torch
 
     from visualcloze_tpu_torch.ops import conv2d as cv
@@ -863,7 +863,7 @@ def check_group_norm_stats(shape, reps: int, groups: int = 32) -> dict:
     ok = err_a <= tol_a and err_bb <= tol_bb and deterministic and b_err <= b_tol
     return dict(name="group_norm_stats", shape=[B, H, W, C], groups=groups, design=plan.design,
                 cluster=plan.cluster, block_groups=plan.block_groups, ctas=plan.ctas, cta_bytes=plan.cta_bytes,
-                max_active_clusters=occupancy, max_abs_err=max(err_a, err_bb),
+                stages=plan.stages, team=plan.team, max_active_clusters=occupancy, max_abs_err=max(err_a, err_bb),
                 err_a=err_a, err_bb=err_bb, tol_a=tol_a, tol_bb=tol_bb, b_after_n_max_abs_err=b_err,
                 b_after_n_tol=b_tol, ok=ok, deterministic=deterministic, ms=ms, eager_ms=eager_ms,
                 plain_ms=plain_ms, library_ms=library_ms, library=library, bound_ms=bms, bound_by=by,
@@ -4033,14 +4033,13 @@ def main() -> int:
         lambda: [check_conv((1, 192, 576, 512, 256), True, 10)],   # decoder 512 -> 256
         lambda: [check_conv((1, 384, 1152, 256, 128), True, 10)],  # decoder 256 -> 128
         lambda: [check_conv((1, 37, 91, 128, 128), True, 20, b0_scale=4.0)],  # ragged; swish(b0) on the border
-        # N: the statistics at the VAE's GroupNorm shapes (SDEdit level 0 at 128 and 256 channels, a row's level 0,
-        # the bottleneck), each with B after it; the apply at the decoder's norm_out (swish) and without an act
+        # N: the statistics at every GroupNorm shape of a default query (chip_smoke.group_norm_shapes) and the SDEdit
+        # image's level 0 at 256 channels, each with B after it, on the design stats_plan gives each; the apply at
+        # the decoder's norm_out (swish) and without an act
         lambda: [check_group_norm_stats((1, 1024, 1024, 128), 20)],
         lambda: [check_group_norm_stats((1, 1024, 1024, 256), 10)],
         lambda: [check_group_norm_stats((1, 384, 1152, 128), 20)],
         lambda: [check_group_norm_stats((1, 48, 144, 512), 50)],
-        # the default query's other shapes of 34 MB or less (the SDEdit latent, the rows' and the SDEdit image's
-        # levels 1 and 2) and the two next above them, on the design stats_plan gives each
         lambda: [check_group_norm_stats((1, 128, 128, 512), 50)],
         lambda: [check_group_norm_stats((1, 96, 288, 512), 50)],
         lambda: [check_group_norm_stats((1, 96, 288, 256), 50)],
@@ -4048,6 +4047,11 @@ def main() -> int:
         lambda: [check_group_norm_stats((1, 192, 576, 128), 20)],
         lambda: [check_group_norm_stats((1, 256, 256, 512), 20)],
         lambda: [check_group_norm_stats((1, 192, 576, 256), 20)],
+        lambda: [check_group_norm_stats((1, 512, 512, 256), 20)],
+        lambda: [check_group_norm_stats((1, 512, 512, 512), 10)],
+        lambda: [check_group_norm_stats((1, 384, 1152, 256), 10)],
+        lambda: [check_group_norm_stats((1, 192, 576, 512), 20)],
+        lambda: [check_group_norm_stats((1, 512, 512, 128), 20)],
         lambda: [check_group_norm_apply((1, 1024, 1024, 128), "swish", 20)],
         lambda: [check_group_norm_apply((1, 1024, 1024, 128), "none", 20)],
         # the apply at the latent shape: the attention block's (no act), the encoder's norm_out (swish)

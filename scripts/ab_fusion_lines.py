@@ -78,12 +78,13 @@ LINES = {
                                                                                   "padded": 64}),
     ],
     "gelu": [("gelu_exhaustive", (), {})],
-    # kernel N at the default query's GroupNorm shapes: the statistics where x is 34 MB or less, the two next
-    # above, and two full-resolution lines; the apply at the two latent shapes
+    # kernel N at the default query's GroupNorm shapes: the statistics at all 16 (chip_smoke.group_norm_shapes),
+    # smallest first; the apply at the two latent shapes
     "group_norm_stats": [("check_group_norm_stats", (s, r), {}) for s, r in (
-        ((1, 48, 144, 512), 50), ((1, 128, 128, 512), 50), ((1, 96, 288, 512), 50), ((1, 96, 288, 256), 50),
-        ((1, 256, 256, 256), 20), ((1, 192, 576, 128), 20), ((1, 256, 256, 512), 20), ((1, 192, 576, 256), 20),
-        ((1, 384, 1152, 128), 20), ((1, 1024, 1024, 128), 20))],
+        ((1, 48, 144, 512), 50), ((1, 96, 288, 256), 50), ((1, 128, 128, 512), 50), ((1, 192, 576, 128), 20),
+        ((1, 96, 288, 512), 50), ((1, 256, 256, 256), 20), ((1, 192, 576, 256), 20), ((1, 512, 512, 128), 20),
+        ((1, 256, 256, 512), 20), ((1, 384, 1152, 128), 20), ((1, 192, 576, 512), 20), ((1, 512, 512, 256), 20),
+        ((1, 384, 1152, 256), 10), ((1, 1024, 1024, 128), 20), ((1, 512, 512, 512), 10), ((1, 1024, 1024, 256), 10))],
     "group_norm_apply": [("check_group_norm_apply", (s, act, 50), {}) for s in ((1, 48, 144, 512), (1, 128, 128, 512))
                          for act in ("none", "swish")],
 }
@@ -123,9 +124,9 @@ keep = ("entry function", "registers", "spill")
 print("PTXAS " + json.dumps({n: [re.sub(r"\s+", " ", ln.strip()) for ln in log.splitlines() if any(k in ln for k in keep)]
                              for n, log in cuda_build.BUILD_LOG.items() if n in sys.argv[2].split(",")}), flush=True)
 """
-KEEP = ("name", "what", "shape", "act", "design", "cluster", "ms", "eager_ms", "bound_ms", "share_of_bound",
-        "plain_ms", "library_ms", "unfused_kernels_ms", "max_abs_err", "b_after_n_max_abs_err", "deterministic",
-        "max_ulps", "differ", "ok")
+KEEP = ("name", "what", "shape", "act", "design", "cluster", "ctas", "stages", "team", "ms", "eager_ms", "bound_ms",
+        "share_of_bound", "plain_ms", "library_ms", "unfused_kernels_ms", "max_abs_err", "b_after_n_max_abs_err",
+        "deterministic", "max_ulps", "differ", "ok")
 
 
 def main(argv=None) -> int:

@@ -1329,14 +1329,16 @@ def _group_norm_case(dev, shape, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape, groups, design", [
-    ((1, 48, 144, 512), 32, "cluster"), ((2, 37, 91, 384), 32, "stream"), ((1, 8, 8, 32), 32, "cluster"),
+    ((1, 48, 144, 512), 32, "cluster"), ((2, 37, 91, 384), 32, "moments"), ((1, 8, 8, 32), 32, "cluster"),
     ((3, 5, 7, 128), 16, "cluster"), ((1, 64, 64, 2048), 32, "cluster"), ((1, 1, 3, 256), 32, "cluster"),
     # the VAE's latent and half-resolution levels, a ragged batch of 2, C = 128 (two groups a cluster), and a
-    # full-resolution level the cluster design cannot hold
+    # full-resolution level
     ((1, 128, 128, 512), 32, "cluster"), ((1, 96, 288, 512), 32, "cluster"), ((1, 96, 288, 256), 32, "cluster"),
-    ((2, 37, 91, 512), 32, "cluster"), ((1, 37, 91, 128), 32, "cluster"), ((1, 384, 1152, 128), 32, "stream"),
-    # 16-byte rows: held where x exceeds the L2, streamed where it fits
-    ((1, 192, 576, 256), 32, "cluster"), ((1, 192, 576, 128), 32, "stream")])
+    ((2, 37, 91, 512), 32, "cluster"), ((1, 37, 91, 128), 32, "cluster"), ((1, 384, 1152, 128), 32, "moments"),
+    ((1, 192, 576, 256), 32, "moments"), ((1, 192, 576, 128), 32, "moments"),
+    # the moments design: ragged pixel counts at batch 2, C = 384 (pieces of 4 channels), full resolution
+    ((2, 333, 517, 256), 32, "moments"), ((2, 150, 170, 384), 32, "moments"), ((1, 1024, 1024, 128), 32, "moments"),
+    ((1, 1024, 1024, 256), 32, "moments")])
 def test_gpu_group_norm_stats_match_plain(shape, groups, design):
     """Kernel N's statistics against their plain version: a and bb within
     1e-5 of their largest magnitude (fp32 sums in another order), the same
@@ -1366,13 +1368,61 @@ def test_gpu_group_norm_stats_match_plain(shape, groups, design):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape, ctas, stages", [
+    ((1, 96, 288, 512), 1, 2), ((1, 96, 288, 512), 3, 4), ((2, 37, 91, 512), 264, 3), ((1, 256, 256, 256), 66, 6),
+    ((1, 333, 517, 128), 7, 4), ((2, 150, 170, 384), 132, 4)])
+def test_gpu_group_norm_moments_plans_match_plain(shape, ctas, stages):
+    """The moments design at grids and ring depths stats_plan does not
+    pick: one CTA (no team merge), two teams, two CTAs an SM, 6 stages,
+    many tiles a CTA: a and bb within 1e-5 of their largest against the
+    plain version, the same bits on a second launch."""
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    dev = _cuda_or_skip()
+    b, h, w, c = shape
+    plan = gn.moments_plan(b, h * w, c, 32, gn.device_limits(dev.index or 0)[0], ctas=ctas, stages=stages)
+    x, scale, bias = _group_norm_case(dev, shape, sum(shape))
+    a, bb = gn.launch_stats_plan(x, scale, bias, 32, 1e-6, plan)
+    a2, bb2 = gn.launch_stats_plan(x, scale, bias, 32, 1e-6, plan)
+    torch.cuda.synchronize()
+    wa, wbb = gn.group_norm_stats_plain(x, scale, bias, 32)
+    _close(a, wa, 1e-5 * wa.abs().max().item())
+    _close(bb, wbb, 1e-5 * wbb.abs().max().item())
+    assert torch.equal(a, a2) and torch.equal(bb, bb2)
+
+
+@pytest.mark.gpu
+def test_gpu_group_norm_moments_on_two_streams_at_once():
+    """Two streams launching the moments design at once, with no
+    synchronisation between them, each take a ticket slot of their own:
+    every launch's a and bb equal that input's launch on one stream."""
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    dev = _cuda_or_skip()
+    cases = [_group_norm_case(dev, (1, 256, 256, 256), s) for s in (1, 2)]
+    want = [gn.group_norm_stats(*case, 32) for case in cases]
+    streams = [torch.cuda.Stream(device=dev) for _ in cases]
+    got = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(20):
+        for i, (s, case) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                got[i].append(gn.group_norm_stats(*case, 32))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for a, bb in got[i]:
+            assert torch.equal(a, want[i][0]) and torch.equal(bb, want[i][1])
+
+
+@pytest.mark.gpu
 def test_gpu_group_norm_cluster_plans_run_on_the_card():
     """Every cluster-design plan of the default query's GroupNorm shapes
     (chip_smoke.group_norm_shapes) is one the card schedules: at least one
     cluster at once (cudaOccupancyMaxActiveClusters), a CTA's shared memory
-    within the card's opt-in limit. On an H100 five shapes take it: the
-    latent and half-resolution levels whose rows are 32 bytes or more, and
-    (1, 192, 576, 256), whose x exceeds the L2."""
+    within the card's opt-in limit. On an H100 the shapes of x of at most
+    CLUSTER_MAX_BYTES whose rows are 32 bytes or more take it: the latent
+    and three half-resolution levels."""
     from chip_smoke import group_norm_shapes
 
     from visualcloze_tpu_torch.config import AutoEncoderConfig
@@ -1391,8 +1441,7 @@ def test_gpu_group_norm_cluster_plans_run_on_the_card():
             assert plan.cta_bytes <= limits[1] and plan.cluster <= 8
             assert gn.cluster_occupancy(*shape[1:3], shape[3], 32, plan) >= 1, (shape, plan)
     if "H100" in torch.cuda.get_device_name(dev):
-        assert on_cluster == {(1, 48, 144, 512), (1, 128, 128, 512), (1, 96, 288, 512), (1, 96, 288, 256),
-                              (1, 192, 576, 256)}
+        assert on_cluster == {(1, 48, 144, 512), (1, 128, 128, 512), (1, 96, 288, 512), (1, 96, 288, 256)}
 
 
 @pytest.mark.gpu

@@ -46,9 +46,10 @@ from visualcloze_tpu_torch import convert, ops
 from visualcloze_tpu_torch.config import AutoEncoderConfig
 from visualcloze_tpu_torch.models import autoencoder as tae
 from visualcloze_tpu_torch.ops import attention as tatt
-from visualcloze_tpu_torch.ops.group_norm import (CLUSTER_WARPS, MAX_BLOCK_CHUNKS, MAX_CLUSTER, group_norm_apply,
+from visualcloze_tpu_torch.ops.group_norm import (CLUSTER_WARPS, MAX_BLOCK_CHUNKS, MAX_CLUSTER, MOMENTS_CONSUMERS,
+                                                  MOMENTS_STAGE_BYTES, cluster_plan, group_norm_apply,
                                                   group_norm_apply_plain, group_norm_stats, group_norm_stats_plain,
-                                                  stats_plan)
+                                                  moments_plan, moments_tile, stats_plan)
 from visualcloze_tpu_torch.profile_step import GROUP_NORM_KERNEL, vae_class
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -230,14 +231,15 @@ H100 = (132, 232448, 52428800)  # SMs, the shared memory a CTA may opt in to, L2
 QUERY = (((384, 1152), 2, 2), ((1024, 1024), 2, 1))  # (image, encodes, decodes) of a default query
 # the design and (cluster, groups a block) stats_plan gives each shape of a default query on an H100
 QUERY_PLANS = {
+    # x of at most CLUSTER_MAX_BYTES, rows of 32 bytes or more: a cluster holds the slab
     (1, 48, 144, 512): ("cluster", 8, 4), (1, 96, 288, 256): ("cluster", 8, 4), (1, 128, 128, 512): ("cluster", 8, 2),
-    (1, 96, 288, 512): ("cluster", 8, 2), (1, 192, 576, 256): ("cluster", 8, 1),
-    # 16-byte rows (the slab fits 8 CTAs only one 8-channel block wide) while x fits in L2: streamed
-    (1, 192, 576, 128): ("stream", 1, 32), (1, 256, 256, 256): ("stream", 1, 32),
-    # slabs wider than 8 CTAs' shared memory
-    **{s: ("stream", 1, 32) for s in ((1, 512, 512, 128), (1, 256, 256, 512), (1, 384, 1152, 128), (1, 192, 576, 512),
-                                      (1, 512, 512, 256), (1, 384, 1152, 256), (1, 1024, 1024, 128), (1, 512, 512, 512),
-                                      (1, 1024, 1024, 256))}}
+    (1, 96, 288, 512): ("cluster", 8, 2),
+    # 16-byte rows, or larger x: one read of x by the moments design
+    **{s: ("moments", 1, 32) for s in ((1, 192, 576, 128), (1, 256, 256, 256), (1, 192, 576, 256), (1, 512, 512, 128),
+                                       (1, 256, 256, 512), (1, 384, 1152, 128), (1, 192, 576, 512), (1, 512, 512, 256),
+                                       (1, 384, 1152, 256), (1, 1024, 1024, 128), (1, 512, 512, 512),
+                                       (1, 1024, 1024, 256))}}
+ON_CLUSTER = 93  # of a default query's 178 statistics calls
 
 
 def _query_shapes() -> dict:
@@ -260,16 +262,21 @@ def test_the_query_runs_sixteen_group_norm_shapes():
 
 @pytest.mark.parametrize("shape", sorted(QUERY_PLANS), ids=lambda s: "x".join(map(str, s)))
 def test_stats_plan_at_the_query_shapes(shape):
-    """The design, cluster and block of every default-query shape: 109 of
-    the query's 178 statistics calls on the cluster design."""
+    """The design, cluster and block of every default-query shape:
+    ON_CLUSTER of the query's 178 statistics calls on the cluster design,
+    the others one read of x each; the moments design one CTA an SM at
+    most, 2 stages of 32 KB."""
     p = stats_plan(*shape, 32, *H100)
     assert (p.design, p.cluster, p.block_groups) == QUERY_PLANS[shape], p
+    if p.design == "moments":
+        assert p.ctas <= H100[0] and p.stages == 2 and p.cta_bytes == 2 * MOMENTS_STAGE_BYTES
     on_cluster = sum(n for s, n in _query_shapes().items() if QUERY_PLANS[s][0] == "cluster")
-    assert on_cluster == 109
+    assert on_cluster == ON_CLUSTER
 
 
 PLAN_CASES = sorted(_query_shapes()) + [(2, 37, 91, 512), (4, 48, 144, 512), (1, 37, 91, 128), (3, 5, 7, 128),
-                                        (1, 64, 64, 2048), (1, 1, 3, 256), (8, 128, 128, 512), (1, 8, 8, 32)]
+                                        (1, 64, 64, 2048), (1, 1, 3, 256), (8, 128, 128, 512), (1, 8, 8, 32),
+                                        (2, 37, 91, 384), (300, 4, 4, 256)]
 
 
 @pytest.mark.parametrize("shape", PLAN_CASES, ids=lambda s: "x".join(map(str, s)))
@@ -278,15 +285,22 @@ def test_stats_plan_covers_every_group_and_pixel_once(shape):
     memory, its cluster is a power of two up to 8, its group blocks are 8 K
     channels (K a power of two up to 32) and tile the channels once, its
     ranks' pixel ranges tile the pixels once, and its rows are 32 bytes or
-    more unless x exceeds the L2; the streaming design's CTAs cover the
-    pixels."""
+    more; the moments design's CTAs take runs of whole tiles that cover the
+    pixels once, none empty, in teams whose tickets fit a slot."""
     b, h, w, c = shape
     groups = min(32, c)
     plan = stats_plan(b, h, w, c, groups, *H100)
     hw, cg = h * w, c // groups
-    if plan.design == "stream":
-        assert plan.block_groups == groups and plan.cluster == 1
-        assert 1 <= plan.ctas <= 65535 and plan.ctas * plan.per >= hw
+    if plan.design == "moments":
+        assert plan.block_groups == groups and plan.cluster == 1 and 2 <= plan.stages <= 6
+        assert plan.per % moments_tile(c) == 0 and b * plan.ctas <= max(H100[0], b)
+        seen_pixels = np.zeros(hw, int)
+        for r in range(plan.ctas):
+            run = range(r * plan.per, min(hw, (r + 1) * plan.per))
+            assert len(run) > 0
+            seen_pixels[run.start:run.stop] += 1
+        assert (seen_pixels == 1).all()
+        assert plan.team == math.ceil(math.sqrt(plan.ctas)) and b * (-(-plan.ctas // plan.team) + 1) <= 4096
         return
     channels = plan.block_groups * cg
     k = channels // 8
@@ -294,7 +308,7 @@ def test_stats_plan_covers_every_group_and_pixel_once(shape):
     assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= MAX_CLUSTER
     assert plan.cta_bytes <= H100[1]
     assert plan.cta_bytes == plan.per * channels * 2 + (CLUSTER_WARPS + 4) * channels * 4
-    assert channels * 2 >= 32 or math.prod(shape) * 2 > H100[2]
+    assert channels * 2 >= 32
     # the grid as the kernel reads it: blockIdx.x / cluster is the group block, the rank its pixel share
     seen_channels = np.zeros(c, int)
     for blk in range(plan.ctas // plan.cluster):
@@ -309,7 +323,9 @@ def test_stats_plan_covers_every_group_and_pixel_once(shape):
 
 def test_stats_plan_sizes_clusters_as_designed():
     """Rows of up to 128 bytes (one L2 line) where 8 CTAs hold the slab, then
-    the cluster halves while a CTA's share fits half its shared memory."""
+    the cluster halves while a CTA's share fits half its shared memory; the
+    cluster design only for x of at most CLUSTER_MAX_BYTES, the moments
+    design above and wherever no cluster holds the slab in 32-byte rows."""
     p = stats_plan(1, 48, 144, 512, 32, *H100)  # 4 groups: 128-byte rows, 113 KB a CTA
     assert (p.design, p.cluster, p.block_groups, p.ctas, p.per) == ("cluster", 8, 4, 64, 864)
     p = stats_plan(2, 37, 91, 512, 32, *H100)  # 3367 pixels: 4 CTAs of 110 KB
@@ -318,25 +334,32 @@ def test_stats_plan_sizes_clusters_as_designed():
     assert stats_plan(1, 37, 91, 128, 32, *H100).block_groups == 16  # C = 128: 16 groups of 4 channels a row
     assert stats_plan(1, 64, 64, 2048, 32, *H100).block_groups == 1  # 64 channels a group: one 128-byte row
     # cg = 12: no run of whole groups is 8 K channels with K a power of two
-    assert stats_plan(2, 37, 91, 384, 32, *H100).design == "stream"
-    # 16-byte rows: streamed while x fits in L2, held once it does not
-    assert stats_plan(1, 192, 576, 128, 32, *H100).design == "stream"
-    assert stats_plan(1, 192, 576, 128, 32, 132, 232448, 16 << 20).design == "cluster"
-    # half the shared memory: the slab no longer fits 8 CTAs
-    assert stats_plan(1, 192, 576, 256, 32, 132, 116224, 52428800).design == "stream"
+    assert stats_plan(2, 37, 91, 384, 32, *H100).design == "moments"
+    # 16-byte rows (the slab fits 8 CTAs only one 8-channel block wide), and x above CLUSTER_MAX_BYTES or the L2
+    assert cluster_plan(1, 192, 576, 128, 32, H100[1]) is None
+    assert stats_plan(1, 24, 72, 128, 32, *H100).design == "cluster"
+    assert cluster_plan(1, 128, 256, 512, 32, H100[1]) is not None
+    assert stats_plan(1, 128, 256, 512, 32, *H100).design == "moments"
+    assert stats_plan(1, 48, 144, 512, 32, 132, 232448, 4 << 20).design == "moments"
+    # one CTA an SM over the batch, runs of whole tiles
+    p = moments_plan(1, 1024 * 1024, 128, 32, 132)
+    assert (p.ctas, p.per, p.team, p.stages) == (131, 63 * 128, 12, 2)
+    p = moments_plan(2, 37 * 91, 512, 32, 132)
+    assert (p.ctas, p.per, p.team) == (53, 64, 8)
+    with pytest.raises(ValueError, match="bytes of shared memory a CTA"):
+        stats_plan(1, 1024, 1024, 128, 32, 132, 48 << 10, 52428800)
 
 
 def emulate_cluster_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
                           eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
     """The cluster design (csrc/group_norm.cu group_norm_stats_resident) in
-    torch fp32, one operation per kernel step, on stats_plan's H100 plan:
+    torch fp32, one operation per kernel step, on cluster_plan's H100 plan:
     thread t of a CTA sums its chunks t, t + 512, ... in order; a butterfly
     over the warp's lanes of the same chunk; the 16 warps in order; the
     cluster's ranks in order; / HW; the group's channels in order; / cg;
     pass 2 the same on (x - mu)^2."""
     b, h, w, c = x.shape
-    plan = stats_plan(b, h, w, c, groups, *H100)
-    assert plan.design == "cluster"
+    plan = cluster_plan(b, h, w, c, groups, H100[1])
     hw, cg, cl, per = h * w, c // groups, plan.cluster, plan.per
     channels = plan.block_groups * cg
     k, nblk, threads = channels // 8, c // channels, 32 * CLUSTER_WARPS
@@ -404,14 +427,185 @@ def test_cluster_design_order_matches_jax(shape):
     _assert_rel(bb, wbb, 1e-5, "bb")
 
 
+def emulate_moments_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int, plan,
+                          eps: float = 1e-6, one_pass: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The moments design (csrc/group_norm.cu group_norm_stats_moments_kernel)
+    in torch fp32, one operation per kernel step, on `plan`: CTA r takes
+    pixels [r * per, + per) in tiles of 8 P pixels; consumer (t, p) holds
+    pixels p, p + P, ..., p + 7 P of a tile at channels 8 t .. 8 t + 7, pieces
+    of W = gcd(cg, 8) channels; per tile the channel sums (vectors in order),
+    piece means, the moment about them (vectors, then channels), merged into
+    the thread's pieces by the identity; the CTA's channel sums (lanes in
+    order), group means and moments about them (lanes, then pieces); teams of
+    `team` CTAs merged in order by the last of each, the teams by the last
+    team, the final means in JAX's order. one_pass: the same partition and
+    order with sums of x and x^2 in place of the moments, var = E[x^2] -
+    E[x]^2 (what the kernel does not do)."""
+    b, h, w, c = x.shape
+    hw, cg, G = h * w, c // groups, groups
+    T = c // 8
+    P = MOMENTS_CONSUMERS // T
+    tp, W = moments_tile(c), math.gcd(cg, 8)
+    n, per, team = plan.ctas, plan.per, plan.team
+    ntiles, pieces = per // tp, cg // W
+    r = torch.arange(n)[:, None, None, None]
+    pix = r * per + torch.arange(ntiles)[:, None, None] * tp + torch.arange(P)[:, None] + torch.arange(8) * P
+    valid = pix < torch.clamp(r * per + per, max=hw)  # (n, tiles, P, 8)
+    data = x.float().reshape(b, hw, c)[:, pix.clamp(max=hw - 1)]
+    data = torch.where(valid[None, ..., None], data, 0.0).reshape(b, n, ntiles, P, 8, T, 8)
+    zeros = lambda *s: torch.zeros(b, n, P, *s)  # noqa: E731
+    acc, mean, m2, seen = zeros(T, 8), zeros(T, 8 // W), zeros(T, 8 // W), torch.zeros(1, n, P, 1, 1)
+    for k in range(ntiles):
+        f = data[:, :, k]  # (b, n, P, vector, T, channel)
+        cnt = valid[:, k].sum(-1).float()[None, :, :, None, None]
+        live = cnt > 0
+        ts = zeros(T, 8)
+        for q in range(8):
+            ts = ts + f[:, :, :, q]
+        s = zeros(T, 8 // W)
+        for j in range(W):
+            s = s + ts.reshape(b, n, P, T, 8 // W, W)[..., j]
+        tm = s / (cnt * W)
+        tq = zeros(T, 8 // W)
+        for q in range(8):
+            on = valid[:, k, :, q][None, :, :, None, None]
+            for j in range(8):
+                d = f[:, :, :, q, :, j] if one_pass else f[:, :, :, q, :, j] - tm[..., j // W]
+                tq[..., j // W] = torch.where(on[..., 0], tq[..., j // W] + d * d, tq[..., j // W])
+        if one_pass:  # raw sums: of x (from the channel sums) and of x^2
+            mean, m2 = torch.where(live, mean + s, mean), torch.where(live, m2 + tq, m2)
+        else:
+            tot = seen + cnt
+            frac = cnt / tot
+            wgt = (seen * frac) * W
+            d = tm - mean
+            mean = torch.where(live, mean + d * frac, mean)
+            m2 = torch.where(live, m2 + (tq + wgt * (d * d)), m2)
+            seen = torch.where(live, tot, seen)
+        acc = acc + ts
+    if one_pass:
+        seen = valid.sum((1, 3)).float()[None, :, :, None, None]
+    # the CTA's row
+    red = acc.reshape(b, n, P, c)
+    chan = torch.zeros(b, n, c)
+    for q in range(P):
+        chan = chan + red[:, :, q]
+    npix = (torch.clamp(torch.arange(n) * per + per, max=hw) - torch.arange(n) * per).float()[None, :, None]
+    pmean, pm2 = (t.reshape(b, n, P, G, pieces) for t in (mean, m2))
+    lanes = seen.reshape(1, n, P)
+    m = torch.zeros(b, n, G)
+    for j in range(cg):
+        m = m + chan.reshape(b, n, G, cg)[..., j]
+    m = (m / npix) / cg
+    M2 = torch.zeros(b, n, G)
+    for q in range(P):
+        wq = (lanes[:, :, q] * W)[..., None]
+        for i in range(pieces):
+            if one_pass:
+                M2 = M2 + pm2[:, :, q, :, i]
+            else:
+                d = pmean[:, :, q, :, i] - m
+                M2 = M2 + (pm2[:, :, q, :, i] + wq * (d * d))
+
+    def combine(chan, m, M2, first, U, final):  # rows (b, k, ...) of units first.. of U pixels
+        k = chan.shape[1]
+        units = first + torch.arange(k)
+        upix = (torch.clamp((units + 1) * U, max=hw) - torch.clamp(units * U, max=hw)).float()
+        s = torch.zeros(b, c)
+        for i in range(k):
+            s = s + chan[:, i]
+        mm = torch.zeros(b, G)
+        for j in range(cg):
+            mm = mm + (s.reshape(b, G, cg)[..., j] / float(hw) if final else s.reshape(b, G, cg)[..., j])
+        mm = (mm if final else mm / float(min(hw, (first + k) * U) - first * U)) / cg
+        q2 = torch.zeros(b, G)
+        for i in range(k):
+            if one_pass:
+                q2 = q2 + M2[:, i]
+            else:
+                d = m[:, i] - mm
+                q2 = q2 + (M2[:, i] + (upix[i] * cg) * (d * d))
+        return s, mm, q2
+
+    teams = -(-n // team)
+    if teams > 1:
+        parts = [combine(chan[:, j * team:(j + 1) * team], m[:, j * team:(j + 1) * team],
+                         M2[:, j * team:(j + 1) * team], j * team, per, False) for j in range(teams)]
+        chan, m, M2 = (torch.stack(t, 1) for t in zip(*parts))
+        per = team * per
+    _, mu, q2 = combine(chan, m, M2, 0, per, True)
+    var = (q2 / float(hw)) / cg
+    if one_pass:
+        var = var - mu * mu
+    rsig = torch.rsqrt(var + eps).repeat_interleave(cg, dim=-1)
+    a = rsig * scale.float()[None]
+    return a, bias.float()[None] - mu.repeat_interleave(cg, dim=-1) * a
+
+
+def _jax_affine(x, scale, bias, groups=32):
+    p = {"scale": jnp.asarray(scale.float().numpy()).astype(jnp.bfloat16),
+         "bias": jnp.asarray(bias.float().numpy()).astype(jnp.bfloat16)}
+    return jae.group_norm_affine(p, jnp.asarray(x.float().numpy()).astype(jnp.bfloat16), groups)
+
+
+# (shape, CTAs a batch element or None: one an SM): C 128, 256, 384 and 512; ragged pixel counts and last tiles;
+# batch 2; several tiles a CTA (the identity within a thread) and several teams (two merge levels)
+MOMENTS_CASES = [((1, 40, 72, 128), None), ((2, 37, 91, 512), None), ((1, 48, 64, 256), 5), ((1, 33, 47, 256), 3),
+                 ((2, 24, 40, 384), 4), ((1, 45, 50, 128), 1)]
+
+
+def _case_id(v) -> str:
+    return "x".join(map(str, v)) if isinstance(v, tuple) else f"{v}ctas" if v else "ctas_an_sm"
+
+
+@pytest.mark.parametrize("shape, ctas", MOMENTS_CASES, ids=_case_id)
+def test_moments_design_order_matches_jax(shape, ctas):
+    """The emulated moments design on bf16 x, scale and bias against JAX's
+    group_norm_affine on the same values: a and bb within 1e-5 of their
+    largest magnitude (fp32 sums in another order, the moment pooled from
+    tile-centred pieces)."""
+    x, scale, bias = (torch.from_numpy(v).to(BF16) for v in _inputs(shape, sum(shape)))
+    b, h, w, c = shape
+    plan = moments_plan(b, h * w, c, 32, H100[0], ctas=ctas)
+    assert plan.ctas * plan.per >= h * w > (plan.ctas - 1) * plan.per
+    a, bb = emulate_moments_stats(x, scale, bias, 32, plan)
+    wa, wbb = _jax_affine(x, scale, bias)
+    _assert_rel(a, wa, 1e-5, "a")
+    _assert_rel(bb, wbb, 1e-5, "bb")
+
+
+@pytest.mark.parametrize("shape, ctas", [((1, 40, 72, 128), None), ((1, 48, 64, 256), 5), ((2, 37, 91, 512), None)],
+                         ids=_case_id)
+def test_moments_design_holds_a_large_offset_where_one_pass_fails(shape, ctas):
+    """Groups whose mean lies 30 of their standard deviations from 0 (one
+    offset and spread a group, bf16): the moments design's order stays
+    within 1e-5 of JAX's largest a and bb, while E[x^2] - E[x]^2 over the
+    same partition and order does not (5-14 times the bound), so the bound
+    tells the two orders apart."""
+    rng = np.random.default_rng(sum(shape))
+    b, h, w, c = shape
+    sd = np.repeat(rng.uniform(0.5, 2.0, 32), c // 32)
+    x = torch.from_numpy((rng.standard_normal(shape) * sd + 30.0 * sd).astype(np.float32)).to(BF16)
+    scale = torch.from_numpy((1.0 + 0.2 * rng.standard_normal(c)).astype(np.float32)).to(BF16)
+    bias = torch.from_numpy((0.3 * rng.standard_normal(c)).astype(np.float32)).to(BF16)
+    plan = moments_plan(b, h * w, c, 32, H100[0], ctas=ctas)
+    wa, wbb = _jax_affine(x, scale, bias)
+    a, bb = emulate_moments_stats(x, scale, bias, 32, plan)
+    _assert_rel(a, wa, 1e-5, "a")
+    _assert_rel(bb, wbb, 1e-5, "bb")
+    a1, _ = emulate_moments_stats(x, scale, bias, 32, plan, one_pass=True)
+    err = float(np.abs(_f32(a1) - _f32(wa)).max())
+    assert err > 1e-5 * float(np.abs(_f32(wa)).max()), err
+
+
 def test_profile_step_classes_both_statistics_kernels_as_n():
-    """The demangled symbols of kernel N's kernels, the cluster design's
-    templated one included, are class "group norm (kernel N)"; kernel B's
-    and aten's are not."""
+    """The demangled symbols of kernel N's kernels, both statistics
+    designs' templated ones included, are class "group norm (kernel N)";
+    kernel B's and aten's are not."""
     for name in ("void (anonymous namespace)::group_norm_stats_resident<2>(__nv_bfloat16 const*, void const*, "
                  "void const*, int, float*, float*, int, int, int, int, int, float)",
                  "(anonymous namespace)::group_norm_stats_resident<32>(__nv_bfloat16 const*)",
-                 "void (anonymous namespace)::group_norm_stats_pass<true>(__nv_bfloat16 const*, float*)",
+                 "void (anonymous namespace)::group_norm_stats_moments_kernel<4>(__nv_bfloat16 const*, void const*)",
                  "void (anonymous namespace)::group_norm_apply_kernel<false>(__nv_bfloat16 const*)"):
         assert GROUP_NORM_KERNEL.search(name) and vae_class(name) == "group norm (kernel N)", name
     for name in ("void (anonymous namespace)::conv3x3_kernel<true, true>(CUtensorMap_st, CUtensorMap_st)",

@@ -7,12 +7,11 @@
 // block's norm, :144, and the two norm_outs, :192 and :208).
 //
 // group_norm_stats: x (B, H, W, C) bf16 NHWC -> a, bb (B, C) fp32, the affine
-// y = x * a + bb that kernel B's pre_affine takes. JAX's order, all in fp32:
+// y = x * a + bb that kernel B's pre_affine takes. JAX's statistics, in fp32:
 //
 //     m_c   = sum_hw x / HW                  (per channel)
 //     mu_g  = sum_{c in g} m_c / cg          (cg = C / groups)
-//     v_c   = sum_hw (x - mu_g)^2 / HW       (a second read of x)
-//     var_g = sum_{c in g} v_c / cg
+//     var_g = sum_{hw, c in g} (x - mu_g)^2 / HW / cg
 //     a     = rsqrt(var_g + eps) * scale_c,  bb = bias_c - mu_g * a
 //
 // Two designs, picked by ops/group_norm.py's `stats_plan` from the shape and
@@ -20,9 +19,10 @@
 //
 // Cluster (entry group_norm_stats_cluster, kernel group_norm_stats_resident),
 // where a group block's slab fits the shared memory of a thread-block
-// cluster of at most 8 CTAs (the portable size): on an H100 the VAE's
-// latents and its 512- and 256-channel half-resolution levels. One launch,
-// no global scratch, no atomics. A cluster takes one batch element and one
+// cluster of at most 8 CTAs (the portable size) in rows of 32 bytes or
+// more and x is 30 MiB or less: on an H100 the latent and three
+// half-resolution levels. One launch, no global scratch, no atomics. A
+// cluster takes one batch element and one
 // group block: neighbouring groups whose CB = 8 K channels (K a power of
 // two up to 32) the plan picks up to 128 bytes a pixel, since the L2
 // serves a request for every pixel's row and narrow rows bound the loads
@@ -36,36 +36,56 @@
 // same chunk, the 16 warps in order. After a cluster barrier every CTA
 // reads the cluster's per-channel sums through distributed shared memory in
 // rank order and forms the channel means and the group means (the order
-// below). Pass 2 reads the resident slab, not global memory, and subtracts
+// above). Pass 2 reads the resident slab, not global memory, and subtracts
 // the group mean; its sums go through DSMEM again, and rank 0 writes a and
 // bb for the block's channels. A last cluster barrier keeps every CTA's
 // shared memory alive until rank 0 has read it. Bound: x read once; on the
 // H100 a launch and three cluster barriers cost ~5.5 us of the (1, 48,
 // 144, 512) call's 8 (PERF.md).
 //
-// Stream (group_norm_stats) elsewhere: the full-resolution levels, and
-// slabs that 8 CTAs hold only in 16-byte rows while x fits in L2 (there two
-// dense reads cost the L2 no more). Two launches (one a pass over x). A CTA
-// streams a slab of pixels of one batch element with 16-byte loads: C / 8
-// threads cover a pixel, 8 channels a thread, and the CTA's P = 256 / (C /
-// 8) lanes of threads take every P-th pixel, 8 loads in flight a thread.
-// Each thread sums its channels in fp32, the CTA sums its lanes in lane
-// order and writes one row of C partial sums; the last CTA of the batch
-// element to arrive (an atomic ticket after a __threadfence) sums the rows
-// in the same lane layout and forms the group means (pass 1: mu, kept for
-// pass 2; pass 2: a and bb).
+// Moments (entry group_norm_stats_moments, kernel group_norm_stats_moments_kernel)
+// elsewhere: x read from HBM once, in one launch. Persistent CTAs, about
+// one an SM, each take a contiguous run of pixels of one batch element: a
+// run of pixels x all C channels is one span of NHWC memory. A producer
+// warp streams it in tiles of up to 32 KB by 1-D bulk copies into a ring
+// of shared-memory stages (2 measured fastest of 2 to 6; on the H100 the
+// stream runs at ~3.3 TB/s, PERF.md); C / 8 x P consumer threads (P = 256 / (C / 8)
+// lanes) hold a tile's 16-byte vectors in registers, 8 pixels of 8
+// channels a thread, and give the stage back. For each tile a thread forms
+// its channels' sums, then the tile's mean of each piece (its channels
+// that lie in one group, W = gcd(cg, 8) of them) and the tile's moment
+// about that mean, M2_t = sum (x - m_t)^2, from the same registers. It
+// merges its tiles in order by the parallel-variance identity (Chan,
+// Golub and LeVeque):
 //
-// In both every sum has a fixed order, so repeats give the same bits. Not
-// Welford, not E[x^2] - E[x]^2: the second pass subtracts the group mean as
-// JAX does.
+//     M2 = M2_a + M2_b + (m_b - m_a)^2 n_a n_b / (n_a + n_b)
+//
+// and the CTA merges its threads' pieces about the CTA's group mean m:
+// M2_g = sum_i [M2_i + n_i (m_i - m)^2], lanes in order. It writes one row
+// of C channel sums, G group means and G moments. The CTAs form teams of
+// ~sqrt(CTAs); the last of a team to arrive (an atomic ticket after a
+// __threadfence) merges its team's rows in CTA order by the same identity,
+// and the last team merges the teams' rows in order: channel means and
+// group means in JAX's order, then var_g from the pooled moment about
+// mu_g. Two short levels instead of one CTA reading every row: a row is
+// (C + 2G) floats, 2.3 KB at C = 512. The tickets are a device global,
+// one slot of them a stream, each wrapped back to 0 by atomicInc as its
+// last CTA arrives, so no launch zeroes them.
+//
+// Numerics: every piece is centred on its own mean before it is squared,
+// and every merge adds non-negative moments plus a correction from a
+// difference of two means, so nothing like E[x^2] - E[x]^2 cancels; the
+// result is as stable as JAX's second pass over x - mu_g, whose value it
+// is, summed in another order. All in fp32 (counts of up to 2^24 elements
+// are exact). Every sum has a fixed order, so repeats give the same bits.
 //
 // group_norm_apply: y = act(bf16(x * a + bb)) with act none or swish, swish
 // as JAX's bf16 chain rounds it: s = bf16(sigmoid(h)), y = bf16(h * s) on
-// the bf16 h. One pass, the same pixel layout, a and bb in registers.
+// the bf16 h. One pass over x, a and bb in registers.
 //
 // Bound on the H100 (3.35 TB/s): the bytes, x read once: 0.080 ms at (1,
-// 1024, 1024, 128), where the streaming design reads it twice from HBM.
-// The apply reads x and writes y: 0.160 ms at the same shape.
+// 1024, 1024, 128). The apply reads x and writes y: 0.160 ms at the same
+// shape.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,9 +98,9 @@ namespace {
 using vc::bf16;
 
 constexpr int VEC = 8;       // channels a thread: one 16-byte load of bf16
-constexpr int THREADS = 256;  // at most; a CTA is (C / 8) x P threads
+constexpr int THREADS = 256;  // the apply: at most; a CTA is (C / 8) x P threads
 constexpr int MAX_C = 2048;   // C / 8 <= THREADS
-constexpr int UNROLL = 8;     // loads in flight a thread
+constexpr int UNROLL = 8;     // the apply: loads in flight a thread
 
 struct Slab {
   int t, p, T, P, c0, start, end;
@@ -115,95 +135,304 @@ __device__ __forceinline__ void accumulate(const uint4& u, const float* mean, fl
   }
 }
 
-// the P lanes' VEC sums of each thread -> out[c] for every channel, in lane order
-__device__ __forceinline__ void sum_lanes(float* red, const Slab& s, const float* acc, int C, float* out) {
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) red[s.p * C + s.c0 + j] = acc[j];
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float v = 0.f;
-    for (int q = 0; q < s.P; ++q) v = __fadd_rn(v, red[q * C + c]);
-    out[c] = v;
-  }
-}
-
 // a GroupNorm parameter (C,) in fp32, stored as bf16 (the VAE's) or fp32
 __device__ __forceinline__ float param(const void* p, int c, int is_bf16) {
   return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[c]) : static_cast<const float*>(p)[c];
 }
 
-// Pass 1 (SECOND false): mu (B, C) = the group mean of each channel's group.
-// Pass 2: a and bb from mu, scale and bias. partial: (B, gridDim.x, C) fp32
-// scratch; ticket: (B,) zero on entry, zero again on exit.
-template <bool SECOND>
-__global__ void __launch_bounds__(THREADS)
-    group_norm_stats_pass(const bf16* __restrict__ x, float* __restrict__ mu, const void* __restrict__ scale,
-                          const void* __restrict__ bias, int params_bf16, float* __restrict__ a,
-                          float* __restrict__ bb, float* partial, unsigned* ticket, int HW, int C, int groups,
-                          float eps) {
-  __shared__ float red[MAX_C];
-  __shared__ float chan[MAX_C];
-  __shared__ bool last;
-  const int b = blockIdx.y, nblk = gridDim.x;
-  const Slab s = slab(HW, C);
-  float mean[VEC], acc[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    mean[j] = SECOND ? mu[(size_t)b * C + s.c0 + j] : 0.f;
-    acc[j] = 0.f;
-  }
-  const bf16* xb = x + (size_t)b * HW * C + s.c0;
-  int i = s.start + s.p;
-  for (; i + (UNROLL - 1) * s.P < s.end; i += UNROLL * s.P) {
-    uint4 u[UNROLL];
-#pragma unroll
-    for (int k = 0; k < UNROLL; ++k) u[k] = __ldg(reinterpret_cast<const uint4*>(xb + (size_t)(i + k * s.P) * C));
-#pragma unroll
-    for (int k = 0; k < UNROLL; ++k) accumulate<SECOND>(u[k], mean, acc);
-  }
-  for (; i < s.end; i += s.P) accumulate<SECOND>(__ldg(reinterpret_cast<const uint4*>(xb + (size_t)i * C)), mean, acc);
+// ---------------------------------------------------------------- the moments design
 
-  float* rows = partial + (size_t)b * nblk * C;
-  sum_lanes(red, s, acc, C, rows + (size_t)blockIdx.x * C);
+constexpr int MO_CONSUMERS = 256;              // consumer threads: (C / 8) x P of them hold a tile
+constexpr int MO_WARPS = MO_CONSUMERS / 32;
+constexpr int MO_THREADS = MO_CONSUMERS + 32;  // + the producer warp
+constexpr int MO_VECS = 8;                     // a consumer's 16-byte vectors a tile: 8 pixels of 8 channels
+constexpr int MO_STAGE_BYTES = MO_VECS * MO_CONSUMERS * 16;  // 32 KB: a tile, at most
+constexpr int MO_MAX_STAGES = 6;
+constexpr int MO_SLOTS = 256;          // ticket slots: one a stream (ops/group_norm.py picks it)
+constexpr int MO_SLOT_TICKETS = 4096;  // B x (teams + 1) at most: 4 MB of tickets in all
+
+// zero when the library loads; atomicInc wraps every ticket back to 0 as its last CTA arrives
+__device__ unsigned g_tickets[MO_SLOTS * MO_SLOT_TICKETS];
+
+// the pixels of unit i, units of U pixels (a CTA's run, or a team's)
+__device__ __forceinline__ int unit_pixels(long long i, long long U, int HW) {
+  return (int)(min((long long)HW, (i + 1) * U) - min((long long)HW, i * U));
+}
+
+// A tile of this thread: raw[k] its channels c0 .. c0 + 7 at its k-th pixel
+// of the tile (zeros past cnt). Adds the tile's channel sums to acc and
+// merges the tile's pieces (W channels of one group each) into the thread's
+// pieces, which hold `seen` pixels: mean[i] and M2[i] about it.
+template <int W>
+__device__ __forceinline__ void moments_tile(const uint4* raw, int cnt, float* acc, float* mean, float* m2,
+                                             float& seen) {
+  constexpr int NP = VEC / W;
+  float ts[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) ts[j] = 0.f;
+#pragma unroll
+  for (int k = 0; k < MO_VECS; ++k) {
+    float f[VEC];
+    vc::unpack8(raw[k], f);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) ts[j] = __fadd_rn(ts[j], f[j]);
+  }
+  const float nb = (float)cnt;
+  float tm[NP], tq[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < W; ++j) s = __fadd_rn(s, ts[i * W + j]);
+    tm[i] = __fdiv_rn(s, nb * (float)W);
+    tq[i] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < MO_VECS; ++k) {
+    if (k < cnt) {
+      float f[VEC];
+      vc::unpack8(raw[k], f);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float d = __fsub_rn(f[j], tm[j / W]);
+        tq[j / W] = __fadd_rn(tq[j / W], __fmul_rn(d, d));
+      }
+    }
+  }
+  // the identity: n_a = seen pixels, n_b = cnt, elements W times as many
+  const float n = __fadd_rn(seen, nb);
+  const float frac = __fdiv_rn(nb, n);
+  const float w = __fmul_rn(__fmul_rn(seen, frac), (float)W);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const float d = __fsub_rn(tm[i], mean[i]);
+    mean[i] = __fadd_rn(mean[i], __fmul_rn(d, frac));
+    m2[i] = __fadd_rn(m2[i], __fadd_rn(tq[i], __fmul_rn(w, __fmul_rn(d, d))));
+  }
+  seen = n;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = __fadd_rn(acc[j], ts[j]);
+}
+
+// the floats of a row of partial moments: C channel sums, G group means, G
+// moments about them, padded to 16 bytes
+__host__ __device__ __forceinline__ int row_floats(int C, int G) { return (C + 2 * G + 3) / 4 * 4; }
+
+// The CTA merges n rows (row_floats(C, G) apart: channel sums, group means,
+// the moments about them) of units first .. first + n - 1 (U pixels a
+// unit), in order. final false: writes the merged row at out (the group
+// means the union's own). final true: the channel means and group means in
+// JAX's order, var_g from the moment about mu_g, a and bb of batch element
+// b from the parameters in shared memory (sc, bi). The rows are copied into
+// shared memory at smem (n rows, then C + 2G floats of sums) by 16-byte
+// loads of every thread at once, so a merge waits for about one round trip
+// to L2; the phases after it read shared memory. Not inlined: the team
+// merge and the final merge share its code, warm in the last CTA's
+// instruction cache.
+__device__ __noinline__ void moments_combine(const float* rows, int n, long long first, long long U, int HW, int C,
+                                             int G, float* smem, bool final, float* out, const float* sc,
+                                             const float* bi, float* a, float* bb, int b, float eps) {
+  const int R = row_floats(C, G), cg = C / G;
+  const float4* src = reinterpret_cast<const float4*>(rows);
+  float4* dst = reinterpret_cast<float4*>(smem);
+  for (int i = threadIdx.x; i < n * R / 4; i += blockDim.x) dst[i] = __ldcg(src + i);
+  __syncthreads();
+  float* chan = smem + n * R;  // C channel sums, then final: G group means, G rsqrt(var + eps)
+  float* gm = chan + C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float v = 0.f;
+    for (int i = 0; i < n; ++i) v = __fadd_rn(v, smem[i * R + c]);
+    chan[c] = final ? __fdiv_rn(v, (float)HW) : v;
+    if (!final) out[c] = v;
+  }
+  __syncthreads();
+  const int npix = (int)(min((long long)HW, (first + n) * U) - first * U);
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float m = 0.f;
+    for (int j = 0; j < cg; ++j) m = __fadd_rn(m, chan[g * cg + j]);
+    m = __fdiv_rn(final ? m : __fdiv_rn(m, (float)npix), (float)cg);
+    float M2 = 0.f;
+    for (int i = 0; i < n; ++i) {
+      const float d = __fsub_rn(smem[i * R + C + g], m);
+      const float w = __fmul_rn((float)unit_pixels(first + i, U, HW), (float)cg);
+      M2 = __fadd_rn(M2, __fadd_rn(smem[i * R + C + G + g], __fmul_rn(w, __fmul_rn(d, d))));
+    }
+    if (final) {
+      gm[g] = m;
+      gm[G + g] = rsqrtf(__fadd_rn(__fdiv_rn(__fdiv_rn(M2, (float)HW), (float)cg), eps));
+    } else {
+      out[C + g] = m;
+      out[C + G + g] = M2;
+    }
+  }
+  if (!final) return;
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const int g = c / cg;
+    const size_t o = (size_t)b * C + c;
+    const float av = __fmul_rn(gm[G + g], sc[c]);
+    a[o] = av;
+    bb[o] = __fsub_rn(bi[c], __fmul_rn(gm[g], av));
+  }
+}
+
+// the ring's bytes a CTA needs beyond its stages' use: the CTA's merge of
+// its threads' pieces (P lanes x C sums, 2 x P x C / W piece moments, P
+// counts, C + 2G sums) and a team or final merge of `rows` rows
+__host__ __device__ __forceinline__ size_t moments_scratch(int C, int G, int W, int rows) {
+  const int P = MO_CONSUMERS / (C / VEC);
+  const size_t own = (size_t)P * C + 2 * (size_t)P * (C / W) + P + C + 2 * G;
+  const size_t merge = (size_t)rows * row_floats(C, G) + C + 2 * G;
+  return 4 * (own > merge ? own : merge);
+}
+
+// One CTA: batch element blockIdx.y, pixels [blockIdx.x * per, + per) of HW
+// (per a multiple of the tile's 8 P pixels). rows: (B, gridDim.x, R) fp32,
+// team_rows (B, teams, R) fp32 scratch; tickets: B x (teams + 1), zero on
+// entry and on exit. Dynamic shared memory: `stages` stages of
+// MO_STAGE_BYTES.
+template <int W>
+__global__ void __launch_bounds__(MO_THREADS, 1)
+    group_norm_stats_moments_kernel(const bf16* __restrict__ x, const void* __restrict__ scale,
+                                    const void* __restrict__ bias, int params_bf16, float* __restrict__ a,
+                                    float* __restrict__ bb, float* rows, float* team_rows, unsigned* tickets, int HW,
+                                    int C, int G, int per, int team, int stages, float eps) {
+  constexpr int NP = VEC / W;
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t bars[2 * MO_MAX_STAGES];  // full, then empty
+  __shared__ float sc[MAX_C], bi[MAX_C];  // the parameters, for whichever CTA merges last
+  __shared__ bool last;
+  const int T = C / VEC, P = MO_CONSUMERS / T, TP = MO_VECS * P;
+  const int b = blockIdx.y, r = blockIdx.x, n = gridDim.x, R = row_floats(C, G);
+  const int p0 = r * per, npix = min(HW, p0 + per) - p0, ntiles = (npix + TP - 1) / TP;
+  const uint32_t stage0 = vc::smem_addr(ring), full = vc::smem_addr(bars), empty = full + 8 * stages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      vc::mbar_init(full + 8 * s, 1);         // the producer's arrive, with the copy's bytes
+      vc::mbar_init(empty + 8 * s, MO_WARPS);  // a lane of every consumer warp
+    }
+    vc::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int t = threadIdx.x % T, p = threadIdx.x / T, c0 = t * VEC;
+  const bool active = threadIdx.x < P * T;  // a consumer holding vectors (P * T < 256 where T does not divide it)
+  float acc[VEC], mean[NP], m2[NP], seen = 0.f;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) mean[i] = m2[i] = 0.f;
+  const bf16* xb = x + ((size_t)b * HW + p0) * C;
+  if (warp == MO_WARPS) {  // the producer: tile k into stage k % stages
+    if (lane == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int k = 0; k < ntiles; ++k) {
+        if (k >= stages) vc::mbar_wait(empty + 8 * s, ph ^ 1);
+        const uint32_t bytes = (uint32_t)min(TP, npix - k * TP) * C * 2;
+        vc::mbar_arrive_expect_tx(full + 8 * s, bytes);
+        vc::bulk_load(stage0 + s * MO_STAGE_BYTES, xb + (size_t)k * TP * C, bytes, full + 8 * s);
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {
+    for (int c = threadIdx.x; c < C; c += MO_CONSUMERS) {  // while the first tiles land
+      sc[c] = param(scale, c, params_bf16);
+      bi[c] = param(bias, c, params_bf16);
+    }
+    int s = 0;
+    uint32_t ph = 0;
+    for (int k = 0; k < ntiles; ++k) {
+      const int pix = min(TP, npix - k * TP);
+      const int cnt = active ? max(0, min(MO_VECS, (pix - p + P - 1) / P)) : 0;
+      vc::mbar_wait(full + 8 * s, ph);
+      uint4 raw[MO_VECS];
+#pragma unroll
+      for (int q = 0; q < MO_VECS; ++q)
+        raw[q] = q < cnt ? vc::lds128(stage0 + s * MO_STAGE_BYTES + ((p + q * P) * C + c0) * 2)
+                         : make_uint4(0u, 0u, 0u, 0u);
+      __syncwarp();
+      if (lane == 0) vc::mbar_arrive(empty + 8 * s);  // the warp's vectors are in registers
+      if (++s == stages) {
+        s = 0;
+        ph ^= 1;
+      }
+      if (cnt > 0) moments_tile<W>(raw, cnt, acc, mean, m2, seen);
+    }
+  }
+  __syncthreads();  // every stage read: the ring is scratch from here
+
+  // the CTA's row: lanes in order, a group's pieces about the CTA's group mean
+  float* red = reinterpret_cast<float*>(ring);  // P x C channel sums
+  float* pmean = red + P * C;                   // P x C / W piece means
+  float* pm2 = pmean + P * (C / W);             // P x C / W piece moments
+  float* lanes = pm2 + P * (C / W);             // P: each lane's pixels
+  float* chan = lanes + P;                      // C
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) red[p * C + c0 + j] = acc[j];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      pmean[p * (C / W) + c0 / W + i] = mean[i];
+      pm2[p * (C / W) + c0 / W + i] = m2[i];
+    }
+    if (t == 0) lanes[p] = seen;
+  }
+  __syncthreads();
+  float* row = rows + ((size_t)b * n + r) * R;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float v = 0.f;
+    for (int q = 0; q < P; ++q) v = __fadd_rn(v, red[q * C + c]);
+    chan[c] = v;
+    row[c] = v;
+  }
+  __syncthreads();
+  const int cg = C / G, pieces = cg / W;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float m = 0.f;
+    for (int j = 0; j < cg; ++j) m = __fadd_rn(m, chan[g * cg + j]);
+    m = __fdiv_rn(__fdiv_rn(m, (float)npix), (float)cg);
+    float M2 = 0.f;
+    for (int q = 0; q < P; ++q) {
+      const float w = __fmul_rn(lanes[q], (float)W);
+      for (int i = 0; i < pieces; ++i) {
+        const int o = q * (C / W) + g * pieces + i;
+        const float d = __fsub_rn(pmean[o], m);
+        M2 = __fadd_rn(M2, __fadd_rn(pm2[o], __fmul_rn(w, __fmul_rn(d, d))));
+      }
+    }
+    row[C + g] = m;
+    row[C + G + g] = M2;
+  }
+
+  // the team's last CTA merges the team's rows; the last team's, the teams'
+  const int teams = (n + team - 1) / team, j = r / team, members = min(team, n - j * team);
+  unsigned* tb = tickets + (size_t)b * (teams + 1);
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket + b, 1u) == (unsigned)(nblk - 1);
+  if (threadIdx.x == 0) last = atomicInc(tb + j, (unsigned)(members - 1)) == (unsigned)(members - 1);
   __syncthreads();
   if (!last) return;
   __threadfence();
-
-  // the last CTA: the rows of every CTA, lane p taking rows p, p + P, ...
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-  for (int r = s.p; r < nblk; r += s.P) {
-    const float4 lo = __ldcg(reinterpret_cast<const float4*>(rows + (size_t)r * C + s.c0));
-    const float4 hi = __ldcg(reinterpret_cast<const float4*>(rows + (size_t)r * C + s.c0) + 1);
-    const float f[VEC] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[j] = __fadd_rn(acc[j], f[j]);
+  const float* brows = rows + (size_t)b * n * R;
+  if (teams == 1) {
+    moments_combine(brows, n, 0, per, HW, C, G, red, true, nullptr, sc, bi, a, bb, b, eps);
+    return;
   }
-  __syncthreads();  // every lane has read red in sum_lanes
-  sum_lanes(red, s, acc, C, chan);
+  float* trows = team_rows + (size_t)b * teams * R;
+  moments_combine(brows + (size_t)j * team * R, members, (long long)j * team, per, HW, C, G, red, false,
+                  trows + (size_t)j * R, sc, bi, a, bb, b, eps);
+  __threadfence();
   __syncthreads();
-  const float n = (float)HW;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) chan[c] = __fdiv_rn(chan[c], n);
+  if (threadIdx.x == 0) last = atomicInc(tb + teams, (unsigned)(teams - 1)) == (unsigned)(teams - 1);
   __syncthreads();
-  const int cg = C / groups;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int g0 = (c / cg) * cg;
-    float v = 0.f;
-    for (int j = 0; j < cg; ++j) v = __fadd_rn(v, chan[g0 + j]);
-    v = __fdiv_rn(v, (float)cg);
-    const size_t o = (size_t)b * C + c;
-    if (!SECOND) {
-      mu[o] = v;
-    } else {
-      const float av = __fmul_rn(rsqrtf(__fadd_rn(v, eps)), param(scale, c, params_bf16));
-      a[o] = av;
-      bb[o] = __fsub_rn(param(bias, c, params_bf16), __fmul_rn(mu[o], av));
-    }
-  }
-  if (threadIdx.x == 0) ticket[b] = 0u;
+  if (!last) return;
+  __threadfence();
+  moments_combine(trows, teams, 0, (long long)team * per, HW, C, G, red, true, nullptr, sc, bi, a, bb, b, eps);
 }
 
 // ---------------------------------------------------------------- the cluster design
@@ -423,34 +652,54 @@ int launch_stats_cluster(const void* x, const void* scale, const void* bias, int
 
 }  // namespace
 
-// Kernel N, statistics. x (B, HW, C) bf16 contiguous, 16-byte aligned; scale,
-// bias (C,) bf16 (params_bf16 1) or fp32 (0); a, bb, mu (B, C) fp32 (mu:
-// scratch); partial (B, nblk, C)
-// fp32 scratch; ticket (B,) uint32 scratch (zeroed here). C a multiple of 8
-// up to 2048, groups dividing C. Launches a memset and both passes on
-// `stream`; returns a cudaError_t (0 on success).
-extern "C" int group_norm_stats(const void* x, const void* scale, const void* bias, int params_bf16, void* a,
-                                void* bb, void* mu, void* partial, void* ticket, int B, int HW, int C, int groups,
-                                int nblk, float eps, void* stream) {
-  if (bad_shape(B, HW, C, nblk) || groups <= 0 || C % groups) return (int)cudaErrorInvalidValue;
+// Kernel N, statistics, the moments design: one launch. x (B, HW, C) bf16
+// contiguous, 16-byte aligned; scale, bias (C,) bf16 (params_bf16 1) or fp32
+// (0); a, bb (B, C) fp32; scratch (B, ctas + teams, row_floats(C, groups))
+// fp32, 16-byte aligned, teams = ceil(ctas / team). `ctas` CTAs per batch
+// element of `per` pixels each (per a multiple of 8 x (256 / (C / 8)), every
+// CTA given at least one pixel), teams of `team` CTAs, `stages` ring stages
+// of 32 KB (2 to 6; enough to hold a merge's rows, moments_scratch), the
+// tickets of slot `slot` (0 to 255; a slot serves one stream at a time). C a
+// multiple of 8 up to 2048, groups dividing C. Launches on `stream`; returns
+// a cudaError_t (0 on success; a shape or plan it cannot take:
+// cudaErrorInvalidValue).
+extern "C" int group_norm_stats_moments(const void* x, const void* scale, const void* bias, int params_bf16,
+                                        void* a, void* bb, void* scratch, int slot, int B, int HW, int C,
+                                        int groups, int ctas, int per, int team, int stages, float eps,
+                                        void* stream) {
+  if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || C % VEC || C > MAX_C || groups <= 0 || C % groups)
+    return (int)cudaErrorInvalidValue;
+  const int T = C / VEC, TP = MO_VECS * (MO_CONSUMERS / T);
+  if (per <= 0 || per % TP || ctas <= 0 || (long long)ctas * per < HW || (long long)(ctas - 1) * per >= HW)
+    return (int)cudaErrorInvalidValue;
+  const int teams = team > 0 ? (ctas + team - 1) / team : 0;
+  if (teams <= 0 || stages < 2 || stages > MO_MAX_STAGES || slot < 0 || slot >= MO_SLOTS ||
+      (long long)B * (teams + 1) > MO_SLOT_TICKETS)
+    return (int)cudaErrorInvalidValue;
+  unsigned* tickets = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(reinterpret_cast<void**>(&tickets), g_tickets);
+  if (e != cudaSuccess) return (int)e;
+  tickets += (size_t)slot * MO_SLOT_TICKETS;
+  const int cg = C / groups, W = cg % 8 == 0 ? 8 : cg % 4 == 0 ? 4 : cg % 2 == 0 ? 2 : 1;  // gcd(cg, 8)
+  const size_t smem = (size_t)stages * MO_STAGE_BYTES;
+  if (moments_scratch(C, groups, W, team > teams ? team : teams) > smem) return (int)cudaErrorInvalidValue;
+  float* rows = static_cast<float*>(scratch);
+  float* team_rows = rows + (size_t)B * ctas * row_floats(C, groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned) * B, s);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nblk, B);
-  const int threads = threads_for(C);
-  const bf16* xp = static_cast<const bf16*>(x);
-  float* mp = static_cast<float*>(mu);
-  float* ap = static_cast<float*>(a);
-  float* bbp = static_cast<float*>(bb);
-  float* pp = static_cast<float*>(partial);
-  unsigned* tp = static_cast<unsigned*>(ticket);
-  group_norm_stats_pass<false><<<grid, threads, 0, s>>>(xp, mp, scale, bias, params_bf16, ap, bbp, pp, tp, HW, C,
-                                                         groups, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  group_norm_stats_pass<true><<<grid, threads, 0, s>>>(xp, mp, scale, bias, params_bf16, ap, bbp, pp, tp, HW, C,
-                                                         groups, eps);
-  return (int)cudaGetLastError();
+  const dim3 grid(ctas, B);
+  auto launch = [&](auto kern) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    return vc::launch_cluster(kern, grid, MO_THREADS, smem, s, 1, static_cast<const bf16*>(x), scale, bias,
+                              params_bf16, static_cast<float*>(a), static_cast<float*>(bb), rows, team_rows, tickets,
+                              HW, C, groups, per, team, stages, eps);
+  };
+  switch (W) {
+    case 8: return launch(group_norm_stats_moments_kernel<8>);
+    case 4: return launch(group_norm_stats_moments_kernel<4>);
+    case 2: return launch(group_norm_stats_moments_kernel<2>);
+    default: return launch(group_norm_stats_moments_kernel<1>);
+  }
 }
 
 // Kernel N, statistics, the cluster design: one launch, no scratch. x (B, HW,
