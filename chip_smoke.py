@@ -86,6 +86,13 @@ Phases, each followed by one flushed JSON line on stdout:
              the split at 512 with 64 padded rows and linear1's strided
              gelu half; the gelu of every finite bf16 value through M
              against F.gelu (bound 1 ulp, the count that differ);
+             kernel N: the statistics at every GroupNorm shape of a
+             default query, each with B after it, the apply (none, swish)
+             at the latents and the full-resolution norm_outs, its swish
+             of every finite bf16 value (bound 1 ulp, the count that
+             differ), and the folded launch (group_norm) at the two latent
+             shapes, bit for bit the two launches it replaces (y, a, bb),
+             graph-timed beside them;
              their backward kernels, graph-
              timed, each against its plain backward and against
              torch.autograd.grad of the plain forward, deterministic: J'
@@ -338,6 +345,7 @@ REPLACES = {
     # none: XLA fusions of the VAE's GroupNorm (statistics; the apply, then swish where no conv takes it)
     "group_norm_stats": "visualcloze_tpu/models/autoencoder.py:37",
     "group_norm_apply": "visualcloze_tpu/models/autoencoder.py:61",
+    "group_norm": "visualcloze_tpu/models/autoencoder.py:61",  # group_norm (+ swish :69), statistics and apply
 }
 SOURCES = {
     "flash_attn_rope": "visualcloze_tpu_torch/csrc/flash_attn_rope.cu",
@@ -364,6 +372,7 @@ SOURCES = {
     "merge_heads_bwd": "visualcloze_tpu_torch/csrc/merge_heads_bwd.cu",
     "group_norm_stats": "visualcloze_tpu_torch/csrc/group_norm.cu",
     "group_norm_apply": "visualcloze_tpu_torch/csrc/group_norm.cu",
+    "group_norm": "visualcloze_tpu_torch/csrc/group_norm.cu",
 }
 # kernel G per DiT evaluation: every linear of the int8 DiT once (19 double
 # blocks x 10, 38 single blocks x 3, 8 embedder and 2 final-layer linears);
@@ -387,7 +396,8 @@ W8A8_ONLY = W8A8_KERNELS + (W8A8_UNFUSED,)  # launched by no other DiT
 # their plain versions: 0.
 FUSIONS = ("layernorm_modulate", "gated_residual", "qk_norm_split", "merge_heads")
 BACKWARDS = tuple(f"{n}_bwd" for n in FUSIONS)
-GROUP_NORM = ("group_norm_stats", "group_norm_apply")  # kernel N, the VAE's GroupNorm (csrc/group_norm.cu)
+# kernel N, the VAE's GroupNorm (csrc/group_norm.cu): the statistics, the apply, and both in one launch
+GROUP_NORM = ("group_norm_stats", "group_norm_apply", "group_norm")
 DIT_ATTENTION = "flash_attn_fwd"
 # what a serving query launches (the DiT's attention and fused passes, the VAE's B, C and N), and what it must not
 SERVING = (DIT_ATTENTION, "conv3x3_gn_swish", "flash_attn_d512") + GROUP_NORM + FUSIONS
@@ -395,13 +405,36 @@ UNSERVED = ("flash_attn_rope", "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash
 
 
 def group_norm_calls(cfg) -> dict:
-    """Kernel N's launches per encode and per decode of a VAE of `cfg`
-    (models/autoencoder.py): the statistics once per GroupNorm (two a
-    resnet block; the mid block's two resnets and attention block; norm_out),
-    the apply at the attention block (no act) and norm_out (swish)."""
+    """Kernel N's wrapper calls per encode and per decode of a VAE of `cfg`
+    (models/autoencoder.py): group_norm_stats once per resnet GroupNorm (two
+    a resnet block, the mid block's two resnets included), group_norm at the
+    attention block (no act) and norm_out (swish)."""
     levels, blocks = len(cfg.ch_mult), cfg.num_res_blocks
-    return {"encode": {"stats": 2 * (levels * blocks + 2) + 2, "apply": 2},
-            "decode": {"stats": 2 * (levels * (blocks + 1) + 2) + 2, "apply": 2}}
+    return {"encode": {"stats": 2 * (levels * blocks + 2), "group_norm": 2},
+            "decode": {"stats": 2 * (levels * (blocks + 1) + 2), "group_norm": 2}}
+
+
+def group_norm_launches(cfg, shape, part: str, limits) -> dict:
+    """Kernel N's launches, by wrapper, in one encode of images `shape` (B,
+    H, W, 3) ("encode") or one decode of latents `shape` (B, h, w, z)
+    ("decode") on a card of `limits` (ops.group_norm.device_limits): the
+    statistics at every resnet GroupNorm (group_norm_calls); at the
+    attention block's norm and norm_out one launch of group_norm where
+    stats_plan picks the cluster design, else the statistics and the apply."""
+    from visualcloze_tpu_torch.ops.group_norm import stats_plan
+
+    b, h, w, f = *shape[:3], cfg.downsample_factor
+    if part == "decode":
+        h, w = h * f, w * f
+    latent = (b, h // f, w // f, cfg.ch * cfg.ch_mult[-1])
+    out = {"group_norm_stats": group_norm_calls(cfg)[part]["stats"], "group_norm_apply": 0, "group_norm": 0}
+    for x in (latent, latent if part == "encode" else (b, h, w, cfg.ch * cfg.ch_mult[0])):
+        if stats_plan(*x, 32, *limits).design == "cluster":
+            out["group_norm"] += 1
+        else:
+            out["group_norm_stats"] += 1
+            out["group_norm_apply"] += 1
+    return out
 
 
 def group_norm_shapes(cfg, h: int, w: int, part: str) -> dict:
@@ -901,6 +934,77 @@ def check_group_norm_apply(shape, act: str, reps: int, groups: int = 32) -> dict
                 ok=ulps <= 1.0 and deterministic, deterministic=deterministic, ms=ms, eager_ms=eager_ms,
                 plain_ms=plain_ms, library_ms=library_ms, library=library, bound_ms=bms, bound_by=by,
                 share_of_bound=bms / ms)
+
+
+def check_group_norm_fused(shape, act: str, reps: int, groups: int = 32) -> dict:
+    """Kernel N's folded launch (group_norm at a shape where stats_plan picks
+    the cluster design): y, a and bb bit for bit those of the two launches it
+    replaces, group_norm_apply(x, *group_norm_stats(x)), the same bits twice,
+    and y within 2 bf16 ulps at the largest |y| of the plain version (whose
+    statistics sum in another order). ms: a replayed CUDA graph of the
+    folded launch; unfused_ms: of the two launches, in the same call. The
+    bound: x read and y written once."""
+    import torch
+
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    B, H, W, C = shape
+    plan = gn.stats_plan(B, H, W, C, groups, *gn.device_limits(0))
+    x, scale, bias = group_norm_inputs(shape)
+    got = gn.group_norm(x, scale, bias, groups, act=act)
+    y, a, bb = gn.launch_fused_plan(x, scale, bias, groups, 1e-6, act, plan)
+    y2, a2, bb2 = gn.launch_fused_plan(x, scale, bias, groups, 1e-6, act, plan)
+    ua, ubb = gn.group_norm_stats(x, scale, bias, groups)
+    uy = gn.group_norm_apply(x, ua, ubb, act)
+    torch.cuda.synchronize()
+    exact = torch.equal(y, uy) and torch.equal(a, ua) and torch.equal(bb, ubb) and torch.equal(got, y)
+    deterministic = torch.equal(y, y2) and torch.equal(a, a2) and torch.equal(bb, bb2)
+    want = gn.group_norm_plain(x, scale, bias, groups, act=act)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = bf16_ulps_tol(want, 2)
+    del got, y, y2, uy, want
+    ms = cuda_ms(lambda: gn.group_norm(x, scale, bias, groups, act=act), reps, graph=True)
+    unfused_ms = cuda_ms(lambda: gn.group_norm_apply(x, *gn.group_norm_stats(x, scale, bias, groups), act), reps,
+                         graph=True)
+    eager_ms = cuda_ms(lambda: gn.group_norm(x, scale, bias, groups, act=act), reps)
+    plain_ms = cuda_ms(lambda: gn.group_norm_plain(x, scale, bias, groups, act=act), max(2, reps // 5))
+    library_ms, library = (native_group_norm_ms(x, scale, bias, groups, reps) if act == "none"
+                           else (None, "none (no single PyTorch call)"))
+    bms, by = bound((8.0 if act == "swish" else 6.0) * x.numel(), 2 * x.numel() * 2 + 2 * C * 2 + 2 * B * C * 4,
+                    PEAK_FP32)
+    return dict(name="group_norm", shape=[B, H, W, C], act=act, design=plan.design, cluster=plan.cluster,
+                block_groups=plan.block_groups, ctas=B * plan.ctas, cta_bytes=plan.cta_bytes,
+                equals_two_launches=exact, max_abs_err=err, tol=tol, ok=exact and deterministic and err <= tol
+                and plan.design == "cluster", deterministic=deterministic, ms=ms, unfused_ms=unfused_ms,
+                faster_than_two_launches=ms < unfused_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library=library, bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
+
+
+def check_swish_exhaustive() -> dict:
+    """Kernel N's swish (csrc/group_norm.cu `sigmoid` and `apply8`: sigmoid
+    as one ex2.approx and one rcp.approx, h * bf16(sigmoid) as a bf16x2
+    multiply) of every finite bf16 value (65,280 bit
+    patterns), reached through group_norm_apply with a = 1 and bb = 0 (h =
+    x exactly), against the plain version's bf16 h * sigmoid(h) on the card:
+    each within one bf16 ulp (bound 1), with the count that differ at all,
+    deterministic."""
+    import torch
+
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    dev = torch.device("cuda")
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16).view(torch.bfloat16)
+    x = bits[torch.isfinite(bits)].reshape(1, 1, -1, 8)
+    a, bb = torch.ones((1, 8), device=dev), torch.zeros((1, 8), device=dev)
+    got = gn.group_norm_apply(x, a, bb, "swish")
+    again = gn.group_norm_apply(x, a, bb, "swish")
+    want = gn.group_norm_apply_plain(x, a, bb, "swish")
+    err = ((got.float() - want.float()).abs() / bf16_ulps_each(want)).max().item()
+    differ = int((got.view(torch.int16) != want.view(torch.int16)).sum().item())
+    deterministic = torch.equal(got, again)
+    return dict(name="swish", what="every finite bf16 input through kernel N's swish vs h * sigmoid(h) on the card",
+                values=x.numel(), max_ulps=err, tol_ulps=1.0, differ=differ, deterministic=deterministic,
+                ok=bool(err <= 1.0 and deterministic))
 
 
 def attention_case(b: int, L: int, padded: bool, seed: int, holes: bool = False):
@@ -2036,7 +2140,7 @@ def plain_dit():
     plain = {(att_mod, "flash_mha_rope"): fa.flash_attention_plain,
              (att_mod, "flash_mha"): fa.flash_attention_plain,
              (ae_mod, "group_norm_stats"): gn.group_norm_stats_plain,
-             (ae_mod, "group_norm_apply"): gn.group_norm_apply_plain,
+             (ae_mod, "group_norm_act"): gn.group_norm_plain,
              (ae_mod, "conv3x3_gn_swish"): lambda x, w, b, pre_affine=None, act="swish": cv.conv3x3_plain(
                  x, w, b, pre_affine, act),
              (ae_mod, "flash_attn_d512"): fa.flash_attention_plain}
@@ -2387,7 +2491,15 @@ def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(
 
     model.denoise_query = recording
     vae_calls = {"encode": 0, "decode": 0}
-    hooks = [part.register_forward_pre_hook(lambda *_, k=k: vae_calls.__setitem__(k, vae_calls[k] + 1))
+    vae_inputs = []  # (part, input shape) of every encode and decode
+
+    def seen(k):
+        def hook(_, args):
+            vae_calls[k] += 1
+            vae_inputs.append((k, tuple(args[0].shape)))
+        return hook
+
+    hooks = [part.register_forward_pre_hook(seen(k))
              for k, part in (("encode", model.ae.encoder), ("decode", model.ae.decoder))]
     grid = synthetic_grid(rows, cols, seed)
     model.set_grid_size(rows, cols)
@@ -2429,9 +2541,13 @@ def run_request(model, name, rows, cols, steps, upsampling, seed, used, unused=(
         # a w8a8 DiT takes the fused route unless an adapter gives its linears LoRA entries
         out["fusion_launches_expected"] = fusions_expected(evals, w8a8="w8a8_matmul" in used and adapter is None)
         out["ok"] = out["ok"] and fusion_launches(launches) == out["fusion_launches_expected"]
-    if set(GROUP_NORM) <= set(used):  # N once per GroupNorm of every encode and decode (group_norm_calls)
-        per = group_norm_calls(model.ae.cfg)
-        want = {n: sum(vae_calls[k] * per[k][n.split("_")[-1]] for k in per) for n in GROUP_NORM}
+    if set(GROUP_NORM) <= set(used):  # N's launches by the plan each GroupNorm takes (group_norm_launches)
+        from visualcloze_tpu_torch.ops.group_norm import device_limits
+
+        want = {n: 0 for n in GROUP_NORM}
+        for k, shape in vae_inputs:
+            for n, v in group_norm_launches(model.ae.cfg, shape, k, device_limits(0)).items():
+                want[n] += v
         out.update(vae_calls=vae_calls, group_norm_launches_expected=want)
         out["ok"] = out["ok"] and all(launches[n] == want[n] for n in GROUP_NORM)
     return out
@@ -4057,6 +4173,13 @@ def main() -> int:
         # the apply at the latent shape: the attention block's (no act), the encoder's norm_out (swish)
         lambda: [check_group_norm_apply((1, 48, 144, 512), "none", 50)],
         lambda: [check_group_norm_apply((1, 48, 144, 512), "swish", 50)],
+        lambda: [check_group_norm_apply((1, 384, 1152, 128), "swish", 20)],  # the decoder's norm_out on a row
+        lambda: [check_swish_exhaustive()],
+        # the folded launch at the latents: the attention block's norm (none), the encoder's norm_out (swish)
+        lambda: [check_group_norm_fused((1, 48, 144, 512), "none", 50)],
+        lambda: [check_group_norm_fused((1, 48, 144, 512), "swish", 50)],
+        lambda: [check_group_norm_fused((1, 128, 128, 512), "none", 50)],
+        lambda: [check_group_norm_fused((1, 128, 128, 512), "swish", 50)],
         lambda: [check_int8_matmul(3968, 3072, 21504, "linear1", 20)],
         lambda: [check_int8_matmul(3968, 15360, 3072, "linear2", 20)],
         lambda: [check_int8_matmul(3456, 3072, 9216, "img_attn.qkv", 20)],

@@ -7,9 +7,15 @@ other, that checkout's own `chip_smoke` check functions at the main path's
 shapes (`check_layernorm_modulate_bwd`, `check_layernorm_modulate`,
 `check_gated_residual`; J and M writing codes, `check_layernorm_modulate_quant`
 and `check_merge_heads_quant`; kernel O, `check_gelu_act_quant`; kernel M,
-`check_merge_heads`; kernel N, `check_group_norm_stats` and
-`check_group_norm_apply`), with the arguments older checkouts' functions
-take too.
+`check_merge_heads`; kernel N, `check_group_norm_stats`,
+`check_group_norm_apply` and `check_group_norm_fused`), with the arguments
+older checkouts' functions take too. `group_norm` is the folded launch at
+the two latent shapes; a checkout without it (no `check_group_norm_fused`)
+times the two launches it replaces, group_norm_apply(x,
+*group_norm_stats(x)), by the same graph-replayed timer (the script's own
+code, calling the checkout's wrappers). `swish` runs every finite bf16
+value through each checkout's kernel N apply (a = 1, bb = 0) and counts the
+results that differ from the plain version's on the card.
 `gelu` runs every finite bf16 value through each checkout's kernel M and
 counts the results that differ from F.gelu(approximate="tanh") on the card
 (the script's own code, calling the checkout's `merge_heads`). Each
@@ -85,13 +91,18 @@ LINES = {
         ((1, 96, 288, 512), 50), ((1, 256, 256, 256), 20), ((1, 192, 576, 256), 20), ((1, 512, 512, 128), 20),
         ((1, 256, 256, 512), 20), ((1, 384, 1152, 128), 20), ((1, 192, 576, 512), 20), ((1, 512, 512, 256), 20),
         ((1, 384, 1152, 256), 10), ((1, 1024, 1024, 128), 20), ((1, 512, 512, 512), 10), ((1, 1024, 1024, 256), 10))],
-    "group_norm_apply": [("check_group_norm_apply", (s, act, 50), {}) for s in ((1, 48, 144, 512), (1, 128, 128, 512))
-                         for act in ("none", "swish")],
+    "group_norm_apply": [("check_group_norm_apply", (s, act, r), {}) for s, r in (
+        ((1, 48, 144, 512), 50), ((1, 128, 128, 512), 50), ((1, 384, 1152, 128), 20), ((1, 1024, 1024, 128), 20))
+        for act in ("none", "swish")],
+    "group_norm": [("group_norm_fused", (s, act, 50), {}) for s in ((1, 48, 144, 512), (1, 128, 128, 512))
+                   for act in ("none", "swish")],
+    "swish": [("swish_exhaustive", (), {})],
 }
 SOURCES = {"layernorm_modulate_bwd": "layernorm_modulate_bwd", "layernorm_modulate": "layernorm_modulate",
            "gated_residual": "gated_residual", "layernorm_modulate_quant": "layernorm_modulate",
            "merge_heads_quant": "merge_heads", "gelu_act_quant": "gelu_act_quant", "merge_heads": "merge_heads",
-           "gelu": "merge_heads", "group_norm_stats": "group_norm", "group_norm_apply": "group_norm"}
+           "gelu": "merge_heads", "group_norm_stats": "group_norm", "group_norm_apply": "group_norm",
+           "group_norm": "group_norm", "swish": "group_norm"}
 CHILD = r"""
 import json, re, sys
 
@@ -116,15 +127,44 @@ def gelu_exhaustive():
                 max_ulps=err, differ=differ, ok=err <= 1.0)
 
 
+def swish_exhaustive():
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device="cuda").to(torch.int16).view(torch.bfloat16)
+    x = bits[torch.isfinite(bits)].reshape(1, 1, -1, 8)
+    a, bb = torch.ones((1, 8), device="cuda"), torch.zeros((1, 8), device="cuda")
+    got = gn.group_norm_apply(x, a, bb, "swish")
+    want = gn.group_norm_apply_plain(x, a, bb, "swish")
+    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126))) - 7)
+    err = ((got.float() - want.float()).abs() / ulp).max().item()
+    differ = int((got.view(torch.int16) != want.view(torch.int16)).sum().item())
+    return dict(name="swish", what="every finite bf16 value through kernel N's apply vs the plain version",
+                shape=[x.numel()], max_ulps=err, differ=differ, ok=err <= 1.0)
+
+
+def group_norm_fused(shape, act, reps):
+    if hasattr(cs, "check_group_norm_fused"):
+        return cs.check_group_norm_fused(shape, act, reps)
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    x, scale, bias = cs.group_norm_inputs(shape)
+    ms = cs.cuda_ms(lambda: gn.group_norm_apply(x, *gn.group_norm_stats(x, scale, bias, 32), act), reps, graph=True)
+    bms, by = cs.bound((8.0 if act == "swish" else 6.0) * x.numel(), 4 * x.numel(), cs.PEAK_FP32)
+    return dict(name="group_norm", what="the two launches (statistics, then apply)", shape=list(shape), act=act,
+                ms=ms, unfused_ms=ms, bound_ms=bms, share_of_bound=bms / ms, ok=True)
+
+
+LOCAL = {"gelu_exhaustive": gelu_exhaustive, "swish_exhaustive": swish_exhaustive, "group_norm_fused": group_norm_fused}
 for fn, args, kwargs in json.loads(sys.argv[1]):
-    r = gelu_exhaustive() if fn == "gelu_exhaustive" else getattr(cs, fn)(*args, **kwargs)
+    r = (LOCAL[fn] if fn in LOCAL else getattr(cs, fn))(*args, **kwargs)
     torch.cuda.synchronize()
     print("LINE " + json.dumps(r), flush=True)
 keep = ("entry function", "registers", "spill")
 print("PTXAS " + json.dumps({n: [re.sub(r"\s+", " ", ln.strip()) for ln in log.splitlines() if any(k in ln for k in keep)]
                              for n, log in cuda_build.BUILD_LOG.items() if n in sys.argv[2].split(",")}), flush=True)
 """
-KEEP = ("name", "what", "shape", "act", "design", "cluster", "ctas", "stages", "team", "ms", "eager_ms", "bound_ms",
+KEEP = ("name", "what", "shape", "act", "design", "cluster", "ctas", "stages", "team", "ms", "eager_ms", "unfused_ms",
+        "bound_ms",
         "share_of_bound", "plain_ms", "library_ms", "unfused_kernels_ms", "max_abs_err", "b_after_n_max_abs_err",
         "deterministic", "max_ulps", "differ", "ok")
 

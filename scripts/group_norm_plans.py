@@ -16,8 +16,12 @@ x's MB, design, cluster, groups a block, the block's bytes a pixel (a row),
 CTAs, stages, team, a CTA's shared memory, the clusters the card runs at
 once, ms, the one-read bound's ms and share, the L2 requests the cluster
 design's loads make (a row a pixel and block) and their rate, and whether
-`stats_plan` picks this plan. Then the card's name and power limit. These
-are the measurements behind `stats_plan`'s constants.
+`stats_plan` picks this plan. A cluster plan's line also times kernel N's
+folded launch under it (`launch_fused_plan`, the statistics and the apply
+in one launch; act none and swish) and checks its y, a and bb for the same
+bits as the statistics under the plan followed by the apply. Then the
+card's name and power limit. These are the measurements behind
+`stats_plan`'s constants.
 """
 
 from __future__ import annotations
@@ -88,6 +92,15 @@ def main(argv=None) -> int:
                 line = dict(shape=list(shape), mb=x.numel() * 2 / 1e6, design=plan.design, cluster=plan.cluster,
                             ms=ms, bound_ms=bound, share_of_bound=bound / ms, ok=ok, chosen=plan == chosen)
                 if plan.design == "cluster":
+                    for act in ("none", "swish"):
+                        y, fa, fbb = gn.launch_fused_plan(x, scale, bias, groups, 1e-6, act, plan)
+                        line[f"fused_{act}_equal"] = (torch.equal(fa, a) and torch.equal(fbb, bb)
+                                                      and torch.equal(y, gn.group_norm_apply(x, a, bb, act)))
+                        line[f"fused_{act}_ms"] = cs.cuda_ms(
+                            lambda plan=plan, act=act: gn.launch_fused_plan(x, scale, bias, groups, 1e-6, act, plan),
+                            args.reps, graph=True)
+                        del y
+                    line["ok"] = line["ok"] and line["fused_none_equal"] and line["fused_swish_equal"]
                     requests = b * hw * (groups // plan.block_groups)
                     line.update(block_groups=plan.block_groups, row_bytes=plan.block_groups * cg * 2,
                                 ctas=b * plan.ctas, cta_bytes=plan.cta_bytes,

@@ -1464,6 +1464,74 @@ def test_gpu_group_norm_apply_matches_plain(shape, act):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("act", ["none", "swish"])
+@pytest.mark.parametrize("shape", [(1, 48, 144, 512), (1, 128, 128, 512), (2, 37, 91, 512), (1, 37, 91, 128),
+                                   (1, 8, 8, 32)])
+def test_gpu_group_norm_folded_launch_is_the_two_launches(shape, act):
+    """group_norm where stats_plan picks the cluster design: one launch
+    (counted as group_norm, none as the statistics or the apply) whose y, a
+    and bb equal group_norm_apply(x, *group_norm_stats(x)) bit for bit,
+    deterministic; clusters of 8, 4 and 1, batch 2, C = 128 blocks of 16
+    groups."""
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    dev = _cuda_or_skip()
+    plan = gn.stats_plan(*shape, 32, *gn.device_limits(dev.index or 0))
+    assert plan.design == "cluster", plan
+    x, scale, bias = _group_norm_case(dev, shape, sum(shape))
+    ops.reset_kernel_launches()
+    got = gn.group_norm(x, scale, bias, 32, act=act)
+    launches = ops.kernel_launches()
+    assert (launches["group_norm"], launches["group_norm_stats"], launches["group_norm_apply"]) == (1, 0, 0)
+    y, a, bb = gn.launch_fused_plan(x, scale, bias, 32, 1e-6, act, plan)
+    ua, ubb = gn.group_norm_stats(x, scale, bias, 32)
+    assert torch.equal(y, gn.group_norm_apply(x, ua, ubb, act)) and torch.equal(got, y)
+    assert torch.equal(a, ua) and torch.equal(bb, ubb)
+    assert torch.equal(y, gn.group_norm(x, scale, bias, 32, act=act))
+
+
+@pytest.mark.gpu
+def test_gpu_group_norm_takes_two_launches_off_the_cluster_design():
+    """Where stats_plan picks the moments design, group_norm is the
+    statistics then the apply (one launch each, none counted as
+    group_norm), the same bits; launch_fused_plan refuses a moments plan."""
+    from visualcloze_tpu_torch import ops
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    dev = _cuda_or_skip()
+    shape = (1, 384, 1152, 128)
+    plan = gn.stats_plan(*shape, 32, *gn.device_limits(dev.index or 0))
+    assert plan.design == "moments"
+    x, scale, bias = _group_norm_case(dev, shape, 5)
+    ops.reset_kernel_launches()
+    got = gn.group_norm(x, scale, bias, 32, act="swish")
+    launches = ops.kernel_launches()
+    assert (launches["group_norm"], launches["group_norm_stats"], launches["group_norm_apply"]) == (0, 1, 1)
+    assert torch.equal(got, gn.group_norm_apply(x, *gn.group_norm_stats(x, scale, bias, 32), "swish"))
+    with pytest.raises(ValueError, match="cluster-design plan"):
+        gn.launch_fused_plan(x, scale, bias, 32, 1e-6, "none", plan)
+
+
+@pytest.mark.gpu
+def test_gpu_swish_of_every_bf16_is_within_one_ulp_of_the_plain_version():
+    """Kernel N's swish (ex2.approx + rcp.approx, an IEEE division where 1 /
+    d is subnormal) through the apply with a = 1, bb = 0: every finite bf16
+    h within one bf16 ulp of bf16 h * sigmoid(h) on the card, and the same
+    swish through the folded launch equals the apply's."""
+    from visualcloze_tpu_torch.ops import group_norm as gn
+
+    dev = _cuda_or_skip()
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16).view(torch.bfloat16)
+    x = bits[torch.isfinite(bits)].reshape(1, 1, -1, 8)
+    a, bb = torch.ones((1, 8), device=dev), torch.zeros((1, 8), device=dev)
+    got = gn.group_norm_apply(x, a, bb, "swish").float()
+    want = gn.group_norm_apply_plain(x, a, bb, "swish").float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+    assert bool(((got - want).abs() <= ulp).all())
+
+
+@pytest.mark.gpu
 def test_gpu_group_norm_refuses_what_it_cannot_take():
     """No quiet fallback on CUDA tensors: not bf16, C not a multiple of 8 or
     above 2048, groups not dividing C, the tiny configs' C < 32."""
@@ -1492,15 +1560,17 @@ def test_gpu_group_norm_refuses_what_it_cannot_take():
 @pytest.mark.gpu
 def test_gpu_vae_decode_runs_every_group_norm_through_n():
     """The full-width FLUX VAE decoding a small latent: N's statistics once
-    per GroupNorm and its apply at the attention block and norm_out
-    (chip_smoke.group_norm_calls), no other plain GroupNorm; the pixels
+    per resnet GroupNorm, the attention block's norm and norm_out through
+    group_norm by the plan each takes (chip_smoke.group_norm_launches), no
+    other plain GroupNorm; the pixels
     within 5% RMS of the all-plain route (chip_smoke.plain_dit), as
     chip_smoke's reference check holds the VAE."""
-    from chip_smoke import group_norm_calls, plain_dit
+    from chip_smoke import group_norm_launches, plain_dit
 
     from visualcloze_tpu_torch import ops
     from visualcloze_tpu_torch.config import AutoEncoderConfig
     from visualcloze_tpu_torch.models.autoencoder import build_autoencoder
+    from visualcloze_tpu_torch.ops import group_norm as gn
 
     dev = _cuda_or_skip()
     cfg = AutoEncoderConfig()
@@ -1511,8 +1581,8 @@ def test_gpu_vae_decode_runs_every_group_norm_through_n():
     with torch.no_grad():
         got = ae.decode(z).float()
     launches = ops.kernel_launches()
-    want_calls = group_norm_calls(cfg)["decode"]
-    assert launches["group_norm_stats"] == want_calls["stats"] and launches["group_norm_apply"] == 2, launches
+    want = group_norm_launches(cfg, tuple(z.shape), "decode", gn.device_limits(dev.index or 0))
+    assert all(launches[n] == v for n, v in want.items()), (launches, want)
     ops.reset_kernel_launches()
     with torch.no_grad(), plain_dit():
         want = ae.decode(z).float()

@@ -47,9 +47,9 @@ from visualcloze_tpu_torch.config import AutoEncoderConfig
 from visualcloze_tpu_torch.models import autoencoder as tae
 from visualcloze_tpu_torch.ops import attention as tatt
 from visualcloze_tpu_torch.ops.group_norm import (CLUSTER_WARPS, MAX_BLOCK_CHUNKS, MAX_CLUSTER, MOMENTS_CONSUMERS,
-                                                  MOMENTS_STAGE_BYTES, cluster_plan, group_norm_apply,
-                                                  group_norm_apply_plain, group_norm_stats, group_norm_stats_plain,
-                                                  moments_plan, moments_tile, stats_plan)
+                                                  MOMENTS_STAGE_BYTES, cluster_plan, group_norm, group_norm_apply,
+                                                  group_norm_apply_plain, group_norm_plain, group_norm_stats,
+                                                  group_norm_stats_plain, moments_plan, moments_tile, stats_plan)
 from visualcloze_tpu_torch.profile_step import GROUP_NORM_KERNEL, vae_class
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -136,13 +136,47 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions_and_count_no_launch(dtyp
     assert ops.kernel_launches()["group_norm_apply"] == 0
 
 
+@pytest.mark.parametrize("act", ["none", "swish"])
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["fp32", "bf16"])
+def test_group_norm_on_cpu_tensors_is_the_plain_two_step_and_counts_no_launch(dtype, act):
+    """The folded entry group_norm on a CPU tensor: the plain statistics,
+    then the plain apply, bit for bit (group_norm_plain too); no launch."""
+    x, scale, bias = (torch.from_numpy(a).to(dtype) for a in _inputs((2, 5, 7, 64), 4))
+    ops.reset_kernel_launches()
+    got = group_norm(x, scale, bias, 32, act=act)
+    want = group_norm_apply_plain(x, *group_norm_stats_plain(x, scale, bias, 32), act)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(group_norm_plain(x, scale, bias, 32, act=act), want)
+    with pytest.raises(ValueError, match="unknown act"):
+        group_norm(x, scale, bias, 32, act="gelu")
+    assert not any(ops.kernel_launches().values())
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 8, 8, 512), (2, 16, 24, 128), (1, 6, 10, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_group_norm_matches_jax(shape, dtype):
+    """group_norm (act none and swish) against JAX's `group_norm` and
+    `swish(group_norm(...))` at the VAE's 512 and 128 channels and the tiny
+    configs' C < 32: test_plain_versions_match_jax's bounds."""
+    x, scale, bias = _inputs(shape, sum(shape) + 1)
+    jd = JAX_DTYPE[dtype]
+    p = {"scale": jnp.asarray(scale).astype(jd), "bias": jnp.asarray(bias).astype(jd)}
+    jx = jnp.asarray(x).astype(jd)
+    tx, tscale, tbias = (torch.from_numpy(v).to(dtype) for v in (x, scale, bias))
+    groups = min(32, shape[-1])
+    close = (lambda g, w, what: _assert_rel(g, w, 1e-6, what)) if dtype == F32 else _assert_ulp
+    close(group_norm(tx, tscale, tbias, groups), jae.group_norm(p, jx), "group_norm")
+    close(group_norm(tx, tscale, tbias, groups, act="swish"), jae.swish(jae.group_norm(p, jx)), "group_norm + swish")
+
+
 def test_the_tiny_vae_calls_n_once_per_group_norm(monkeypatch):
-    """Encoder and decoder of the tiny VAE: N's statistics once per
-    GroupNorm (two a resnet block, the attention block's, norm_out's), its
-    apply at the attention block and norm_out (with swish there), as
-    chip_smoke.group_norm_calls counts them; and the same numbers as JAX's
-    encode_moments / decode on the same weights (1e-4, test_vae_tiny_matches_jax's
-    bound)."""
+    """Encoder and decoder of the tiny VAE: N's statistics once per resnet
+    GroupNorm (two a resnet block), group_norm (the statistics and the
+    apply, folded where the card's plan allows) at the attention block and
+    norm_out (with swish there), as chip_smoke.group_norm_calls counts them;
+    and the same numbers as JAX's encode_moments / decode on the same weights
+    (1e-4, test_vae_tiny_matches_jax's bound)."""
     cfg = AutoEncoderConfig().tiny()
     seen = {"stats": 0, "none": 0, "swish": 0}
 
@@ -150,12 +184,12 @@ def test_the_tiny_vae_calls_n_once_per_group_norm(monkeypatch):
         seen["stats"] += 1
         return group_norm_stats(*args, **kwargs)
 
-    def apply(x, a, bb, act="none"):
+    def folded(x, scale, bias, groups, eps=1e-6, act="none"):
         seen[act] += 1
-        return group_norm_apply(x, a, bb, act)
+        return group_norm(x, scale, bias, groups, eps, act)
 
     monkeypatch.setattr(tae, "group_norm_stats", stats)
-    monkeypatch.setattr(tae, "group_norm_apply", apply)
+    monkeypatch.setattr(tae, "group_norm_act", folded)
     jcfg = JaxAutoEncoderConfig().tiny()
     jmodel = jae.AutoEncoder(jcfg, jae.init_autoencoder(jax.random.PRNGKey(5), jcfg))
     model = convert.vae_from_jax(jax.tree.map(np.asarray, jmodel.params), cfg, device="cpu")
@@ -171,9 +205,9 @@ def test_the_tiny_vae_calls_n_once_per_group_norm(monkeypatch):
     want = np.asarray(jae.decoder_apply(jcfg, jmodel.params["decoder"], jnp.asarray(z)))
     np.testing.assert_allclose(got, want, atol=1e-4)
     assert seen == {"stats": calls["encode"]["stats"] + calls["decode"]["stats"], "none": 2, "swish": 2}, seen
-    assert calls["encode"]["apply"] == calls["decode"]["apply"] == 2
+    assert calls["encode"]["group_norm"] == calls["decode"]["group_norm"] == 2
     full = chip_smoke.group_norm_calls(AutoEncoderConfig())
-    assert full == {"encode": {"stats": 22, "apply": 2}, "decode": {"stats": 30, "apply": 2}}
+    assert full == {"encode": {"stats": 20, "group_norm": 2}, "decode": {"stats": 28, "group_norm": 2}}
 
 
 @pytest.fixture
@@ -274,6 +308,21 @@ def test_stats_plan_at_the_query_shapes(shape):
     assert on_cluster == ON_CLUSTER
 
 
+def test_the_query_folds_eleven_group_norms():
+    """A default query's VAE work on an H100 by chip_smoke.group_norm_launches:
+    every attention-block norm and the encoders' norm_outs sit at a latent
+    the cluster design holds, one group_norm launch each (11); the three
+    decoders' norm_outs at full resolution take the statistics and the
+    apply; the statistics launch at the other 167 of the 178 GroupNorms."""
+    cfg, total = AutoEncoderConfig(), {"group_norm_stats": 0, "group_norm_apply": 0, "group_norm": 0}
+    for (h, w), enc, dec in QUERY:
+        for part, n, shape in (("encode", enc, (1, h, w, 3)), ("decode", dec, (1, h // 8, w // 8, cfg.z_channels))):
+            for k, v in chip_smoke.group_norm_launches(cfg, shape, part, H100).items():
+                total[k] += n * v
+    assert total == {"group_norm_stats": 167, "group_norm_apply": 3, "group_norm": 11}
+    assert sum(_query_shapes().values()) == total["group_norm_stats"] + total["group_norm"]
+
+
 PLAN_CASES = sorted(_query_shapes()) + [(2, 37, 91, 512), (4, 48, 144, 512), (1, 37, 91, 128), (3, 5, 7, 128),
                                         (1, 64, 64, 2048), (1, 1, 3, 256), (8, 128, 128, 512), (1, 8, 8, 32),
                                         (2, 37, 91, 384), (300, 4, 4, 256)]
@@ -351,13 +400,15 @@ def test_stats_plan_sizes_clusters_as_designed():
 
 
 def emulate_cluster_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
-                          eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+                          eps: float = 1e-6, parts: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The cluster design (csrc/group_norm.cu group_norm_stats_resident) in
     torch fp32, one operation per kernel step, on cluster_plan's H100 plan:
     thread t of a CTA sums its chunks t, t + 512, ... in order; a butterfly
     over the warp's lanes of the same chunk; the 16 warps in order; the
     cluster's ranks in order; / HW; the group's channels in order; / cg;
-    pass 2 the same on (x - mu)^2."""
+    pass 2 the same on (x - mu)^2. parts: a dict that receives each rank's
+    pass-2 sums ("pass2", (b, blocks, cluster, channels)) and the group
+    means by channel ("mu_c", (b, blocks, channels))."""
     b, h, w, c = x.shape
     plan = cluster_plan(b, h, w, c, groups, H100[1])
     hw, cg, cl, per = h * w, c // groups, plan.cluster, plan.per
@@ -406,7 +457,10 @@ def emulate_cluster_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
     for i in range(j):
         d = chunks[:, :, :, i] - mu_t
         acc = acc + torch.where(valid[:, i], d * d, 0.0)
-    var = cluster_means(cta_sums(acc))
+    pass2 = cta_sums(acc)
+    if parts is not None:
+        parts.update(pass2=pass2, mu_c=mu_c)
+    var = cluster_means(pass2)
     rsig = torch.rsqrt(var + eps).repeat_interleave(cg, dim=-1).reshape(b, c)
     a = rsig * scale.float()[None]
     return a, bias.float()[None] - mu_c.reshape(b, c) * a
@@ -425,6 +479,43 @@ def test_cluster_design_order_matches_jax(shape):
     wa, wbb = jae.group_norm_affine(p, jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
     _assert_rel(a, wa, 1e-5, "a")
     _assert_rel(bb, wbb, 1e-5, "bb")
+
+
+@pytest.mark.parametrize("shape", [(1, 48, 144, 512), (1, 128, 128, 512), (2, 37, 91, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_folded_launch_forms_the_same_a_and_bb_in_every_rank(shape):
+    """The folded launch's order (csrc/group_norm.cu resident_body, Y > 0):
+    each rank of a cluster reads every rank's pass-2 sums through DSMEM in
+    rank order (its own part a copy among them, ranks past the cluster +0)
+    and forms var, a and bb itself. Emulated per rank on the emulated
+    cluster design's partial sums: every rank's a and bb equal rank 0's
+    bits, which the statistics launch writes, and the apply of them is
+    within the bound of JAX's group_norm + swish."""
+    x, scale, bias = (torch.from_numpy(v).to(BF16) for v in _inputs(shape, sum(shape)))
+    parts = {}
+    a0, bb0 = emulate_cluster_stats(x, scale, bias, 32, parts=parts)
+    plan = cluster_plan(*shape, 32, H100[1])
+    b, h, w, c = shape
+    cg, channels = c // 32, plan.block_groups * (c // 32)
+    mu_c = parts["mu_c"]  # (b, blocks, channels)
+    for rank in range(plan.cluster):
+        # this rank's view: a copy of each peer's shared-memory part, read in rank order
+        view = [parts["pass2"][:, :, r].clone() for r in range(plan.cluster)]
+        total = torch.zeros_like(view[0])
+        for r in range(MAX_CLUSTER):
+            total = total + (view[r] if r < plan.cluster else 0.0)
+        chan = (total / float(h * w)).reshape(*total.shape[:2], plan.block_groups, cg)
+        var = torch.zeros(chan.shape[:-1])
+        for i in range(cg):
+            var = var + chan[..., i]
+        var = (var / float(cg)).repeat_interleave(cg, dim=-1)
+        a = (torch.rsqrt(var + 1e-6) * scale.float().reshape(-1, channels)[None]).reshape(b, c)
+        bb = bias.float()[None] - mu_c.reshape(b, c) * a
+        assert torch.equal(a, a0) and torch.equal(bb, bb0), rank
+    p = {"scale": jnp.asarray(scale.float().numpy()).astype(jnp.bfloat16),
+         "bias": jnp.asarray(bias.float().numpy()).astype(jnp.bfloat16)}
+    jx = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    _assert_ulp(group_norm_apply_plain(x, a0, bb0, "swish"), jae.swish(jae.group_norm(p, jx)), "apply + swish")
 
 
 def emulate_moments_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int, plan,
@@ -600,15 +691,87 @@ def test_moments_design_holds_a_large_offset_where_one_pass_fails(shape, ctas):
 
 def test_profile_step_classes_both_statistics_kernels_as_n():
     """The demangled symbols of kernel N's kernels, both statistics
-    designs' templated ones included, are class "group norm (kernel N)";
-    kernel B's and aten's are not."""
+    designs' templated ones and the folded launch's included, are class
+    "group norm (kernel N)"; kernel B's and aten's are not."""
     for name in ("void (anonymous namespace)::group_norm_stats_resident<2>(__nv_bfloat16 const*, void const*, "
                  "void const*, int, float*, float*, int, int, int, int, int, float)",
                  "(anonymous namespace)::group_norm_stats_resident<32>(__nv_bfloat16 const*)",
                  "void (anonymous namespace)::group_norm_stats_moments_kernel<4>(__nv_bfloat16 const*, void const*)",
-                 "void (anonymous namespace)::group_norm_apply_kernel<false>(__nv_bfloat16 const*)"):
+                 "void (anonymous namespace)::group_norm_apply_kernel<false>(__nv_bfloat16 const*)",
+                 "void (anonymous namespace)::group_norm_fused_resident<8, true>(__nv_bfloat16 const*, void const*)"):
         assert GROUP_NORM_KERNEL.search(name) and vae_class(name) == "group norm (kernel N)", name
     for name in ("void (anonymous namespace)::conv3x3_kernel<true, true>(CUtensorMap_st, CUtensorMap_st)",
                  "void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<float, float>(long, float)",
                  "void at::native::(anonymous namespace)::ComputeFusedParamsCUDAKernel<float>(long, long)"):
         assert vae_class(name) != "group norm (kernel N)", name
+
+
+def _finite_bf16() -> tuple[torch.Tensor, np.ndarray]:
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    x = bits[torch.isfinite(bits)]
+    return x, x.float().numpy()
+
+
+def _to_bf16(v: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)).to(BF16).float().numpy()
+
+
+def _ulps_each(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """|got - want| in bf16 ulps at want's magnitude (the smallest normal's below it)."""
+    mag = np.maximum(np.abs(want), np.float32(2.0 ** -126)).astype(np.float64)
+    return np.abs(got.astype(np.float64) - want.astype(np.float64)) / np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+def swish_cu(h: np.ndarray, guard: bool = True, ex2_ulps: int = 0, rcp_ulps: int = 0) -> np.ndarray:
+    """csrc/group_norm.cu's swish (`sigmoid`, `apply8`) of bf16 values h in
+    its operation order, fp32, rounded to bf16:
+
+        d = 2^(h * -log2 e) + 1;  s = (1 / (d * 2^-64)) * 2^-64
+        y = h * bf16(s)      (a bf16x2 multiply: the product is exact in fp32)
+
+    ex2.approx and rcp.approx emulated by the correctly rounded fp32 values
+    (the card's differ from them by an ulp or two; ex2_ulps and rcp_ulps
+    move them by that many fp32 ulps of 2^-24), the last multiply rounding
+    a subnormal s as fp32 does. guard False: rcp.approx.ftz of d itself,
+    which flushes the subnormal 1 / d to zero."""
+    f32 = np.float32
+    with np.errstate(all="ignore"):
+        e = np.exp2((h * f32(-1.4426950408889634)).astype(np.float64)) * (1 + ex2_ulps * 2.0 ** -24)
+        d = (e.astype(f32) + f32(1)).astype(f32)
+        if guard:
+            r = (1.0 / (d * f32(2.0 ** -64)).astype(np.float64) * (1 + rcp_ulps * 2.0 ** -24)).astype(f32)
+            s = (r * f32(2.0 ** -64)).astype(f32)
+        else:
+            s = np.where(d >= f32(2.0 ** 126), f32(0), (1.0 / d.astype(np.float64)).astype(f32))
+        return _to_bf16((h * _to_bf16(s)).astype(f32))
+
+
+def test_swish_formula_is_within_one_bf16_ulp_of_the_plain_version_on_every_bf16():
+    """Kernel N's short sigmoid (one ex2 and one reciprocal) emulated over
+    every finite bf16 h (65,280 bit patterns) against the plain version,
+    bf16 h * torch.sigmoid(h) on the CPU: each within one bf16 ulp, with
+    the count that differ; so too with the emulated ex2 and reciprocal off
+    by up to 3 and 2 fp32 ulps either way (the approximations' error)."""
+    hb, h = _finite_bf16()
+    assert h.size == 65280
+    want = group_norm_apply_plain(hb.reshape(1, 1, -1, 8), torch.ones(1, 8), torch.zeros(1, 8), "swish")
+    want = want.reshape(-1).float().numpy()
+    got = swish_cu(h)
+    print(f"swish emulated: {int((got != want).sum())} of {h.size} bf16 results differ from the plain version's")
+    assert float(_ulps_each(got, want).max()) <= 1
+    for ex2_ulps in (-3, 3):
+        for rcp_ulps in (-2, 2):
+            off = swish_cu(h, ex2_ulps=ex2_ulps, rcp_ulps=rcp_ulps)
+            assert float(_ulps_each(off, want).max()) <= 1, (ex2_ulps, rcp_ulps)
+
+
+def test_the_swish_guard_keeps_the_subnormal_sigmoids():
+    """Why `sigmoid` takes the reciprocal of d 2^-64 and scales it back:
+    rcp.approx.ftz of d would flush sigmoid(h) to zero at h = -87.5, -88
+    and -88.5, where the plain version's h * sigmoid(h) is a normal number
+    (about -5e-37), many ulps from -0; with the scaling they are exact."""
+    hb, h = _finite_bf16()
+    want = (hb * torch.sigmoid(hb)).float().numpy()
+    far = _ulps_each(swish_cu(h, guard=False), want) > 1
+    assert sorted(h[far].tolist()) == [-88.5, -88.0, -87.5]
+    assert float(_ulps_each(swish_cu(h)[far], want[far]).max()) == 0

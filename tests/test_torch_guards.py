@@ -81,6 +81,7 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
     x = torch.randn(1, 4, 4, 64)
     a, bb = ops.group_norm_stats(x, torch.ones(64), torch.zeros(64), 32)
     assert ops.group_norm_apply(x, a, bb, "swish").shape == x.shape
+    assert ops.KERNELS["group_norm"](x, torch.ones(64), torch.zeros(64), 32, act="swish").shape == x.shape
     assert ops.kernel_launches() == {name: 0 for name in ops.KERNELS}
     assert set(ops.KERNELS) == {"flash_attn_rope", "flash_attn_d512", "conv3x3_gn_swish", "flash_attn_fwd",
                                 "flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "int8_matmul",
@@ -88,7 +89,7 @@ def test_cpu_path_runs_the_plain_versions_and_counts_no_launch():
                                 "layernorm_modulate", "gated_residual", "qk_norm_split", "merge_heads",
                                 "layernorm_modulate_quant", "merge_heads_quant", "layernorm_modulate_bwd",
                                 "gated_residual_bwd", "qk_norm_split_bwd", "merge_heads_bwd", "group_norm_stats",
-                                "group_norm_apply"}
+                                "group_norm_apply", "group_norm"}
 
 
 def _imports(path: Path) -> set[str]:

@@ -1,4 +1,5 @@
-// Kernel N: the VAE's GroupNorm statistics, and its plain apply (+ swish).
+// Kernel N: the VAE's GroupNorm statistics, its apply (+ swish), and both in
+// one launch where a cluster holds the slab.
 //
 // Replaces XLA fusions, not a Pallas kernel: visualcloze_tpu/models/
 // autoencoder.py `group_norm_affine` (:37), the statistics every resnet
@@ -81,7 +82,22 @@
 //
 // group_norm_apply: y = act(bf16(x * a + bb)) with act none or swish, swish
 // as JAX's bf16 chain rounds it: s = bf16(sigmoid(h)), y = bf16(h * s) on
-// the bf16 h. One pass over x, a and bb in registers.
+// the bf16 h. One pass over x, a and bb in registers. sigmoid is one
+// ex2.approx and one rcp.approx, not expf and an IEEE division, and the
+// roundings to bf16 go two values at a time (`sigmoid`, `apply8` below), so
+// that the swish costs little more than its bytes.
+//
+// group_norm_fused_cluster: the statistics and the apply in one launch where
+// the cluster design holds the slab (the VAE's attention-block norm and the
+// encoder's norm_out at the latent shapes). After pass 2's barrier every CTA,
+// not only rank 0, reads all ranks' sums through DSMEM in rank order, so a
+// and bb are the same bits in every CTA (and the same as the statistics
+// launch's); each CTA normalises its resident share of the slab as the apply
+// does and stores y with 16-byte stores, K neighbouring threads a pixel's
+// row of the block. Rank 0 still writes a and bb. Each thread arrives on the
+// cluster barrier once its DSMEM reads are done and waits before it exits,
+// so the apply runs between the two halves. Bound: x read and y written
+// once.
 //
 // Bound on the H100 (3.35 TB/s): the bytes, x read once: 0.080 ms at (1,
 // 1024, 1024, 128). The apply reads x and writes y: 0.160 ms at the same
@@ -90,6 +106,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "approx.cuh"
 #include "bf16.cuh"
 #include "hopper.cuh"
 
@@ -138,6 +155,51 @@ __device__ __forceinline__ void accumulate(const uint4& u, const float* mean, fl
 // a GroupNorm parameter (C,) in fp32, stored as bf16 (the VAE's) or fp32
 __device__ __forceinline__ float param(const void* p, int c, int is_bf16) {
   return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[c]) : static_cast<const float*>(p)[c];
+}
+
+// sigmoid(h) in fp32 of a bf16 value h: 1 / (1 + 2^(-h log2 e)) as one
+// ex2.approx and one rcp.approx. 1 / d is subnormal for d >= 2^126 (h below
+// about -87.3: -87.5, -88 and -88.5 among bf16 values), which rcp.approx.ftz
+// would flush to zero, far from the plain version's h * sigmoid(h) there.
+// So the reciprocal is taken of d 2^-64 (exact, normal for every d >= 1)
+// and scaled back by an fp32 multiply that keeps subnormals: two
+// multiplies, no branch, so the compiler interleaves a thread's elements.
+__device__ __forceinline__ float sigmoid(float h) {
+  const float kLog2e = 1.4426950408889634f;
+  const float d = __fadd_rn(vc::ex2_approx(__fmul_rn(h, -kLog2e)), 1.0f);  // +inf below h ~ -88.7: s = 0
+  return __fmul_rn(vc::rcp_approx(__fmul_rn(d, 0x1p-64f)), 0x1p-64f);
+}
+
+// 8 channels of a pixel: act(bf16(x * a + bb)), x * a and + bb rounded
+// apart as JAX's chain rounds them. Two values at a time: h = bf16(x * a +
+// bb) by one pack instruction, and swish as JAX's bf16 chain rounds it, y =
+// bf16(h * bf16(sigmoid(h))), by one more pack and one bf16x2 multiply (a
+// product of two bf16 values is exact in fp32, so the multiply's one
+// rounding is the fp32 chain's). A single-value fp32 -> bf16 conversion
+// (F2F) shares the special-function operations' quarter rate; the pairs'
+// pack instructions do not (on the H100 the swish apply at (1, 48, 144, 512)
+// went 0.0092 -> 0.0056 ms with this and the short sigmoid, PERF.md). Every
+// finite bf16 h lies within one bf16 ulp of PyTorch's bf16 h * sigmoid(h)
+// (chip_smoke.py `check_swish_exhaustive` on the card;
+// tests/test_torch_group_norm.py emulates this order on the CPU).
+template <bool SWISH>
+__device__ __forceinline__ uint4 apply8(const uint4& u, const float* av, const float* bv) {
+  float f[VEC];
+  vc::unpack8(u, f);
+  uint4 out;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int j = 0; j < VEC / 2; ++j) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(__fadd_rn(__fmul_rn(f[2 * j], av[2 * j]), bv[2 * j]),
+                                                   __fadd_rn(__fmul_rn(f[2 * j + 1], av[2 * j + 1]), bv[2 * j + 1]));
+    if (SWISH) {
+      const float2 hf = __bfloat1622float2(h);
+      o[j] = __hmul2(h, __floats2bfloat162_rn(sigmoid(hf.x), sigmoid(hf.y)));
+    } else {
+      o[j] = h;
+    }
+  }
+  return out;
 }
 
 // ---------------------------------------------------------------- the moments design
@@ -495,12 +557,16 @@ __device__ __forceinline__ float group_mean(const float* chan, int c, int cg) {
 // (CB = K * VEC channels from CB * block), pixels [rank * per, rank * per +
 // per) of HW for the CTA of rank `rank`. Dynamic shared memory: the slab (per
 // x CB bf16), then fp32 wsum (CL_WARPS x CB), part (2 x CB: pass 1's sums,
-// pass 2's), chan (CB), mu (CB).
-template <int K>
-__global__ void __launch_bounds__(CL_THREADS, 1)
-    group_norm_stats_resident(const bf16* __restrict__ x, const void* __restrict__ scale,
-                              const void* __restrict__ bias, int params_bf16, float* __restrict__ a,
-                              float* __restrict__ bb, int HW, int C, int cg, int cluster, int per, float eps) {
+// pass 2's), chan (CB), mu (CB). Y 0: the statistics alone, rank 0 writes a
+// and bb. Y 1 (no act) or 2 (swish): the statistics exactly as Y 0 takes
+// them; then every CTA forms a and bb from all ranks' sums in rank order
+// (the same bits as rank 0's), normalises its resident share of the slab as
+// the apply does and writes it to y; rank 0 still writes a and bb.
+template <int K, int Y>
+__device__ __forceinline__ void resident_body(const bf16* __restrict__ x, const void* __restrict__ scale,
+                                              const void* __restrict__ bias, int params_bf16, float* __restrict__ a,
+                                              float* __restrict__ bb, bf16* __restrict__ y, int HW, int C, int cg,
+                                              int cluster, int per, float eps) {
   constexpr int CB = K * VEC;
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* slab = reinterpret_cast<uint4*>(smem);
@@ -513,7 +579,7 @@ __global__ void __launch_bounds__(CL_THREADS, 1)
   const int p0 = rank * per;
   const int n = max(0, min(per, HW - p0)) * K;  // the CTA's 16-byte chunks
   const int t = threadIdx.x, k = t % K;
-  // rank 0's parameters, loaded while the slab lands
+  // the parameters of channel c0 + t, loaded while the slab lands
   float sc = 0.f, bi = 0.f;
   if (t < CB) {
     sc = param(scale, c0 + t, params_bf16);
@@ -559,37 +625,68 @@ __global__ void __launch_bounds__(CL_THREADS, 1)
   cta_sums<K>(acc, wsum, part + CB);
   vc::cluster_sync();  // every CTA's pass-2 sums written
 
-  if (rank == 0) {
-    if (t < CB) chan[t] = __fdiv_rn(cluster_total(part + CB, cluster), npix);
-    __syncthreads();
-    if (t < CB) {
-      const float var = group_mean(chan, t, cg);
-      const size_t o = (size_t)b * C + c0 + t;
-      const float av = __fmul_rn(rsqrtf(__fadd_rn(var, eps)), sc);
+  const size_t o = (size_t)b * C + c0 + t;
+  if constexpr (Y == 0) {
+    if (rank == 0) {
+      if (t < CB) chan[t] = __fdiv_rn(cluster_total(part + CB, cluster), npix);
+      __syncthreads();
+      if (t < CB) {
+        const float var = group_mean(chan, t, cg);
+        const float av = __fmul_rn(rsqrtf(__fadd_rn(var, eps)), sc);
+        a[o] = av;
+        bb[o] = __fsub_rn(bi, __fmul_rn(mu[t], av));
+      }
+    }
+    vc::cluster_sync();  // no CTA exits while rank 0 reads its shared memory
+    return;
+  }
+  // every CTA: the variance from all ranks' sums in rank order, a and bb
+  // into wsum (free since cta_sums), then the apply from the slab
+  if (t < CB) chan[t] = __fdiv_rn(cluster_total(part + CB, cluster), npix);
+  vc::cluster_arrive();  // this thread's reads of its peers' shared memory are done
+  __syncthreads();
+  if (t < CB) {
+    const float var = group_mean(chan, t, cg);
+    const float av = __fmul_rn(rsqrtf(__fadd_rn(var, eps)), sc);
+    const float bv = __fsub_rn(bi, __fmul_rn(mu[t], av));
+    wsum[t] = av;
+    wsum[CB + t] = bv;
+    if (rank == 0) {
       a[o] = av;
-      bb[o] = __fsub_rn(bi, __fmul_rn(mu[t], av));
+      bb[o] = bv;
     }
   }
-  vc::cluster_sync();  // no CTA exits while rank 0 reads its shared memory
-}
-
-__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-
-template <bool SWISH>
-__device__ __forceinline__ uint4 apply8(const uint4& u, const float* av, const float* bv) {
-  float f[VEC];
-  vc::unpack8(u, f);
+  __syncthreads();
+  float av[VEC], bv[VEC];
 #pragma unroll
   for (int j = 0; j < VEC; ++j) {
-    const float h = round_bf16(__fadd_rn(__fmul_rn(f[j], av[j]), bv[j]));
-    if (SWISH) {
-      const float sg = round_bf16(1.0f / (1.0f + expf(-h)));
-      f[j] = __fmul_rn(h, sg);
-    } else {
-      f[j] = h;
-    }
+    av[j] = wsum[k * VEC + j];
+    bv[j] = wsum[CB + k * VEC + j];
   }
-  return vc::pack8(f);
+  // chunk i is pixel p0 + i / K at channels c0 + 8 (i % K), and i % K == k:
+  // K neighbouring threads store one pixel's row of the block (16 bytes each)
+  bf16* yb = y + ((size_t)b * HW + p0) * C + c0 + k * VEC;
+  for (i = t; i < n; i += CL_THREADS)
+    *reinterpret_cast<uint4*>(yb + (size_t)(i / K) * C) = apply8<Y == 2>(slab[i], av, bv);
+  vc::cluster_wait();  // no CTA exits while a peer reads its shared memory
+}
+
+template <int K>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+    group_norm_stats_resident(const bf16* __restrict__ x, const void* __restrict__ scale,
+                              const void* __restrict__ bias, int params_bf16, float* __restrict__ a,
+                              float* __restrict__ bb, int HW, int C, int cg, int cluster, int per, float eps) {
+  resident_body<K, 0>(x, scale, bias, params_bf16, a, bb, nullptr, HW, C, cg, cluster, per, eps);
+}
+
+// the statistics and the apply in one launch (entry group_norm_fused_cluster)
+template <int K, bool SWISH>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+    group_norm_fused_resident(const bf16* __restrict__ x, const void* __restrict__ scale,
+                              const void* __restrict__ bias, int params_bf16, float* __restrict__ a,
+                              float* __restrict__ bb, bf16* __restrict__ y, int HW, int C, int cg, int cluster,
+                              int per, float eps) {
+  resident_body<K, SWISH ? 2 : 1>(x, scale, bias, params_bf16, a, bb, y, HW, C, cg, cluster, per, eps);
 }
 
 template <bool SWISH>
@@ -635,19 +732,28 @@ bool bad_shape(int B, int HW, int C, int nblk) {
 // channels, then the CTA's fp32 sums (CL_WARPS + 4 rows of CB)
 size_t cluster_smem(int per, int CB) { return (size_t)per * CB * sizeof(bf16) + (size_t)(CL_WARPS + 4) * CB * 4; }
 
+// the cluster design's launch: the statistics alone (y null) or with the
+// apply (y, swish 0 or 1)
 template <int K>
 int launch_stats_cluster(const void* x, const void* scale, const void* bias, int params_bf16, void* a, void* bb,
-                         int B, int HW, int C, int groups, int cluster, float eps, cudaStream_t s) {
+                         void* y, int swish, int B, int HW, int C, int groups, int cluster, float eps,
+                         cudaStream_t s) {
   constexpr int CB = K * VEC;
-  auto kern = group_norm_stats_resident<K>;
   const int per = (HW + cluster - 1) / cluster;
   const size_t smem = cluster_smem(per, CB);
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   const dim3 grid(C / CB * cluster, B);
-  return vc::launch_cluster(kern, grid, CL_THREADS, smem, s, cluster, static_cast<const bf16*>(x), scale, bias,
-                            params_bf16, static_cast<float*>(a), static_cast<float*>(bb), HW, C, C / groups, cluster,
-                            per, eps);
+  const bf16* xp = static_cast<const bf16*>(x);
+  float* ap = static_cast<float*>(a);
+  float* bp = static_cast<float*>(bb);
+  auto launch = [&](auto kern, auto... out) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    return vc::launch_cluster(kern, grid, CL_THREADS, smem, s, cluster, xp, scale, bias, params_bf16, ap, bp,
+                              out..., HW, C, C / groups, cluster, per, eps);
+  };
+  bf16* yp = static_cast<bf16*>(y);
+  if (!y) return launch(group_norm_stats_resident<K>);
+  return swish ? launch(group_norm_fused_resident<K, true>, yp) : launch(group_norm_fused_resident<K, false>, yp);
 }
 
 }  // namespace
@@ -702,6 +808,35 @@ extern "C" int group_norm_stats_moments(const void* x, const void* scale, const 
   }
 }
 
+namespace {
+
+int cluster_entry(const void* x, const void* scale, const void* bias, int params_bf16, void* a, void* bb, void* y,
+                  int swish, int B, int HW, int C, int groups, int block_groups, int cluster, float eps,
+                  void* stream) {
+  if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || groups <= 0 || C % groups || block_groups <= 0 ||
+      groups % block_groups)
+    return (int)cudaErrorInvalidValue;
+  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  const int CB = block_groups * (C / groups);
+  if (CB % VEC) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VC_GN_CASE(k)                                                                                             \
+  case k:                                                                                                         \
+    return launch_stats_cluster<k>(x, scale, bias, params_bf16, a, bb, y, swish, B, HW, C, groups, cluster, eps, s);
+  switch (CB / VEC) {
+    VC_GN_CASE(1)
+    VC_GN_CASE(2)
+    VC_GN_CASE(4)
+    VC_GN_CASE(8)
+    VC_GN_CASE(16)
+    VC_GN_CASE(32)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VC_GN_CASE
+}
+
+}  // namespace
+
 // Kernel N, statistics, the cluster design: one launch, no scratch. x (B, HW,
 // C) bf16 contiguous, 16-byte aligned; scale, bias (C,) bf16 (params_bf16 1)
 // or fp32 (0); a, bb (B, C) fp32. A cluster of `cluster` CTAs (1, 2, 4 or 8)
@@ -713,26 +848,22 @@ extern "C" int group_norm_stats_moments(const void* x, const void* scale, const 
 extern "C" int group_norm_stats_cluster(const void* x, const void* scale, const void* bias, int params_bf16,
                                         void* a, void* bb, int B, int HW, int C, int groups, int block_groups,
                                         int cluster, float eps, void* stream) {
-  if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || groups <= 0 || C % groups || block_groups <= 0 ||
-      groups % block_groups)
-    return (int)cudaErrorInvalidValue;
-  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != MAX_CLUSTER) return (int)cudaErrorInvalidValue;
-  const int CB = block_groups * (C / groups);
-  if (CB % VEC) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VC_GN_CASE(k)                                                                                             \
-  case k:                                                                                                         \
-    return launch_stats_cluster<k>(x, scale, bias, params_bf16, a, bb, B, HW, C, groups, cluster, eps, s);
-  switch (CB / VEC) {
-    VC_GN_CASE(1)
-    VC_GN_CASE(2)
-    VC_GN_CASE(4)
-    VC_GN_CASE(8)
-    VC_GN_CASE(16)
-    VC_GN_CASE(32)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef VC_GN_CASE
+  return cluster_entry(x, scale, bias, params_bf16, a, bb, nullptr, 0, B, HW, C, groups, block_groups, cluster, eps,
+                       stream);
+}
+
+// Kernel N, the statistics and the apply in one launch of the cluster
+// design: group_norm_stats_cluster's arguments, a plan it takes and its
+// outputs a and bb, and y (B, HW, C) bf16 contiguous, 16-byte aligned: y =
+// act(bf16(x * a + bb)), swish 0 (none) or 1, the same bits as
+// group_norm_apply on group_norm_stats_cluster's a and bb. Returns a
+// cudaError_t.
+extern "C" int group_norm_fused_cluster(const void* x, const void* scale, const void* bias, int params_bf16,
+                                        void* a, void* bb, void* y, int swish, int B, int HW, int C, int groups,
+                                        int block_groups, int cluster, float eps, void* stream) {
+  if (!y || (swish != 0 && swish != 1)) return (int)cudaErrorInvalidValue;
+  return cluster_entry(x, scale, bias, params_bf16, a, bb, y, swish, B, HW, C, groups, block_groups, cluster, eps,
+                       stream);
 }
 
 // How many clusters of the cluster design the card runs at once for a plan

@@ -191,6 +191,12 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+// cluster_sync() in two halves, so that work may run between them: every
+// thread arrives once its reads of its peers' shared memory are done, and
+// waits before the CTA exits
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
+
 // a float of a peer's shared memory (a shared::cluster address, mapa), read
 // after a cluster_sync() that follows the peer's store
 __device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {

@@ -4,8 +4,10 @@ Activations are NHWC and conv weights HWIO (3, 3, C, Cout), as in JAX.
 Every GroupNorm's statistics go through kernel N (group_norm_stats); every
 resnet half-block (GroupNorm -> swish -> conv3x3) and every upsample conv
 goes through kernel B, the attention block's GroupNorm and the norm_outs'
-GroupNorm + swish through kernel N's apply, and the bottleneck attention
-through kernel C, at every sequence length. The remaining convs
+GroupNorm + swish through kernel N's group_norm (one launch where the
+statistics' cluster design holds the slab, at the latent shapes; else the
+statistics, then the apply), and the bottleneck attention through kernel
+C, at every sequence length. The remaining convs
 (conv_in/out, the stride-2 downsample, 1x1 projections), the residual adds
 and the upsample's repeats are plain PyTorch, as they were plain XLA in JAX.
 """
@@ -19,7 +21,8 @@ from torch import nn
 from ..config import AutoEncoderConfig
 from ..ops.conv2d import conv3x3_gn_swish
 from ..ops.flash_attention import flash_attn_d512
-from ..ops.group_norm import group_norm_apply, group_norm_stats
+from ..ops.group_norm import group_norm as group_norm_act
+from ..ops.group_norm import group_norm_stats
 from .init import materialize, normal_
 
 
@@ -63,8 +66,9 @@ def group_norm_affine(p: GroupNorm, x: torch.Tensor, groups: int | None = None, 
 
 
 def group_norm(p: GroupNorm, x: torch.Tensor, act: str = "none") -> torch.Tensor:
-    """GroupNorm, then act ("none" or "swish"), in x.dtype (kernel N)."""
-    return group_norm_apply(x, *group_norm_affine(p, x), act)
+    """GroupNorm, then act ("none" or "swish"), in x.dtype (kernel N). 32
+    groups, clamped for tiny configs (C < 32), as group_norm_affine."""
+    return group_norm_act(x, p.scale, p.bias, min(32, x.shape[-1]), act=act)
 
 
 def _gn_swish_conv(norm: GroupNorm, conv: Conv, x: torch.Tensor, residual=None) -> torch.Tensor:

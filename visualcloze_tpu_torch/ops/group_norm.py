@@ -1,5 +1,7 @@
 """The VAE's GroupNorm: wrappers, plain versions and launch counters of
-kernel N (csrc/group_norm.cu), `group_norm_stats` and `group_norm_apply`.
+kernel N (csrc/group_norm.cu), `group_norm_stats`, `group_norm_apply` and
+`group_norm`, both in one launch where the statistics' cluster design holds
+the slab.
 
 Counterparts of XLA fusions, not of a Pallas kernel:
 visualcloze_tpu/models/autoencoder.py `group_norm_affine` (:37), GroupNorm
@@ -16,9 +18,14 @@ launch that reads x once and pools tile-centred moments (the plain version
 keeps JAX's two passes; the kernel's order is stable in the same way, see
 csrc/group_norm.cu). group_norm_apply rounds h = x * a + bb to
 x's dtype and, with act "swish", computes h * sigmoid(h) on that value as
-JAX's bf16 swish does (both roundings kept). The plain versions are this
-arithmetic in PyTorch; a wrapper takes its plain version only for a CPU
-tensor, and on a CUDA tensor launches the kernel or raises.
+JAX's bf16 swish does (both roundings kept; on the card sigmoid is one
+ex2.approx and one rcp.approx, within one bf16 ulp of the plain version at
+every bf16 h). group_norm is JAX's `group_norm` (+ `swish`): where
+stats_plan picks the cluster design, one launch that normalises the slab
+the statistics hold in shared memory (the same bits as the two launches),
+elsewhere group_norm_stats then group_norm_apply. The plain versions are
+this arithmetic in PyTorch; a wrapper takes its plain version only for a
+CPU tensor, and on a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -74,6 +81,12 @@ def group_norm_apply_plain(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor, a
     (act "swish") h * sigmoid(h) in x.dtype."""
     h = (x.to(torch.float32) * a[:, None, None, :] + bb[:, None, None, :]).to(x.dtype)
     return h * torch.sigmoid(h) if act == "swish" else h
+
+
+def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float = 1e-6,
+                     act: str = "none") -> torch.Tensor:
+    """Plain version of group_norm: the plain statistics, then the plain apply."""
+    return group_norm_apply_plain(x, *group_norm_stats_plain(x, scale, bias, groups, eps), act)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,6 +267,8 @@ _MOMENTS_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] 
                      + [ctypes.c_float, ctypes.c_void_p])
 _CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
                      + [ctypes.c_float, ctypes.c_void_p])
+_FUSED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
 _APPLY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
@@ -336,8 +351,7 @@ def group_norm_apply(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor, act: st
     """Kernel N's apply: act(bf16(x * a + bb)), act "none" or "swish". x: (B,
     H, W, C) bf16; a, bb: (B, C) fp32 (group_norm_stats). Returns x's shape
     and dtype."""
-    if act not in ("none", "swish"):
-        raise ValueError(f"unknown act {act!r}")
+    _act(act)
     if x.device.type == "cpu":
         return group_norm_apply_plain(x, a, bb, act)
     name = "group_norm_apply"
@@ -357,3 +371,58 @@ def group_norm_apply(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor, act: st
 
 
 group_norm_apply.launches = 0
+
+
+def _act(act: str) -> None:
+    if act not in ("none", "swish"):
+        raise ValueError(f"unknown act {act!r}")
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float = 1e-6,
+               act: str = "none") -> torch.Tensor:
+    """Kernel N's GroupNorm, then act ("none" or "swish"): JAX's `group_norm`
+    (+ `swish`). x: (B, H, W, C) bf16 NHWC; scale, bias: (C,). Returns x's
+    shape and dtype. On CUDA, where stats_plan picks the cluster design, one
+    launch (counted here) that takes the statistics and normalises the slab
+    it holds; elsewhere group_norm_stats, then group_norm_apply (counted
+    there)."""
+    _act(act)
+    if x.device.type == "cpu":
+        return group_norm_plain(x, scale, bias, groups, eps, act)
+    name = "group_norm"
+    _check(name, x, groups)
+    b, h, w, c = x.shape
+    plan = stats_plan(b, h, w, c, groups, *device_limits(x.device.index or 0))
+    if plan.design != "cluster":
+        return group_norm_apply(x, *group_norm_stats(x, scale, bias, groups, eps), act)
+    x = x.contiguous()
+    params_bf16 = scale.dtype == bias.dtype == torch.bfloat16
+    scale = _vector(name, "scale", scale, (c,), x.device, params_bf16)
+    bias = _vector(name, "bias", bias, (c,), x.device, params_bf16)
+    y, _, _ = launch_fused_plan(x, scale, bias, groups, eps, act, plan)
+    cuda_build.count_launch(group_norm)
+    return y
+
+
+def launch_fused_plan(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float, act: str,
+                      plan: StatsPlan) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel N's folded launch by a cluster-design `plan` on x, scale and
+    bias as group_norm passes them (checked, contiguous, on x's device): (y,
+    a, bb), a and bb those the statistics give; no launch counted. group_norm
+    runs stats_plan's plan; scripts/group_norm_plans.py times others."""
+    name = "group_norm"
+    if plan.design != "cluster":
+        raise ValueError(f"{name}: the folded launch takes a cluster-design plan, got {plan.design!r}")
+    b, h, w, c = x.shape
+    params_bf16 = scale.dtype == bias.dtype == torch.bfloat16
+    out = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    kernel = cuda_build.load("group_norm_fused_cluster", _FUSED_ARGTYPES, source="group_norm")
+    status = kernel(_ptr(x), _ptr(scale), _ptr(bias), int(params_bf16), _ptr(out[0]), _ptr(out[1]), _ptr(y),
+                    int(act == "swish"), b, h * w, c, groups, plan.block_groups, plan.cluster, ctypes.c_float(eps),
+                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    cuda_build.check(name, status)
+    return y, out[0], out[1]
+
+
+group_norm.launches = 0

@@ -98,7 +98,7 @@ FUSION_KERNELS = ((re.compile(r"\bln_modulate_kernel<"), "layernorm modulate (ke
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 CONV_KERNEL = re.compile(r"\bconv3x3_kernel<")  # csrc/conv3x3_gn_swish.cu (B)
 D512_KERNEL = re.compile(r"\bflash_d512")  # csrc/flash_attn_d512.cu (C)
-GROUP_NORM_KERNEL = re.compile(r"\bgroup_norm_(stats|apply)\w*[<(]")  # csrc/group_norm.cu (N)
+GROUP_NORM_KERNEL = re.compile(r"\bgroup_norm_(stats|apply|fused)\w*[<(]")  # csrc/group_norm.cu (N)
 # profiler ranges around models/autoencoder.py's functions in the traced VAE pass: (owner, attribute, span);
 # a kernel counts to the innermost range that launched it; an attribute a tree lacks is skipped (swish: a
 # tree without kernel N applies it apart)
