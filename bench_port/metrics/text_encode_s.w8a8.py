@@ -1,0 +1,3 @@
+"""text_encode_s.w8a8: readings.text_encode_s, in the w8a8 cell, whose queries time s_per_query.w8a8."""
+
+from bench_port.readings import text_encode_s as read  # noqa: F401
