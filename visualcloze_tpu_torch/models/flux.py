@@ -41,6 +41,7 @@ from ..ops.attention import RingSpec
 from ..ops.rope import embed_nd
 from ..ops.schedule import timestep_embedding
 from ..parallel.collectives import all_reduce_, gather_cat, group_size, own_block
+from ..utils import tracing
 from .init import init_linears_, materialize, swap_modules
 from .lora import tree_map
 from .layers import (DoubleBlock, Int4DiTLinear, Int8Linear, LastLayer, Linear, MLPEmbedder, SingleBlock,
@@ -137,7 +138,8 @@ class Flux(nn.Module):
         (the reference's, which the trainer keeps). collect_a8_stats: returns
         (velocity, {"double_blocks": [per-block stats], "single_blocks": [...]}).
         pe: the RoPE tables from rope_tables(img_ids, txt_ids, attn_impl),
-        built here from the ids when None."""
+        built here from the ids when None. Traced as the spans "dit.embed",
+        "dit.double_blocks", "dit.single_blocks" and "dit.final"."""
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {remat_policy!r}")
         if collect_a8_stats and remat:
@@ -153,9 +155,10 @@ class Flux(nn.Module):
             img, img_ids, img_mask, txt, txt_ids, txt_mask = (
                 None if t is None else own_block(t, seq, 1)
                 for t in (img, img_ids, img_mask, txt, txt_ids, txt_mask))
-        img, txt, vec, pe, attn_mask = self.embed_inputs(
-            img, img_ids, txt, txt_ids, timesteps, y, txt_mask, img_mask, guidance, l, lora_scale, pe
-        )
+        with tracing.span("dit.embed"):
+            img, txt, vec, pe, attn_mask = self.embed_inputs(
+                img, img_ids, txt, txt_ids, timesteps, y, txt_mask, img_mask, guidance, l, lora_scale, pe
+            )
         txt_len = txt.shape[1]
         seg = None
         if remat and remat_policy == "dots_split":
@@ -176,20 +179,23 @@ class Flux(nn.Module):
 
         d_lora = l.get("double_blocks") or [None] * len(self.double_blocks)
         s_lora = l.get("single_blocks") or [None] * len(self.single_blocks)
-        for block, bl in zip(self.double_blocks, d_lora):
-            img, txt = run(block, "double_blocks", img, txt, vec, pe, attn_mask, bl)
-        x = torch.cat([txt, img], dim=1)
-        if pipeline is not None:
-            from ..parallel.pipeline import pipeline_single_trunk
+        with tracing.span("dit.double_blocks"):
+            for block, bl in zip(self.double_blocks, d_lora):
+                img, txt = run(block, "double_blocks", img, txt, vec, pe, attn_mask, bl)
+        with tracing.span("dit.single_blocks"):
+            x = torch.cat([txt, img], dim=1)
+            if pipeline is not None:
+                from ..parallel.pipeline import pipeline_single_trunk
 
-            x = pipeline_single_trunk(self, pipeline, x, vec, pe, attn_mask, l.get("single_blocks"),
-                                      lora_scale=lora_scale, attn_impl=attn_impl, remat=remat,
-                                      remat_policy=remat_policy, rope_layout=rope_layout)
-        else:
-            for block, bl in zip(self.single_blocks, s_lora):
-                x = run(block, "single_blocks", x, vec, pe, attn_mask, bl)
-        out = gather_cat(self.final_layer(x[:, txt_len:], vec, l.get("final_layer"), lora_scale,
-                                          collect_stats=collect_a8_stats), seq, 1, backward="slice")
+                x = pipeline_single_trunk(self, pipeline, x, vec, pe, attn_mask, l.get("single_blocks"),
+                                          lora_scale=lora_scale, attn_impl=attn_impl, remat=remat,
+                                          remat_policy=remat_policy, rope_layout=rope_layout)
+            else:
+                for block, bl in zip(self.single_blocks, s_lora):
+                    x = run(block, "single_blocks", x, vec, pe, attn_mask, bl)
+        with tracing.span("dit.final"):
+            out = gather_cat(self.final_layer(x[:, txt_len:], vec, l.get("final_layer"), lora_scale,
+                                              collect_stats=collect_a8_stats), seq, 1, backward="slice")
         if collect_a8_stats and group_size(seq) > 1:  # the absmax over every rank's tokens
             tree_map(lambda t: all_reduce_(t, seq, torch.distributed.ReduceOp.MAX), stats)
         return (out, stats) if collect_a8_stats else out

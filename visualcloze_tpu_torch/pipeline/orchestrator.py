@@ -44,6 +44,7 @@ from PIL import Image
 
 from ..device import same_device
 from ..models.lora import tree_map
+from ..utils import tracing
 from .visualcloze import VisualClozeModel
 
 logger = logging.getLogger(__name__)
@@ -235,29 +236,31 @@ class PipelinedServer:
 
     def _run(self, images, prompts, grid_size, seed, cfg, steps, upsampling_steps, upsampling_noise,
              is_upsampling, adapter=None) -> list[Image.Image]:
-        m = self.model
-        with self._encoders():
-            q = m.prepare_query(images, prompts, seed=seed, cfg=cfg, steps=steps, grid_size=grid_size,
-                                adapter=adapter)
-        samples = self._denoise(q)
-        with self._encoders():
-            crops = m.finalize_query(q, samples, is_upsampling=False)
-        if not is_upsampling:
-            return crops
-        # SDEdit per masked cell, drawing from the query's noise in process_images' order
-        out: list[Image.Image] = []
-        for img in crops:
+        """One query's stages on this worker thread, traced as one "query" span."""
+        with tracing.span("query", query=tracing.new_query()):
+            m = self.model
             with self._encoders():
-                uq = m.prepare_upsampling(img, q["upsampling_size"], cfg, upsampling_steps=upsampling_steps,
-                                          upsampling_noise=upsampling_noise, noise=q["noise"],
-                                          content_prompt=q["content_prompt"], adapter=adapter, parent=q)
-            if isinstance(uq, Image.Image):  # noise >= 1.0: plain resize
-                out.append(uq)
-                continue
-            us = self._denoise(uq, "sdedit_denoise")
+                q = m.prepare_query(images, prompts, seed=seed, cfg=cfg, steps=steps, grid_size=grid_size,
+                                    adapter=adapter)
+            samples = self._denoise(q)
             with self._encoders():
-                out.append(m.finalize_upsampling(uq, us))
-        return out
+                crops = m.finalize_query(q, samples, is_upsampling=False)
+            if not is_upsampling:
+                return crops
+            # SDEdit per masked cell, drawing from the query's noise in process_images' order
+            out: list[Image.Image] = []
+            for img in crops:
+                with self._encoders():
+                    uq = m.prepare_upsampling(img, q["upsampling_size"], cfg, upsampling_steps=upsampling_steps,
+                                              upsampling_noise=upsampling_noise, noise=q["noise"],
+                                              content_prompt=q["content_prompt"], adapter=adapter, parent=q)
+                if isinstance(uq, Image.Image):  # noise >= 1.0: plain resize
+                    out.append(uq)
+                    continue
+                us = self._denoise(uq, "sdedit_denoise")
+                with self._encoders():
+                    out.append(m.finalize_upsampling(uq, us))
+            return out
 
 
 class MeshLeader:

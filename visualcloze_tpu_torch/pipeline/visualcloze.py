@@ -47,6 +47,7 @@ from ..ops import cuda_build
 from ..ops.packing import pack_mask, patchify, unpatchify
 from ..ops.schedule import ode_timesteps
 from ..transport.sampling import _velocity_fn, denoise_ode, denoise_ode_adaptive
+from ..utils import tracing
 from . import preprocessing as pp
 
 CONTENT_INSTRUCTIONS = [
@@ -236,12 +237,14 @@ class VisualClozeModel:
 
     @contextlib.contextmanager
     def _stage(self, name: str, seconds: dict[str, float]):
-        """Adds the stage's wall time (device work included) to seconds[name]."""
+        """Adds the stage's wall time (device work included) to seconds[name],
+        inside a tracing span of the stage's name."""
         t0 = time.perf_counter()
-        yield
-        for dev in {self.device, self.dit_device or self.device}:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        with tracing.span(name):
+            yield
+            for dev in {self.device, self.dit_device or self.device}:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
 
     def _shared_seed(self, seed: int) -> int:
@@ -289,17 +292,19 @@ class VisualClozeModel:
         """Generate the masked query cells: prepare -> denoise -> finalize.
         `adapter` selects a registered runtime LoRA for both denoise stages;
         grid_size defaults to set_grid_size's. The query's stage seconds and
-        solver statistics become the model's stage_seconds and solver_stats."""
-        q = self.prepare_query(images, prompts, seed=seed, cfg=cfg, steps=steps, noise=noise, adapter=adapter,
-                               grid_size=grid_size)
-        self.stage_seconds, self.solver_stats = q["stage_seconds"], q["solver_stats"]
-        samples = self.denoise_query(q)
-        return self.finalize_query(
-            q, samples,
-            upsampling_steps=upsampling_steps,
-            upsampling_noise=upsampling_noise,
-            is_upsampling=is_upsampling,
-        )
+        solver statistics become the model's stage_seconds and solver_stats.
+        Traced as one "query" span."""
+        with tracing.span("query", query=tracing.new_query()):
+            q = self.prepare_query(images, prompts, seed=seed, cfg=cfg, steps=steps, noise=noise, adapter=adapter,
+                                   grid_size=grid_size)
+            self.stage_seconds, self.solver_stats = q["stage_seconds"], q["solver_stats"]
+            samples = self.denoise_query(q)
+            return self.finalize_query(
+                q, samples,
+                upsampling_steps=upsampling_steps,
+                upsampling_noise=upsampling_noise,
+                is_upsampling=is_upsampling,
+            )
 
     @torch.no_grad()
     def prepare_query(
@@ -378,6 +383,7 @@ class VisualClozeModel:
             "adapter": adapter,
             "stage_seconds": seconds,
             "solver_stats": {},
+            "query_id": tracing.current_query(),
         }
 
     @torch.no_grad()
@@ -387,7 +393,7 @@ class VisualClozeModel:
         statistics go to the query's records."""
         lora = self._resolve_adapter(q.get("adapter"))
         stats: dict = {}
-        with self._stage(stage, q.setdefault("stage_seconds", {})):
+        with tracing.attach(q.get("query_id")), self._stage(stage, q.setdefault("stage_seconds", {})):
             out = _denoise(
                 self.flux, q["x"], q["ts"], q["img_cond"], q["txt"], q["txt_ids"],
                 q["txt_mask"], q["vec"], q["img_ids"], q["img_mask"], q["guidance"], self.rope_layout,
@@ -491,39 +497,41 @@ class VisualClozeModel:
         is_upsampling: bool = True,
     ) -> list[Image.Image]:
         """Per-row decode, query-cell crop, optional SDEdit upsampling (with
-        the query's adapter, its stages added to the query's records)."""
-        with self._stage("vae_decode", q.setdefault("stage_seconds", {})):
-            output_rows = []
-            start = 0
-            for (h, w) in q["sizes"]:
-                end = start + (h * w // 256)
-                lat = unpatchify(samples[:, start:end], h // 8, w // 8)
-                output_rows.append(pp.array_to_image(self.decode_latent(lat)))
-                start = end
+        the query's adapter, its stages added to the query's records), inside
+        a "finalize" span: its time outside the stages is the crop and resize glue."""
+        with tracing.span("finalize", query=q.get("query_id")):
+            with self._stage("vae_decode", q.setdefault("stage_seconds", {})):
+                output_rows = []
+                start = 0
+                for (h, w) in q["sizes"]:
+                    end = start + (h * w // 256)
+                    lat = unpatchify(samples[:, start:end], h // 8, w // 8)
+                    output_rows.append(pp.array_to_image(self.decode_latent(lat)))
+                    start = end
 
-        ret: list[Image.Image] = []
-        last = output_rows[-1]
-        ret_w, ret_h = last.width, last.height
-        grid_w = q["grid_w"]
-        for j in range(grid_w):
-            if not q["mask_position"][j]:
-                continue
-            cropped = last.crop((j * ret_w // grid_w, 0, (j + 1) * ret_w // grid_w, ret_h))
-            if is_upsampling:
-                ret.append(
-                    self.upsampling(
-                        cropped, q["upsampling_size"], q["cfg"],
-                        upsampling_steps=upsampling_steps,
-                        upsampling_noise=upsampling_noise,
-                        noise=q["noise"],
-                        content_prompt=q["content_prompt"],
-                        adapter=q.get("adapter"),
-                        parent=q,
+            ret: list[Image.Image] = []
+            last = output_rows[-1]
+            ret_w, ret_h = last.width, last.height
+            grid_w = q["grid_w"]
+            for j in range(grid_w):
+                if not q["mask_position"][j]:
+                    continue
+                cropped = last.crop((j * ret_w // grid_w, 0, (j + 1) * ret_w // grid_w, ret_h))
+                if is_upsampling:
+                    ret.append(
+                        self.upsampling(
+                            cropped, q["upsampling_size"], q["cfg"],
+                            upsampling_steps=upsampling_steps,
+                            upsampling_noise=upsampling_noise,
+                            noise=q["noise"],
+                            content_prompt=q["content_prompt"],
+                            adapter=q.get("adapter"),
+                            parent=q,
+                        )
                     )
-                )
-            else:
-                ret.append(cropped)
-        return ret
+                else:
+                    ret.append(cropped)
+            return ret
 
     @torch.no_grad()
     def upsampling(
@@ -570,6 +578,7 @@ class VisualClozeModel:
         self._resolve_adapter(adapter)
         seconds = parent.setdefault("stage_seconds", {}) if parent is not None else {}
         solver_stats = parent.setdefault("solver_stats", {}) if parent is not None else {}
+        query_id = parent.get("query_id") if parent is not None else tracing.current_query()
         for c in CONTENT_INSTRUCTIONS:
             if content_prompt.startswith(c):
                 content_prompt = content_prompt.replace(c, "")
@@ -585,7 +594,7 @@ class VisualClozeModel:
 
         dev = self.device
         arr = pp.image_to_array(image)
-        with self._stage("sdedit_prepare", seconds):
+        with tracing.attach(query_id), self._stage("sdedit_prepare", seconds):
             latent = self.encode_row(arr, noise)
             blank = self.encode_row(np.zeros_like(arr), noise)
             h, w = arr.shape[:2]
@@ -624,13 +633,15 @@ class VisualClozeModel:
             "adapter": adapter,
             "stage_seconds": seconds,
             "solver_stats": solver_stats,
+            "query_id": query_id,
         }
 
     @torch.no_grad()
     def finalize_upsampling(self, q: dict[str, Any], samples: torch.Tensor) -> Image.Image:
         """SDEdit decode."""
         h, w = q["hw"]
-        with self._stage("sdedit_decode", q.setdefault("stage_seconds", {})):
+        seconds = q.setdefault("stage_seconds", {})
+        with tracing.attach(q.get("query_id")), self._stage("sdedit_decode", seconds):
             lat = unpatchify(samples[:, : q["true_len"]], h // 8, w // 8)
             return pp.array_to_image(self.decode_latent(lat))
 
@@ -640,15 +651,17 @@ def _denoise(flux: Flux, x, ts, cond, txt, txt_ids, txt_mask, vec, img_ids, img_
              attn_impl=None):
     """The hot loop: the solver's steps over the full DiT (dopri5 from the
     grid's first to its last time, adaptively), with an unfolded LoRA. The
-    RoPE tables are built once, the ids being fixed for the query."""
+    RoPE tables are built once, the ids being fixed for the query. Each
+    evaluation is a "dit.eval" span."""
     pe = flux.rope_tables(img_ids, txt_ids, attn_impl)
 
     def model_fn(img, timesteps):
-        return flux(
-            img=img, img_ids=img_ids, txt=txt, txt_ids=txt_ids, timesteps=timesteps, y=vec,
-            txt_mask=txt_mask, img_mask=img_mask, guidance=guidance, rope_layout=rope_layout,
-            lora=lora, lora_scale=lora_scale, attn_impl=attn_impl, pe=pe,
-        )
+        with tracing.span("dit.eval", img_tokens=img.shape[1], txt_tokens=txt.shape[1]):
+            return flux(
+                img=img, img_ids=img_ids, txt=txt, txt_ids=txt_ids, timesteps=timesteps, y=vec,
+                txt_mask=txt_mask, img_mask=img_mask, guidance=guidance, rope_layout=rope_layout,
+                lora=lora, lora_scale=lora_scale, attn_impl=attn_impl, pe=pe,
+            )
 
     if method == "dopri5":
         return denoise_ode_adaptive(model_fn, x, ts[0], ts[-1], cond=cond, stats=stats)

@@ -12,11 +12,10 @@ kernel A with its rotation pass a class of its own), kernels J-M (the blocks' La
 residual, head split with q/k norm, head merge with gelu) and, in a train
 step, their backward kernels J'-M' and J'-L''s column sums, and the rest
 (the modulation and embedders' small ops, RoPE tables, the LoRA-free glue,
-casts and copies). The linears' FLOPs are counted with forward hooks
-on one untraced step, so their rate is their FLOPs over their own kernel
-time. Prints one JSON object (device ms and kernel launches per class and
-step, idle share, and the "other" class split by kernel name: its 12
-costliest kernels); writes the 30 costliest kernels to --out.
+casts and copies). The linears' FLOPs of a step are counted with forward
+hooks on one untraced step. Prints one JSON object (device ms and kernel
+launches per class and step, and the "other" class split by kernel name:
+its 12 costliest kernels); writes the 30 costliest kernels to --out.
 Exits 1 if the trace holds no device events.
 
 --quantize int8 profiles the same step of the single-card int8 stack
@@ -192,28 +191,16 @@ def other_by_span(prof) -> dict[str, float]:
     return out
 
 
-def device_time(prof) -> tuple[dict[str, list], float, float]:
-    """({kernel name: [us, calls]}, busy us (the union of kernel intervals),
-    window us) of the CUDA kernels in a torch.profiler trace."""
+def device_time(prof) -> dict[str, list]:
+    """{kernel name: [us, calls]} of the CUDA kernels in a torch.profiler trace."""
     per_kernel: dict[str, list] = {}
-    spans = []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith(SPAN_PREFIX):
             continue  # a VAE_SPANS range's device-side copy is no kernel
-        spans.append((e.time_range.start, e.time_range.end))
         acc = per_kernel.setdefault(e.name, [0.0, 0])
         acc[0] += e.time_range.end - e.time_range.start
         acc[1] += 1
-    busy, cursor = 0.0, None
-    for s, e in sorted(spans):
-        if cursor is None or s > cursor:
-            busy += e - s
-            cursor = e
-        elif e > cursor:
-            busy += e - cursor
-            cursor = e
-    window = max(e for _, e in spans) - min(s for s, _ in spans) if spans else 0.0
-    return per_kernel, busy, window
+    return per_kernel
 
 
 def vae_work(ae, generator) -> dict:
@@ -245,7 +232,7 @@ def vae_work(ae, generator) -> dict:
 def vae_profile(ae, generator, reps: int) -> dict:
     """CUDA-event ms of each part of vae_work (mean of `reps`, after a
     warm-up), then one traced pass of every part: device ms by class
-    (vae_class), launches, idle share, "other" split (other_by_span,
+    (vae_class), launches, "other" split (other_by_span,
     other_by_kernel) and the 20 costliest kernels; each part's peak GiB of
     device memory."""
     parts = vae_work(ae, generator)
@@ -267,7 +254,7 @@ def vae_profile(ae, generator, reps: int) -> dict:
         for run in parts.values():
             run()
         torch.cuda.synchronize()
-    per_kernel, busy, window = device_time(prof)
+    per_kernel = device_time(prof)
     if not per_kernel:
         return {"error": "the trace holds no device events", "part_ms_cuda_events": part_ms}
     classes: dict[str, list] = {}
@@ -286,7 +273,6 @@ def vae_profile(ae, generator, reps: int) -> dict:
         class_ms={k: ms for k, (ms, _) in sorted(classes.items())},
         class_share={k: ms / kernel_ms for k, (ms, _) in sorted(classes.items())},
         class_launches={k: n for k, (_, n) in sorted(classes.items())},
-        device_idle_share=1.0 - kernel_ms / total_ms, device_idle_share_traced=1.0 - busy / window,
         other_by_span=dict(sorted(spans.items(), key=lambda kv: -kv[1])),
         other_by_kernel=[dict(name=n[:160], ms=us / 1e3, calls=c) for n, (us, c) in other[:OTHER_TOP]],
         top=[dict(name=n, ms=us / 1e3, calls=c) for n, (us, c) in top],
@@ -411,7 +397,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    per_kernel, busy, window = device_time(prof)
+    per_kernel = device_time(prof)
     if not per_kernel:
         print(json.dumps({"error": "the trace holds no device events", "step_ms_cuda_events": step_ms}))
         return 1
@@ -421,8 +407,6 @@ def main(argv=None) -> int:
         classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + us
         counts[kernel_class(name)] = counts.get(kernel_class(name), 0) + calls
     kernel_ms = sum(classes.values()) / 1e3 / args.steps
-    gemm_ms = sum(classes.get(k, 0.0) for k in ("gemm (linears)", "int8 matmul (kernel G)", "int4 matmul (kernel G4)",
-                                                "w8a8 matmul (kernel H)")) / 1e3 / args.steps
     result = dict(
         device=smi_line(), torch=torch.__version__, mode="train" if args.train else "denoise", quantize=args.quantize,
         tokens=tokens,
@@ -431,11 +415,7 @@ def main(argv=None) -> int:
         kernel_ms_per_step=kernel_ms,
         class_ms_per_step={k: v / 1e3 / args.steps for k, v in sorted(classes.items())},
         class_share={k: v / 1e3 / args.steps / kernel_ms for k, v in sorted(classes.items())},
-        device_idle_share_traced=1.0 - busy / window,
-        # the traced kernels' time against the untraced steps' CUDA-event time
-        device_idle_share=1.0 - kernel_ms / step_ms,
         linear_tflop_per_step=flops[0] / 1e12,
-        linear_tflops_rate=flops[0] / (gemm_ms * 1e-3) / 1e12 if gemm_ms else None,
         kernels_per_step=sum(n for _, n in per_kernel.values()) / args.steps,
         class_kernels_per_step={k: v / args.steps for k, v in sorted(counts.items())},
     )

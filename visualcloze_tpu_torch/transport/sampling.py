@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.schedule import ode_timesteps
+from ..utils import tracing
 
 ModelFn = Callable[..., torch.Tensor]
 F32 = np.float32
@@ -81,7 +82,8 @@ def denoise_ode(
     on the nonuniform grid, the first interval by Heun: N evaluations for N
     grid points); "cached[:K]" (the model on cached_fresh_schedule's steps
     only, the velocity extrapolated linearly in t from the last two
-    evaluations in between). dopri5 is denoise_ode_adaptive."""
+    evaluations in between). dopri5 is denoise_ode_adaptive. Each state
+    update between evaluations is a "solver.step" span."""
     ts = np.asarray(timesteps, dtype=F32)
     velocity = _velocity_fn(model_fn, x, cond)
     pairs = list(zip(ts[:-1], ts[1:]))
@@ -93,31 +95,37 @@ def denoise_ode(
     if method == "euler":
         for t_cur, t_next in pairs:
             v = velocity(x, t_cur)
-            x = x + dt_of(t_cur, t_next) * v.to(dtype)
+            with tracing.span("solver.step"):
+                x = x + dt_of(t_cur, t_next) * v.to(dtype)
         return x
     if method == "heun":
         for t_cur, t_next in pairs:
             dt = dt_of(t_cur, t_next)
             v1 = velocity(x, t_cur).to(dtype)
-            x_mid = x + dt * v1
+            with tracing.span("solver.step"):
+                x_mid = x + dt * v1
             v2 = velocity(x_mid, t_next).to(dtype)
-            x = x + dt * 0.5 * (v1 + v2)
+            with tracing.span("solver.step"):
+                x = x + dt * 0.5 * (v1 + v2)
         return x
     if method == "ab2":
         # x_{n+1} = x_n + h_n [(1 + r/2) v_n - (r/2) v_{n-1}], r = h_n / h_{n-1}
         t0, t1 = pairs[0]
         h0 = F32(t1 - t0)
         v0 = velocity(x, t0).float()
-        x32 = x.float()
-        x_pred = x32 + float(h0) * v0
+        with tracing.span("solver.step"):
+            x32 = x.float()
+            x_pred = x32 + float(h0) * v0
         v0b = velocity(x_pred, t1).float()
-        x32 = x32 + float(F32(h0 * F32(0.5))) * (v0 + v0b)
+        with tracing.span("solver.step"):
+            x32 = x32 + float(F32(h0 * F32(0.5))) * (v0 + v0b)
         v_prev, h_prev = v0, h0  # v(t0): the first AB2 step pairs v(t1) with it
         for t_cur, t_next in pairs[1:]:
             h = F32(t_next - t_cur)
             v = velocity(x32, t_cur).float()
-            r = F32(h / h_prev)
-            x32 = x32 + float(h) * (float(F32(1.0) + F32(0.5) * r) * v - float(F32(0.5) * r) * v_prev)
+            with tracing.span("solver.step"):
+                r = F32(h / h_prev)
+                x32 = x32 + float(h) * (float(F32(1.0) + F32(0.5) * r) * v - float(F32(0.5) * r) * v_prev)
             v_prev, h_prev = v, h
         return x32.to(dtype)
     m = re.fullmatch(r"cached(?::(\d+))?", method)
@@ -132,7 +140,8 @@ def denoise_ode(
     fresh = cached_fresh_schedule(n_steps, k_every)
     t0 = F32(ts[0])
     v0 = velocity(x, ts[0]).float()
-    x32 = x.float() + float(F32(ts[1]) - t0) * v0
+    with tracing.span("solver.step"):
+        x32 = x.float() + float(F32(ts[1]) - t0) * v0
     if n_steps == 1:
         return x32.to(dtype)
     # (v1, t1) the newest evaluation, (v2, t2) the one before; v2 = v1 at the
@@ -143,9 +152,10 @@ def denoise_ode(
         if is_fresh:
             v = velocity(x32, t_cur).float()
             v1, t1, v2, t2 = v, t_cur, v1, t1
-        else:
-            v = v1 + (v1 - v2) * float(F32((t_cur - t1) / (t1 - t2)))
-        x32 = x32 + float(F32(t_next - t_cur)) * v
+        with tracing.span("solver.step"):
+            if not is_fresh:
+                v = v1 + (v1 - v2) * float(F32((t_cur - t1) / (t1 - t2)))
+            x32 = x32 + float(F32(t_next - t_cur)) * v
     return x32.to(dtype)
 
 
