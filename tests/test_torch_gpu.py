@@ -1623,3 +1623,49 @@ def test_gpu_half_layout_serving_block_attends_through_l_and_d():
     with torch.no_grad(), plain_dit():
         want = block(x, vec, pe, None, rope_layout="half").float()
     assert ((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item() <= 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["euler", "heun"])
+def test_gpu_denoise_ode_never_waits_for_the_card(method):
+    """euler and heun on bf16 latents on the card make no synchronising call
+    from their first evaluation to their return (torch's sync debug mode set
+    to raise, which a blocking step-size copy does trip), and give the same
+    bits as the loop that copies each step's size from pageable memory."""
+    from visualcloze_tpu_torch.ops.schedule import ode_timesteps
+    from visualcloze_tpu_torch.transport import sampling as tsampling
+
+    dev = _cuda_or_skip()
+    d, c = 16, 4
+    g = torch.Generator(device=dev).manual_seed(12)
+    w = torch.randn((d + c, d), generator=g, device=dev) / math.sqrt(d + c)
+    x = torch.randn((2, 256, d), generator=g, device=dev).to(torch.bfloat16)
+    cond = torch.randn((2, 256, c), generator=g, device=dev).to(torch.bfloat16)
+
+    def model_fn(inp, timesteps):
+        inp = inp.float()
+        return torch.tanh(inp @ w) * (1.0 + timesteps[:, None, None].float()) - 0.3 * inp[..., :d]
+
+    ts = ode_timesteps(30, 256, do_shift=True)
+    model_fn(torch.cat([x, cond], dim=-1), torch.ones((2,), device=dev))  # the library's handles, not the loop's
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tsampling.denoise_ode(model_fn, x, ts, cond=cond, method=method)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            torch.tensor(0.5, dtype=torch.float32, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    velocity = tsampling._velocity_fn(model_fn, x, cond)
+    want = x
+    for t_cur, t_next in zip(ts[:-1], ts[1:]):
+        dt = torch.tensor(float(t_next - t_cur), dtype=torch.float32, device=dev).to(torch.bfloat16)
+        if method == "euler":
+            want = want + dt * velocity(want, t_cur).to(torch.bfloat16)
+        else:
+            v1 = velocity(want, t_cur).to(torch.bfloat16)
+            v2 = velocity(want + dt * v1, t_next).to(torch.bfloat16)
+            want = want + dt * 0.5 * (v1 + v2)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)

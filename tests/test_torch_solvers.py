@@ -17,6 +17,7 @@ import torch
 
 from visualcloze_tpu.ops.schedule import ode_timesteps
 from visualcloze_tpu.transport import sampling as jsampling
+from visualcloze_tpu_torch.ops.schedule import ode_timesteps as tode_timesteps
 from visualcloze_tpu_torch.transport import sampling as tsampling
 
 B, L, D, C = 2, 16, 8, 4
@@ -144,3 +145,42 @@ def test_solver_arg_accepts_what_jax_accepts(name):
     else:
         with pytest.raises(ValueError, match="unknown solver"):
             tsampling.solver_arg(name)
+
+
+def _per_step_loop(method, x, ts, cond):
+    """euler and heun as they were written before the step sizes were uploaded
+    once a loop: each step's size made from its own fp32 difference, rounded
+    to x's dtype."""
+    velocity = tsampling._velocity_fn(_torch_model([]), x, cond)
+    for t_cur, t_next in zip(ts[:-1], ts[1:]):
+        dt = torch.tensor(float(np.float32(t_next - t_cur)), dtype=torch.float32).to(x.dtype)
+        if method == "euler":
+            x = x + dt * velocity(x, t_cur).to(x.dtype)
+        else:
+            v1 = velocity(x, t_cur).to(x.dtype)
+            v2 = velocity(x + dt * v1, t_next).to(x.dtype)
+            x = x + dt * 0.5 * (v1 + v2)
+    return x
+
+
+@pytest.mark.parametrize("method", ["euler", "heun"])
+def test_uploaded_step_sizes_give_the_per_step_bits(method):
+    """The step sizes uploaded once a loop give the bf16 state, bit for bit,
+    that a step size made at each step gives."""
+    x, cond = torch.from_numpy(X0).to(torch.bfloat16), torch.from_numpy(COND)
+    got = tsampling.denoise_ode(_torch_model([]), x, TS, cond=cond, method=method)
+    want = _per_step_loop(method, x, np.asarray(TS, np.float32), cond)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("points", [2, 30])
+@pytest.mark.parametrize("method", ["euler", "heun", "ab2", "cached:3"])
+def test_step_sizes_are_uploaded_once_a_loop(method, points):
+    """euler and heun upload their step sizes once a loop, whatever its
+    length; ab2 and cached keep theirs on the host and upload none."""
+    ts = tode_timesteps(points, 256, do_shift=True)
+    x = torch.from_numpy(X0).to(torch.bfloat16)
+    before = tsampling.denoise_ode.step_size_uploads
+    tsampling.denoise_ode(_torch_model([]), x, ts, cond=torch.from_numpy(COND), method=method)
+    assert tsampling.denoise_ode.step_size_uploads - before == (1 if method in ("euler", "heun") else 0)

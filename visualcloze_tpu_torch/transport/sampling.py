@@ -9,9 +9,10 @@ while_loop), the port runs a Python loop over the same arithmetic: the times
 and step sizes are fp32 scalars (numpy float32 here, as JAX's traced fp32
 scalars), euler and heun carry x in its own dtype, ab2, cached[:K], dopri5
 and the SDE steps integrate in fp32. The model sees t rounded to x's dtype
-and x cast to it. Random draws come from an explicit torch.Generator; the
-SDE noise and the likelihood's probes can be handed in instead (the tests
-hand in the values JAX drew).
+and x cast to it. euler's and heun's step sizes reach the device in one
+copy before the loop, so no step waits for the card. Random draws come from
+an explicit torch.Generator; the SDE noise and the likelihood's probes can be
+handed in instead (the tests hand in the values JAX drew).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import functools
 import math
 import re
+import threading
 from typing import Callable, Sequence
 
 import numpy as np
@@ -68,6 +70,22 @@ def cached_fresh_schedule(n_steps: int, k_every: int) -> np.ndarray:
     return fresh
 
 
+_UPLOADS_LOCK = threading.Lock()
+
+
+def _step_sizes(ts: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """Each step's fp32 difference t_next - t_cur, rounded to x's dtype, as one
+    tensor on x's device. On the card it comes from pinned memory by a copy
+    that does not wait for the stream (a pageable copy would: every step would
+    then drain the queue before the host could queue the next evaluation)."""
+    dts = torch.from_numpy(ts[1:] - ts[:-1])
+    if x.is_cuda:
+        dts = dts.pin_memory().to(x.device, non_blocking=True)
+    with _UPLOADS_LOCK:
+        denoise_ode.step_size_uploads += 1
+    return dts.to(x.dtype)
+
+
 def denoise_ode(
     model_fn: ModelFn,
     x: torch.Tensor,
@@ -83,24 +101,22 @@ def denoise_ode(
     grid points); "cached[:K]" (the model on cached_fresh_schedule's steps
     only, the velocity extrapolated linearly in t from the last two
     evaluations in between). dopri5 is denoise_ode_adaptive. Each state
-    update between evaluations is a "solver.step" span."""
+    update between evaluations is a "solver.step" span. euler and heun take
+    their step sizes from one upload a loop (counted in
+    denoise_ode.step_size_uploads)."""
     ts = np.asarray(timesteps, dtype=F32)
     velocity = _velocity_fn(model_fn, x, cond)
     pairs = list(zip(ts[:-1], ts[1:]))
     dtype = x.dtype
 
-    def dt_of(t_cur, t_next) -> torch.Tensor:  # the fp32 difference, rounded to x's dtype
-        return torch.tensor(float(t_next - t_cur), dtype=torch.float32, device=x.device).to(dtype)
-
     if method == "euler":
-        for t_cur, t_next in pairs:
+        for t_cur, dt in zip(ts[:-1], _step_sizes(ts, x)):
             v = velocity(x, t_cur)
             with tracing.span("solver.step"):
-                x = x + dt_of(t_cur, t_next) * v.to(dtype)
+                x = x + dt * v.to(dtype)
         return x
     if method == "heun":
-        for t_cur, t_next in pairs:
-            dt = dt_of(t_cur, t_next)
+        for (t_cur, t_next), dt in zip(pairs, _step_sizes(ts, x)):
             v1 = velocity(x, t_cur).to(dtype)
             with tracing.span("solver.step"):
                 x_mid = x + dt * v1
@@ -158,6 +174,8 @@ def denoise_ode(
             x32 = x32 + float(F32(t_next - t_cur)) * v
     return x32.to(dtype)
 
+
+denoise_ode.step_size_uploads = 0
 
 # Dormand-Prince 5(4); FSAL: stage 7 is the next step's stage 1.
 _DOPRI_C = np.array([0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0])
